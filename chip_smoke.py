@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (mpi_bicgstab_tpu_torch).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU (written for an H100, sm_90a) and nvcc; imports
+nothing of JAX or of the JAX package. Phases, each printing one line of
+numbers; any failure exits non-zero:
+
+  1. probe   torch / CUDA versions, card, power limit, nvcc, CUTLASS
+  2. build   every kernel from csrc/ (one nvcc per source, in parallel),
+             with each kernel's registers, shared memory and spills
+  3. check   each kernel against its plain PyTorch version on the same
+             inputs at the main path's full width: transport_like(1602112),
+             15 diagonals (tolerances in TOL below)
+  4. f32     the main path as `python -m mpi_bicgstab_tpu_torch solve
+             --matrix transport-like:1602112 --method bicgstab --dtype
+             float32 --tol 1e-6`: converged, max|x-1| < 1e-3, and the
+             launch counters show it ran through K1, K2, K3 and the SpMV
+             (at tol 1e-5 the stopping rule itself allows max|x-1| of
+             about 2e-3 at this n, in the JAX package as in the port)
+  5. f64     the same with --dtype float64 --tol 1e-10 (unfused solver
+             over the float64 DIA SpMV kernel)
+  6. times   CUDA-event slopes: f32 time per iteration (tol=0 chain of
+             200 iterations), each kernel against its byte bound, its
+             plain version and, for the SpMV, torch's CSR product
+  7. report  the kernels JSON line, the card's name and power limit,
+             and the final {"ok": true, "device": ...} line
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_MAIN = 1_602_112
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12,      # non-tensor-core rates, same sheet
+              "float64": 34e12}
+TOL = {   # kernel versus plain version on the same inputs
+    "float32": {"rtol": 1e-5, "atol": 1e-4},
+    "float32_dot": {"rtol": 1e-4},
+    # the card contracts the band sums into FMAs and the plain version
+    # does not, so rows whose terms cancel differ by rounding of the
+    # largest terms: atol is relative to the output's scale
+    "float64": {"rtol": 1e-12, "atol_rel": 1e-12},
+}
+REPLACES = {
+    "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
+    "fused_k1": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:129",
+    "fused_k2": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:152",
+    "fused_k3": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:174",
+}
+SOURCES = {
+    "dia_spmv": "mpi_bicgstab_tpu_torch/csrc/dia_spmv.cu",
+    "fused_k1": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
+    "fused_k2": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
+    "fused_k3": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def _say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def _counters():
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+    return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
+            "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+# --- phases -----------------------------------------------------------------
+
+def probe() -> str:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from mpi_bicgstab_tpu_torch.ops import _build
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    _say("probe", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda,
+         device=repr(torch.cuda.get_device_name(0)),
+         count=torch.cuda.device_count(), nvidia_smi=repr(smi),
+         nvcc=repr(nvcc),
+         cutlass=Path("/usr/local/cutlass/include").exists())
+    return smi
+
+
+def build() -> None:
+    from mpi_bicgstab_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    _say("build", seconds=round(time.perf_counter() - t0, 3),
+         dir=_build.build_dir())
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _close(name, got, want, rtol, atol) -> None:
+    import torch
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise SmokeFailure(f"{name}: kernel and plain version differ, max "
+                           f"abs err {_err(got, want):.3e} (rtol {rtol}, "
+                           f"atol {atol})")
+
+
+def kernel_inputs(csr, device="cuda", seed=0) -> dict:
+    """The four kernels' inputs at the main path's shapes: the DIA band in
+    float32 and float64 from the host CSR, random vectors from a seed."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.dia import analyze_diagonals, csr_to_dia
+    offsets, _ = analyze_diagonals(csr)
+    A32, _ = csr_to_dia(csr, offsets, dtype=torch.float32, device=device)
+    A64, _ = csr_to_dia(csr, offsets, dtype=torch.float64, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    vec = lambda dt=torch.float32: torch.randn(  # noqa: E731
+        csr.nrows, generator=g, dtype=dt, device=device)
+    sc = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                device=device)
+    return {"A32": A32, "A64": A64, "x64": vec(torch.float64),
+            "r": vec(), "p": vec(), "s": vec(), "r_hat": vec(), "x": vec(),
+            "q": vec(), "y": vec(), "alpha": sc(0.7), "beta": sc(0.3),
+            "omega": sc(0.2)}
+
+
+def kernel_calls(inp: dict) -> dict:
+    """name -> (kernel call, plain call, dtype) on the same inputs."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+    A32, A64 = inp["A32"], inp["A64"]
+    v, o = A32.vals, A32.offsets
+    r, p, s, rh = inp["r"], inp["p"], inp["s"], inp["r_hat"]
+    x, q, y = inp["x"], inp["q"], inp["y"]
+    a, b, w = inp["alpha"], inp["beta"], inp["omega"]
+    return {
+        "dia_spmv_f32": (lambda: (cuda_spmv.dia_spmv(v, o, x),),
+                         lambda: (cuda_spmv.dia_spmv_plain(v, o, x),),
+                         "float32"),
+        "dia_spmv_f64": (
+            lambda: (cuda_spmv.dia_spmv(A64.vals, o, inp["x64"]),),
+            lambda: (cuda_spmv.dia_spmv_plain(A64.vals, o, inp["x64"]),),
+            "float64"),
+        "fused_k1": (lambda: fcl.fused_k1(v, r, p, s, rh, (b, w), o),
+                     lambda: fcl.fused_k1_plain(v, r, p, s, rh, (b, w), o),
+                     "float32"),
+        "fused_k2": (lambda: fcl.fused_k2(v, r, s, (a,), o),
+                     lambda: fcl.fused_k2_plain(v, r, s, (a,), o),
+                     "float32"),
+        "fused_k3": (lambda: fcl.fused_k3(x, p, q, y, rh, (a, w)),
+                     lambda: fcl.fused_k3_plain(x, p, q, y, rh, (a, w)),
+                     "float32"),
+    }
+
+
+def check_kernels(calls: dict) -> dict:
+    """Each kernel against its plain version; returns name -> max abs
+    error over all its outputs."""
+    import torch
+    errs = {}
+    for name, (kern, plain, dt) in calls.items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = f"{name} output {i}"
+            if dt == "float64":
+                _close(what, g, w, TOL[dt]["rtol"],
+                       TOL[dt]["atol_rel"] * float(w.abs().max()))
+            elif g.dim() == 0:
+                _close(what, g, w, TOL["float32_dot"]["rtol"], 0.0)
+            else:
+                _close(what, g, w, **TOL["float32"])
+        per_out = [_err(g, w) for g, w in zip(got, want)]
+        errs[name] = max(per_out)
+        _say("check", kernel=name, ok=True, max_abs_err_per_output="["
+             + ",".join(f"{e:.3e}" for e in per_out) + "]",
+             scale_per_output="[" + ",".join(
+                 f"{float(w.abs().max()):.3e}" for w in want) + "]")
+    return errs
+
+
+def run_main_path(n: int, dtype: str, tol: float, device: str = "cuda"):
+    """Drive `solve --matrix transport-like:n --method bicgstab` through
+    the CLI's own code (cli.run_solve), with every launch counter set to
+    0 just before and read just after. Checks convergence, max|x-1| and,
+    on the card, that the counters show the kernels of the route; on
+    the CPU every wrapper takes its plain version and counts nothing.
+    Returns (report, counts, max|x-1|)."""
+    from mpi_bicgstab_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        ["solve", "--matrix", f"transport-like:{n}", "--method", "bicgstab",
+         "--dtype", dtype, "--tol", str(tol), "--device", device])
+    reset_counts()
+    report, res = cli.run_solve(args)
+    counts = read_counts()
+    err = float((res.x.double() - 1.0).abs().max())
+    it = report["total_iter"]
+    if not report["converged"]:
+        raise SmokeFailure(f"{dtype} solve did not converge: {report}")
+    if err >= (1e-3 if dtype == "float32" else 1e-6):
+        raise SmokeFailure(f"{dtype} solve: max|x-1| = {err:.3e}")
+    if device == "cpu":
+        want = {k: 0 for k in counts}
+    elif dtype == "float32":
+        want = {"fused_k1": it, "fused_k2": it, "fused_k3": it}
+        if counts["dia_spmv"] < 2:
+            raise SmokeFailure(f"f32 path: {counts['dia_spmv']} SpMV "
+                               f"launches, expected >= 2 (r0, true res.)")
+    else:
+        want = {"fused_k1": 0, "fused_k2": 0, "fused_k3": 0}
+        # 2 per iteration, plus r0 and the true residual per segment
+        segments = 1 + args.restarts
+        if not 2 * it + 2 <= counts["dia_spmv"] <= 2 * it + 2 * segments:
+            raise SmokeFailure(f"f64 path: {counts['dia_spmv']} SpMV "
+                               f"launches for {it} iterations")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise SmokeFailure(f"{dtype} path: {k} launched {counts[k]} "
+                               f"times, expected {v}")
+    return report, counts, err
+
+
+def _band_nnz(A) -> int:
+    return sum(A.n_rows - abs(o) for o in A.offsets)
+
+
+def work(name: str, inp: dict) -> tuple[float, float, str]:
+    """(bytes, flops, dtype) the function must move and do on these
+    inputs: each input read once, each output written once; flops count
+    the band's structural entries."""
+    A = inp["A32"]
+    n, W = A.n_rows, A.n_diags
+    nz = _band_nnz(A)
+    if name == "dia_spmv_f32":
+        return 4 * (W * n + 2 * n), 2 * nz, "float32"
+    if name == "dia_spmv_f64":
+        return 8 * (W * n + 2 * n), 2 * nz, "float64"
+    if name == "fused_k1":   # r, p, s, r_hat in; p2, s2 out; 1 dot
+        return 4 * (W * n + 6 * n + 3), 2 * nz + 4 * n + 2 * n, "float32"
+    if name == "fused_k2":   # r, s2 in; q, y out; 2 dots
+        return 4 * (W * n + 4 * n + 3), 2 * nz + 2 * n + 4 * n, "float32"
+    # fused_k3: x, p2, q, y, r_hat in; x2, r2 out; 2 dots
+    return 4 * (7 * n + 4), 6 * n + 4 * n, "float32"
+
+
+def library_call(name: str, inp: dict, csr):
+    """One PyTorch call computing the same function, or None: torch's CSR
+    sparse product for the SpMV (a yardstick; the port never calls it)."""
+    import torch
+    if not name.startswith("dia_spmv"):
+        return None
+    dt = torch.float32 if name.endswith("f32") else torch.float64
+    dev = inp["A32"].device
+    A = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.ptr, device=dev),
+        torch.as_tensor(csr.col, device=dev),
+        torch.as_tensor(csr.val, dtype=dt, device=dev), size=csr.shape)
+    x = inp["x"] if dt == torch.float32 else inp["x64"]
+    return lambda: A @ x
+
+
+def time_kernels(calls: dict, inp: dict, csr) -> dict:
+    """Per kernel: its device time and its plain version's, each as a
+    replayed CUDA graph of back-to-back calls (no host gaps), its time as
+    the host issues it one call after another (eager_ms: wrapper checks,
+    allocation and launch included), its bound, and the library call's
+    time."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    out = {}
+    for name, (kern, plain, _) in calls.items():
+        nbytes, flops, dt = work(name, inp)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dt]
+        lib = library_call(name, inp, csr)
+        row = {"ms": time_call(kern, graph=True) * 1e3,
+               "eager_ms": time_call(kern) * 1e3,
+               "plain_ms": time_call(plain, iters=30, reps=3,
+                                     graph=True) * 1e3,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": (time_call(lib) * 1e3 if lib is not None
+                              else None)}
+        out[name] = row
+        _say("times", kernel=name, ms=f"{row['ms']:.4f}",
+             bound_ms=f"{row['bound_ms']:.4f}",
+             bound_share=f"{row['bound_ms'] / row['ms']:.3f}",
+             eager_ms=f"{row['eager_ms']:.4f}",
+             plain_ms=f"{row['plain_ms']:.4f}",
+             library_ms=(f"{row['library_ms']:.4f}"
+                         if row["library_ms"] is not None else None),
+             bytes=nbytes)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
+                                                          bench_spmv)
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+
+    t_start = time.perf_counter()
+    smi = probe()
+    build()
+
+    t0 = time.perf_counter()
+    csr = transport_like(N_MAIN)
+    inp = kernel_inputs(csr)
+    _say("check", n=csr.nrows, nnz=csr.nnz, W=inp["A32"].n_diags,
+         max_offset=max(abs(o) for o in inp["A32"].offsets),
+         host_setup_s=round(time.perf_counter() - t0, 3))
+    calls = kernel_calls(inp)
+    errs = check_kernels(calls)
+
+    runs = {}
+    for dtype, tol in (("float32", 1e-6), ("float64", 1e-10)):
+        report, counts, err = run_main_path(N_MAIN, dtype, tol)
+        runs[dtype] = counts
+        _say("f32" if dtype == "float32" else "f64",
+             converged=report["converged"], n_iter=report["total_iter"],
+             final_relres=report["final_relres"],
+             true_relres=report["true_relres"], max_abs_x_minus_1=err,
+             solve_s=report["total_time_s"],
+             launches=json.dumps(counts).replace(" ", ""))
+
+    prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
+    it = bench_iteration(prob32, method="bicgstab", iters=200)
+    floor = sum(work(k, inp)[0] for k in ("fused_k1", "fused_k2",
+                                          "fused_k3")) / HBM_BYTES_PER_S
+    sp = bench_spmv(prob32)
+    _say("times", f32_ms_per_iter=f"{it['time_per_iter_s'] * 1e3:.4f}",
+         chain="tol=0x200", bound_ms_per_iter=f"{floor * 1e3:.4f}",
+         spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
+         spmv_layout=sp["spmv_layout"])
+    times = time_kernels(calls, inp, csr)
+    _say("times", max_memory_allocated_gb_whole_run=round(
+        torch.cuda.max_memory_allocated() / 1e9, 3))
+
+    kernels = []
+    for name, row in times.items():
+        base = name[:-4] if name.startswith("dia_spmv") else name
+        run = runs["float64" if name.endswith("f64") else "float32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base], "launches": run[base],
+            "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    _say("done", seconds=round(time.perf_counter() - t_start, 3))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,82 @@
+"""State carried across from the JAX package.
+
+operator_from_arrays builds the port's operator from the arrays of a JAX
+DiaMatrix, EllMatrix or HybridMatrix passed as NumPy (np.asarray of each
+leaf), so that one operator can be driven through both packages:
+
+    kind 'dia':    arrays {"vals": [W, n]};
+                   meta {"offsets": tuple, "n": int}
+    kind 'ell':    arrays {"cols": [width, n_rows] int, "vals": [width,
+                   n_rows], "tail_rows", "tail_cols", "tail_vals"};
+                   meta {"n_rows": int, "n_cols": int}
+    kind 'hybrid': the 'dia' arrays prefixed "dia_" and the 'ell' arrays
+                   prefixed "ell_"; the 'dia' meta (n is the square size)
+
+config_from_fields builds a SolverConfig from the fields of a JAX
+SolverConfig (dataclasses.asdict).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
+from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
+from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
+from mpi_bicgstab_tpu_torch.utils.config import SolverConfig, canon_dtype
+from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+
+_ELL_KEYS = ("cols", "vals", "tail_rows", "tail_cols", "tail_vals")
+# JAX SolverConfig fields with no meaning in this slice: krr/nrr belong to
+# pipe_bicgstab_rr (slice 2); history is always recorded here
+_IGNORED = ("krr", "nrr", "record_history")
+
+
+def _dia(arrays, meta, dev, prefix=""):
+    vals = np.asarray(arrays[prefix + "vals"])
+    n = int(meta["n"])
+    offsets = tuple(int(o) for o in meta["offsets"])
+    if vals.ndim != 2 or vals.shape[1] != n or vals.shape[0] < len(offsets):
+        raise ValueError(f"DIA vals of shape {vals.shape} do not match "
+                         f"{len(offsets)} offsets and n={n}")
+    return DiaMatrix(torch.from_numpy(vals.copy()).to(dev), offsets, n, n)
+
+
+def _ell(arrays, meta, dev, prefix=""):
+    t = {k: torch.from_numpy(np.array(arrays[prefix + k])).to(dev)
+         for k in _ELL_KEYS}
+    return EllMatrix(t["cols"], t["vals"], t["tail_rows"], t["tail_cols"],
+                     t["tail_vals"], int(meta["n_rows"]),
+                     int(meta["n_cols"]))
+
+
+def operator_from_arrays(kind: str, arrays: dict, meta: dict,
+                         device="cuda"):
+    """The port's operator of `kind` from NumPy arrays (see module doc)."""
+    dev = resolve_device(device)
+    if kind == "dia":
+        return _dia(arrays, meta, dev)
+    if kind == "ell":
+        return _ell(arrays, meta, dev)
+    if kind == "hybrid":
+        n = int(meta["n"])
+        return HybridMatrix(_dia(arrays, meta, dev, "dia_"),
+                            _ell(arrays, {"n_rows": n, "n_cols": n}, dev,
+                                 "ell_"))
+    raise ValueError(f"unknown operator kind {kind!r}; expected 'dia', "
+                     f"'ell' or 'hybrid'")
+
+
+def config_from_fields(fields: dict) -> SolverConfig:
+    """SolverConfig from a JAX SolverConfig's fields. Fields this slice
+    has no use for are dropped; serialize_comm=True (the JAX package's
+    no-overlap A/B mode) has no counterpart and raises."""
+    fields = dict(fields)
+    if fields.pop("serialize_comm", False):
+        raise NotImplementedError("serialize_comm has no counterpart in "
+                                  "the single-device port")
+    for k in _IGNORED:
+        fields.pop(k, None)
+    if "dtype" in fields:
+        fields["dtype"] = canon_dtype(fields["dtype"])
+    return SolverConfig(**fields)

@@ -1,0 +1,193 @@
+"""Test / benchmark matrix generators (counterpart of
+mpi_bicgstab_tpu/models/generators.py; the same seed gives bit-identical
+arrays).
+
+The reference ships no matrices and benchmarks on SuiteSparse
+Transport.mtx (1,602,111 rows, 23,487,281 nnz, ~14.7 nnz/row, real
+unsymmetric values on a structurally symmetric pattern). These
+generators synthesise matrices with matching profiles:
+
+* poisson2d / poisson3d — classic stencils, well conditioned.
+* banded_random / transport_like — a fixed band with random unsymmetric
+  values and a dominant main diagonal; transport_like matches
+  Transport's size and density.
+* transport_hard — the Transport profile with a convergence rate in the
+  reference's regime (thousands of iterations).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from mpi_bicgstab_tpu_torch.ops.sparse import COOMatrix, CSRMatrix, coo_to_csr
+
+
+def _dia_to_csr(n: int, offsets, diag_vals) -> CSRMatrix:
+    """Assemble a square matrix from (offset, values) diagonals.
+
+    For unique offsets the CSR structure is analytic (row i holds the
+    offsets o with 0 <= i+o < n, in offset order), so no COO staging or
+    sort is needed."""
+    order = np.argsort(offsets, kind="stable")
+    offs = np.asarray(offsets, dtype=np.int64)[order]
+    if offs.size and (np.diff(offs) == 0).any():
+        # duplicate offsets: the general COO path sums them
+        rows_l, cols_l, vals_l = [], [], []
+        for off, dv in zip(offsets, diag_vals):
+            r = (np.arange(0, n - off, dtype=np.int64) if off >= 0
+                 else np.arange(-off, n, dtype=np.int64))
+            rows_l.append(r)
+            cols_l.append(r + off)
+            v = dv if np.ndim(dv) else np.full(r.size, dv)
+            vals_l.append(np.asarray(v, dtype=np.float64)[: r.size])
+        coo = COOMatrix(np.concatenate(rows_l), np.concatenate(cols_l),
+                        np.concatenate(vals_l), (n, n))
+        return coo_to_csr(coo, sum_duplicates=True)
+
+    dvals = [diag_vals[k] for k in order]
+    rows = np.arange(n, dtype=np.int64)
+    # offsets invalid at row i: o < -i (a prefix of offs) or o > n-1-i
+    # (a suffix), counted with searchsorted over the sorted offsets
+    n_lo = np.searchsorted(offs, -rows, side="left")
+    n_hi = offs.size - np.searchsorted(offs, n - 1 - rows, side="right")
+    lengths = offs.size - n_lo - n_hi
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=ptr[1:])
+    nnz = int(ptr[-1])
+    col = np.empty(nnz, dtype=np.int64)
+    val = np.empty(nnz, dtype=np.float64)
+    for w, (o, dv) in enumerate(zip(offs.tolist(), dvals)):
+        r = (np.arange(0, n - o, dtype=np.int64) if o >= 0
+             else np.arange(-o, n, dtype=np.int64))
+        pos = ptr[r] + (w - n_lo[r])
+        col[pos] = r + o
+        v = dv if np.ndim(dv) else np.full(r.size, dv)
+        val[pos] = np.asarray(v, dtype=np.float64)[: r.size]
+    return CSRMatrix(ptr, col, val, (n, n))
+
+
+def poisson2d(nx: int, ny: int | None = None) -> CSRMatrix:
+    """5-point Laplacian on an nx x ny grid (SPD, 4 on the diagonal)."""
+    ny = ny or nx
+    n = nx * ny
+    main = np.full(n, 4.0)
+    ew = -np.ones(n - 1)
+    ew[np.arange(1, n) % nx == 0] = 0.0  # no wrap across grid rows
+    ns = -np.ones(n - nx)
+    return _dia_to_csr(n, [0, 1, -1, nx, -nx],
+                       [main, ew, ew.copy(), ns, ns.copy()])
+
+
+def poisson3d(nx: int, ny: int | None = None,
+              nz: int | None = None) -> CSRMatrix:
+    """7-point Laplacian on an nx x ny x nz grid."""
+    ny = ny or nx
+    nz = nz or nx
+    n = nx * ny * nz
+    main = np.full(n, 6.0)
+    ex = -np.ones(n - 1)
+    ex[np.arange(1, n) % nx == 0] = 0.0
+    ey = -np.ones(n - nx)
+    ey[(np.arange(nx, n) // nx) % ny == 0] = 0.0
+    ez = -np.ones(n - nx * ny)
+    return _dia_to_csr(n, [0, 1, -1, nx, -nx, nx * ny, -nx * ny],
+                       [main, ex, ex.copy(), ey, ey.copy(), ez, ez.copy()])
+
+
+def banded_random(n: int, offsets, seed: int = 0,
+                  diag_boost: float = 1.0) -> CSRMatrix:
+    """Unsymmetric values on a fixed band; the main diagonal is
+    diag_boost + (sum of |off-diagonals| in the row), so the matrix is
+    strictly diagonally dominant and BiCGStab converges on it."""
+    rng = np.random.default_rng(seed)
+    offsets = [int(o) for o in offsets]
+    if 0 not in offsets:
+        offsets = [0] + offsets
+    row_abs = np.zeros(n)
+    entries = []
+    for off in offsets:
+        if off == 0:
+            continue
+        size = n - abs(off)
+        v = rng.uniform(-1.0, 1.0, size)
+        entries.append((off, v))
+        if off > 0:  # rows [0, size)
+            row_abs[:size] += np.abs(v)
+        else:
+            row_abs[-off:] += np.abs(v)
+    main = diag_boost + row_abs
+    offs = [0] + [o for o, _ in entries]
+    vals = [main] + [v for _, v in entries]
+    return _dia_to_csr(n, offs, vals)
+
+
+def transport_hard(n: int = 1_602_112, seed: int = 0,
+                   gamma: float = 0.9, theta: float = 25.0,
+                   conv: tuple = (0.6, 0.3, 0.15),
+                   skew: float = 0.2,
+                   rot: tuple = (0.0, 0.0, 0.0)) -> CSRMatrix:
+    """Transport-profile matrix on which BiCGStab needs thousands of
+    iterations, with a positive definite symmetric part (slow Krylov
+    convergence, no breakdown).
+
+    Per axis the 1-D operator K + theta*K^2 (K = tridiag(-1,2,-1)), the
+    3-D Kronecker sum of three of them (13 diagonals), upwind convection
+    `conv` per axis, a random skew-symmetric perturbation `skew` on the
+    +/-1 pairs (seeded), centred convection `rot` per axis, and a
+    diagonal shift -gamma*lambda_min. theta is the iteration dial.
+    Returns an m^3-row matrix with m = round(n^(1/3))."""
+    m = int(round(n ** (1 / 3)))
+    if m < 5:
+        raise ValueError("transport_hard needs n >= 125")
+    N = m * m * m
+    w = m
+    alpha = 1.0
+    rng = np.random.default_rng(seed)
+    idx = np.arange(N, dtype=np.int64)
+    x = idx % w
+    y = (idx // w) % w
+    z = idx // (w * w)
+    kap1 = 4.0 * np.sin(np.pi / (2.0 * (m + 1))) ** 2
+    cx, cy, cz = conv
+    # exact lambda_min of sym(A): upwind convection's symmetric part is
+    # (c/2)K per axis, so sym(A) = sum_d [(alpha + c_d/2) K + theta K^2]
+    lam_min = (3.0 * alpha + 0.5 * (cx + cy + cz)) * kap1 \
+        + 3.0 * theta * kap1 * kap1
+    # main diagonal: per axis 2a+6t inside, 2a+5t at the two ends, plus
+    # upwind convection, minus the spectral-gap shift
+    diag = np.zeros(N)
+    for pos in (x, y, z):
+        diag += 2 * alpha + 6 * theta \
+            - theta * ((pos == 0) | (pos == w - 1))
+    diag += cx + cy + cz - gamma * lam_min
+
+    offs, vals = [0], [diag]
+    off1 = -(alpha + 4 * theta)
+    rx, ry, rz = rot
+    for pos, step, c, r in ((x, 1, cx, rx), (y, w, cy, ry),
+                            (z, w * w, cz, rz)):
+        e = skew * rng.uniform(-1.0, 1.0, N - step) + r
+        # +step: element j <-> entry (j, j+step); valid pos[j] < w-1
+        up_ok = pos[: N - step] < w - 1
+        vals.append(np.where(up_ok, off1 + e, 0.0))
+        offs.append(step)
+        # -step: element j <-> entry (j+step, j); upwind side gets -c
+        vals.append(np.where(up_ok, off1 - c - e, 0.0))
+        offs.append(-step)
+        # +/-2*step: the theta*K^2 outer band, valid pos within 2
+        up2 = pos[: N - 2 * step] < w - 2
+        vals.append(np.where(up2, theta, 0.0))
+        offs.append(2 * step)
+        vals.append(np.where(up2, theta, 0.0))
+        offs.append(-2 * step)
+    return _dia_to_csr(N, offs, vals)
+
+
+def transport_like(n: int = 1_602_112, seed: int = 0) -> CSRMatrix:
+    """Benchmark matrix profiled on SuiteSparse Transport: ~1.6M rows,
+    ~14.7 nnz/row as a 15-diagonal band (structurally symmetric offsets,
+    unsymmetric values), diagonally dominant; nnz ~= 15*n."""
+    w = int(round(n ** (1 / 3)))
+    offsets = [1, -1, 2, -2, w, -w, w + 1, -(w + 1), w * w, -(w * w),
+               w * w + w, -(w * w + w), w * w + w + 1, -(w * w + w + 1)]
+    offsets = [o for o in offsets if abs(o) < n]
+    return banded_random(n, offsets, seed=seed, diag_boost=1.0)

@@ -1,0 +1,81 @@
+"""Problem construction mirroring the reference's main programs
+(counterpart of mpi_bicgstab_tpu/models/problem.py).
+
+Every reference main program builds the right-hand side so that the
+exact solution is all-ones, b = A*1 (main.c:109-117), with x0 = 0; ||x - 1||
+at the end is a free ground-truth check.
+
+Padding: pad_csr_identity extends A with identity rows (A[i,i] = 1 for
+i >= n) whose right-hand side is 0, so the padded solution components
+are exactly 0 and never perturb dots or residuals. The port's kernels
+need no padding (multiple=1); the option stays for callers that want
+the JAX package's shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mpi_bicgstab_tpu_torch.ops.sparse import CSRMatrix
+from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
+from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+
+
+def pad_csr_identity(csr: CSRMatrix, multiple: int) -> CSRMatrix:
+    """Pad a square CSR to ceil(n/multiple)*multiple rows/cols with 1.0
+    identity rows. Returns csr unchanged if already aligned."""
+    n = csr.nrows
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return csr
+    extra = n_pad - n
+    ptr = np.concatenate([csr.ptr,
+                          csr.ptr[-1] + 1 + np.arange(extra, dtype=np.int64)])
+    col = np.concatenate([csr.col, np.arange(n, n_pad, dtype=np.int64)])
+    val = np.concatenate([csr.val, np.ones(extra, dtype=csr.val.dtype)])
+    return CSRMatrix(ptr, col, val, (n_pad, n_pad))
+
+
+@dataclasses.dataclass
+class Problem:
+    """A ready-to-solve system: device operator + RHS with known solution."""
+
+    csr: CSRMatrix          # padded host CSR
+    A: object               # DiaMatrix / EllMatrix / HybridMatrix
+    b: torch.Tensor         # [n_pad]
+    x0: torch.Tensor        # zeros, [n_pad]
+    n_logical: int          # rows before padding
+
+    @property
+    def n(self) -> int:
+        return self.csr.nrows
+
+    def exact_solution(self) -> np.ndarray:
+        e = np.zeros(self.n)
+        e[: self.n_logical] = 1.0
+        return e
+
+
+def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
+                  device="cuda", format: str = "auto",
+                  ell_width: int | None = None) -> Problem:
+    """b = A * ones (ones over the logical rows only), computed on the host
+    in float64 and cast to dtype; the operator and vectors go to `device`
+    (default the card; raises without one). format selects the layout
+    (ops/layout.build_operator)."""
+    from mpi_bicgstab_tpu_torch.ops.layout import build_operator
+
+    dt = canon_dtype(dtype)
+    dev = resolve_device(device)
+    n_logical = csr.nrows
+    csr_p = pad_csr_identity(csr, multiple)
+    ones = np.zeros(csr_p.nrows)
+    ones[:n_logical] = 1.0
+    b_host = csr_p.matvec(ones)
+    b_host[n_logical:] = 0.0  # identity-row RHS: padded solution is 0
+    A = build_operator(csr_p, format=format, dtype=dt, ell_width=ell_width,
+                       device=dev)
+    b = torch.as_tensor(b_host, dtype=dt, device=dev)
+    return Problem(csr_p, A, b, torch.zeros_like(b), n_logical)

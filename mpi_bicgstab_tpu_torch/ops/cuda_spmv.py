@@ -1,0 +1,125 @@
+"""DIA SpMV: the CUDA kernel's wrapper and its plain PyTorch twin
+(counterpart of mpi_bicgstab_tpu/ops/pallas_spmv.py; kernel source
+csrc/dia_spmv.cu).
+
+`dia_spmv(vals, offsets, x)` runs the plain version for a tensor on the
+CPU and launches the kernel for one on the card; a CUDA tensor the
+kernel does not take raises. `dia_spmv.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from mpi_bicgstab_tpu_torch.ops import _build
+
+_P = ctypes.c_void_p
+_KERNELS = {torch.float32: "mbt_dia_spmv_f32",
+            torch.float64: "mbt_dia_spmv_f64"}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("dia_spmv")
+    for name in _KERNELS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def max_diags() -> int:
+    return _lib().mbt_max_diags()
+
+
+@functools.cache
+def offsets_arg(offsets: tuple) -> ctypes.Array:
+    """The offsets as a host int32 array; the launcher copies them into
+    the kernel's parameter block, so nothing goes to device memory."""
+    return (ctypes.c_int * max(len(offsets), 1))(*offsets)
+
+
+def check_cuda(what: str, want: torch.dtype, **tensors) -> None:
+    """Validate that every tensor lies on the current CUDA device, is
+    contiguous and has the dtype the kernel takes."""
+    dev = None
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"a CUDA tensor like the others")
+        if dev is None:
+            dev = t.device
+            if dev.index != torch.cuda.current_device():
+                raise ValueError(
+                    f"{what}: tensors are on {dev} but the current CUDA "
+                    f"device is {torch.cuda.current_device()}")
+        elif t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}, the "
+                            f"kernel takes {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def stream_arg() -> int:
+    """PyTorch's current stream on the current device (where check_cuda
+    found the tensors), as the integer handle the launchers take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_band(what: str, vals: torch.Tensor, offsets: tuple, n: int):
+    if vals.dim() != 2 or vals.shape[1] != n \
+            or vals.shape[0] < len(offsets):
+        raise ValueError(f"{what}: vals has shape {tuple(vals.shape)}, "
+                         f"expected [{len(offsets)}, {n}]")
+    if len(offsets) > max_diags():
+        raise ValueError(f"{what}: {len(offsets)} diagonals, the kernel "
+                         f"takes at most {max_diags()}")
+
+
+def dia_spmv_plain(vals: torch.Tensor, offsets: tuple,
+                   x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x as pad-plus-slice: x padded with zeros, one shifted
+    slice per diagonal (ops/dia.py dia_spmv of the JAX package)."""
+    n = x.shape[0]
+    lo = -min(0, min(offsets)) if offsets else 0
+    hi = max(0, max(offsets)) if offsets else 0
+    xp = F.pad(x, (lo, hi))
+    acc = torch.zeros(n, dtype=torch.promote_types(vals.dtype, x.dtype),
+                      device=x.device)
+    for w, o in enumerate(offsets):
+        acc = acc + vals[w] * xp[lo + o:lo + o + n]
+    return acc
+
+
+def dia_spmv(vals: torch.Tensor, offsets: tuple,
+             x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for the DIA matrix (vals [W, n], offsets). CPU tensors
+    take the plain version; CUDA tensors the kernel, float32 or float64."""
+    if x.device.type == "cpu":
+        return dia_spmv_plain(vals, offsets, x)
+    what = "dia_spmv"
+    if x.dtype not in _KERNELS:
+        raise TypeError(f"{what}: dtype {x.dtype}, the kernel takes "
+                        f"float32 or float64")
+    if x.dim() != 1:
+        raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
+    check_cuda(what, x.dtype, vals=vals, x=x)
+    n = x.shape[0]
+    check_band(what, vals, offsets, n)
+    y = torch.empty_like(x)
+    lib = _lib()
+    err = getattr(lib, _KERNELS[x.dtype])(
+        offsets_arg(offsets), len(offsets), n, vals.data_ptr(),
+        x.data_ptr(), y.data_ptr(), stream_arg())
+    _build.check(lib, err, what)
+    dia_spmv.launches += 1
+    return y
+
+
+dia_spmv.launches = 0

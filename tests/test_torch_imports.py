@@ -1,0 +1,59 @@
+"""The port stands alone: no module of mpi_bicgstab_tpu_torch, nor
+chip_smoke.py, imports JAX or the JAX package (matched on the exact
+top-level module name: `mpi_bicgstab_tpu_torch` itself starts with the
+string `mpi_bicgstab_tpu`)."""
+import ast
+from pathlib import Path
+
+import jax  # noqa: F401  (the test files import both packages)
+import pytest
+import torch
+
+import mpi_bicgstab_tpu  # noqa: F401
+import mpi_bicgstab_tpu_torch
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "mpi_bicgstab_tpu"}
+PORT_FILES = sorted(Path(mpi_bicgstab_tpu_torch.__file__).parent.rglob(
+    "*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and getattr(node.func, "attr",
+                            getattr(node.func, "id", "")) in (
+                                "import_module", "__import__"):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_scan_sees_every_module_and_tells_the_names_apart():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for must in ("chip_smoke.py", "mpi_bicgstab_tpu_torch/api.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic.py"):
+        assert must in names
+    ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
+                   "from mpi_bicgstab_tpu_torch.ops import dia\n")
+    assert not [m for m in _imported_modules(ok)
+                if m.split(".")[0] in FORBIDDEN]
+    bad = ast.parse("from mpi_bicgstab_tpu.ops import dia\nimport jax.numpy\n"
+                    "importlib.import_module('jax')\n")
+    assert [m.split(".")[0] for m in _imported_modules(bad)] == [
+        "mpi_bicgstab_tpu", "jax", "jax"]

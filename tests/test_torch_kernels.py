@@ -1,0 +1,162 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here carries the `cuda` marker and skips from inside its body
+when no card is present. On the machine with the card (which has no
+JAX, so this file imports none and is run without the JAX-side
+conftest):
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
+
+The plain twins themselves are held to the JAX package in the CPU tests
+(test_torch_fused_classic.py, test_torch_layout.py).
+
+Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
+(the kernels contract multiply-adds into FMAs and sum the dots in
+another order than PyTorch); float64 rtol 1e-12 with atol 1e-12 times
+the output's largest entry (rows whose terms cancel keep the rounding of
+the largest terms).
+"""
+import numpy as np
+import pytest
+import torch
+
+from mpi_bicgstab_tpu_torch.api import solve
+from mpi_bicgstab_tpu_torch.models.generators import banded_random
+from mpi_bicgstab_tpu_torch.models.problem import build_problem
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia
+from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+CASES = [(5000, [1, -1, 40, -40, 129, -129]),
+         (16384, [1, -1, 9000, -9000]),
+         (100, [1, -1, 99, -99, 150])]       # n < one block; offset > n
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _band(n, offsets, dtype, dev, seed=0):
+    """DIA band on exactly `offsets` (plus 0); an offset beyond n is a
+    diagonal of zeros whose every neighbour is out of range."""
+    csr = banded_random(n, [o for o in offsets if abs(o) < n], seed=seed)
+    A, rem = csr_to_dia(csr, sorted({0, *offsets}), dtype=dtype,
+                        device=dev)
+    assert rem is None
+    return A
+
+
+def _vecs(n, k, dev, dtype=torch.float32, seed=1):
+    g = np.random.default_rng(seed)
+    return [torch.as_tensor(g.standard_normal(n), dtype=dtype, device=dev)
+            for _ in range(k)]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        if g.dim() == 0:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+        elif g.dtype == torch.float64:
+            torch.testing.assert_close(g, w, rtol=1e-12,
+                                       atol=1e-12 * float(w.abs().max()))
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_dia_spmv_kernel_matches_plain(n, offsets, dtype):
+    dev = _card()
+    A = _band(n, offsets, dtype, dev)
+    (x,) = _vecs(n, 1, dev, dtype)
+    before = cuda_spmv.dia_spmv.launches
+    y = cuda_spmv.dia_spmv(A.vals, A.offsets, x)
+    torch.cuda.synchronize()
+    assert cuda_spmv.dia_spmv.launches == before + 1
+    _close([y], [cuda_spmv.dia_spmv_plain(A.vals, A.offsets, x)])
+
+
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_fused_kernels_match_plain(n, offsets):
+    dev = _card()
+    A = _band(n, offsets, torch.float32, dev)
+    r, p, s, rh, x, q, y = _vecs(n, 7, dev)
+    a, b, w = (torch.tensor(v, device=dev) for v in (0.7, 0.3, 0.2))
+    v, o = A.vals, A.offsets
+    _close(fcl.fused_k1(v, r, p, s, rh, (b, w), o),
+           fcl.fused_k1_plain(v, r, p, s, rh, (b, w), o))
+    _close(fcl.fused_k2(v, r, s, (a,), o),
+           fcl.fused_k2_plain(v, r, s, (a,), o))
+    _close(fcl.fused_k3(x, p, q, y, rh, (a, w)),
+           fcl.fused_k3_plain(x, p, q, y, rh, (a, w)))
+
+
+def test_fused_dots_are_deterministic():
+    dev = _card()
+    A = _band(16384, [1, -1, 40, -40], torch.float32, dev)
+    r, p, s, rh = _vecs(16384, 4, dev)
+    z = torch.zeros((), device=dev)
+    runs = [fcl.fused_k1(A.vals, r, p, s, rh, (z + 0.3, z + 0.2),
+                         A.offsets) for _ in range(3)]
+    for other in runs[1:]:
+        for g, w in zip(other, runs[0]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6),
+                                       ("float64", 1e-10)])
+def test_solve_on_card_matches_cpu(dtype, tol):
+    dev = _card()
+    csr = banded_random(20000, [1, -1, 40, -40, 2000, -2000], seed=3)
+    cfg = SolverConfig(tol=tol, max_iter=300, dtype=dtype)
+    res = {}
+    for d in (dev, "cpu"):
+        prob = build_problem(csr, dtype=dtype, device=d)
+        res[d] = solve(prob.A, prob.b, cfg=cfg)
+    assert bool(res[dev].converged) and bool(res["cpu"].converged)
+    assert abs(res[dev].n_iter - res["cpu"].n_iter) <= 2
+    err = float((res[dev].x.double().cpu() - 1.0).abs().max())
+    assert err < (1e-3 if dtype == "float32" else 1e-6), err
+
+
+def test_fused_route_launches_each_pass_once_per_iteration():
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="float32", device=dev)
+    for fn in (fcl.fused_k1, fcl.fused_k2, fcl.fused_k3,
+               cuda_spmv.dia_spmv):
+        fn.launches = 0
+    res = solve(prob.A, prob.b,
+                cfg=SolverConfig(tol=0.0, max_iter=25, dtype="float32"))
+    assert res.n_iter == 25
+    assert (fcl.fused_k1.launches, fcl.fused_k2.launches,
+            fcl.fused_k3.launches) == (25, 25, 25)
+    assert cuda_spmv.dia_spmv.launches == 2     # r0 and the true residual
+
+
+def test_wrappers_raise_instead_of_falling_back():
+    dev = _card()
+    A = _band(4096, [1, -1, 64, -64], torch.float32, dev)
+    (x,) = _vecs(4096, 1, dev)
+    with pytest.raises(TypeError):         # dtype the kernel does not take
+        cuda_spmv.dia_spmv(A.vals, A.offsets, x.half())
+    with pytest.raises(TypeError):         # vals and x of different dtypes
+        cuda_spmv.dia_spmv(A.vals, A.offsets, x.double())
+    with pytest.raises(ValueError):        # x on the card, vals not
+        cuda_spmv.dia_spmv(A.vals.cpu(), A.offsets, x)
+    with pytest.raises(ValueError):        # not contiguous
+        cuda_spmv.dia_spmv(A.vals, A.offsets,
+                           torch.stack([x, x], 1)[:, 0])
+    with pytest.raises(ValueError):        # band of the wrong width
+        cuda_spmv.dia_spmv(A.vals[:, :100], A.offsets, x)
+    z = torch.zeros((), device=dev)
+    with pytest.raises(ValueError):        # scalar on the CPU
+        fcl.fused_k2(A.vals, x, x, (torch.zeros(()),), A.offsets)
+    with pytest.raises(ValueError):        # missing scalar
+        fcl.fused_k3(x, x, x, x, x, (z,))
