@@ -13,18 +13,24 @@ numbers; any failure exits non-zero:
   3. check   each kernel against its plain PyTorch version on the same
              inputs at the main path's full width: transport_like(1602112),
              15 diagonals (tolerances in TOL below)
-  4. f32     the main path as `python -m mpi_bicgstab_tpu_torch solve
-             --matrix transport-like:1602112 --method bicgstab --dtype
-             float32 --tol 1e-6`: converged, max|x-1| < 1e-3, and the
-             launch counters show it ran through K1, K2, K3 and the SpMV
-             (at tol 1e-5 the stopping rule itself allows max|x-1| of
-             about 2e-3 at this n, in the JAX package as in the port)
-  5. f64     the same with --dtype float64 --tol 1e-10 (unfused solver
-             over the float64 DIA SpMV kernel)
-  6. times   CUDA-event slopes: f32 time per iteration (tol=0 chain of
-             200 iterations), each kernel against its byte bound, its
+  4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
+             transport-like:1602112 --method M --dtype D --tol T`, every
+             launch counter set to 0 just before and read just after
+             (PATHS below): converged, max|x-1| < 1e-3 (f32) or 1e-6
+             (f64), and counters showing the path ran through its kernels.
+             f32 classic, CA, pipelined and pipelined-RR (--krr 3 --nrr 2,
+             so that replacement iterations fire) take the fused kernels;
+             f64 classic, f64 pipelined-RR and f64 BiCGStab(2) the
+             unfused solvers over the float64 DIA SpMV kernel. (At tol
+             1e-5 the stopping rule itself allows max|x-1| of about 2e-3
+             at this n in f32, in the JAX package as in the port.)
+  5. times   CUDA-event slopes: f32 time per iteration of classic, CA and
+             pipelined BiCGStab (tol=0 chains of 200 iterations) as the
+             host issues it and as a replayed CUDA graph (the device's
+             own time; their ratio is the device's busy share), beside
+             their byte floors; each kernel against its byte bound, its
              plain version and, for the SpMV, torch's CSR product
-  7. report  the kernels JSON line, the card's name and power limit,
+  6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
 from __future__ import annotations
@@ -52,13 +58,50 @@ REPLACES = {
     "fused_k1": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:129",
     "fused_k2": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:152",
     "fused_k3": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:174",
+    "fused_ca_k1": "mpi_bicgstab_tpu/ops/pallas_fused_ca.py:78",
+    "fused_ca_k2": "mpi_bicgstab_tpu/ops/pallas_fused_ca.py:110",
+    "fused_phase_a": "mpi_bicgstab_tpu/ops/pallas_fused_pipe.py:113",
+    "fused_phase_b": "mpi_bicgstab_tpu/ops/pallas_fused_pipe.py:162",
 }
+_CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
-    "dia_spmv": "mpi_bicgstab_tpu_torch/csrc/dia_spmv.cu",
-    "fused_k1": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
-    "fused_k2": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
-    "fused_k3": "mpi_bicgstab_tpu_torch/csrc/fused_classic.cu",
+    "dia_spmv": _CSRC + "dia_spmv.cu",
+    "fused_k1": _CSRC + "fused_classic.cu",
+    "fused_k2": _CSRC + "fused_classic.cu",
+    "fused_k3": _CSRC + "fused_classic.cu",
+    "fused_ca_k1": _CSRC + "fused_ca.cu",
+    "fused_ca_k2": _CSRC + "fused_ca.cu",
+    "fused_phase_a": _CSRC + "fused_pipe.cu",
+    "fused_phase_b": _CSRC + "fused_pipe.cu",
 }
+KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
+# SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
+# the pipelined methods) and the true residual at exit
+SEGMENT_SPMVS = {"bicgstab": 2, "ca_bicgstab": 3, "pipe_bicgstab": 4,
+                 "pipe_bicgstab_rr": 4, "bicgstab_l2": 2, "bicgstab_l4": 2}
+# phase: (method, dtype, tol, extra CLI arguments); each path's kernels
+# and launch rule are in expected_counts
+PATHS = {
+    "f32": ("bicgstab", "float32", 1e-6, ()),
+    "f64": ("bicgstab", "float64", 1e-10, ()),
+    "ca": ("ca_bicgstab", "float32", 1e-6, ()),
+    "pipe": ("pipe_bicgstab", "float32", 1e-6, ()),
+    "pipe_rr": ("pipe_bicgstab_rr", "float32", 1e-6,
+                ("--krr", str(KRR), "--nrr", str(NRR))),
+    "pipe_rr_f64": ("pipe_bicgstab_rr", "float64", 1e-10,
+                    ("--krr", str(KRR), "--nrr", str(NRR))),
+    "l2": ("bicgstab_l2", "float64", 1e-10, ()),
+}
+# the path whose run gives each kernel's launches in the kernels line
+LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
+                 "dia_spmv_f64": ("f64", "dia_spmv"),
+                 "fused_k1": ("f32", "fused_k1"),
+                 "fused_k2": ("f32", "fused_k2"),
+                 "fused_k3": ("f32", "fused_k3"),
+                 "fused_ca_k1": ("ca", "fused_ca_k1"),
+                 "fused_ca_k2": ("ca", "fused_ca_k2"),
+                 "fused_phase_a": ("pipe", "fused_phase_a"),
+                 "fused_phase_b": ("pipe", "fused_phase_b")}
 
 
 class SmokeFailure(RuntimeError):
@@ -71,10 +114,15 @@ def _say(phase: str, **fields) -> None:
 
 
 def _counters():
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
-            "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3}
+            "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
+            "fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
+            "fused_phase_a": fpipe.fused_phase_a,
+            "fused_phase_b": fpipe.fused_phase_b}
 
 
 def reset_counts() -> None:
@@ -133,7 +181,7 @@ def _close(name, got, want, rtol, atol) -> None:
 
 
 def kernel_inputs(csr, device="cuda", seed=0) -> dict:
-    """The four kernels' inputs at the main path's shapes: the DIA band in
+    """The kernels' inputs at the main path's shapes: the DIA band in
     float32 and float64 from the host CSR, random vectors from a seed."""
     import torch
 
@@ -149,18 +197,24 @@ def kernel_inputs(csr, device="cuda", seed=0) -> dict:
     return {"A32": A32, "A64": A64, "x64": vec(torch.float64),
             "r": vec(), "p": vec(), "s": vec(), "r_hat": vec(), "x": vec(),
             "q": vec(), "y": vec(), "alpha": sc(0.7), "beta": sc(0.3),
-            "omega": sc(0.2)}
+            "omega": sc(0.2), "w": vec(), "z": vec()}
 
 
 def kernel_calls(inp: dict) -> dict:
     """name -> (kernel call, plain call, dtype) on the same inputs."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     A32, A64 = inp["A32"], inp["A64"]
     v, o = A32.vals, A32.offsets
     r, p, s, rh = inp["r"], inp["p"], inp["s"], inp["r_hat"]
-    x, q, y = inp["x"], inp["q"], inp["y"]
+    x, q, y, wv, z = inp["x"], inp["q"], inp["y"], inp["w"], inp["z"]
     a, b, w = inp["alpha"], inp["beta"], inp["omega"]
+    ca1 = (v, r, p, s, wv, z, (a, b, w), o)
+    ca2 = (v, q, y, x, p, rh, s, z, (a, w), o)
+    pa = (v, z, r, p, s, wv, x, (a, b, w), o)      # z' = z, old z = x
+    pb = (v, wv, x, p, q, y, rh, s, z, (a, w), o)
     return {
         "dia_spmv_f32": (lambda: (cuda_spmv.dia_spmv(v, o, x),),
                          lambda: (cuda_spmv.dia_spmv_plain(v, o, x),),
@@ -178,6 +232,14 @@ def kernel_calls(inp: dict) -> dict:
         "fused_k3": (lambda: fcl.fused_k3(x, p, q, y, rh, (a, w)),
                      lambda: fcl.fused_k3_plain(x, p, q, y, rh, (a, w)),
                      "float32"),
+        "fused_ca_k1": (lambda: fca.fused_ca_k1(*ca1),
+                        lambda: fca.fused_ca_k1_plain(*ca1), "float32"),
+        "fused_ca_k2": (lambda: fca.fused_ca_k2(*ca2),
+                        lambda: fca.fused_ca_k2_plain(*ca2), "float32"),
+        "fused_phase_a": (lambda: fpipe.fused_phase_a(*pa),
+                          lambda: fpipe.fused_phase_a_plain(*pa), "float32"),
+        "fused_phase_b": (lambda: fpipe.fused_phase_b(*pb),
+                          lambda: fpipe.fused_phase_b_plain(*pb), "float32"),
     }
 
 
@@ -209,44 +271,75 @@ def check_kernels(calls: dict) -> dict:
     return errs
 
 
-def run_main_path(n: int, dtype: str, tol: float, device: str = "cuda"):
-    """Drive `solve --matrix transport-like:n --method bicgstab` through
-    the CLI's own code (cli.run_solve), with every launch counter set to
-    0 just before and read just after. Checks convergence, max|x-1| and,
-    on the card, that the counters show the kernels of the route; on
-    the CPU every wrapper takes its plain version and counts nothing.
-    Returns (report, counts, max|x-1|)."""
+def _fits(total: int, per_segment: int, restarts: int) -> bool:
+    """Is `total` the launches of 1 to 1 + restarts solver segments,
+    per_segment each? (api._restarted may re-enter the solver.)"""
+    return any(total == per_segment * k for k in range(1, restarts + 2))
+
+
+def check_counts(method: str, dtype: str, it: int, counts: dict,
+                 restarts: int, device: str = "cuda") -> None:
+    """The launch counts that a converged run of `method` on its route
+    must show after `it` iterations in all (over every restart segment);
+    raises SmokeFailure otherwise. A pipelined-RR replacement iteration
+    launches six SpMVs and no phase kernel."""
+    used = {"bicgstab": ("fused_k1", "fused_k2", "fused_k3"),
+            "ca_bicgstab": ("fused_ca_k1", "fused_ca_k2"),
+            "pipe_bicgstab": ("fused_phase_a", "fused_phase_b"),
+            "pipe_bicgstab_rr": ("fused_phase_a", "fused_phase_b")}
+    rr = method == "pipe_bicgstab_rr"
+    if device == "cpu" or dtype == "float64" or method not in used:
+        fused = ()             # plain twins, or the unfused solver
+    else:
+        fused = used[method]
+    n_rr = it - counts["fused_phase_a"] if fused and rr else 0
+    for k, v in counts.items():
+        if k == "dia_spmv":
+            continue
+        want = (it - n_rr) if k in fused else 0
+        if v != want:
+            raise SmokeFailure(f"{method} {dtype}: {k} launched {v} times "
+                               f"in {it} iterations, expected {want}")
+    spmv = counts["dia_spmv"]
+    if device == "cpu":
+        ok = spmv == 0
+    else:
+        # the unfused solvers launch 2 SpMVs per (classic-equivalent)
+        # iteration, a replacement 4 more; the fused drivers none per
+        # iteration, a replacement 6
+        per_iter, per_rr = (0, 6) if fused else (2, 4)
+        rrs = [0]
+        if rr:       # at least one replacement: the path is set up so
+            rrs = [n_rr] if fused else range(1, NRR * (restarts + 1) + 1)
+        ok = any(_fits(spmv - per_iter * it - per_rr * r,
+                       SEGMENT_SPMVS[method], restarts) and (r >= 1 or not rr)
+                 for r in rrs)
+    if not ok:
+        raise SmokeFailure(f"{method} {dtype}: {spmv} SpMV launches in {it} "
+                           f"iterations do not fit the route")
+
+
+def run_main_path(n: int, dtype: str, tol: float, device: str = "cuda",
+                  method: str = "bicgstab", extra=()):
+    """Drive `solve --matrix transport-like:n --method M` through the
+    CLI's own code (cli.run_solve), with every launch counter set to 0
+    just before and read just after. Checks convergence, max|x-1| and
+    the counters (check_counts; on the CPU every wrapper takes its plain
+    version and counts nothing). Returns (report, counts, max|x-1|)."""
     from mpi_bicgstab_tpu_torch import cli
     args = cli.build_parser().parse_args(
-        ["solve", "--matrix", f"transport-like:{n}", "--method", "bicgstab",
-         "--dtype", dtype, "--tol", str(tol), "--device", device])
+        ["solve", "--matrix", f"transport-like:{n}", "--method", method,
+         "--dtype", dtype, "--tol", str(tol), "--device", device, *extra])
     reset_counts()
     report, res = cli.run_solve(args)
     counts = read_counts()
     err = float((res.x.double() - 1.0).abs().max())
-    it = report["total_iter"]
     if not report["converged"]:
-        raise SmokeFailure(f"{dtype} solve did not converge: {report}")
+        raise SmokeFailure(f"{method} {dtype} did not converge: {report}")
     if err >= (1e-3 if dtype == "float32" else 1e-6):
-        raise SmokeFailure(f"{dtype} solve: max|x-1| = {err:.3e}")
-    if device == "cpu":
-        want = {k: 0 for k in counts}
-    elif dtype == "float32":
-        want = {"fused_k1": it, "fused_k2": it, "fused_k3": it}
-        if counts["dia_spmv"] < 2:
-            raise SmokeFailure(f"f32 path: {counts['dia_spmv']} SpMV "
-                               f"launches, expected >= 2 (r0, true res.)")
-    else:
-        want = {"fused_k1": 0, "fused_k2": 0, "fused_k3": 0}
-        # 2 per iteration, plus r0 and the true residual per segment
-        segments = 1 + args.restarts
-        if not 2 * it + 2 <= counts["dia_spmv"] <= 2 * it + 2 * segments:
-            raise SmokeFailure(f"f64 path: {counts['dia_spmv']} SpMV "
-                               f"launches for {it} iterations")
-    for k, v in want.items():
-        if counts[k] != v:
-            raise SmokeFailure(f"{dtype} path: {k} launched {counts[k]} "
-                               f"times, expected {v}")
+        raise SmokeFailure(f"{method} {dtype}: max|x-1| = {err:.3e}")
+    check_counts(method, dtype, report["total_iter"], counts, args.restarts,
+                 device)
     return report, counts, err
 
 
@@ -269,8 +362,18 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return 4 * (W * n + 6 * n + 3), 2 * nz + 4 * n + 2 * n, "float32"
     if name == "fused_k2":   # r, s2 in; q, y out; 2 dots
         return 4 * (W * n + 4 * n + 3), 2 * nz + 2 * n + 4 * n, "float32"
-    # fused_k3: x, p2, q, y, r_hat in; x2, r2 out; 2 dots
-    return 4 * (7 * n + 4), 6 * n + 4 * n, "float32"
+    if name == "fused_k3":   # x, p2, q, y, r_hat in; x2, r2 out; 2 dots
+        return 4 * (7 * n + 4), 6 * n + 4 * n, "float32"
+    # (vectors in, vectors out, scalars in + dots out); each of these
+    # does one band product and 16 flops per row in its updates and dots.
+    # CA K1: r p s w z in; p' s' z' q y out. CA K2: q y x p' r^ s' z'
+    # in; x' r' w' out. Phase A: z' r p s w z in; v' p' s' q y out.
+    # Phase B: w' x p' q y r^ s' z' in; t' x' r' out.
+    counts = {"fused_ca_k1": (5, 5, 3 + 2), "fused_ca_k2": (7, 3, 2 + 5),
+              "fused_phase_a": (6, 5, 3 + 2), "fused_phase_b": (8, 3, 2 + 5)}
+    n_in, n_out, n_sc = counts[name]
+    return (4 * (W * n + (n_in + n_out) * n + n_sc), 2 * nz + 16 * n,
+            "float32")
 
 
 def library_call(name: str, inp: dict, csr):
@@ -347,10 +450,11 @@ def main() -> int:
     errs = check_kernels(calls)
 
     runs = {}
-    for dtype, tol in (("float32", 1e-6), ("float64", 1e-10)):
-        report, counts, err = run_main_path(N_MAIN, dtype, tol)
-        runs[dtype] = counts
-        _say("f32" if dtype == "float32" else "f64",
+    for phase, (method, dtype, tol, extra) in PATHS.items():
+        report, counts, err = run_main_path(N_MAIN, dtype, tol,
+                                            method=method, extra=extra)
+        runs[phase] = counts
+        _say(phase, method=method, dtype=dtype, tol=tol,
              converged=report["converged"], n_iter=report["total_iter"],
              final_relres=report["final_relres"],
              true_relres=report["true_relres"], max_abs_x_minus_1=err,
@@ -358,13 +462,26 @@ def main() -> int:
              launches=json.dumps(counts).replace(" ", ""))
 
     prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
-    it = bench_iteration(prob32, method="bicgstab", iters=200)
-    floor = sum(work(k, inp)[0] for k in ("fused_k1", "fused_k2",
-                                          "fused_k3")) / HBM_BYTES_PER_S
+    n = prob32.n
+    floors = {   # bytes of one fused iteration; the pipelined one also
+                 # forms z' and w' (3 vectors read, 1 written, each)
+        "bicgstab": ("fused_k1", "fused_k2", "fused_k3"),
+        "ca_bicgstab": ("fused_ca_k1", "fused_ca_k2"),
+        "pipe_bicgstab": ("fused_phase_a", "fused_phase_b")}
+    for method, kerns in floors.items():
+        nbytes = sum(work(k, inp)[0] for k in kerns)
+        if method == "pipe_bicgstab":
+            nbytes += 2 * 4 * 4 * n
+        eager = bench_iteration(prob32, method=method, iters=200)
+        dev = bench_iteration(prob32, method=method, iters=200, graph=True)
+        ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        _say("times", method=method, f32_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=f"{dev_ms:.4f}",
+             device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
+             bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
+             bytes_per_iter=nbytes)
     sp = bench_spmv(prob32)
-    _say("times", f32_ms_per_iter=f"{it['time_per_iter_s'] * 1e3:.4f}",
-         chain="tol=0x200", bound_ms_per_iter=f"{floor * 1e3:.4f}",
-         spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
+    _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
          spmv_layout=sp["spmv_layout"])
     times = time_kernels(calls, inp, csr)
     _say("times", max_memory_allocated_gb_whole_run=round(
@@ -373,10 +490,10 @@ def main() -> int:
     kernels = []
     for name, row in times.items():
         base = name[:-4] if name.startswith("dia_spmv") else name
-        run = runs["float64" if name.endswith("f64") else "float32"]
+        phase, counter = LAUNCHES_FROM[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],
-            "replaces": REPLACES[base], "launches": run[base],
+            "replaces": REPLACES[base], "launches": runs[phase][counter],
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

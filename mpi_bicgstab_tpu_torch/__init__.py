@@ -15,9 +15,12 @@ launches the kernel or raises.
 Entry points (models.problem.build_problem, api.solve, the CLI) run on
 the card unless the caller asks for the CPU; without a card they raise.
 
-Ported so far: the classic-BiCGStab main path (single device; float32
-through the fused kernels K1/K2/K3 of ops/cuda_fused_classic.py, float64
-through the unfused solver over the DIA SpMV kernel of ops/cuda_spmv.py).
+Ported so far: the classic BiCGStab family on a single device —
+bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr and BiCGStab(l).
+float32 on a DIA matrix runs each classic-family method through its fused
+kernels (ops/cuda_fused_classic.py, cuda_fused_ca.py, cuda_fused_pipe.py);
+float64, other layouts and BiCGStab(l) run the unfused solvers over the
+DIA SpMV kernel of ops/cuda_spmv.py.
 """
 
 __version__ = "0.1.0"

@@ -13,31 +13,36 @@ import math
 import numpy as np
 import torch
 
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops.layout import spmv as generic_spmv
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import SolveResult, exact_iters
-from mpi_bicgstab_tpu_torch.solvers.bicgstab import bicgstab
+from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
-# the rest of the JAX package's classic family: ROADMAP slice 2
-_LATER = ("ca_bicgstab", "pipe_bicgstab", "pipe_bicgstab_rr", "bicgstab_l2",
-          "bicgstab_l4")
-METHODS = ("bicgstab",) + _LATER
+METHODS = tuple(CLASSIC_SOLVERS)
+# float32 DIA drivers over the fused kernels; BiCGStab(l) has none
+FUSED = {"bicgstab": fcl.bicgstab_fused,
+         "ca_bicgstab": fca.ca_bicgstab_fused,
+         "pipe_bicgstab": fpipe.pipe_bicgstab_fused,
+         "pipe_bicgstab_rr": fpipe.pipe_bicgstab_rr_fused}
 
 
 def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     """One solver pass, routed as the JAX `_solve_jit` routes it: float32
-    classic BiCGStab on a square DiaMatrix takes the three fused passes
-    (ops/cuda_fused_classic.py); everything else the unfused solver over
-    the generic SpMV. The route is the same on the CPU and on the card;
+    on a square DiaMatrix takes the method's fused driver (FUSED);
+    everything else, and BiCGStab(l) always, the unfused solver over the
+    generic SpMV. The route is the same on the CPU and on the card;
     only each kernel wrapper's choice between kernel and plain twin
     follows the tensors' device. cfg.out_iter != 0 takes the unfused
     route, where the periodic residual print lives."""
-    if method == "bicgstab" and not cfg.out_iter \
+    if method in FUSED and not cfg.out_iter \
             and fcl.format_ok(A, cfg.dtype):
-        return fcl.bicgstab_fused(A, b, x0, cfg)
-    return bicgstab(lambda v: generic_spmv(A, v), Comm(), b, x0, cfg)
+        return FUSED[method](A, b, x0, cfg)
+    return CLASSIC_SOLVERS[method](lambda v: generic_spmv(A, v), Comm(), b,
+                                   x0, cfg)
 
 
 def _restart_tol(outer_tol: float, scale: float) -> float:
@@ -99,14 +104,10 @@ def _restarted(solve_fn, cfg, res: SolveResult) -> SolveResult:
 
 def solve(A, b, x0=None, method: str = "bicgstab",
           cfg: SolverConfig | None = None, precond=None) -> SolveResult:
-    """Solve A x = b with classic BiCGStab where A and b live. When the
-    true-residual gate fails after the recurrence hit tol, up to
-    cfg.restarts refinement restarts re-enter the solver from the
-    current iterate."""
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP slice 2 (the "
-            f"rest of the classic family)")
+    """Solve A x = b with a method of the classic family (METHODS) where
+    A and b live. When the true-residual gate fails after the recurrence
+    hit tol, up to cfg.restarts refinement restarts re-enter the solver
+    from the current iterate."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from "
                          f"{sorted(METHODS)}")

@@ -90,17 +90,22 @@ def bench_spmv(prob, iters=60, seed=0) -> dict:
             "spmv_layout": type(prob.A).__name__}
 
 
-def bench_iteration(prob, method="bicgstab", iters=60, reps=3) -> dict:
+def bench_iteration(prob, method="bicgstab", iters=60, reps=3,
+                    graph=False) -> dict:
     """Time per solver iteration: solves with tol=0 (exactly max_iter
-    iterations, no per-iteration host synchronisation) at two max_iter,
-    and the slope between them — the avg time/iter the reference prints
-    (solver.c:139)."""
+    iterations, no host synchronisation at all) at two max_iter, and the
+    slope between them — the avg time/iter the reference prints
+    (solver.c:139). With graph=True each solve is captured in a CUDA
+    graph and replayed: the device's own time per iteration, every
+    kernel of the loop included and the host's gaps left out."""
     from mpi_bicgstab_tpu_torch.api import solve
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
     def make_chain(K):
         cfg = SolverConfig(tol=0.0, max_iter=K, dtype=prob.b.dtype)
-        return lambda: solve(prob.A, prob.b, method=method, cfg=cfg)
+        chain = lambda: solve(prob.A, prob.b, method=method,  # noqa: E731
+                              cfg=cfg)
+        return _graph(chain) if graph else chain
 
     sec = _slope_time(make_chain, K1=max(2, iters // 6), K2=iters,
                       reps=reps)

@@ -2,13 +2,15 @@
 reference's main.c).
 
     python -m mpi_bicgstab_tpu_torch solve --matrix transport-like:1602112 \\
-        --method bicgstab --dtype float32 --tol 1e-5
+        --method pipe_bicgstab --dtype float32 --tol 1e-6
 
-Matrices: a .mtx / .mtx.gz / .npz path, or a generator spec
-'poisson2d:N', 'poisson3d:N', 'transport-like:N', 'transport-hard:N',
-'banded:N'. The solve runs on the card unless --device cpu asks for the
-CPU. It prints the fields the JAX package's `solve` prints and exits 0
-when the solve converged, 2 when it did not.
+Methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
+--krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
+.npz path, or a generator spec 'poisson2d:N', 'poisson3d:N',
+'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N'. The solve
+runs on the card unless --device cpu asks for the CPU. It prints the
+fields the JAX package's `solve` prints and exits 0 when the solve
+converged, 2 when it did not.
 """
 from __future__ import annotations
 
@@ -39,10 +41,13 @@ def _load_matrix(spec: str):
         elif kind == "banded":
             w = max(2, int(round(n ** (1 / 3))))
             csr = G.banded_random(n, [1, -1, w, -w, w * w, -w * w], seed=0)
-        elif kind in ("clustered", "uniform", "skew"):
+        elif kind == "skew":
+            # skew-dominant (convection-like) spectrum: the classic
+            # family stagnates; use --method bicgstab_l2 / _l4
+            csr = G.skew_banded(n)
+        elif kind in ("clustered", "uniform"):
             raise SystemExit(f"generator {kind!r} is not ported yet: "
-                             f"ROADMAP slice 6 (clustered, uniform) / "
-                             f"slice 2 (skew)")
+                             f"ROADMAP slice 6 (unstructured layouts)")
         else:
             raise SystemExit(f"unknown generator {kind!r}")
     else:
@@ -86,8 +91,8 @@ def run_solve(args):
     dev = resolve_device(args.device)
     dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
     csr, io_time = _load_matrix(args.matrix)
-    cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, dtype=dtype,
-                       restarts=args.restarts)
+    cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, krr=args.krr,
+                       nrr=args.nrr, dtype=dtype, restarts=args.restarts)
     prob = build_problem(csr, dtype=dtype, multiple=1, device=dev)
     b = prob.b
     if args.rhs:
@@ -146,16 +151,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matrix", required=True,
                    help=".mtx/.npz path or generator spec (poisson2d:N, "
                         "poisson3d:N, transport-like:N, transport-hard:N, "
-                        "banded:N)")
+                        "banded:N, skew:N)")
     p.add_argument("--method", default="bicgstab", choices=METHODS,
-                   help="only bicgstab is ported so far; the others "
-                        "raise NotImplementedError naming their slice")
+                   help="the classic family (reference main.c:122-141) "
+                        "and BiCGStab(l); float32 on a DIA matrix takes "
+                        "the method's fused CUDA kernels (BiCGStab(l) "
+                        "has none)")
     p.add_argument("--dtype", choices=["float32", "float64"],
                    default="float64",
-                   help="float32 takes the fused CUDA passes on DIA "
+                   help="float32 takes the fused CUDA kernels on DIA "
                         "matrices; df32 is ROADMAP slice 3")
     p.add_argument("--tol", type=float, default=1e-15)
     p.add_argument("--max-iter", type=int, default=1000)
+    p.add_argument("--krr", type=int, default=100,
+                   help="pipe_bicgstab_rr: replace the residual every "
+                        "krr iterations")
+    p.add_argument("--nrr", type=int, default=4,
+                   help="pipe_bicgstab_rr: at most nrr replacements")
     p.add_argument("--restarts", type=int, default=2,
                    help="refinement restarts when the true-residual gate "
                         "fails after the recurrence hit tol; 0 = the "

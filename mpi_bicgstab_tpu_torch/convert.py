@@ -27,9 +27,8 @@ from mpi_bicgstab_tpu_torch.utils.config import SolverConfig, canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 _ELL_KEYS = ("cols", "vals", "tail_rows", "tail_cols", "tail_vals")
-# JAX SolverConfig fields with no meaning in this slice: krr/nrr belong to
-# pipe_bicgstab_rr (slice 2); history is always recorded here
-_IGNORED = ("krr", "nrr", "record_history")
+# JAX SolverConfig field with no meaning here: history is always recorded
+_IGNORED = ("record_history",)
 
 
 def _dia(arrays, meta, dev, prefix=""):
@@ -68,13 +67,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
 
 
 def config_from_fields(fields: dict) -> SolverConfig:
-    """SolverConfig from a JAX SolverConfig's fields. Fields this slice
-    has no use for are dropped; serialize_comm=True (the JAX package's
-    no-overlap A/B mode) has no counterpart and raises."""
+    """SolverConfig from a JAX SolverConfig's fields (krr and nrr
+    included). record_history is dropped; serialize_comm=True (the JAX
+    package's distributed no-overlap A/B mode) raises until the
+    distributed layer is ported."""
     fields = dict(fields)
     if fields.pop("serialize_comm", False):
-        raise NotImplementedError("serialize_comm has no counterpart in "
-                                  "the single-device port")
+        raise NotImplementedError(
+            "serialize_comm (the distributed no-overlap mode) is not "
+            "ported yet: ROADMAP slice 8 (distributed)")
     for k in _IGNORED:
         fields.pop(k, None)
     if "dtype" in fields:

@@ -1,6 +1,8 @@
-// DIA row core shared by the DIA SpMV (dia_spmv.cu) and the fused
-// classic-BiCGStab passes K1 and K2 (fused_classic.cu): the counterpart
-// of the Pallas `_dia_core` (mpi_bicgstab_tpu/ops/pallas_fused_pipe.py).
+// DIA row core shared by the DIA SpMV (dia_spmv.cu) and the fused passes
+// of classic (fused_classic.cu), CA (fused_ca.cu) and pipelined
+// (fused_pipe.cu) BiCGStab: the counterpart of the Pallas `_dia_core`
+// (mpi_bicgstab_tpu/ops/pallas_fused_pipe.py), plus the deterministic
+// two-stage dot reduction every fused pass ends with.
 //
 // Layout: vals is [W, n] row-major, vals[w * n + i] = A[i, i + off[w]].
 // One thread owns one row i. A diagonal offset is a plain element offset
@@ -106,6 +108,17 @@ __global__ void __launch_bounds__(MBT_FIN_BLOCK)
 
 static inline long long mbt_grid(long long n) {
   return (n + MBT_BLOCK - 1) / MBT_BLOCK;
+}
+
+// After a row pass's launch: report a refused launch, else launch the
+// fixed-order sum of its G partial rows into dots[K] on the same stream.
+template <int K>
+static cudaError_t mbt_finish(const float* partials, long long G,
+                              float* dots, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials<K><<<1, MBT_FIN_BLOCK, 0, stream>>>(partials, G, dots);
+  return cudaGetLastError();
 }
 
 // Queries every kernel library exports. Each .cu file is built alone

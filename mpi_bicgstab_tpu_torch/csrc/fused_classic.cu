@@ -123,16 +123,6 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   block_sum<2>(part, partials + 2 * (long long)blockIdx.x);
 }
 
-// Launch the pass, then the fixed-order sum of its G partial rows.
-template <int K>
-static cudaError_t finish(const float* partials, long long G, float* dots,
-                          cudaStream_t stream) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_partials<K><<<1, MBT_FIN_BLOCK, 0, stream>>>(partials, G, dots);
-  return cudaGetLastError();
-}
-
 extern "C" {
 
 // partials: [mbt_grid(n), 1] scratch; dots: [1] = (r^, s').
@@ -149,7 +139,7 @@ cudaError_t mbt_fused_k1_f32(const int* offsets, int n_diags, long long n,
   const long long G = mbt_grid(n);
   k1_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, p, s, r_hat, beta,
                                          omega, p2, s2, partials);
-  return finish<1>(partials, G, dots, stream);
+  return mbt_finish<1>(partials, G, dots, stream);
 }
 
 // partials: [mbt_grid(n), 2] scratch; dots: [2] = (q, y), (y, y).
@@ -164,7 +154,7 @@ cudaError_t mbt_fused_k2_f32(const int* offsets, int n_diags, long long n,
   const long long G = mbt_grid(n);
   k2_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, s2, alpha, q, y,
                                          partials);
-  return finish<2>(partials, G, dots, stream);
+  return mbt_finish<2>(partials, G, dots, stream);
 }
 
 // partials: [mbt_grid(n), 2] scratch; dots: [2] = (r', r'), (r^, r').
@@ -178,7 +168,7 @@ cudaError_t mbt_fused_k3_f32(long long n, const float* x, const float* p2,
   const long long G = mbt_grid(n);
   k3_kernel<<<G, MBT_BLOCK, 0, stream>>>(n, x, p2, q, y, r_hat, alpha,
                                          omega, x2, r2, partials);
-  return finish<2>(partials, G, dots, stream);
+  return mbt_finish<2>(partials, G, dots, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,10 @@ generators synthesise matrices with matching profiles:
   Transport's size and density.
 * transport_hard — the Transport profile with a convergence rate in the
   reference's regime (thousands of iterations).
+* banded_tough — banded_random made sub-dominant: long, erratic
+  convergence.
+* skew_banded — a skew-dominant operator (conjugate-pair spectrum) on
+  which the classic family fails and BiCGStab(l) converges.
 """
 from __future__ import annotations
 
@@ -120,6 +124,30 @@ def banded_random(n: int, offsets, seed: int = 0,
     return _dia_to_csr(n, offs, vals)
 
 
+def banded_tough(n: int, offsets, seed: int = 0,
+                 dominance: float = 0.46) -> CSRMatrix:
+    """Like banded_random but sub-dominant: the main diagonal is
+    dominance * (row off-diagonal mass) + 0.05, so BiCGStab shows the
+    reference's long, erratic convergence. Around dominance 0.45-0.5 the
+    iteration count sweeps from ~80 to ~6,000 (JAX package, n = 40k)."""
+    rng = np.random.default_rng(seed)
+    offsets = [int(o) for o in offsets if o != 0]
+    entries = []
+    row_abs = np.zeros(n)
+    for off in offsets:
+        size = n - abs(off)
+        v = rng.uniform(-1.0, 1.0, size)
+        entries.append((off, v))
+        if off > 0:
+            row_abs[:size] += np.abs(v)
+        else:
+            row_abs[-off:] += np.abs(v)
+    main = dominance * row_abs + 0.05
+    offs = [0] + [o for o, _ in entries]
+    vals = [main] + [v for _, v in entries]
+    return _dia_to_csr(n, offs, vals)
+
+
 def transport_hard(n: int = 1_602_112, seed: int = 0,
                    gamma: float = 0.9, theta: float = 25.0,
                    conv: tuple = (0.6, 0.3, 0.15),
@@ -191,3 +219,29 @@ def transport_like(n: int = 1_602_112, seed: int = 0) -> CSRMatrix:
                w * w + w, -(w * w + w), w * w + w + 1, -(w * w + w + 1)]
     offsets = [o for o in offsets if abs(o) < n]
     return banded_random(n, offsets, seed=seed, diag_boost=1.0)
+
+
+def skew_banded(n: int, w: int = 0, diag: float = 0.05,
+                seed: int = 0) -> CSRMatrix:
+    """Skew-dominant operator A = diag*I + S, S^T = -S, on a +-1, +-w
+    band (w = round(n^(1/3)) by default): eigenvalues diag +- i s_k. The
+    classic family's degree-1 real stabiliser cannot damp conjugate
+    pairs, so it stagnates or diverges; BiCGStab(l >= 2) converges.
+    Models convection-dominated transport."""
+    rng = np.random.default_rng(seed)
+    w = w or max(2, int(round(n ** (1 / 3))))
+    rows = [np.arange(n, dtype=np.int64)]
+    cols = [np.arange(n, dtype=np.int64)]
+    vals = [np.full(n, diag)]
+    for off in (1, w):
+        if off >= n:
+            continue
+        size = n - off
+        v = rng.uniform(0.5, 1.5, size)
+        i = np.arange(size, dtype=np.int64)
+        rows += [i, i + off]
+        cols += [i + off, i]
+        vals += [v, -v]          # S[i, i+off] = v, S[i+off, i] = -v
+    coo = COOMatrix(np.concatenate(rows), np.concatenate(cols),
+                    np.concatenate(vals), (n, n))
+    return coo_to_csr(coo)

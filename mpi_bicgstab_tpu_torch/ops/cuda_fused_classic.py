@@ -31,21 +31,20 @@ import functools
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
-from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (check_band, check_cuda,
-                                                  dia_spmv, dia_spmv_plain,
-                                                  offsets_arg, stream_arg)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-
+from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
+                                                  band_pass_argtypes,
+                                                  check_cuda, check_scalars,
+                                                  check_vectors, dia_spmv,
+                                                  dia_spmv_plain,
+                                                  partials_scratch,
+                                                  stream_arg)
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_classic")
-    sigs = {"mbt_fused_k1_f32": [_P, _I, _L] + [_P] * 12,
-            "mbt_fused_k2_f32": [_P, _I, _L] + [_P] * 8,
-            "mbt_fused_k3_f32": [_L] + [_P] * 12}
+    sigs = {"mbt_fused_k1_f32": band_pass_argtypes(12),
+            "mbt_fused_k2_f32": band_pass_argtypes(8),
+            "mbt_fused_k3_f32": [ctypes.c_longlong] + [ctypes.c_void_p] * 12}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -59,35 +58,6 @@ def format_ok(A, dtype) -> bool:
     return (isinstance(A, DiaMatrix) and dtype == torch.float32
             and A.vals.dtype == torch.float32 and A.n_rows == A.n_cols
             and A.n_diags >= 1)
-
-
-def _vectors(what, n, **vecs):
-    for name, v in vecs.items():
-        if v.shape != (n,):
-            raise ValueError(f"{what}: {name} has shape {tuple(v.shape)}, "
-                             f"expected ({n},)")
-
-
-def _scalars(what, names, scalars):
-    if len(scalars) != len(names):
-        raise ValueError(f"{what}: expected scalars {names}, got "
-                         f"{len(scalars)}")
-    for name, t in zip(names, scalars):
-        if t.numel() != 1:
-            raise ValueError(f"{what}: scalar {name} has shape "
-                             f"{tuple(t.shape)}")
-    return dict(zip(names, scalars))
-
-
-@functools.cache
-def _block_rows() -> int:
-    return _lib().mbt_block_rows()
-
-
-def _scratch(like: torch.Tensor, k: int):
-    """[G, k] per-block partials and the [k] dots, G = blocks over n."""
-    G = -(-like.shape[0] // _block_rows())
-    return (like.new_empty((G, k)), like.new_empty(k))
 
 
 # --- K1 ---------------------------------------------------------------------
@@ -105,22 +75,10 @@ def fused_k1(vals, r, p, s, r_hat, scalars, offsets: tuple):
     if r.device.type == "cpu":
         return fused_k1_plain(vals, r, p, s, r_hat, scalars, offsets)
     what = "fused_k1"
-    n = r.shape[0]
-    sc = _scalars(what, ("beta", "omega"), scalars)
-    _vectors(what, n, r=r, p=p, s=s, r_hat=r_hat)
-    check_cuda(what, torch.float32, vals=vals, r=r, p=p, s=s, r_hat=r_hat,
-               **sc)
-    check_band(what, vals, offsets, n)
-    p2, s2 = torch.empty_like(r), torch.empty_like(r)
-    partials, dots = _scratch(r, 1)
-    lib = _lib()
-    err = lib.mbt_fused_k1_f32(
-        offsets_arg(offsets), len(offsets), n, vals.data_ptr(),
-        r.data_ptr(), p.data_ptr(), s.data_ptr(), r_hat.data_ptr(),
-        sc["beta"].data_ptr(), sc["omega"].data_ptr(), p2.data_ptr(),
-        s2.data_ptr(), partials.data_ptr(), dots.data_ptr(),
-        stream_arg())
-    _build.check(lib, err, what)
+    sc = check_scalars(what, ("beta", "omega"), scalars)
+    (p2, s2), dots = band_pass(_lib(), "mbt_fused_k1_f32", what, vals,
+                               offsets, dict(r=r, p=p, s=s, r_hat=r_hat),
+                               sc, 2, 1)
     fused_k1.launches += 1
     return p2, s2, dots[0]
 
@@ -143,20 +101,9 @@ def fused_k2(vals, r, s2, scalars, offsets: tuple):
     if r.device.type == "cpu":
         return fused_k2_plain(vals, r, s2, scalars, offsets)
     what = "fused_k2"
-    n = r.shape[0]
-    sc = _scalars(what, ("alpha",), scalars)
-    _vectors(what, n, r=r, s2=s2)
-    check_cuda(what, torch.float32, vals=vals, r=r, s2=s2, **sc)
-    check_band(what, vals, offsets, n)
-    q, y = torch.empty_like(r), torch.empty_like(r)
-    partials, dots = _scratch(r, 2)
-    lib = _lib()
-    err = lib.mbt_fused_k2_f32(
-        offsets_arg(offsets), len(offsets), n, vals.data_ptr(),
-        r.data_ptr(), s2.data_ptr(), sc["alpha"].data_ptr(), q.data_ptr(),
-        y.data_ptr(), partials.data_ptr(), dots.data_ptr(),
-        stream_arg())
-    _build.check(lib, err, what)
+    sc = check_scalars(what, ("alpha",), scalars)
+    (q, y), dots = band_pass(_lib(), "mbt_fused_k2_f32", what, vals,
+                             offsets, dict(r=r, s2=s2), sc, 2, 2)
     fused_k2.launches += 1
     return q, y, dots[0], dots[1]
 
@@ -181,12 +128,12 @@ def fused_k3(x, p2, q, y, r_hat, scalars):
         return fused_k3_plain(x, p2, q, y, r_hat, scalars)
     what = "fused_k3"
     n = x.shape[0]
-    sc = _scalars(what, ("alpha", "omega"), scalars)
-    _vectors(what, n, x=x, p2=p2, q=q, y=y, r_hat=r_hat)
+    sc = check_scalars(what, ("alpha", "omega"), scalars)
+    check_vectors(what, n, x=x, p2=p2, q=q, y=y, r_hat=r_hat)
     check_cuda(what, torch.float32, x=x, p2=p2, q=q, y=y, r_hat=r_hat,
                **sc)
     x2, r2 = torch.empty_like(x), torch.empty_like(x)
-    partials, dots = _scratch(x, 2)
+    partials, dots = partials_scratch(x, 2)
     lib = _lib()
     err = lib.mbt_fused_k3_f32(
         n, x.data_ptr(), p2.data_ptr(), q.data_ptr(), y.data_ptr(),
@@ -207,18 +154,15 @@ def bicgstab_fused(A, b, x0, cfg):
     """Classic BiCGStab, three fused passes per iteration (reference
     solver.c:35-146). Runs where A and b live."""
     from mpi_bicgstab_tpu_torch.parallel.comm import Comm
-    from mpi_bicgstab_tpu_torch.solvers.base import exact_iters
-    from mpi_bicgstab_tpu_torch.solvers.bicgstab import _finish
+    from mpi_bicgstab_tpu_torch.solvers.base import finish, start
 
     vals, offsets = A.vals, A.offsets
-    tol2 = torch.tensor(cfg.tol, dtype=b.dtype, device=b.device) ** 2
-    exact = exact_iters(cfg)
+    tol2, exact, zero = start(b, cfg)
 
     r0 = b - dia_spmv(vals, offsets, x0)                # solver.c:74-75
     rTr0 = torch.dot(r0, r0)                            # solver.c:78-80
     dot_zero = rTr0
     r_hat = r0                                          # solver.c:76
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
     x, r, p, s = x0, r0, torch.zeros_like(r0), torch.zeros_like(r0)
     beta = omega = zero
     rTr = dot_r = rTr0
@@ -239,5 +183,5 @@ def bicgstab_fused(A, b, x0, cfg):
         p, s, omega, rTr = p2, s2, omega2, rTr_new
         hist.append(dot_r)
         k += 1
-    return _finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter,
-                   lambda v: dia_spmv(vals, offsets, v), Comm(), b)
+    return finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter,
+                  lambda v: dia_spmv(vals, offsets, v), Comm(), b)

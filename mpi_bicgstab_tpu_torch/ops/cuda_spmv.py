@@ -82,6 +82,66 @@ def check_band(what: str, vals: torch.Tensor, offsets: tuple, n: int):
                          f"takes at most {max_diags()}")
 
 
+def check_vectors(what: str, n: int, **vecs) -> None:
+    for name, v in vecs.items():
+        if v.shape != (n,):
+            raise ValueError(f"{what}: {name} has shape {tuple(v.shape)}, "
+                             f"expected ({n},)")
+
+
+def check_scalars(what: str, names: tuple, scalars) -> dict:
+    """The fused kernels' scalars by name; each must hold one value."""
+    if len(scalars) != len(names):
+        raise ValueError(f"{what}: expected scalars {names}, got "
+                         f"{len(scalars)}")
+    for name, t in zip(names, scalars):
+        if t.numel() != 1:
+            raise ValueError(f"{what}: scalar {name} has shape "
+                             f"{tuple(t.shape)}")
+    return dict(zip(names, scalars))
+
+
+@functools.cache
+def _block_rows() -> int:
+    return _lib().mbt_block_rows()
+
+
+def partials_scratch(like: torch.Tensor, k: int):
+    """A fused pass's [G, k] per-block partials and its [k] dots, G =
+    blocks over n (every kernel library uses the same block size)."""
+    G = -(-like.shape[0] // _block_rows())
+    return like.new_empty((G, k)), like.new_empty(k)
+
+
+def band_pass(lib, symbol: str, what: str, vals, offsets: tuple,
+              vecs: dict, scalars: dict, n_out: int, n_dots: int):
+    """Check and launch a fused float32 pass over the DIA band whose C
+    launcher takes (offsets, n_diags, n, vals, *vecs, *scalars,
+    *outputs, partials, dots, stream), in the dicts' order. Returns
+    (outputs, dots): n_out fresh [n] vectors (never aliasing an input)
+    and the [n_dots] dot products."""
+    first = next(iter(vecs.values()))
+    n = first.shape[0]
+    check_vectors(what, n, **vecs)
+    check_cuda(what, torch.float32, vals=vals, **vecs, **scalars)
+    check_band(what, vals, offsets, n)
+    outs = [torch.empty_like(first) for _ in range(n_out)]
+    partials, dots = partials_scratch(first, n_dots)
+    err = getattr(lib, symbol)(
+        offsets_arg(offsets), len(offsets), n, vals.data_ptr(),
+        *(t.data_ptr() for t in (*vecs.values(), *scalars.values(), *outs,
+                                 partials, dots)),
+        stream_arg())
+    _build.check(lib, err, what)
+    return outs, dots
+
+
+def band_pass_argtypes(n_pointers: int) -> list:
+    """ctypes argtypes of a band_pass launcher with n_pointers pointer
+    arguments after (offsets, n_diags, n), the stream included."""
+    return [_P, ctypes.c_int, ctypes.c_longlong] + [_P] * n_pointers
+
+
 def dia_spmv_plain(vals: torch.Tensor, offsets: tuple,
                    x: torch.Tensor) -> torch.Tensor:
     """y = A @ x as pad-plus-slice: x padded with zeros, one shifted

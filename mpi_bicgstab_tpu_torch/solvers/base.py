@@ -1,5 +1,7 @@
-"""Result container and the exact-iterations contract (counterpart of
-mpi_bicgstab_tpu/solvers/base.py)."""
+"""Result container, the exact-iterations contract and the pieces every
+classic-family solver shares (counterpart of
+mpi_bicgstab_tpu/solvers/base.py, plus `_finish`, `_maybe_print_residual`
+of mpi_bicgstab_tpu/solvers/bicgstab.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,3 +47,47 @@ def exact_iters(cfg) -> bool:
     drops the residual test altogether (and with it the per-iteration
     host synchronisation)."""
     return float(getattr(cfg, "tol", 1.0)) == 0.0
+
+
+def maybe_print_residual(cfg, k, dot_r, dot_zero):
+    """DISPLAY_RESIDUAL (solver.c:8-9,122-126): print the relative
+    residual every cfg.out_iter iterations (1-based labels)."""
+    if cfg.out_iter and (k + 1) % cfg.out_iter == 0:
+        print(f"iter {k + 1}: relres "
+              f"{float(torch.sqrt(dot_r / dot_zero)):.6e}")
+
+
+def finish(x, k, dot_r, dot_zero, tol2, hist, max_iter, spmv, comm, b,
+           step=1):
+    """SolveResult with the true-residual gate: one extra SpMV at exit,
+    because the recursive residual the loop stopped on can decouple from
+    the truth (SolveResult.converged). hist[i] is the (r,r) of history
+    slot step * (i + 1) - 1 (step = l for BiCGStab(l))."""
+    relres = torch.sqrt(dot_r / dot_zero)
+    history = torch.full((max_iter,), float("nan"), dtype=dot_zero.dtype,
+                         device=dot_zero.device)
+    if hist:
+        history[step - 1::step][:len(hist)] = torch.sqrt(
+            torch.stack(hist) / dot_zero)
+    r_true = b - spmv(x)
+    true_relres = torch.sqrt(comm.dot(r_true, r_true) / dot_zero)
+    tol = torch.sqrt(tol2)
+    return SolveResult(x=x, n_iter=k, final_relres=relres, history=history,
+                       converged=(dot_r <= dot_zero * tol2)
+                       & (true_relres <= 100.0 * tol),
+                       true_relres=true_relres)
+
+
+def start(b, cfg):
+    """tol^2 as a 0-d tensor, the tol=0 flag and a 0-d zero, made on the
+    device without a copy from the host (so that a tol=0 solve, which
+    never synchronises, can be captured in a CUDA graph)."""
+    tol2 = torch.full((), cfg.tol, dtype=b.dtype, device=b.device) ** 2
+    return tol2, exact_iters(cfg), torch.zeros((), dtype=b.dtype,
+                                               device=b.device)
+
+
+def is_rr(k: int, cfg) -> bool:
+    """Is iteration k (0-based) a residual-replacement iteration?
+    (solver.c:498: every krr iterations, at most nrr times)"""
+    return k > 0 and k <= cfg.krr * cfg.nrr and k % cfg.krr == 0

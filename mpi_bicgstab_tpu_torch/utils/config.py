@@ -38,12 +38,15 @@ def canon_dtype(dt) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Configuration for classic BiCGStab.
+    """Configuration for the classic BiCGStab family.
 
     tol:      relative-residual stopping tolerance; the loop stops when
               (r,r) <= tol^2 * (r0,r0) (reference solver.c:86). tol == 0
               runs exactly max_iter iterations (solvers.base.exact_iters).
     max_iter: iteration cap (solver.c:4).
+    krr, nrr: residual-replacement period and count of pipe_bicgstab_rr
+              (solver.c:433, main.c:134-135): every krr iterations, at
+              most nrr times, the recurrences are re-anchored.
     restarts: refinement restarts when the recurrence hit tol but the
               true residual did not (api._restarted); 0 is the
               reference's one-pass behaviour.
@@ -56,6 +59,8 @@ class SolverConfig:
 
     tol: float = 1.0e-15
     max_iter: int = 1000
+    krr: int = 100
+    nrr: int = 4
     restarts: int = 2
     dtype: torch.dtype = torch.float64
     out_iter: int = 0

@@ -8,13 +8,16 @@ conftest):
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
 
 The plain twins themselves are held to the JAX package in the CPU tests
-(test_torch_fused_classic.py, test_torch_layout.py).
+(test_torch_fused_classic.py, test_torch_fused_ca.py,
+test_torch_fused_pipe.py, test_torch_layout.py).
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
 (the kernels contract multiply-adds into FMAs and sum the dots in
-another order than PyTorch); float64 rtol 1e-12 with atol 1e-12 times
-the output's largest entry (rows whose terms cancel keep the rounding of
-the largest terms).
+another order than PyTorch; the CA and pipe kernels' dots also take
+atol 1e-3, as in the CPU tests, because a dot of two independent random
+vectors can cancel to ~1 while its rounding follows the terms); float64
+rtol 1e-12 with atol 1e-12 times the output's largest entry (rows whose
+terms cancel keep the rounding of the largest terms).
 """
 import numpy as np
 import pytest
@@ -23,7 +26,9 @@ import torch
 from mpi_bicgstab_tpu_torch.api import solve
 from mpi_bicgstab_tpu_torch.models.generators import banded_random
 from mpi_bicgstab_tpu_torch.models.problem import build_problem
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
@@ -58,10 +63,11 @@ def _vecs(n, k, dev, dtype=torch.float32, seed=1):
             for _ in range(k)]
 
 
-def _close(got, want):
+def _close(got, want, dot_atol=0.0):
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         if g.dim() == 0:
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=dot_atol)
         elif g.dtype == torch.float64:
             torch.testing.assert_close(g, w, rtol=1e-12,
                                        atol=1e-12 * float(w.abs().max()))
@@ -95,6 +101,29 @@ def test_fused_kernels_match_plain(n, offsets):
            fcl.fused_k2_plain(v, r, s, (a,), o))
     _close(fcl.fused_k3(x, p, q, y, rh, (a, w)),
            fcl.fused_k3_plain(x, p, q, y, rh, (a, w)))
+
+
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_ca_and_pipe_kernels_match_plain(n, offsets):
+    dev = _card()
+    A = _band(n, offsets, torch.float32, dev)
+    r, p, s, w, z, x, q, y, rh = _vecs(n, 9, dev)
+    a, b, om = (torch.tensor(v, device=dev) for v in (0.7, 0.3, 0.2))
+    v, o = A.vals, A.offsets
+    for kern, plain, args in (
+            (fca.fused_ca_k1, fca.fused_ca_k1_plain,
+             (v, r, p, s, w, z, (a, b, om), o)),
+            (fca.fused_ca_k2, fca.fused_ca_k2_plain,
+             (v, q, y, x, p, rh, s, z, (a, om), o)),
+            (fpipe.fused_phase_a, fpipe.fused_phase_a_plain,
+             (v, z, r, p, s, w, x, (a, b, om), o)),
+            (fpipe.fused_phase_b, fpipe.fused_phase_b_plain,
+             (v, w, x, p, q, y, rh, s, z, (a, om), o))):
+        before = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        _close(got, plain(*args), dot_atol=1e-3)
 
 
 def test_fused_dots_are_deterministic():
@@ -140,6 +169,79 @@ def test_fused_route_launches_each_pass_once_per_iteration():
     assert cuda_spmv.dia_spmv.launches == 2     # r0 and the true residual
 
 
+@pytest.mark.parametrize("method", ["ca_bicgstab", "pipe_bicgstab",
+                                    "pipe_bicgstab_rr", "bicgstab_l2"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6),
+                                       ("float64", 1e-10)])
+def test_family_solve_on_card_matches_cpu(method, dtype, tol):
+    dev = _card()
+    csr = banded_random(20000, [1, -1, 40, -40, 2000, -2000], seed=3)
+    cfg = SolverConfig(tol=tol, max_iter=300, krr=4, nrr=2, dtype=dtype)
+    res = {}
+    for d in (dev, "cpu"):
+        prob = build_problem(csr, dtype=dtype, device=d)
+        res[d] = solve(prob.A, prob.b, method=method, cfg=cfg)
+    assert bool(res[dev].converged) and bool(res["cpu"].converged)
+    assert abs(res[dev].n_iter - res["cpu"].n_iter) <= 4
+    err = float((res[dev].x.double().cpu() - 1.0).abs().max())
+    assert err < (1e-3 if dtype == "float32" else 1e-6), err
+
+
+@pytest.mark.parametrize("method,kernels,spmvs", [
+    ("ca_bicgstab", ("fused_ca_k1", "fused_ca_k2"), 3),     # r0, w0, true
+    ("pipe_bicgstab", ("fused_phase_a", "fused_phase_b"), 4),   # + t0
+    # krr 5, nrr 2: iterations 5 and 10 replace, 6 SpMVs each
+    ("pipe_bicgstab_rr", ("fused_phase_a", "fused_phase_b"), 4 + 12),
+])
+def test_ca_and_pipe_routes_launch_their_kernels(method, kernels, spmvs):
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="float32", device=dev)
+    fns = {"fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
+           "fused_phase_a": fpipe.fused_phase_a,
+           "fused_phase_b": fpipe.fused_phase_b,
+           "fused_k1": fcl.fused_k1, "dia_spmv": cuda_spmv.dia_spmv}
+    for fn in fns.values():
+        fn.launches = 0
+    res = solve(prob.A, prob.b, method=method, cfg=SolverConfig(
+        tol=0.0, max_iter=25, krr=5, nrr=2, dtype="float32"))
+    assert res.n_iter == 25
+    per_iter = 23 if method == "pipe_bicgstab_rr" else 25
+    got = {k: fn.launches for k, fn in fns.items()}
+    want = {k: (per_iter if k in kernels else 0) for k in fns}
+    want["dia_spmv"] = spmvs
+    assert got == want
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "ca_bicgstab",
+                                    "pipe_bicgstab", "pipe_bicgstab_rr",
+                                    "bicgstab_l2"])
+def test_tol0_solve_replays_as_a_cuda_graph(method):
+    """A tol=0 solve never synchronises with the host, so it can be
+    captured whole (benchmarks.runner.bench_iteration(graph=True)); the
+    replay gives the eager run's bits."""
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="float32", device=dev)
+    cfg = SolverConfig(tol=0.0, max_iter=10, krr=4, nrr=2, dtype="float32")
+    eager = solve(prob.A, prob.b, method=method, cfg=cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve(prob.A, prob.b, method=method, cfg=cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        res = solve(prob.A, prob.b, method=method, cfg=cfg)
+    g.replay()
+    torch.cuda.synchronize()
+    assert res.n_iter == 10
+    assert torch.equal(res.x, eager.x)
+    # BiCGStab(l)'s history is NaN between its slots
+    torch.testing.assert_close(res.history, eager.history, rtol=0, atol=0,
+                               equal_nan=True)
+
+
 def test_wrappers_raise_instead_of_falling_back():
     dev = _card()
     A = _band(4096, [1, -1, 64, -64], torch.float32, dev)
@@ -160,3 +262,15 @@ def test_wrappers_raise_instead_of_falling_back():
         fcl.fused_k2(A.vals, x, x, (torch.zeros(()),), A.offsets)
     with pytest.raises(ValueError):        # missing scalar
         fcl.fused_k3(x, x, x, x, x, (z,))
+    with pytest.raises(ValueError):        # scalar on the CPU
+        fca.fused_ca_k1(A.vals, x, x, x, x, x, (z, z, torch.zeros(())),
+                        A.offsets)
+    with pytest.raises(TypeError):         # float64 vector
+        fca.fused_ca_k2(A.vals, x, x, x, x, x, x, x.double(), (z, z),
+                        A.offsets)
+    with pytest.raises(ValueError):        # vector of the wrong length
+        fpipe.fused_phase_a(A.vals, x, x, x, x, x[:100], x, (z, z, z),
+                            A.offsets)
+    with pytest.raises(ValueError):        # band of the wrong width
+        fpipe.fused_phase_b(A.vals[:, :100], x, x, x, x, x, x, x, x,
+                            (z, z), A.offsets)

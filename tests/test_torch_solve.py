@@ -126,8 +126,9 @@ def test_entry_points_default_to_the_card():
 
 def test_unported_options_raise_naming_their_slice():
     pt = tprob.build_problem(tgen.poisson2d(8), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tapi.solve(pt.A, pt.b, method="pipe_bicgstab")
+    # slice 2 is ported: pipe_bicgstab runs on the CPU now
+    assert bool(tapi.solve(pt.A, pt.b, method="pipe_bicgstab",
+                           cfg=SolverConfig(tol=1e-10)).converged)
     with pytest.raises(NotImplementedError, match="slice 7"):
         tapi.solve(pt.A, pt.b, precond=object())
     with pytest.raises(NotImplementedError, match="slice 3"):
@@ -195,8 +196,8 @@ def test_chip_smoke_solve_phase_on_cpu(dtype, tol):
     smoke = _chip_smoke()
     report, counts, err = smoke.run_main_path(8192, dtype, tol, "cpu")
     assert report["converged"] and report["n"] == 8192
-    assert counts == {"dia_spmv": 0, "fused_k1": 0, "fused_k2": 0,
-                      "fused_k3": 0}
+    assert {"dia_spmv", "fused_k1", "fused_k2", "fused_k3"} <= set(counts)
+    assert set(counts.values()) == {0}
     assert err < (1e-3 if dtype == "float32" else 1e-6)
 
 
