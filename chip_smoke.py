@@ -12,24 +12,34 @@ numbers; any failure exits non-zero:
              with each kernel's registers, shared memory and spills
   3. check   each kernel against its plain PyTorch version on the same
              inputs at the main path's full width: transport_like(1602112),
-             15 diagonals (tolerances in TOL below)
+             15 diagonals (tolerances in TOL below). The double-float (DF)
+             kernels take the band as DF pairs split from float64 and
+             random DF vectors from a seeded NumPy generator; their output
+             vectors must equal the twin's bit for bit, each dot must lie
+             within 1e-12 sum|u_i v_i| of the twin's, and the scalar each
+             pass folds into its finishing stage must equal the twin's
+             formula (ops/precision.py) applied to the kernel's own dots
   4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
              transport-like:1602112 --method M --dtype D --tol T`, every
              launch counter set to 0 just before and read just after
              (PATHS below): converged, max|x-1| < 1e-3 (f32) or 1e-6
-             (f64), and counters showing the path ran through its kernels.
-             f32 classic, CA, pipelined and pipelined-RR (--krr 3 --nrr 2,
-             so that replacement iterations fire) take the fused kernels;
-             f64 classic, f64 pipelined-RR and f64 BiCGStab(2) the
-             unfused solvers over the float64 DIA SpMV kernel. (At tol
+             (f64, df32), and counters showing the path ran through its
+             kernels. f32 classic, CA, pipelined and pipelined-RR (--krr 3
+             --nrr 2, so that replacement iterations fire) take the fused
+             kernels; f64 classic, f64 pipelined-RR and f64 BiCGStab(2) the
+             unfused solvers over the float64 DIA SpMV kernel; df32
+             classic the fused DF kernels (n_iter within 2 of f64's,
+             true_relres <= 1e-8) and df32 BiCGStab(2) the unfused solver
+             over the DF SpMV kernel. (At tol
              1e-5 the stopping rule itself allows max|x-1| of about 2e-3
              at this n in f32, in the JAX package as in the port.)
-  5. times   CUDA-event slopes: f32 time per iteration of classic, CA and
-             pipelined BiCGStab (tol=0 chains of 200 iterations) as the
-             host issues it and as a replayed CUDA graph (the device's
-             own time; their ratio is the device's busy share), beside
-             their byte floors; each kernel against its byte bound, its
-             plain version and, for the SpMV, torch's CSR product
+  5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
+             pipelined BiCGStab and of df32 classic (tol=0 chains of 200
+             iterations) as the host issues it and as a replayed CUDA
+             graph (the device's own time; their ratio is the device's
+             busy share), beside their byte floors; each kernel against
+             its bound, its plain version and, for the f32/f64 SpMV,
+             torch's CSR product
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -44,7 +54,11 @@ from pathlib import Path
 N_MAIN = 1_602_112
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # non-tensor-core rates, same sheet
-              "float64": 34e12}
+              "float64": 34e12,
+              "df32": 67e12}         # DF pairs compute in float32
+# float operations of the DF helpers (csrc/df_core.cuh; an FMA counts 2):
+# one df_fma, and one compensated dot term plus its combine in the sums
+DF_FMA_FLOPS, DF_DOT_FLOPS = 18, 15
 TOL = {   # kernel versus plain version on the same inputs
     "float32": {"rtol": 1e-5, "atol": 1e-4},
     "float32_dot": {"rtol": 1e-4},
@@ -52,6 +66,10 @@ TOL = {   # kernel versus plain version on the same inputs
     # does not, so rows whose terms cancel differ by rounding of the
     # largest terms: atol is relative to the output's scale
     "float64": {"rtol": 1e-12, "atol_rel": 1e-12},
+    # DF: vectors and folded scalars bit-equal; each dot within this
+    # times sum |u_i v_i| (the kernel sums its compensated partials in
+    # another order than the twin's pairwise df_sum)
+    "df32_dot": 1e-12,
 }
 REPLACES = {
     "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
@@ -62,6 +80,11 @@ REPLACES = {
     "fused_ca_k2": "mpi_bicgstab_tpu/ops/pallas_fused_ca.py:110",
     "fused_phase_a": "mpi_bicgstab_tpu/ops/pallas_fused_pipe.py:113",
     "fused_phase_b": "mpi_bicgstab_tpu/ops/pallas_fused_pipe.py:162",
+    # the DF SpMV is XLA code in the JAX package, not a Pallas kernel
+    "dia_spmv_df": "mpi_bicgstab_tpu/ops/dia.py:143",
+    "fused_k1_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:107",
+    "fused_k2_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:139",
+    "fused_k3_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:165",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -73,6 +96,10 @@ SOURCES = {
     "fused_ca_k2": _CSRC + "fused_ca.cu",
     "fused_phase_a": _CSRC + "fused_pipe.cu",
     "fused_phase_b": _CSRC + "fused_pipe.cu",
+    "dia_spmv_df": _CSRC + "dia_spmv.cu",
+    "fused_k1_df": _CSRC + "fused_classic_df.cu",
+    "fused_k2_df": _CSRC + "fused_classic_df.cu",
+    "fused_k3_df": _CSRC + "fused_classic_df.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -91,6 +118,8 @@ PATHS = {
     "pipe_rr_f64": ("pipe_bicgstab_rr", "float64", 1e-10,
                     ("--krr", str(KRR), "--nrr", str(NRR))),
     "l2": ("bicgstab_l2", "float64", 1e-10, ()),
+    "df32": ("bicgstab", "df32", 1e-10, ()),
+    "l2_df32": ("bicgstab_l2", "df32", 1e-10, ()),
 }
 # the path whose run gives each kernel's launches in the kernels line
 LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
@@ -101,7 +130,11 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "fused_ca_k1": ("ca", "fused_ca_k1"),
                  "fused_ca_k2": ("ca", "fused_ca_k2"),
                  "fused_phase_a": ("pipe", "fused_phase_a"),
-                 "fused_phase_b": ("pipe", "fused_phase_b")}
+                 "fused_phase_b": ("pipe", "fused_phase_b"),
+                 "dia_spmv_df": ("df32", "dia_spmv_df"),
+                 "fused_k1_df": ("df32", "fused_k1_df"),
+                 "fused_k2_df": ("df32", "fused_k2_df"),
+                 "fused_k3_df": ("df32", "fused_k3_df")}
 
 
 class SmokeFailure(RuntimeError):
@@ -116,13 +149,18 @@ def _say(phase: str, **fields) -> None:
 def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
             "fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
             "fused_phase_a": fpipe.fused_phase_a,
-            "fused_phase_b": fpipe.fused_phase_b}
+            "fused_phase_b": fpipe.fused_phase_b,
+            "dia_spmv_df": cuda_spmv.dia_spmv_df,
+            "fused_k1_df": fcldf.fused_k1_df,
+            "fused_k2_df": fcldf.fused_k2_df,
+            "fused_k3_df": fcldf.fused_k3_df}
 
 
 def reset_counts() -> None:
@@ -182,22 +220,34 @@ def _close(name, got, want, rtol, atol) -> None:
 
 def kernel_inputs(csr, device="cuda", seed=0) -> dict:
     """The kernels' inputs at the main path's shapes: the DIA band in
-    float32 and float64 from the host CSR, random vectors from a seed."""
+    float32, float64 and DF pairs (split from float64) from the host CSR,
+    random vectors from a seed (the DF ones, "df_" keys, from a seeded
+    NumPy generator)."""
+    import numpy as np
     import torch
 
     from mpi_bicgstab_tpu_torch.ops.dia import analyze_diagonals, csr_to_dia
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
     offsets, _ = analyze_diagonals(csr)
     A32, _ = csr_to_dia(csr, offsets, dtype=torch.float32, device=device)
     A64, _ = csr_to_dia(csr, offsets, dtype=torch.float64, device=device)
+    Adf, _ = csr_to_dia(csr, offsets, dtype="df32", device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     vec = lambda dt=torch.float32: torch.randn(  # noqa: E731
         csr.nrows, generator=g, dtype=dt, device=device)
     sc = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
                                 device=device)
-    return {"A32": A32, "A64": A64, "x64": vec(torch.float64),
-            "r": vec(), "p": vec(), "s": vec(), "r_hat": vec(), "x": vec(),
-            "q": vec(), "y": vec(), "alpha": sc(0.7), "beta": sc(0.3),
-            "omega": sc(0.2), "w": vec(), "z": vec()}
+    rng = np.random.default_rng(seed)
+    inp = {"A32": A32, "A64": A64, "Adf": Adf, "x64": vec(torch.float64),
+           "r": vec(), "p": vec(), "s": vec(), "r_hat": vec(), "x": vec(),
+           "q": vec(), "y": vec(), "alpha": sc(0.7), "beta": sc(0.3),
+           "omega": sc(0.2), "w": vec(), "z": vec()}
+    for k in ("r", "p", "s", "r_hat", "x", "q", "y"):
+        inp["df_" + k] = df_from_f64(rng.standard_normal(csr.nrows), device)
+    for k, v in (("alpha", 0.7), ("beta", 0.3), ("omega", 0.2),
+                 ("rTr", 2.5)):
+        inp["df_" + k] = df_from_f64(np.float64(v) * (1 + 1e-9), device)
+    return inp
 
 
 def kernel_calls(inp: dict) -> dict:
@@ -240,10 +290,94 @@ def kernel_calls(inp: dict) -> dict:
                           lambda: fpipe.fused_phase_a_plain(*pa), "float32"),
         "fused_phase_b": (lambda: fpipe.fused_phase_b(*pb),
                           lambda: fpipe.fused_phase_b_plain(*pb), "float32"),
+        **df_kernel_calls(inp),
     }
 
 
-def check_kernels(calls: dict) -> dict:
+def df_kernel_calls(inp: dict) -> dict:
+    """The DF kernels' entries of kernel_calls: each call returns a tuple
+    of DF pairs, vectors first, then dots, then the folded scalar."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
+    from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+    A = inp["Adf"]
+    v, o = A.vals, A.offsets
+    r, p, s, rh, x, q, y = (inp["df_" + k] for k in
+                            ("r", "p", "s", "r_hat", "x", "q", "y"))
+    a, b, w, rtr = (inp["df_" + k] for k in
+                    ("alpha", "beta", "omega", "rTr"))
+    return {
+        "dia_spmv_df": (lambda: (cuda_spmv.dia_spmv_df(v, o, x),),
+                        lambda: (cuda_spmv.dia_spmv_df_plain(v, o, x),),
+                        "df32"),
+        "fused_k1_df": (
+            lambda: fcldf.fused_k1_df(v, r, p, s, rh, (b, w, rtr), o),
+            lambda: fcldf.fused_k1_df_plain(v, r, p, s, rh, (b, w, rtr), o),
+            "df32"),
+        "fused_k2_df": (lambda: fcldf.fused_k2_df(v, r, s, (a,), o),
+                        lambda: fcldf.fused_k2_df_plain(v, r, s, (a,), o),
+                        "df32"),
+        "fused_k3_df": (
+            lambda: fcldf.fused_k3_df(x, p, q, y, rh, (a, w, rtr)),
+            lambda: fcldf.fused_k3_df_plain(x, p, q, y, rh, (a, w, rtr)),
+            "df32"),
+    }
+
+
+def df_outputs(name: str, out: tuple, inp: dict):
+    """What a DF kernel's outputs are: (number of vectors, the (u, v)
+    pair of each dot, the folded scalars recomputed from the outputs'
+    own dots with the twin's formulas, ops/precision.py)."""
+    from mpi_bicgstab_tpu_torch.ops.precision import df_div, df_mul
+    a, w, rtr, rh = (inp["df_" + k] for k in
+                     ("alpha", "omega", "rTr", "r_hat"))
+    if name == "dia_spmv_df":
+        return 1, [], []
+    if name == "fused_k1_df":       # p2, s2, (r^, s2), alpha
+        return 2, [(rh, out[1])], [df_div(rtr, out[2])]
+    if name == "fused_k2_df":       # q, y, (q, y), (y, y), omega
+        return 2, [(out[0], out[1]), (out[1], out[1])], [
+            df_div(out[2], out[3])]
+    # fused_k3_df: x2, r2, (r2, r2), (r^, r2), beta
+    return 2, [(out[1], out[1]), (rh, out[1])], [
+        df_mul(df_div(a, w), df_div(out[3], rtr))]
+
+
+def _f64(t):
+    """A tensor or a DF pair as float64 (exact for a pair)."""
+    return t.hi.double() + t.lo.double() if hasattr(t, "hi") else t.double()
+
+
+def _same(t, u) -> bool:
+    import torch
+    return torch.equal(t.hi, u.hi) and torch.equal(t.lo, u.lo)
+
+
+def check_df_kernel(name, got, want, inp) -> list:
+    """A DF kernel's outputs against its twin's (module doc, phase 3);
+    returns the abs error of each output in float64 (0 for the equal
+    vectors; a folded scalar's error follows its dots')."""
+    n_vec, pairs, refolded = df_outputs(name, got, inp)
+    for i in range(n_vec):
+        if not _same(got[i], want[i]):
+            raise SmokeFailure(
+                f"{name} output {i}: kernel and twin vectors differ, max "
+                f"abs err {_err(_f64(got[i]), _f64(want[i])):.3e}")
+    for j, (u, v) in enumerate(pairs):
+        k = n_vec + j
+        err = _err(_f64(got[k]), _f64(want[k]))
+        scale = float((_f64(u) * _f64(v)).abs().sum())
+        if not err <= TOL["df32_dot"] * scale:
+            raise SmokeFailure(f"{name} dot {j}: |kernel - twin| = "
+                               f"{err:.3e} > {TOL['df32_dot']} x "
+                               f"sum|u v| = {scale:.3e}")
+    for j, ref in enumerate(refolded):
+        if not _same(got[n_vec + len(pairs) + j], ref):
+            raise SmokeFailure(f"{name} folded scalar {j} differs from "
+                               f"the twin's formula on the kernel's dots")
+    return [_err(_f64(g), _f64(w)) for g, w in zip(got, want)]
+
+
+def check_kernels(calls: dict, inp: dict) -> dict:
     """Each kernel against its plain version; returns name -> max abs
     error over all its outputs."""
     import torch
@@ -253,6 +387,16 @@ def check_kernels(calls: dict) -> dict:
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()
+        if dt == "df32":
+            per_out = check_df_kernel(name, got, want, inp)
+            errs[name] = max(per_out)
+            _say("check", kernel=name, ok=True, vectors="equal",
+                 folded_scalars="equal", max_abs_err_per_output="["
+                 + ",".join(f"{e:.3e}" for e in per_out) + "]",
+                 scale_per_output="[" + ",".join(
+                     f"{float(_f64(w).abs().max()):.3e}" for w in want)
+                 + "]")
+            continue
         for i, (g, w) in enumerate(zip(got, want)):
             what = f"{name} output {i}"
             if dt == "float64":
@@ -282,25 +426,28 @@ def check_counts(method: str, dtype: str, it: int, counts: dict,
     """The launch counts that a converged run of `method` on its route
     must show after `it` iterations in all (over every restart segment);
     raises SmokeFailure otherwise. A pipelined-RR replacement iteration
-    launches six SpMVs and no phase kernel."""
+    launches six SpMVs and no phase kernel. df32 runs the DF kernels
+    (the DF SpMV in place of the float one) and no float32 kernel."""
     used = {"bicgstab": ("fused_k1", "fused_k2", "fused_k3"),
             "ca_bicgstab": ("fused_ca_k1", "fused_ca_k2"),
             "pipe_bicgstab": ("fused_phase_a", "fused_phase_b"),
             "pipe_bicgstab_rr": ("fused_phase_a", "fused_phase_b")}
+    used_df = {"bicgstab": ("fused_k1_df", "fused_k2_df", "fused_k3_df")}
     rr = method == "pipe_bicgstab_rr"
-    if device == "cpu" or dtype == "float64" or method not in used:
+    if device == "cpu" or dtype == "float64":
         fused = ()             # plain twins, or the unfused solver
     else:
-        fused = used[method]
+        fused = (used_df if dtype == "df32" else used).get(method, ())
     n_rr = it - counts["fused_phase_a"] if fused and rr else 0
+    spmv_name = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
     for k, v in counts.items():
-        if k == "dia_spmv":
+        if k == spmv_name:
             continue
         want = (it - n_rr) if k in fused else 0
         if v != want:
             raise SmokeFailure(f"{method} {dtype}: {k} launched {v} times "
                                f"in {it} iterations, expected {want}")
-    spmv = counts["dia_spmv"]
+    spmv = counts[spmv_name]
     if device == "cpu":
         ok = spmv == 0
     else:
@@ -333,11 +480,14 @@ def run_main_path(n: int, dtype: str, tol: float, device: str = "cuda",
     reset_counts()
     report, res = cli.run_solve(args)
     counts = read_counts()
-    err = float((res.x.double() - 1.0).abs().max())
+    err = float((_f64(res.x) - 1.0).abs().max())
     if not report["converged"]:
         raise SmokeFailure(f"{method} {dtype} did not converge: {report}")
     if err >= (1e-3 if dtype == "float32" else 1e-6):
         raise SmokeFailure(f"{method} {dtype}: max|x-1| = {err:.3e}")
+    if dtype == "df32" and not report["true_relres"] <= 1e-8:
+        raise SmokeFailure(f"{method} {dtype}: true_relres "
+                           f"{report['true_relres']:.3e} > 1e-8")
     check_counts(method, dtype, report["total_iter"], counts, args.restarts,
                  device)
     return report, counts, err
@@ -364,6 +514,17 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return 4 * (W * n + 4 * n + 3), 2 * nz + 2 * n + 4 * n, "float32"
     if name == "fused_k3":   # x, p2, q, y, r_hat in; x2, r2 out; 2 dots
         return 4 * (7 * n + 4), 6 * n + 4 * n, "float32"
+    # DF: 8 bytes per element; the vectors and scalars as for float32;
+    # operations: one df_fma per band entry and per update, and the dots
+    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
+    if name == "dia_spmv_df":
+        return 8 * (W * n + 2 * n), fma * nz, "df32"
+    if name == "fused_k1_df":   # + rTr in, alpha out
+        return 8 * (W * n + 6 * n + 5), fma * (nz + 2 * n) + dot * n, "df32"
+    if name == "fused_k2_df":   # omega out
+        return 8 * (W * n + 4 * n + 4), fma * (nz + n) + 2 * dot * n, "df32"
+    if name == "fused_k3_df":   # + rTr in, beta out
+        return 8 * (7 * n + 6), 3 * fma * n + 2 * dot * n, "df32"
     # (vectors in, vectors out, scalars in + dots out); each of these
     # does one band product and 16 flops per row in its updates and dots.
     # CA K1: r p s w z in; p' s' z' q y out. CA K2: q y x p' r^ s' z'
@@ -380,8 +541,8 @@ def library_call(name: str, inp: dict, csr):
     """One PyTorch call computing the same function, or None: torch's CSR
     sparse product for the SpMV (a yardstick; the port never calls it)."""
     import torch
-    if not name.startswith("dia_spmv"):
-        return None
+    if name not in ("dia_spmv_f32", "dia_spmv_f64"):
+        return None     # no PyTorch call computes a fused pass or a DF SpMV
     dt = torch.float32 if name.endswith("f32") else torch.float64
     dev = inp["A32"].device
     A = torch.sparse_csr_tensor(
@@ -405,9 +566,11 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[dt]
         lib = library_call(name, inp, csr)
+        # a DF twin is hundreds of PyTorch launches: a shorter chain
+        plain_iters = 12 if dt == "df32" else 30
         row = {"ms": time_call(kern, graph=True) * 1e3,
                "eager_ms": time_call(kern) * 1e3,
-               "plain_ms": time_call(plain, iters=30, reps=3,
+               "plain_ms": time_call(plain, iters=plain_iters, reps=3,
                                      graph=True) * 1e3,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -447,19 +610,22 @@ def main() -> int:
          max_offset=max(abs(o) for o in inp["A32"].offsets),
          host_setup_s=round(time.perf_counter() - t0, 3))
     calls = kernel_calls(inp)
-    errs = check_kernels(calls)
+    errs = check_kernels(calls, inp)
 
-    runs = {}
+    runs, iters = {}, {}
     for phase, (method, dtype, tol, extra) in PATHS.items():
         report, counts, err = run_main_path(N_MAIN, dtype, tol,
                                             method=method, extra=extra)
-        runs[phase] = counts
+        runs[phase], iters[phase] = counts, report["total_iter"]
         _say(phase, method=method, dtype=dtype, tol=tol,
              converged=report["converged"], n_iter=report["total_iter"],
              final_relres=report["final_relres"],
              true_relres=report["true_relres"], max_abs_x_minus_1=err,
              solve_s=report["total_time_s"],
              launches=json.dumps(counts).replace(" ", ""))
+    if abs(iters["df32"] - iters["f64"]) > 2:
+        raise SmokeFailure(f"df32 classic took {iters['df32']} iterations, "
+                           f"f64 {iters['f64']}: more than 2 apart")
 
     prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
     n = prob32.n
@@ -480,6 +646,18 @@ def main() -> int:
              device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
              bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
              bytes_per_iter=nbytes)
+    probdf = build_problem(csr, dtype="df32", multiple=1)
+    nbytes = sum(work(k, inp)[0] for k in ("fused_k1_df", "fused_k2_df",
+                                             "fused_k3_df"))
+    eager = bench_iteration(probdf, method="bicgstab", iters=200)
+    dev = bench_iteration(probdf, method="bicgstab", iters=200, graph=True)
+    ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+    _say("times", method="bicgstab", df32_ms_per_iter=f"{ms:.4f}",
+         device_ms_per_iter=f"{dev_ms:.4f}",
+         device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
+         bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
+         bytes_per_iter=nbytes)
+    del probdf
     sp = bench_spmv(prob32)
     _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
          spmv_layout=sp["spmv_layout"])
@@ -489,7 +667,8 @@ def main() -> int:
 
     kernels = []
     for name, row in times.items():
-        base = name[:-4] if name.startswith("dia_spmv") else name
+        base = "dia_spmv" if name in ("dia_spmv_f32", "dia_spmv_f64") \
+            else name
         phase, counter = LAUNCHES_FROM[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

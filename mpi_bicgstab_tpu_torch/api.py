@@ -4,7 +4,9 @@ mpi_bicgstab_tpu/api.py: `solve`, `_restarted` and the dispatch of
 
 The solve runs where A and b live: on the card for an operator built
 with device='cuda' (the default of models.problem.build_problem), on the
-CPU only when the caller built it there.
+CPU only when the caller built it there. A double-float problem
+(build_problem(dtype="df32")) carries DF pairs (ops/precision.DF) in A,
+b and x0.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ import torch
 
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops.layout import spmv as generic_spmv
+from mpi_bicgstab_tpu_torch.ops.precision import is_df, vzeros_like
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import SolveResult, exact_iters
 from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
@@ -28,16 +32,43 @@ FUSED = {"bicgstab": fcl.bicgstab_fused,
          "ca_bicgstab": fca.ca_bicgstab_fused,
          "pipe_bicgstab": fpipe.pipe_bicgstab_fused,
          "pipe_bicgstab_rr": fpipe.pipe_bicgstab_rr_fused}
+# df32 DIA drivers over the fused DF kernels
+FUSED_DF = {"bicgstab": fcldf.bicgstab_fused_df}
+# df32 routes the JAX package sends through DF kernels not ported yet
+_SLICE3B = "ROADMAP slice 3b (the fused DF CA and pipelined kernels)"
+_SLICE3C = "ROADMAP slice 3c (the fused DF pipelined iteration bodies)"
+UNPORTED_DF = {"ca_bicgstab": _SLICE3B, "pipe_bicgstab": _SLICE3B,
+               "pipe_bicgstab_rr": _SLICE3B}
 
 
 def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     """One solver pass, routed as the JAX `_solve_jit` routes it: float32
-    on a square DiaMatrix takes the method's fused driver (FUSED);
+    on a square DiaMatrix takes the method's fused driver (FUSED), df32
+    (DF values) classic BiCGStab its fused DF driver (FUSED_DF);
     everything else, and BiCGStab(l) always, the unfused solver over the
     generic SpMV. The route is the same on the CPU and on the card;
     only each kernel wrapper's choice between kernel and plain twin
     follows the tensors' device. cfg.out_iter != 0 takes the unfused
-    route, where the periodic residual print lives."""
+    route, where the periodic residual print lives.
+
+    The df32 methods whose JAX route is a DF kernel not ported yet raise
+    NotImplementedError rather than take the unfused solver: CA,
+    pipelined and pipelined-RR on a DF DiaMatrix (slice 3b), and
+    pipelined BiCGStab on any other operator or with out_iter (the JAX
+    package fuses its DF iteration bodies whatever the layout, slice
+    3c)."""
+    fused_df = is_df(b) and fcldf.format_ok(A, cfg.dtype) \
+        and not cfg.out_iter
+    if fused_df and method in FUSED_DF:
+        return FUSED_DF[method](A, b, x0, cfg)
+    if fused_df and method in UNPORTED_DF:
+        raise NotImplementedError(
+            f"df32 {method} on a DIA operator runs fused DF kernels that "
+            f"are not ported yet: {UNPORTED_DF[method]}")
+    if is_df(b) and method == "pipe_bicgstab":
+        raise NotImplementedError(
+            f"df32 pipe_bicgstab runs fused DF iteration bodies that are "
+            f"not ported yet: {_SLICE3C}")
     if method in FUSED and not cfg.out_iter \
             and fcl.format_ok(A, cfg.dtype):
         return FUSED[method](A, b, x0, cfg)
@@ -114,7 +145,7 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if precond is not None:
         raise NotImplementedError(
             "Chebyshev preconditioning is not ported yet: ROADMAP slice 7")
-    if not torch.is_tensor(b):
+    if not (torch.is_tensor(b) or is_df(b)):
         b = torch.as_tensor(np.asarray(b), device=A.device)
     if b.device != A.device:
         raise ValueError(f"b is on {b.device} but A is on {A.device}; "
@@ -122,7 +153,7 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if cfg is None:
         cfg = SolverConfig(dtype=b.dtype)
     if x0 is None:
-        x0 = torch.zeros_like(b)
+        x0 = vzeros_like(b)
     res = _solve_once(A, b, x0, method, cfg)
     if cfg.restarts:
         res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),

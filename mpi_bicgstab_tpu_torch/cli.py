@@ -3,6 +3,8 @@ reference's main.c).
 
     python -m mpi_bicgstab_tpu_torch solve --matrix transport-like:1602112 \\
         --method pipe_bicgstab --dtype float32 --tol 1e-6
+    python -m mpi_bicgstab_tpu_torch solve --matrix banded:4096 \\
+        --dtype df32 --tol 1e-11 --device cpu
 
 Methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
 --krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
@@ -85,19 +87,24 @@ def run_solve(args):
 
     from mpi_bicgstab_tpu_torch.api import solve
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
+                                                      df_to_f64, is_df)
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
+    df = args.dtype == "df32"
+    # "df32" builds DF pairs; its config dtype is float32 (canon_dtype)
+    dtype = args.dtype if df else getattr(torch, args.dtype)
     csr, io_time = _load_matrix(args.matrix)
     cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, krr=args.krr,
                        nrr=args.nrr, dtype=dtype, restarts=args.restarts)
     prob = build_problem(csr, dtype=dtype, multiple=1, device=dev)
     b = prob.b
     if args.rhs:
-        b = torch.as_tensor(_load_rhs(args.rhs, csr.nrows), dtype=dtype,
-                            device=dev)
+        b_host = _load_rhs(args.rhs, csr.nrows)
+        b = df_from_f64(b_host, dev) if df else torch.as_tensor(
+            b_host, dtype=dtype, device=dev)
     if dev.type == "cuda":
         from mpi_bicgstab_tpu_torch.ops import _build
         _build.build_all()    # the kernel build is set-up, not solve time
@@ -108,8 +115,9 @@ def run_solve(args):
     total = time.perf_counter() - t0
     done = res.n_iter
     if args.write_solution:
-        np.save(args.write_solution,
-                res.x.double().cpu().numpy()[: csr.nrows])
+        x = df_to_f64(res.x) if is_df(res.x) else \
+            res.x.double().cpu().numpy()
+        np.save(args.write_solution, x[: csr.nrows])
     report = {
         "method": args.method,
         "matrix": args.matrix,
@@ -157,10 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "and BiCGStab(l); float32 on a DIA matrix takes "
                         "the method's fused CUDA kernels (BiCGStab(l) "
                         "has none)")
-    p.add_argument("--dtype", choices=["float32", "float64"],
+    p.add_argument("--dtype", choices=["float32", "float64", "df32"],
                    default="float64",
                    help="float32 takes the fused CUDA kernels on DIA "
-                        "matrices; df32 is ROADMAP slice 3")
+                        "matrices; df32 (double-float pairs, ~48-bit "
+                        "significands from float32 arithmetic) takes the "
+                        "fused DF kernels with --method bicgstab")
     p.add_argument("--tol", type=float, default=1e-15)
     p.add_argument("--max-iter", type=int, default=1000)
     p.add_argument("--krr", type=int, default=100,

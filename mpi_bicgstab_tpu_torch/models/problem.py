@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from mpi_bicgstab_tpu_torch.ops.dia import is_df32
+from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, vzeros_like
 from mpi_bicgstab_tpu_torch.ops.sparse import CSRMatrix
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -44,8 +46,8 @@ class Problem:
 
     csr: CSRMatrix          # padded host CSR
     A: object               # DiaMatrix / EllMatrix / HybridMatrix
-    b: torch.Tensor         # [n_pad]
-    x0: torch.Tensor        # zeros, [n_pad]
+    b: torch.Tensor         # [n_pad]; a DF pair for df32
+    x0: torch.Tensor        # zeros, [n_pad]; a DF pair for df32
     n_logical: int          # rows before padding
 
     @property
@@ -64,9 +66,12 @@ def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
     """b = A * ones (ones over the logical rows only), computed on the host
     in float64 and cast to dtype; the operator and vectors go to `device`
     (default the card; raises without one). format selects the layout
-    (ops/layout.build_operator)."""
+    (ops/layout.build_operator). dtype="df32" builds the double-float
+    problem: the operator's values, b and x0 are DF pairs
+    (ops/precision.DF), split from the float64 host values."""
     from mpi_bicgstab_tpu_torch.ops.layout import build_operator
 
+    df = is_df32(dtype)          # before canon_dtype, which maps it to f32
     dt = canon_dtype(dtype)
     dev = resolve_device(device)
     n_logical = csr.nrows
@@ -75,7 +80,10 @@ def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
     ones[:n_logical] = 1.0
     b_host = csr_p.matvec(ones)
     b_host[n_logical:] = 0.0  # identity-row RHS: padded solution is 0
-    A = build_operator(csr_p, format=format, dtype=dt, ell_width=ell_width,
-                       device=dev)
-    b = torch.as_tensor(b_host, dtype=dt, device=dev)
-    return Problem(csr_p, A, b, torch.zeros_like(b), n_logical)
+    A = build_operator(csr_p, format=format, dtype="df32" if df else dt,
+                       ell_width=ell_width, device=dev)
+    if df:
+        b = df_from_f64(b_host, dev)
+    else:
+        b = torch.as_tensor(b_host, dtype=dt, device=dev)
+    return Problem(csr_p, A, b, vzeros_like(b), n_logical)

@@ -53,11 +53,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def format_ok(A, dtype) -> bool:
-    """Does the fused route take this operator at this solver dtype?"""
+    """Does the fused route take this operator at this solver dtype?
+    (A DF pair, whose dtype is float32 too, takes the DF route.)"""
     from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
     return (isinstance(A, DiaMatrix) and dtype == torch.float32
-            and A.vals.dtype == torch.float32 and A.n_rows == A.n_cols
-            and A.n_diags >= 1)
+            and torch.is_tensor(A.vals) and A.vals.dtype == torch.float32
+            and A.n_rows == A.n_cols and A.n_diags >= 1)
 
 
 # --- K1 ---------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""DIA SpMV: the CUDA kernel's wrapper and its plain PyTorch twin
-(counterpart of mpi_bicgstab_tpu/ops/pallas_spmv.py; kernel source
+"""DIA SpMV: the CUDA kernels' wrappers and their plain PyTorch twins
+(counterpart of mpi_bicgstab_tpu/ops/pallas_spmv.py and of the XLA DF
+SpMV mpi_bicgstab_tpu/ops/dia.py::dia_spmv_df; kernel source
 csrc/dia_spmv.cu).
 
-`dia_spmv(vals, offsets, x)` runs the plain version for a tensor on the
-CPU and launches the kernel for one on the card; a CUDA tensor the
-kernel does not take raises. `dia_spmv.launches` counts kernel launches.
+`dia_spmv(vals, offsets, x)` (float32, float64) and
+`dia_spmv_df(vals, offsets, x)` (double-float pairs, ops/precision.DF)
+run the plain version for tensors on the CPU and launch the kernel for
+tensors on the card; a CUDA tensor the kernel does not take raises.
+Each wrapper's `.launches` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_bicgstab_tpu_torch.ops import _build
+from mpi_bicgstab_tpu_torch.ops.precision import DF, df_fma, df_zeros, is_df
 
 _P = ctypes.c_void_p
 _KERNELS = {torch.float32: "mbt_dia_spmv_f32",
@@ -28,6 +32,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P]
         fn.restype = ctypes.c_int
+    lib.mbt_dia_spmv_df.argtypes = band_pass_argtypes(7)
+    lib.mbt_dia_spmv_df.restype = ctypes.c_int
     return lib
 
 
@@ -106,11 +112,15 @@ def _block_rows() -> int:
     return _lib().mbt_block_rows()
 
 
+def grid_blocks(n: int) -> int:
+    """Blocks of a row pass over n rows (every kernel library uses the
+    same block size)."""
+    return -(-n // _block_rows())
+
+
 def partials_scratch(like: torch.Tensor, k: int):
-    """A fused pass's [G, k] per-block partials and its [k] dots, G =
-    blocks over n (every kernel library uses the same block size)."""
-    G = -(-like.shape[0] // _block_rows())
-    return like.new_empty((G, k)), like.new_empty(k)
+    """A fused pass's [G, k] per-block partials and its [k] dots."""
+    return like.new_empty((grid_blocks(like.shape[0]), k)), like.new_empty(k)
 
 
 def band_pass(lib, symbol: str, what: str, vals, offsets: tuple,
@@ -183,3 +193,49 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple,
 
 
 dia_spmv.launches = 0
+
+
+def dia_spmv_df_plain(vals: DF, offsets: tuple, x: DF) -> DF:
+    """Double-float y = A @ x as pad-plus-slice, accumulated with df_fma
+    from zero, diagonal by diagonal in offset order (ops/dia.py
+    dia_spmv_df of the JAX package)."""
+    n = x.hi.shape[0]
+    lo = -min(0, min(offsets)) if offsets else 0
+    hi = max(0, max(offsets)) if offsets else 0
+    xh, xl = F.pad(x.hi, (lo, hi)), F.pad(x.lo, (lo, hi))
+    acc = df_zeros(n, x.device)
+    for w, o in enumerate(offsets):
+        acc = df_fma(acc, vals[w], DF(xh[lo + o:lo + o + n],
+                                      xl[lo + o:lo + o + n]))
+    return acc
+
+
+def dia_spmv_df(vals: DF, offsets: tuple, x: DF) -> DF:
+    """Double-float y = A @ x for the DIA matrix (vals a DF [W, n] pair,
+    offsets). CPU tensors take the plain version; CUDA tensors the
+    kernel, which agrees with it bit for bit."""
+    if x.device.type == "cpu":
+        return dia_spmv_df_plain(vals, offsets, x)
+    what = "dia_spmv_df"
+    if not (is_df(vals) and is_df(x)):
+        raise TypeError(f"{what}: vals and x must be DF pairs")
+    if x.hi.dim() != 1:
+        raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
+    check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
+               x_hi=x.hi, x_lo=x.lo)
+    n = x.hi.shape[0]
+    check_vectors(what, n, x_lo=x.lo)
+    check_band(what, vals.hi, offsets, n)
+    check_band(what, vals.lo, offsets, n)
+    y = DF(torch.empty_like(x.hi), torch.empty_like(x.hi))
+    lib = _lib()
+    err = lib.mbt_dia_spmv_df(
+        offsets_arg(offsets), len(offsets), n, vals.hi.data_ptr(),
+        vals.lo.data_ptr(), x.hi.data_ptr(), x.lo.data_ptr(),
+        y.hi.data_ptr(), y.lo.data_ptr(), stream_arg())
+    _build.check(lib, err, what)
+    dia_spmv_df.launches += 1
+    return y
+
+
+dia_spmv_df.launches = 0

@@ -6,7 +6,9 @@ per nonzero, and the SpMV streams the band values once. The workload
 class (PDE / transport operators such as SuiteSparse Transport) keeps
 its nonzeros on a few dozen global diagonals; `analyze_diagonals`
 measures that at load time and ops/layout.build_operator routes
-between DIA, DIA + ELL remainder (hybrid) and ELL.
+between DIA, DIA + ELL remainder (hybrid) and ELL. With dtype="df32"
+the band values are a double-float pair (ops/precision.DF), assembled in
+float64 on the host and split.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, is_df
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
@@ -25,7 +28,7 @@ class DiaMatrix:
     """Square diagonal-format sparse matrix: vals is a [W, n] tensor and
     offsets a tuple of W Python ints."""
 
-    vals: torch.Tensor         # [n_diags, n_rows]
+    vals: torch.Tensor         # [n_diags, n_rows]; a DF pair for df32
     offsets: tuple
     n_rows: int
     n_cols: int
@@ -47,11 +50,19 @@ class DiaMatrix:
         return self.vals.device
 
 
+def is_df32(dtype) -> bool:
+    """Is `dtype` the double-float mode's name "df32"?"""
+    return isinstance(dtype, str) and dtype == "df32"
+
+
 def host_dtype(dtype, default) -> np.dtype:
     """NumPy dtype for host-side assembly: the torch/NumPy/str `dtype`,
-    or `default` (the CSR's value dtype) when dtype is None."""
+    or `default` (the CSR's value dtype) when dtype is None; float64 for
+    "df32", whose pairs are split from float64 values."""
     if dtype is None:
         return np.dtype(default)
+    if is_df32(dtype):
+        return np.dtype(np.float64)
     return np.dtype(str(canon_dtype(dtype)).removeprefix("torch."))
 
 
@@ -76,7 +87,7 @@ def csr_to_dia(csr, offsets, dtype=None, device="cuda"):
     """Extract `offsets` into a DiaMatrix on `device`; returns
     (dia, remainder_csr). remainder_csr holds every entry NOT on the
     chosen offsets (None if fully covered). Duplicate entries on a kept
-    offset accumulate."""
+    offset accumulate. dtype="df32" stores vals as a DF pair."""
     from mpi_bicgstab_tpu_torch.ops.sparse import COOMatrix, coo_to_csr
 
     dev = resolve_device(device)
@@ -101,11 +112,23 @@ def csr_to_dia(csr, offsets, dtype=None, device="cuda"):
         rem = COOMatrix(rows[~on_dia], csr.col[~on_dia],
                         csr.val[~on_dia], csr.shape)
         remainder = coo_to_csr(rem)
-    dia = DiaMatrix(torch.from_numpy(vals).to(dev), offsets, n, n)
-    return dia, remainder
+    if is_df32(dtype):
+        vals_dev = df_from_f64(vals, dev)
+    else:
+        vals_dev = torch.from_numpy(vals).to(dev)
+    return DiaMatrix(vals_dev, offsets, n, n), remainder
 
 
-def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x: the CUDA kernel for a tensor on the card, its plain
-    PyTorch version for one on the CPU (ops/cuda_spmv.py)."""
+def dia_spmv(A: DiaMatrix, x):
+    """y = A @ x: the CUDA kernel for tensors on the card, its plain
+    PyTorch version for tensors on the CPU (ops/cuda_spmv.py); DF
+    values take the DF SpMV."""
+    if is_df(A.vals):
+        return cuda_spmv.dia_spmv_df(A.vals, A.offsets, x)
     return cuda_spmv.dia_spmv(A.vals, A.offsets, x)
+
+
+def dia_spmv_df(A: DiaMatrix, x):
+    """Double-float y = A @ x in plain PyTorch on either device (the JAX
+    package's dia_spmv_df): the twin of the DF SpMV kernel."""
+    return cuda_spmv.dia_spmv_df_plain(A.vals, A.offsets, x)

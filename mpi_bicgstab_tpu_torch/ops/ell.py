@@ -3,6 +3,8 @@
 Slab-major: cols[w, i], vals[w, i] hold row i's w-th stored entry (cols
 padded with 0, vals with 0.0). Rows longer than the width spill into a
 COO tail. The SpMV (ops/spmv.py) is `width` gathers and multiply-adds.
+With dtype="df32" vals and tail_vals are double-float pairs
+(ops/precision.DF), split from float64.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpi_bicgstab_tpu_torch.ops.dia import host_dtype
+from mpi_bicgstab_tpu_torch.ops.dia import host_dtype, is_df32
+from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 
@@ -21,7 +24,7 @@ class EllMatrix:
 
     cols: int32 [width, n_rows], 0 where padded (the matching vals entry
           is 0.0, so the gather of x[0] contributes nothing).
-    vals: [width, n_rows]
+    vals: [width, n_rows] (a DF pair for df32)
     tail_*: overflow entries of rows longer than `width`; padding has
           val 0.0, row n_rows-1, col 0.
     """
@@ -89,5 +92,6 @@ def csr_to_ell(csr, width: int | None = None, tail_pad: int = 0,
         t_cols[:n_tail] = csr.col[~in_ell]
         t_vals[:n_tail] = csr.val[~in_ell]
     put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return EllMatrix(put(cols), put(vals), put(t_rows), put(t_cols),
-                     put(t_vals), n_rows, n_cols)
+    put_vals = (lambda a: df_from_f64(a, dev)) if is_df32(dtype) else put
+    return EllMatrix(put(cols), put_vals(vals), put(t_rows), put(t_cols),
+                     put_vals(t_vals), n_rows, n_cols)

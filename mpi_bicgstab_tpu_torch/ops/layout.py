@@ -6,7 +6,9 @@ mpi_bicgstab_tpu/ops/layout.py).
         HybridMatrix         (DIA majority + ELL remainder)
         EllMatrix            (format='ell')
 
-and the generic `spmv(op, x)` the solvers use. The windowed-ELL and
+and the generic `spmv(op, x)` the solvers use, on tensors or, for an
+operator built with dtype="df32", on double-float pairs (ops/precision.DF).
+The windowed-ELL and
 butterfly layouts, which the JAX package's 'auto' picks for matrices
 with less than half their nonzeros on diagonals, are ROADMAP slice 6;
 until then those requests raise NotImplementedError.
@@ -18,7 +20,8 @@ import dataclasses
 from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, analyze_diagonals,
                                             csr_to_dia, dia_spmv)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
-from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv
+from mpi_bicgstab_tpu_torch.ops.precision import df_add, is_df
+from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
 
 _SLICE6 = "ROADMAP slice 6 (unstructured layouts and preprocessing)"
 
@@ -90,11 +93,14 @@ def build_operator(csr, format: str = "auto", dtype=None,
 
 
 def spmv(op, x):
-    """Generic y = op @ x over any ported layout."""
+    """Generic y = op @ x over any ported layout (DF values take the DF
+    SpMVs, as in the JAX package)."""
     if isinstance(op, DiaMatrix):
         return dia_spmv(op, x)
     if isinstance(op, EllMatrix):
-        return ell_spmv(op, x)
+        return ell_spmv_df(op, x) if is_df(op.vals) else ell_spmv(op, x)
     if isinstance(op, HybridMatrix):
+        if is_df(op.dia.vals):
+            return df_add(dia_spmv(op.dia, x), ell_spmv_df(op.ell, x))
         return dia_spmv(op.dia, x) + ell_spmv(op.ell, x)
     raise TypeError(f"not a device sparse operator: {type(op)}")

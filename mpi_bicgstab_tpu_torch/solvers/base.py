@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from mpi_bicgstab_tpu_torch.ops.precision import vvalue, vzeros
+
 
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
@@ -54,37 +56,46 @@ def maybe_print_residual(cfg, k, dot_r, dot_zero):
     residual every cfg.out_iter iterations (1-based labels)."""
     if cfg.out_iter and (k + 1) % cfg.out_iter == 0:
         print(f"iter {k + 1}: relres "
-              f"{float(torch.sqrt(dot_r / dot_zero)):.6e}")
+              f"{float(torch.sqrt(vvalue(dot_r) / vvalue(dot_zero))):.6e}")
 
 
 def finish(x, k, dot_r, dot_zero, tol2, hist, max_iter, spmv, comm, b,
-           step=1):
+           step=1, f32_test=False):
     """SolveResult with the true-residual gate: one extra SpMV at exit,
     because the recursive residual the loop stopped on can decouple from
     the truth (SolveResult.converged). hist[i] is the (r,r) of history
-    slot step * (i + 1) - 1 (step = l for BiCGStab(l))."""
-    relres = torch.sqrt(dot_r / dot_zero)
-    history = torch.full((max_iter,), float("nan"), dtype=dot_zero.dtype,
-                         device=dot_zero.device)
+    slot step * (i + 1) - 1 (step = l for BiCGStab(l)).
+
+    With DF pairs (df32) relres, history and true_relres are float32,
+    from vvalue (JAX solvers/bicgstab.py `_finish`), and the recursive
+    test dot_r <= dot_zero tol^2 is taken DF-first; f32_test takes it on
+    the float32 values instead, as the fused DF loop's stop test does
+    (JAX pallas_fused_classic_df.bicgstab_fused_df)."""
+    dz = vvalue(dot_zero)
+    relres = torch.sqrt(vvalue(dot_r) / dz)
+    history = torch.full((max_iter,), float("nan"), dtype=dz.dtype,
+                         device=dz.device)
     if hist:
         history[step - 1::step][:len(hist)] = torch.sqrt(
-            torch.stack(hist) / dot_zero)
+            torch.stack([vvalue(h) for h in hist]) / dz)
     r_true = b - spmv(x)
-    true_relres = torch.sqrt(comm.dot(r_true, r_true) / dot_zero)
+    true_relres = torch.sqrt(vvalue(comm.dot(r_true, r_true)) / dz)
     tol = torch.sqrt(tol2)
+    done = (vvalue(dot_r) <= dz * tol2) if f32_test \
+        else (dot_r <= dot_zero * tol2)
     return SolveResult(x=x, n_iter=k, final_relres=relres, history=history,
-                       converged=(dot_r <= dot_zero * tol2)
-                       & (true_relres <= 100.0 * tol),
+                       converged=done & (true_relres <= 100.0 * tol),
                        true_relres=true_relres)
 
 
 def start(b, cfg):
-    """tol^2 as a 0-d tensor, the tol=0 flag and a 0-d zero, made on the
-    device without a copy from the host (so that a tol=0 solve, which
-    never synchronises, can be captured in a CUDA graph)."""
+    """tol^2 as a 0-d tensor, the tol=0 flag and a 0-d zero of b's kind
+    (a DF pair for a DF b), made on the device without a copy from the
+    host (so that a tol=0 solve, which never synchronises, can be
+    captured in a CUDA graph). For a DF b, tol^2 is float32, as in the
+    JAX package."""
     tol2 = torch.full((), cfg.tol, dtype=b.dtype, device=b.device) ** 2
-    return tol2, exact_iters(cfg), torch.zeros((), dtype=b.dtype,
-                                               device=b.device)
+    return tol2, exact_iters(cfg), vzeros((), b)
 
 
 def is_rr(k: int, cfg) -> bool:

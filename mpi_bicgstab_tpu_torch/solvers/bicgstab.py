@@ -12,9 +12,12 @@ mpi_bicgstab_tpu/solvers/bicgstab.py):
 
 and CLASSIC_SOLVERS, which also holds BiCGStab(l) (solvers/bicgstab_l.py).
 
-This is the route for float64 and for operators other than a float32
-DiaMatrix; the float32 DIA routes are the fused drivers of
-ops/cuda_fused_classic.py, ops/cuda_fused_ca.py and ops/cuda_fused_pipe.py.
+This is the route for float64, for operators other than a DiaMatrix and
+for BiCGStab(l); the float32 DIA routes are the fused drivers of
+ops/cuda_fused_classic.py, ops/cuda_fused_ca.py and ops/cuda_fused_pipe.py,
+the df32 classic DIA route that of ops/cuda_fused_classic_df.py. The same
+code runs on double-float pairs (df32, ops/precision.DF): axpy and the
+Comm dots take the DF forms, and float(dot_r) reads a pair's exact value.
 
 Each solver takes spmv: x -> A@x, a Comm for the global dots, b, x0 and a
 SolverConfig. The loop runs on the host; the scalars stay on the device
@@ -25,9 +28,8 @@ explicit zeros, which give the same first step because beta = 0.
 """
 from __future__ import annotations
 
-import torch
-
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
+from mpi_bicgstab_tpu_torch.ops.precision import vzeros_like
 from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish, is_rr,
                                                  maybe_print_residual, start)
 from mpi_bicgstab_tpu_torch.solvers.bicgstab_l import bicgstab_l2, bicgstab_l4
@@ -85,7 +87,7 @@ def ca_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
     rTr0, rTw0 = comm.dots((r0, r0), (r0, w))           # solver.c:203-208
     alpha = rTr0 / rTw0                                 # solver.c:210
     beta = omega = zero                                 # solver.c:211
-    p = s = z = torch.zeros_like(b)
+    p = s = z = vzeros_like(b)
     dot_zero = rTr = dot_r = rTr0
     x, r = x0, r0
     hist = []
@@ -134,7 +136,7 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
     rTr0, rTw0 = comm.dots((r0, r0), (r0, w))           # solver.c:336-343
     alpha = rTr0 / rTw0                                 # solver.c:345
     beta = omega = zero
-    p = s = z = v = torch.zeros_like(b)
+    p = s = z = v = vzeros_like(b)
     dot_zero = rTr = dot_r = rTr0
     x, r = x0, r0
     hist = []
@@ -176,8 +178,9 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
 
 
 def pipe_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
-    """Pipelined BiCGStab (reference solver.c:292-417). The JAX package's
-    df32 branch (fused iteration bodies) is the precision slice's."""
+    """Pipelined BiCGStab (reference solver.c:292-417). For df32 the JAX
+    package fuses the iteration bodies into kernels (slice 3c); api.solve
+    refuses df32 pipe_bicgstab until they are ported."""
     return _pipe(spmv, comm, b, x0, cfg, rr=False)
 
 

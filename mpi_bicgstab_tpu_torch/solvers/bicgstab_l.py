@@ -22,9 +22,8 @@ from __future__ import annotations
 
 from functools import partial
 
-import torch
-
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
+from mpi_bicgstab_tpu_torch.ops.precision import vones, vzeros_like
 from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish,
                                                  maybe_print_residual, start)
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
@@ -42,10 +41,10 @@ def bicgstab_l(spmv, comm, b, x0, cfg: SolverConfig,
     r_hat = r0
     rTr0 = comm.dot(r0, r0)
     dot_zero = dot_r = rTr0
-    zeros = torch.zeros_like(b)
+    zeros = vzeros_like(b)
     R = [r0] + [zeros] * l
     U = [zeros] * (l + 1)
-    rho0 = omega = alpha + 1.0                      # rho_0 = omega = 1
+    rho0 = omega = vones((), alpha)                 # rho_0 = omega = 1
     x = x0
     hist = []
     thresh = None if exact else float(dot_zero * tol2)

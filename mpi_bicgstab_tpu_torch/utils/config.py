@@ -15,7 +15,9 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 def canon_dtype(dt) -> torch.dtype:
     """torch.float32 / torch.float64 from a torch dtype, a numpy dtype or
-    its name. "df32" (double-float pairs) is the precision slice's."""
+    its name. "df32" (double-float pairs, ops/precision.py) computes in
+    float32 storage, so its config dtype is torch.float32, as in the JAX
+    package: the dtype the fused DF route dispatches on."""
     if isinstance(dt, torch.dtype):
         if dt in (torch.float32, torch.float64):
             return dt
@@ -28,9 +30,7 @@ def canon_dtype(dt) -> torch.dtype:
         except TypeError as e:
             raise ValueError(f"unsupported dtype {dt!r}") from e
     if name == "df32":
-        raise NotImplementedError(
-            "dtype 'df32' (double-float pairs) is not ported yet: "
-            "ROADMAP slice 3 (precision)")
+        return torch.float32
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {dt!r}; use float32 or float64")
     return _DTYPES[name]
@@ -51,7 +51,7 @@ class SolverConfig:
               true residual did not (api._restarted); 0 is the
               reference's one-pass behaviour.
     dtype:    torch.float32 or torch.float64 (names and numpy dtypes are
-              accepted and canonicalised).
+              accepted and canonicalised; "df32" becomes torch.float32).
     out_iter: print the relative residual every out_iter iterations
               (DISPLAY_RESIDUAL, solver.c:8-9,122-126); 0 is silent and
               is required for the fused float32 route.

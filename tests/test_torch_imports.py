@@ -47,7 +47,9 @@ def test_port_file_imports_no_jax(path):
 def test_scan_sees_every_module_and_tells_the_names_apart():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for must in ("chip_smoke.py", "mpi_bicgstab_tpu_torch/api.py",
-                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic.py"):
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic_df.py",
+                 "mpi_bicgstab_tpu_torch/ops/precision.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
                    "from mpi_bicgstab_tpu_torch.ops import dia\n")

@@ -9,7 +9,9 @@ conftest):
 
 The plain twins themselves are held to the JAX package in the CPU tests
 (test_torch_fused_classic.py, test_torch_fused_ca.py,
-test_torch_fused_pipe.py, test_torch_layout.py).
+test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
+test_torch_layout.py). The one host-side test here
+(test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
 (the kernels contract multiply-adds into FMAs and sum the dots in
@@ -17,20 +19,31 @@ another order than PyTorch; the CA and pipe kernels' dots also take
 atol 1e-3, as in the CPU tests, because a dot of two independent random
 vectors can cancel to ~1 while its rounding follows the terms); float64
 rtol 1e-12 with atol 1e-12 times the output's largest entry (rows whose
-terms cancel keep the rounding of the largest terms).
+terms cancel keep the rounding of the largest terms). Double-float (DF)
+kernels: output vectors and folded scalars bit-equal to the twin's, each
+dot within 1e-12 sum |u_i v_i| (the kernels sum their compensated
+partials in another order).
 """
+import contextlib
+import io
+
 import numpy as np
 import pytest
 import torch
 
+from mpi_bicgstab_tpu_torch import cli, convert
 from mpi_bicgstab_tpu_torch.api import solve
 from mpi_bicgstab_tpu_torch.models.generators import banded_random
 from mpi_bicgstab_tpu_torch.models.problem import build_problem
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia
+from mpi_bicgstab_tpu_torch.ops.layout import build_operator, spmv
+from mpi_bicgstab_tpu_torch.ops.precision import (df_div, df_from_f64,
+                                                  df_mul, df_to_f64, is_df)
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
 torch.set_num_threads(1)
@@ -274,3 +287,191 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):        # band of the wrong width
         fpipe.fused_phase_b(A.vals[:, :100], x, x, x, x, x, x, x, x,
                             (z, z), A.offsets)
+
+
+# --- double-float (df32) ------------------------------------------------------
+
+def _df_vecs(n, k, dev, seed=1):
+    g = np.random.default_rng(seed)
+    return [df_from_f64(g.standard_normal(n), dev) for _ in range(k)]
+
+
+def _df_scalars(dev, *values):
+    """0-d DF pairs with a non-zero lo half."""
+    return [df_from_f64(np.float64(v) * (1 + 1e-9), dev) for v in values]
+
+
+def _same(a, b):
+    return torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)
+
+
+def _df_check(got, want, n_vec, pairs, folded=None):
+    """Vectors bit-equal, dots within 1e-12 sum|u v|, and the folded
+    scalar equal to the twin's formula on the kernel's own dots."""
+    for i in range(n_vec):
+        assert _same(got[i], want[i]), f"output {i}"
+    for j, (u, v) in enumerate(pairs):
+        k = n_vec + j
+        scale = float(np.abs(df_to_f64(u) * df_to_f64(v)).sum())
+        assert abs(float(got[k]) - float(want[k])) <= 1e-12 * scale, j
+    if folded is not None:
+        assert _same(got[-1], folded)
+
+
+def _df_kernel_runs(A, dev):
+    """(kernel, plain, args, n_vec, dots' pairs of the outputs, folded
+    scalar of the outputs) for the four DF kernels."""
+    n = A.n_rows
+    r, p, s, rh, x, q, y = _df_vecs(n, 7, dev)
+    a, b, w, rtr = _df_scalars(dev, 0.7, 0.3, 0.2, 2.5)
+    v, o = A.vals, A.offsets
+    return [
+        (cuda_spmv.dia_spmv_df, cuda_spmv.dia_spmv_df_plain, (v, o, x),
+         1, lambda out: [], None),
+        (fcldf.fused_k1_df, fcldf.fused_k1_df_plain,
+         (v, r, p, s, rh, (b, w, rtr), o), 2,
+         lambda out: [(rh, out[1])], lambda out: df_div(rtr, out[2])),
+        (fcldf.fused_k2_df, fcldf.fused_k2_df_plain, (v, r, s, (a,), o), 2,
+         lambda out: [(out[0], out[1]), (out[1], out[1])],
+         lambda out: df_div(out[2], out[3])),
+        (fcldf.fused_k3_df, fcldf.fused_k3_df_plain,
+         (x, p, q, y, rh, (a, w, rtr)), 2,
+         lambda out: [(out[1], out[1]), (rh, out[1])],
+         lambda out: df_mul(df_div(a, w), df_div(out[3], rtr))),
+    ]
+
+
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_df_kernels_match_plain_bit_for_bit(n, offsets):
+    dev = _card()
+    A = _band(n, offsets, "df32", dev)
+    for kern, plain, args, n_vec, pairs, folded in _df_kernel_runs(A, dev):
+        before = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        _df_check(got, want, n_vec, pairs(got),
+                  folded(got) if folded else None)
+
+
+def test_df_dots_are_deterministic():
+    dev = _card()
+    A = _band(16384, [1, -1, 40, -40], "df32", dev)
+    for kern, _, args, _, _, _ in _df_kernel_runs(A, dev):
+        runs = [kern(*args) for _ in range(2)]
+        runs = [o if isinstance(o, tuple) else (o,) for o in runs]
+        for g, w in zip(*runs):
+            assert _same(g, w), kern.__name__
+
+
+def test_df32_fused_route_launches_each_pass_once_per_iteration():
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="df32", device=dev)
+    fns = {"fused_k1_df": fcldf.fused_k1_df, "fused_k2_df": fcldf.fused_k2_df,
+           "fused_k3_df": fcldf.fused_k3_df,
+           "dia_spmv_df": cuda_spmv.dia_spmv_df, "fused_k1": fcl.fused_k1,
+           "dia_spmv": cuda_spmv.dia_spmv}
+    for fn in fns.values():
+        fn.launches = 0
+    res = solve(prob.A, prob.b,
+                cfg=SolverConfig(tol=0.0, max_iter=25, dtype="df32"))
+    assert res.n_iter == 25
+    assert {k: fn.launches for k, fn in fns.items()} == {
+        "fused_k1_df": 25, "fused_k2_df": 25, "fused_k3_df": 25,
+        "dia_spmv_df": 2, "fused_k1": 0, "dia_spmv": 0}
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2"])
+def test_df32_solve_on_card_matches_cpu(method):
+    dev = _card()
+    csr = banded_random(20000, [1, -1, 40, -40, 2000, -2000], seed=3)
+    cfg = SolverConfig(tol=1e-11, max_iter=300, dtype="df32")
+    res = {}
+    for d in (dev, "cpu"):
+        prob = build_problem(csr, dtype="df32", device=d)
+        res[d] = solve(prob.A, prob.b, method=method, cfg=cfg)
+    assert bool(res[dev].converged) and bool(res["cpu"].converged)
+    assert abs(res[dev].n_iter - res["cpu"].n_iter) <= 2
+    assert np.abs(df_to_f64(res[dev].x) - 1.0).max() < 1e-8
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2"])
+def test_tol0_df32_solve_replays_as_a_cuda_graph(method):
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="df32", device=dev)
+    cfg = SolverConfig(tol=0.0, max_iter=10, dtype="df32")
+    eager = solve(prob.A, prob.b, method=method, cfg=cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve(prob.A, prob.b, method=method, cfg=cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        res = solve(prob.A, prob.b, method=method, cfg=cfg)
+    g.replay()
+    torch.cuda.synchronize()
+    assert res.n_iter == 10 and _same(res.x, eager.x)
+    torch.testing.assert_close(res.history, eager.history, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def test_df_wrappers_raise_instead_of_falling_back():
+    dev = _card()
+    A = _band(4096, [1, -1, 64, -64], "df32", dev)
+    x, = _df_vecs(4096, 1, dev)
+    a, = _df_scalars(dev, 0.7)
+    with pytest.raises(TypeError):         # float32 vector, not a pair
+        cuda_spmv.dia_spmv_df(A.vals, A.offsets, x.hi)
+    with pytest.raises(ValueError):        # band on the CPU
+        cuda_spmv.dia_spmv_df(A.vals.to("cpu"), A.offsets, x)
+    with pytest.raises(TypeError):         # scalar not a pair
+        fcldf.fused_k2_df(A.vals, x, x, (a.hi,), A.offsets)
+    with pytest.raises(ValueError):        # scalar on the CPU
+        fcldf.fused_k2_df(A.vals, x, x, (a.to("cpu"),), A.offsets)
+    with pytest.raises(ValueError):        # missing scalar
+        fcldf.fused_k3_df(x, x, x, x, x, (a, a))
+    with pytest.raises(ValueError):        # vector of the wrong length
+        fcldf.fused_k1_df(A.vals, x, x, x[:100], x, (a, a, a), A.offsets)
+
+
+def test_df32_host_side_end_to_end(tmp_path):
+    """No card needed: the df32 problem build, the DF layouts and their
+    SpMVs against the float64 CSR product, an operator and vectors
+    carried through convert, and `solve --dtype df32 --device cpu`."""
+    csr = banded_random(3000, [1, -1, 40, -40], seed=5)
+    prob = build_problem(csr, dtype="df32", device="cpu")
+    assert is_df(prob.A.vals) and is_df(prob.b) and is_df(prob.x0)
+    assert prob.A.dtype == torch.float32 and fcldf.format_ok(
+        prob.A, torch.float32)
+    np.testing.assert_allclose(df_to_f64(prob.b),
+                               csr.matvec(np.ones(csr.nrows)), rtol=1e-14)
+    x64 = np.random.default_rng(2).standard_normal(csr.nrows)
+    want = csr.matvec(x64)
+    ell = build_operator(csr, format="ell", dtype="df32", device="cpu")
+    carried = convert.operator_from_arrays(
+        "dia", {"vals_hi": prob.A.vals.hi.numpy(),
+                "vals_lo": prob.A.vals.lo.numpy()},
+        {"offsets": prob.A.offsets, "n": csr.nrows}, device="cpu")
+    split = df_from_f64(x64)
+    xdf = convert.df_from_arrays(split.hi.numpy(), split.lo.numpy(),
+                                 device="cpu")
+    for op in (prob.A, ell, carried):
+        y = spmv(op, xdf)
+        assert is_df(y)
+        np.testing.assert_allclose(df_to_f64(y), want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
+    sol = tmp_path / "x.npy"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["solve", "--matrix", "banded:3000", "--dtype",
+                         "df32", "--tol", "1e-11", "--device", "cpu",
+                         "--write-solution", str(sol)])
+    assert code == 0 and "converged: True" in out.getvalue()
+    x = np.load(sol)
+    assert x.dtype == np.float64 and np.abs(x - 1.0).max() < 1e-8

@@ -131,14 +131,20 @@ def test_unported_options_raise_naming_their_slice():
                            cfg=SolverConfig(tol=1e-10)).converged)
     with pytest.raises(NotImplementedError, match="slice 7"):
         tapi.solve(pt.A, pt.b, precond=object())
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        SolverConfig(dtype="df32")
+    # slice 3a is ported: df32 is a config dtype (float32, as in JAX);
+    # the df32 CA and pipelined kernels are slice 3b's
+    assert SolverConfig(dtype="df32").dtype == torch.float32
+    pdf = tprob.build_problem(tgen.poisson2d(8), dtype="df32", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        tapi.solve(pdf.A, pdf.b, method="ca_bicgstab",
+                   cfg=SolverConfig(tol=1e-10, dtype="df32"))
     with pytest.raises(ValueError):
         tapi.solve(pt.A, pt.b, method="gmres")
-    with pytest.raises(SystemExit):       # argparse refuses df32
+    with pytest.raises(SystemExit):       # argparse refuses float16
         from mpi_bicgstab_tpu_torch import cli
         with contextlib.redirect_stderr(io.StringIO()):
-            cli.main(["solve", "--matrix", "banded:512", "--dtype", "df32"])
+            cli.main(["solve", "--matrix", "banded:512", "--dtype",
+                      "float16"])
 
 
 def _run_module(argv, monkeypatch):
