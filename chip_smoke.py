@@ -28,18 +28,21 @@ numbers; any failure exits non-zero:
              --nrr 2, so that replacement iterations fire) take the fused
              kernels; f64 classic, f64 pipelined-RR and f64 BiCGStab(2) the
              unfused solvers over the float64 DIA SpMV kernel; df32
-             classic the fused DF kernels (n_iter within 2 of f64's,
-             true_relres <= 1e-8) and df32 BiCGStab(2) the unfused solver
-             over the DF SpMV kernel. (At tol
-             1e-5 the stopping rule itself allows max|x-1| of about 2e-3
-             at this n in f32, in the JAX package as in the port.)
+             classic, CA, pipelined and pipelined-RR the fused DF kernels
+             (true_relres <= 1e-8; n_iter within 2 of f64 classic's for
+             classic, and of the same method's unfused DF solver over the
+             DF SpMV kernel, run once beside the path, for the others) and
+             df32 BiCGStab(2) the unfused solver over the DF SpMV kernel.
+             (At tol 1e-5 the stopping rule itself allows max|x-1| of
+             about 2e-3 at this n in f32, in the JAX package as in the
+             port.)
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
-             pipelined BiCGStab and of df32 classic (tol=0 chains of 200
-             iterations) as the host issues it and as a replayed CUDA
-             graph (the device's own time; their ratio is the device's
-             busy share), beside their byte floors; each kernel against
-             its bound, its plain version and, for the f32/f64 SpMV,
-             torch's CSR product
+             pipelined BiCGStab and of df32 classic, CA and pipelined
+             (tol=0 chains of 200 iterations) as the host issues it and as
+             a replayed CUDA graph (the device's own time; their ratio is
+             the device's busy share), beside their byte floors; each
+             kernel against its bound, its plain version and, for the
+             f32/f64 SpMV, torch's CSR product
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -85,6 +88,10 @@ REPLACES = {
     "fused_k1_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:107",
     "fused_k2_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:139",
     "fused_k3_df": "mpi_bicgstab_tpu/ops/pallas_fused_classic_df.py:165",
+    "fused_ca_k1_df": "mpi_bicgstab_tpu/ops/pallas_fused_ca_df.py:90",
+    "fused_ca_k2_df": "mpi_bicgstab_tpu/ops/pallas_fused_ca_df.py:137",
+    "fused_phase_a_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:170",
+    "fused_phase_b_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:205",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -100,12 +107,19 @@ SOURCES = {
     "fused_k1_df": _CSRC + "fused_classic_df.cu",
     "fused_k2_df": _CSRC + "fused_classic_df.cu",
     "fused_k3_df": _CSRC + "fused_classic_df.cu",
+    "fused_ca_k1_df": _CSRC + "fused_ca_df.cu",
+    "fused_ca_k2_df": _CSRC + "fused_ca_df.cu",
+    "fused_phase_a_df": _CSRC + "fused_pipe_df.cu",
+    "fused_phase_b_df": _CSRC + "fused_pipe_df.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
-# the pipelined methods) and the true residual at exit
+# the pipelined methods) and the true residual at exit. The fused DF
+# pipelined drivers take no t0: their phase A multiplies w itself.
 SEGMENT_SPMVS = {"bicgstab": 2, "ca_bicgstab": 3, "pipe_bicgstab": 4,
                  "pipe_bicgstab_rr": 4, "bicgstab_l2": 2, "bicgstab_l4": 2}
+SEGMENT_SPMVS_DF = {**SEGMENT_SPMVS, "pipe_bicgstab": 3,
+                    "pipe_bicgstab_rr": 3}
 # phase: (method, dtype, tol, extra CLI arguments); each path's kernels
 # and launch rule are in expected_counts
 PATHS = {
@@ -120,6 +134,10 @@ PATHS = {
     "l2": ("bicgstab_l2", "float64", 1e-10, ()),
     "df32": ("bicgstab", "df32", 1e-10, ()),
     "l2_df32": ("bicgstab_l2", "df32", 1e-10, ()),
+    "ca_df32": ("ca_bicgstab", "df32", 1e-10, ()),
+    "pipe_df32": ("pipe_bicgstab", "df32", 1e-10, ()),
+    "pipe_rr_df32": ("pipe_bicgstab_rr", "df32", 1e-10,
+                     ("--krr", str(KRR), "--nrr", str(NRR))),
 }
 # the path whose run gives each kernel's launches in the kernels line
 LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
@@ -134,7 +152,11 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "dia_spmv_df": ("df32", "dia_spmv_df"),
                  "fused_k1_df": ("df32", "fused_k1_df"),
                  "fused_k2_df": ("df32", "fused_k2_df"),
-                 "fused_k3_df": ("df32", "fused_k3_df")}
+                 "fused_k3_df": ("df32", "fused_k3_df"),
+                 "fused_ca_k1_df": ("ca_df32", "fused_ca_k1_df"),
+                 "fused_ca_k2_df": ("ca_df32", "fused_ca_k2_df"),
+                 "fused_phase_a_df": ("pipe_df32", "fused_phase_a_df"),
+                 "fused_phase_b_df": ("pipe_df32", "fused_phase_b_df")}
 
 
 class SmokeFailure(RuntimeError):
@@ -148,9 +170,11 @@ def _say(phase: str, **fields) -> None:
 
 def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
@@ -160,7 +184,11 @@ def _counters():
             "dia_spmv_df": cuda_spmv.dia_spmv_df,
             "fused_k1_df": fcldf.fused_k1_df,
             "fused_k2_df": fcldf.fused_k2_df,
-            "fused_k3_df": fcldf.fused_k3_df}
+            "fused_k3_df": fcldf.fused_k3_df,
+            "fused_ca_k1_df": fcadf.fused_ca_k1_df,
+            "fused_ca_k2_df": fcadf.fused_ca_k2_df,
+            "fused_phase_a_df": fpipedf.fused_phase_a_df,
+            "fused_phase_b_df": fpipedf.fused_phase_b_df}
 
 
 def reset_counts() -> None:
@@ -242,7 +270,7 @@ def kernel_inputs(csr, device="cuda", seed=0) -> dict:
            "r": vec(), "p": vec(), "s": vec(), "r_hat": vec(), "x": vec(),
            "q": vec(), "y": vec(), "alpha": sc(0.7), "beta": sc(0.3),
            "omega": sc(0.2), "w": vec(), "z": vec()}
-    for k in ("r", "p", "s", "r_hat", "x", "q", "y"):
+    for k in ("r", "p", "s", "r_hat", "x", "q", "y", "w", "z", "v", "t"):
         inp["df_" + k] = df_from_f64(rng.standard_normal(csr.nrows), device)
     for k, v in (("alpha", 0.7), ("beta", 0.3), ("omega", 0.2),
                  ("rTr", 2.5)):
@@ -297,14 +325,21 @@ def kernel_calls(inp: dict) -> dict:
 def df_kernel_calls(inp: dict) -> dict:
     """The DF kernels' entries of kernel_calls: each call returns a tuple
     of DF pairs, vectors first, then dots, then the folded scalar."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     A = inp["Adf"]
     v, o = A.vals, A.offsets
-    r, p, s, rh, x, q, y = (inp["df_" + k] for k in
-                            ("r", "p", "s", "r_hat", "x", "q", "y"))
+    r, p, s, rh, x, q, y, wv, z, vv, t = (
+        inp["df_" + k] for k in
+        ("r", "p", "s", "r_hat", "x", "q", "y", "w", "z", "v", "t"))
     a, b, w, rtr = (inp["df_" + k] for k in
                     ("alpha", "beta", "omega", "rTr"))
+    ca1 = (v, r, p, s, wv, z, (a, b, w), o)
+    ca2 = (v, q, y, x, p, rh, s, z, (a, w, rtr), o)
+    pa = (v, wv, r, p, s, z, vv, (a, b, w), o)
+    pb = (v, z, x, p, q, y, t, rh, s, (a, w, rtr), o)
     return {
         "dia_spmv_df": (lambda: (cuda_spmv.dia_spmv_df(v, o, x),),
                         lambda: (cuda_spmv.dia_spmv_df_plain(v, o, x),),
@@ -320,6 +355,16 @@ def df_kernel_calls(inp: dict) -> dict:
             lambda: fcldf.fused_k3_df(x, p, q, y, rh, (a, w, rtr)),
             lambda: fcldf.fused_k3_df_plain(x, p, q, y, rh, (a, w, rtr)),
             "df32"),
+        "fused_ca_k1_df": (lambda: fcadf.fused_ca_k1_df(*ca1),
+                           lambda: fcadf.fused_ca_k1_df_plain(*ca1), "df32"),
+        "fused_ca_k2_df": (lambda: fcadf.fused_ca_k2_df(*ca2),
+                           lambda: fcadf.fused_ca_k2_df_plain(*ca2), "df32"),
+        "fused_phase_a_df": (
+            lambda: fpipedf.fused_phase_a_df(*pa),
+            lambda: fpipedf.fused_phase_a_df_plain(*pa), "df32"),
+        "fused_phase_b_df": (
+            lambda: fpipedf.fused_phase_b_df(*pb),
+            lambda: fpipedf.fused_phase_b_df_plain(*pb), "df32"),
     }
 
 
@@ -328,8 +373,21 @@ def df_outputs(name: str, out: tuple, inp: dict):
     pair of each dot, the folded scalars recomputed from the outputs'
     own dots with the twin's formulas, ops/precision.py)."""
     from mpi_bicgstab_tpu_torch.ops.precision import df_div, df_mul
-    a, w, rtr, rh = (inp["df_" + k] for k in
-                     ("alpha", "omega", "rTr", "r_hat"))
+    from mpi_bicgstab_tpu_torch.solvers.base import fold_beta_alpha
+    a, w, rtr, rh, s, z = (inp["df_" + k] for k in
+                           ("alpha", "omega", "rTr", "r_hat", "s", "z"))
+    if name in ("fused_ca_k1_df", "fused_phase_a_df"):
+        # [t,] p2, s2, z2, q, y, (q, y), (y, y), omega2
+        nv = 5 if name == "fused_ca_k1_df" else 6
+        q, y = out[nv - 2], out[nv - 1]
+        return nv, [(q, y), (y, y)], [df_div(out[nv], out[nv + 1])]
+    if name in ("fused_ca_k2_df", "fused_phase_b_df"):
+        # [v2,] x2, r2, w2, the five dots of r2, w2 and the inputs s2 = s,
+        # z2 = z, beta2, alpha2
+        nv = 3 if name == "fused_ca_k2_df" else 4
+        r2, w2 = out[nv - 2], out[nv - 1]
+        return nv, [(r2, r2), (rh, r2), (rh, w2), (rh, s), (rh, z)], list(
+            fold_beta_alpha(a, w, rtr, *out[nv + 1:nv + 5]))
     if name == "dia_spmv_df":
         return 1, [], []
     if name == "fused_k1_df":       # p2, s2, (r^, s2), alpha
@@ -426,19 +484,24 @@ def check_counts(method: str, dtype: str, it: int, counts: dict,
     """The launch counts that a converged run of `method` on its route
     must show after `it` iterations in all (over every restart segment);
     raises SmokeFailure otherwise. A pipelined-RR replacement iteration
-    launches six SpMVs and no phase kernel. df32 runs the DF kernels
-    (the DF SpMV in place of the float one) and no float32 kernel."""
+    launches six SpMVs (five in df32, which forms no t = A w) and no
+    phase kernel. df32 runs the DF kernels (the DF SpMV in place of the
+    float one) and no float32 kernel."""
     used = {"bicgstab": ("fused_k1", "fused_k2", "fused_k3"),
             "ca_bicgstab": ("fused_ca_k1", "fused_ca_k2"),
             "pipe_bicgstab": ("fused_phase_a", "fused_phase_b"),
             "pipe_bicgstab_rr": ("fused_phase_a", "fused_phase_b")}
-    used_df = {"bicgstab": ("fused_k1_df", "fused_k2_df", "fused_k3_df")}
+    used_df = {"bicgstab": ("fused_k1_df", "fused_k2_df", "fused_k3_df"),
+               "ca_bicgstab": ("fused_ca_k1_df", "fused_ca_k2_df"),
+               "pipe_bicgstab": ("fused_phase_a_df", "fused_phase_b_df"),
+               "pipe_bicgstab_rr": ("fused_phase_a_df", "fused_phase_b_df")}
     rr = method == "pipe_bicgstab_rr"
+    df = dtype == "df32"
     if device == "cpu" or dtype == "float64":
         fused = ()             # plain twins, or the unfused solver
     else:
-        fused = (used_df if dtype == "df32" else used).get(method, ())
-    n_rr = it - counts["fused_phase_a"] if fused and rr else 0
+        fused = (used_df if df else used).get(method, ())
+    n_rr = it - counts[fused[0]] if fused and rr else 0
     spmv_name = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
     for k, v in counts.items():
         if k == spmv_name:
@@ -453,13 +516,14 @@ def check_counts(method: str, dtype: str, it: int, counts: dict,
     else:
         # the unfused solvers launch 2 SpMVs per (classic-equivalent)
         # iteration, a replacement 4 more; the fused drivers none per
-        # iteration, a replacement 6
-        per_iter, per_rr = (0, 6) if fused else (2, 4)
+        # iteration, a replacement 6 (5 in df32)
+        per_iter, per_rr = (0, 5 if df else 6) if fused else (2, 4)
+        segment = (SEGMENT_SPMVS_DF if fused and df else SEGMENT_SPMVS)
         rrs = [0]
         if rr:       # at least one replacement: the path is set up so
             rrs = [n_rr] if fused else range(1, NRR * (restarts + 1) + 1)
-        ok = any(_fits(spmv - per_iter * it - per_rr * r,
-                       SEGMENT_SPMVS[method], restarts) and (r >= 1 or not rr)
+        ok = any(_fits(spmv - per_iter * it - per_rr * r, segment[method],
+                       restarts) and (r >= 1 or not rr)
                  for r in rrs)
     if not ok:
         raise SmokeFailure(f"{method} {dtype}: {spmv} SpMV launches in {it} "
@@ -525,6 +589,20 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return 8 * (W * n + 4 * n + 4), fma * (nz + n) + 2 * dot * n, "df32"
     if name == "fused_k3_df":   # + rTr in, beta out
         return 8 * (7 * n + 6), 3 * fma * n + 2 * dot * n, "df32"
+    # DF CA passes and pipelined phases: (vectors in, vectors out, scalars
+    # in + dots and folded scalars out, df_fma updates per row, dots).
+    # CA K1: r p s w z in; p' s' z' q y out; omega' folded. CA K2: q y x
+    # p' r^ s' z' in; x' r' w' out; beta', alpha' folded. Phase A: w r p s
+    # z v in; t p' s' z' q y out. Phase B: z' x p' q y t r^ s' in; v' x' r'
+    # w' out.
+    df_counts = {"fused_ca_k1_df": (5, 5, 3 + 2 + 1, 6, 2),
+                 "fused_ca_k2_df": (7, 3, 3 + 5 + 2, 3, 5),
+                 "fused_phase_a_df": (6, 6, 3 + 2 + 1, 8, 2),
+                 "fused_phase_b_df": (8, 4, 3 + 5 + 2, 5, 5)}
+    if name in df_counts:
+        n_in, n_out, n_sc, n_fma, n_dot = df_counts[name]
+        return (8 * (W * n + (n_in + n_out) * n + n_sc),
+                fma * (nz + n_fma * n) + dot * n_dot * n, "df32")
     # (vectors in, vectors out, scalars in + dots out); each of these
     # does one band product and 16 flops per row in its updates and dots.
     # CA K1: r p s w z in; p' s' z' q y out. CA K2: q y x p' r^ s' z'
@@ -588,6 +666,22 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
     return out
 
 
+def unfused_df_iters(probdf, phase: str) -> tuple[int, bool]:
+    """(n_iter, converged) of the unfused DF solver of PATHS[phase]'s
+    method over the DF SpMV kernel at the path's tol: the yardstick of
+    that path's fused DF driver."""
+    from mpi_bicgstab_tpu_torch.ops.cuda_spmv import dia_spmv_df
+    from mpi_bicgstab_tpu_torch.parallel.comm import Comm
+    from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    method, dtype, tol, _ = PATHS[phase]
+    A = probdf.A
+    res = CLASSIC_SOLVERS[method](
+        lambda v: dia_spmv_df(A.vals, A.offsets, v), Comm(), probdf.b,
+        probdf.x0, SolverConfig(tol=tol, dtype=dtype, krr=KRR, nrr=NRR))
+    return res.n_iter, bool(res.converged)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -626,6 +720,15 @@ def main() -> int:
     if abs(iters["df32"] - iters["f64"]) > 2:
         raise SmokeFailure(f"df32 classic took {iters['df32']} iterations, "
                            f"f64 {iters['f64']}: more than 2 apart")
+    probdf = build_problem(csr, dtype="df32", multiple=1)
+    for phase in ("ca_df32", "pipe_df32", "pipe_rr_df32"):
+        k, conv = unfused_df_iters(probdf, phase)
+        _say(phase, fused_n_iter=iters[phase], unfused_n_iter=k,
+             unfused_converged=conv)
+        if abs(iters[phase] - k) > 2:
+            raise SmokeFailure(f"{phase}: the fused DF driver took "
+                               f"{iters[phase]} iterations, the unfused DF "
+                               f"solver {k}: more than 2 apart")
 
     prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
     n = prob32.n
@@ -646,17 +749,20 @@ def main() -> int:
              device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
              bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
              bytes_per_iter=nbytes)
-    probdf = build_problem(csr, dtype="df32", multiple=1)
-    nbytes = sum(work(k, inp)[0] for k in ("fused_k1_df", "fused_k2_df",
-                                             "fused_k3_df"))
-    eager = bench_iteration(probdf, method="bicgstab", iters=200)
-    dev = bench_iteration(probdf, method="bicgstab", iters=200, graph=True)
-    ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
-    _say("times", method="bicgstab", df32_ms_per_iter=f"{ms:.4f}",
-         device_ms_per_iter=f"{dev_ms:.4f}",
-         device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
-         bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
-         bytes_per_iter=nbytes)
+    df_floors = {   # bytes of one fused DF iteration: its passes' bytes
+        "bicgstab": ("fused_k1_df", "fused_k2_df", "fused_k3_df"),
+        "ca_bicgstab": ("fused_ca_k1_df", "fused_ca_k2_df"),
+        "pipe_bicgstab": ("fused_phase_a_df", "fused_phase_b_df")}
+    for method, kerns in df_floors.items():
+        nbytes = sum(work(k, inp)[0] for k in kerns)
+        eager = bench_iteration(probdf, method=method, iters=200)
+        dev = bench_iteration(probdf, method=method, iters=200, graph=True)
+        ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        _say("times", method=method, df32_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=f"{dev_ms:.4f}",
+             device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
+             bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
+             bytes_per_iter=nbytes)
     del probdf
     sp = bench_spmv(prob32)
     _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",

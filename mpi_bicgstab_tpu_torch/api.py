@@ -16,9 +16,11 @@ import numpy as np
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
 from mpi_bicgstab_tpu_torch.ops.layout import spmv as generic_spmv
 from mpi_bicgstab_tpu_torch.ops.precision import is_df, vzeros_like
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
@@ -33,38 +35,32 @@ FUSED = {"bicgstab": fcl.bicgstab_fused,
          "pipe_bicgstab": fpipe.pipe_bicgstab_fused,
          "pipe_bicgstab_rr": fpipe.pipe_bicgstab_rr_fused}
 # df32 DIA drivers over the fused DF kernels
-FUSED_DF = {"bicgstab": fcldf.bicgstab_fused_df}
-# df32 routes the JAX package sends through DF kernels not ported yet
-_SLICE3B = "ROADMAP slice 3b (the fused DF CA and pipelined kernels)"
+FUSED_DF = {"bicgstab": fcldf.bicgstab_fused_df,
+            "ca_bicgstab": fcadf.ca_bicgstab_fused_df,
+            "pipe_bicgstab": fpipedf.pipe_bicgstab_fused_df,
+            "pipe_bicgstab_rr": fpipedf.pipe_bicgstab_rr_fused_df}
+# the df32 route the JAX package sends through DF kernels not ported yet
 _SLICE3C = "ROADMAP slice 3c (the fused DF pipelined iteration bodies)"
-UNPORTED_DF = {"ca_bicgstab": _SLICE3B, "pipe_bicgstab": _SLICE3B,
-               "pipe_bicgstab_rr": _SLICE3B}
 
 
 def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
-    """One solver pass, routed as the JAX `_solve_jit` routes it: float32
-    on a square DiaMatrix takes the method's fused driver (FUSED), df32
-    (DF values) classic BiCGStab its fused DF driver (FUSED_DF);
-    everything else, and BiCGStab(l) always, the unfused solver over the
-    generic SpMV. The route is the same on the CPU and on the card;
-    only each kernel wrapper's choice between kernel and plain twin
-    follows the tensors' device. cfg.out_iter != 0 takes the unfused
-    route, where the periodic residual print lives.
+    """One solver pass, routed as the JAX `_solve_jit` routes it: on a
+    square DiaMatrix, float32 takes the method's fused driver (FUSED)
+    and df32 (DF values) its fused DF driver (FUSED_DF) for classic, CA,
+    pipelined and pipelined-RR BiCGStab; everything else, and
+    BiCGStab(l) always, the unfused solver over the generic SpMV. The
+    route is the same on the CPU and on the card; only each kernel
+    wrapper's choice between kernel and plain twin follows the tensors'
+    device. cfg.out_iter != 0 takes the unfused route, where the
+    periodic residual print lives.
 
-    The df32 methods whose JAX route is a DF kernel not ported yet raise
-    NotImplementedError rather than take the unfused solver: CA,
-    pipelined and pipelined-RR on a DF DiaMatrix (slice 3b), and
-    pipelined BiCGStab on any other operator or with out_iter (the JAX
-    package fuses its DF iteration bodies whatever the layout, slice
-    3c)."""
-    fused_df = is_df(b) and fcldf.format_ok(A, cfg.dtype) \
-        and not cfg.out_iter
-    if fused_df and method in FUSED_DF:
+    df32 pipelined BiCGStab on any other operator or with out_iter
+    raises NotImplementedError rather than take the unfused solver: the
+    JAX package fuses its DF iteration bodies there, kernels not ported
+    yet (slice 3c)."""
+    if is_df(b) and method in FUSED_DF and not cfg.out_iter \
+            and fcldf.format_ok(A, cfg.dtype):
         return FUSED_DF[method](A, b, x0, cfg)
-    if fused_df and method in UNPORTED_DF:
-        raise NotImplementedError(
-            f"df32 {method} on a DIA operator runs fused DF kernels that "
-            f"are not ported yet: {UNPORTED_DF[method]}")
     if is_df(b) and method == "pipe_bicgstab":
         raise NotImplementedError(
             f"df32 pipe_bicgstab runs fused DF iteration bodies that are "

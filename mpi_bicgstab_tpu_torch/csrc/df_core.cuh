@@ -1,5 +1,7 @@
 // Double-float (DF) arithmetic shared by the DF kernels: the DF DIA SpMV
-// (dia_spmv.cu) and the fused DF classic passes (fused_classic_df.cu).
+// (dia_spmv.cu), the fused DF classic passes (fused_classic_df.cu), the
+// fused DF CA passes (fused_ca_df.cu) and the fused DF pipelined phases
+// (fused_pipe_df.cu).
 // Counterpart of mpi_bicgstab_tpu/ops/precision.py (two_sum,
 // quick_two_sum, two_prod, df_add, df_mul, df_div, df_fma), of the DF DIA
 // core `_dia_core_df` (pallas_fused_pipe_df2.py:125-148) and of the
@@ -92,6 +94,16 @@ __device__ __forceinline__ void st_df(float* __restrict__ h,
   h[j] = v.hi;
   l[j] = v.lo;
 }
+
+// A stored DF vector, read as it is (the SpMV input of a pass that
+// recomputes nothing at the neighbours).
+struct WholeSrcDF {
+  const float* __restrict__ h;
+  const float* __restrict__ l;
+  __device__ __forceinline__ df_t operator()(long long j) const {
+    return ld_df(h, l, j);
+  }
+};
 
 // sum_w vals[w, i] * src(i + off[w]), accumulated with df_fma from
 // acc = 0, diagonal by diagonal in offset order (the plain twin's
@@ -189,9 +201,58 @@ __device__ __forceinline__ void store_partials_df(df_t (&v)[K],
   }
 }
 
+// --- scalars folded into the finishing stage ---------------------------
+//
+// A DF scalar travels as (hi, lo) pointers to 0-d tensors. A finishing
+// stage that folds m scalars writes them into a [2, m] tensor, row 0 the
+// hi parts: scalar j at out[j] (hi) and out[m + j] (lo).
+
+__device__ __forceinline__ df_t ld_scalar(const float* h, const float* l) {
+  return {*h, *l};
+}
+
+__device__ __forceinline__ void st_folded(float* out, int m, int j,
+                                          df_t v) {
+  out[j] = v.hi;
+  out[m + j] = v.lo;
+}
+
 // No scalar folded into the finishing stage.
 struct NoFold {
   __device__ void operator()(const df_t*) const {}
+};
+
+struct FoldOmega {  // omega = (q, y) / (y, y)
+  float* out;
+  __device__ void operator()(const df_t* d) const {
+    st_folded(out, 1, 0, df_div(d[0], d[1]));
+  }
+};
+
+// The end of a CA or pipelined iteration, from its five dots
+// d = (r', r'), (r^, r'), (r^, w'), (r^, s'), (r^, z'), in this order:
+//   beta   = (alpha / omega) ((r^, r') / rTr)
+//   alpha' = (r^, r') / ((r^, w') + beta ((r^, s') - omega (r^, z')))
+// (reference solver.c:248-249 and 387-388), written as the twins' DF
+// operators nest it: a - b is df_add(a, df_neg(b)), * df_mul, / df_div.
+struct FoldBetaAlpha {
+  const float* alpha_h;
+  const float* alpha_l;
+  const float* omega_h;
+  const float* omega_l;
+  const float* rtr_h;
+  const float* rtr_l;
+  float* out;  // [2, 2]: beta, alpha'
+  __device__ void operator()(const df_t* d) const {
+    const df_t alpha = ld_scalar(alpha_h, alpha_l);
+    const df_t omega = ld_scalar(omega_h, omega_l);
+    const df_t beta = df_mul(df_div(alpha, omega),
+                             df_div(d[1], ld_scalar(rtr_h, rtr_l)));
+    const df_t den = df_add(
+        d[2], df_mul(beta, df_add(d[3], df_neg(df_mul(omega, d[4])))));
+    st_folded(out, 2, 0, beta);
+    st_folded(out, 2, 1, df_div(d[1], den));
+  }
 };
 
 // Second stage of every DF dot: one block sums the [G, K, 2] partials in a

@@ -74,28 +74,12 @@ struct K2SrcDF {  // q(j) = r[j] - alpha s'[j]
   }
 };
 
-__device__ __forceinline__ df_t ld_scalar(const float* h, const float* l) {
-  return {*h, *l};
-}
-
-__device__ __forceinline__ void st_scalar(float* out, df_t v) {
-  out[0] = v.hi;
-  out[1] = v.lo;
-}
-
 struct FoldAlpha {  // alpha = rTr / (r^, s')
   const float* rtr_h;
   const float* rtr_l;
   float* out;
   __device__ void operator()(const df_t* d) const {
-    st_scalar(out, df_div(ld_scalar(rtr_h, rtr_l), d[0]));
-  }
-};
-
-struct FoldOmega {  // omega = (q, y) / (y, y)
-  float* out;
-  __device__ void operator()(const df_t* d) const {
-    st_scalar(out, df_div(d[0], d[1]));
+    st_folded(out, 1, 0, df_div(ld_scalar(rtr_h, rtr_l), d[0]));
   }
 };
 
@@ -108,9 +92,10 @@ struct FoldBeta {  // beta = (alpha / omega) ((r^, r') / rTr)
   const float* rtr_l;
   float* out;
   __device__ void operator()(const df_t* d) const {
-    st_scalar(out, df_mul(df_div(ld_scalar(alpha_h, alpha_l),
-                                 ld_scalar(omega_h, omega_l)),
-                          df_div(d[1], ld_scalar(rtr_h, rtr_l))));
+    st_folded(out, 1, 0,
+              df_mul(df_div(ld_scalar(alpha_h, alpha_l),
+                            ld_scalar(omega_h, omega_l)),
+                     df_div(d[1], ld_scalar(rtr_h, rtr_l))));
   }
 };
 

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("dia_spmv", "fused_classic", "fused_ca", "fused_pipe",
-           "fused_classic_df")
+           "fused_classic_df", "fused_ca_df", "fused_pipe_df")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

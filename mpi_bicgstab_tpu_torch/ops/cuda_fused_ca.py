@@ -35,7 +35,8 @@ from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
                                                   check_scalars, dia_spmv,
                                                   dia_spmv_plain)
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
-from mpi_bicgstab_tpu_torch.solvers.base import finish, start
+from mpi_bicgstab_tpu_torch.solvers.base import (finish, fold_beta_alpha,
+                                                 start)
 
 
 @functools.cache
@@ -132,8 +133,8 @@ def ca_bicgstab_fused(A, b, x0, cfg):
         omega = qTy / yTy                               # solver.c:232
         x, r, w, dot_r, rTr_new, rhTw, rhTs, rhTz = fused_ca_k2(
             vals, q, y, x, p, r_hat, s, z, (alpha, omega), offsets)
-        beta = (alpha / omega) * (rTr_new / rTr)        # solver.c:248
-        alpha = rTr_new / (rhTw + beta * (rhTs - omega * rhTz))  # :249
+        beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
+                                      rhTs, rhTz)       # solver.c:248-249
         hist.append(dot_r)
         rTr = rTr_new
         k += 1

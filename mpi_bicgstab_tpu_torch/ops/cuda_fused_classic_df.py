@@ -34,12 +34,10 @@ import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
 from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass_argtypes,
-                                                  check_band, check_cuda,
-                                                  check_vectors, dia_spmv_df,
-                                                  dia_spmv_df_plain,
-                                                  grid_blocks, offsets_arg,
-                                                  stream_arg)
-from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_div, df_dot, df_fma,
+                                                  check_scalars, df_pass,
+                                                  dia_spmv_df,
+                                                  dia_spmv_df_plain)
+from mpi_bicgstab_tpu_torch.ops.precision import (df_div, df_dot, df_fma,
                                                   df_mul, is_df, vvalue,
                                                   vzeros_like)
 
@@ -66,55 +64,6 @@ def format_ok(A, dtype) -> bool:
             and A.n_diags >= 1)
 
 
-def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
-            scalars: dict, n_out: int, n_dots: int):
-    """Check and launch a DF pass whose C launcher takes ([offsets,
-    n_diags,] n, [vals hi, lo,] then (hi, lo) of every vector and scalar
-    in the dicts' order, of n_out fresh output vectors, then partials,
-    dots, the folded scalar and the stream). vals None: a pointwise pass.
-    Returns (outputs, dots, folded scalar), all DF; the dots and the
-    scalar are 0-d views of [2, n_dots] and [2] tensors (row 0 hi)."""
-    first = next(iter(vecs.values()))
-    for name, v in (*vecs.items(), *scalars.items()):
-        if not is_df(v):
-            raise TypeError(f"{what}: {name} must be a DF pair")
-    n = first.hi.shape[0]
-    parts = {}
-    for name, v in vecs.items():
-        check_vectors(what, n, **{f"{name}.hi": v.hi, f"{name}.lo": v.lo})
-        parts[f"{name}.hi"], parts[f"{name}.lo"] = v.hi, v.lo
-    for name, v in scalars.items():
-        if v.hi.numel() != 1 or v.lo.numel() != 1:
-            raise ValueError(f"{what}: scalar {name} has shape "
-                             f"{tuple(v.shape)}")
-        parts[f"{name}.hi"], parts[f"{name}.lo"] = v.hi, v.lo
-    head = [n]
-    if vals is not None:
-        if not is_df(vals):
-            raise TypeError(f"{what}: vals must be a DF pair")
-        check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
-                   **parts)
-        check_band(what, vals.hi, offsets, n)
-        check_band(what, vals.lo, offsets, n)
-        head = [offsets_arg(offsets), len(offsets), n, vals.hi.data_ptr(),
-                vals.lo.data_ptr()]
-    else:
-        check_cuda(what, torch.float32, **parts)
-    outs = [DF(torch.empty_like(first.hi), torch.empty_like(first.hi))
-            for _ in range(n_out)]
-    partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
-    dots = first.hi.new_empty((2, n_dots))
-    folded = first.hi.new_empty(2)
-    err = getattr(lib, symbol)(
-        *head, *(t.data_ptr() for t in parts.values()),
-        *(t.data_ptr() for o in outs for t in (o.hi, o.lo)),
-        partials.data_ptr(), dots.data_ptr(), folded.data_ptr(),
-        stream_arg())
-    _build.check(lib, err, what)
-    return (outs, [DF(dots[0, k], dots[1, k]) for k in range(n_dots)],
-            DF(folded[0], folded[1]))
-
-
 # --- K1 ---------------------------------------------------------------------
 
 def fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets):
@@ -132,11 +81,10 @@ def fused_k1_df(vals, r, p, s, r_hat, scalars, offsets: tuple):
     if r.device.type == "cpu":
         return fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets)
     what = "fused_k1_df"
-    beta, omega, rTr = _three(what, scalars)
-    (p2, s2), (rhTs,), alpha = df_pass(
+    (p2, s2), (rhTs,), (alpha,) = df_pass(
         _lib(), "mbt_fused_k1_df", what, vals, offsets,
         dict(r=r, p=p, s=s, r_hat=r_hat),
-        dict(beta=beta, omega=omega, rTr=rTr), 2, 1)
+        check_scalars(what, ("beta", "omega", "rTr"), scalars), 2, 1)
     fused_k1_df.launches += 1
     return p2, s2, rhTs, alpha
 
@@ -160,12 +108,9 @@ def fused_k2_df(vals, r, s2, scalars, offsets: tuple):
     if r.device.type == "cpu":
         return fused_k2_df_plain(vals, r, s2, scalars, offsets)
     what = "fused_k2_df"
-    if len(scalars) != 1:
-        raise ValueError(f"{what}: expected scalars (alpha,), got "
-                         f"{len(scalars)}")
-    (q, y), (qTy, yTy), omega = df_pass(
+    (q, y), (qTy, yTy), (omega,) = df_pass(
         _lib(), "mbt_fused_k2_df", what, vals, offsets, dict(r=r, s2=s2),
-        dict(alpha=scalars[0]), 2, 2)
+        check_scalars(what, ("alpha",), scalars), 2, 2)
     fused_k2_df.launches += 1
     return q, y, qTy, yTy, omega
 
@@ -192,23 +137,15 @@ def fused_k3_df(x, p2, q, y, r_hat, scalars):
     if x.device.type == "cpu":
         return fused_k3_df_plain(x, p2, q, y, r_hat, scalars)
     what = "fused_k3_df"
-    alpha, omega, rTr = _three(what, scalars)
-    (x2, r2), (dot_r, rTr_new), beta = df_pass(
+    (x2, r2), (dot_r, rTr_new), (beta,) = df_pass(
         _lib(), "mbt_fused_k3_df", what, None, None,
         dict(x=x, p2=p2, q=q, y=y, r_hat=r_hat),
-        dict(alpha=alpha, omega=omega, rTr=rTr), 2, 2)
+        check_scalars(what, ("alpha", "omega", "rTr"), scalars), 2, 2)
     fused_k3_df.launches += 1
     return x2, r2, dot_r, rTr_new, beta
 
 
 fused_k3_df.launches = 0
-
-
-def _three(what: str, scalars) -> tuple:
-    if len(scalars) != 3:
-        raise ValueError(f"{what}: expected three scalars, got "
-                         f"{len(scalars)}")
-    return tuple(scalars)
 
 
 # --- the solver -------------------------------------------------------------

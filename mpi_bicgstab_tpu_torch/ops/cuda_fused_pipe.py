@@ -39,7 +39,8 @@ from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
                                                   check_scalars, dia_spmv,
                                                   dia_spmv_plain)
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
-from mpi_bicgstab_tpu_torch.solvers.base import finish, is_rr, start
+from mpi_bicgstab_tpu_torch.solvers.base import (finish, fold_beta_alpha,
+                                                 is_rr, start)
 
 
 @functools.cache
@@ -167,8 +168,8 @@ def _pipe_fused(A, b, x0, cfg, rr: bool):
             w = axpy(-omega, axpy(-alpha, v, t), y)     # solver.c:374-375
             t, x, r, dot_r, rTr_new, rhTw, rhTs, rhTz = fused_phase_b(
                 vals, w, x, p, q, y, r_hat, s, z, (alpha, omega), offsets)
-        beta = (alpha / omega) * (rTr_new / rTr)        # solver.c:387
-        alpha = rTr_new / (rhTw + beta * (rhTs - omega * rhTz))  # :388
+        beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
+                                      rhTs, rhTz)       # solver.c:387-388
         hist.append(dot_r)
         rTr = rTr_new
         k += 1

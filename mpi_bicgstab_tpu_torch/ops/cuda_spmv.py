@@ -7,7 +7,9 @@ csrc/dia_spmv.cu).
 `dia_spmv_df(vals, offsets, x)` (double-float pairs, ops/precision.DF)
 run the plain version for tensors on the CPU and launch the kernel for
 tensors on the card; a CUDA tensor the kernel does not take raises.
-Each wrapper's `.launches` counts its kernel launches.
+Each wrapper's `.launches` counts its kernel launches. `band_pass` and
+`df_pass` check and launch the fused float32 and DF passes of the other
+ops/cuda_fused_*.py modules.
 """
 from __future__ import annotations
 
@@ -96,12 +98,14 @@ def check_vectors(what: str, n: int, **vecs) -> None:
 
 
 def check_scalars(what: str, names: tuple, scalars) -> dict:
-    """The fused kernels' scalars by name; each must hold one value."""
+    """The fused kernels' scalars by name; each must hold one value (a
+    DF scalar in each half)."""
     if len(scalars) != len(names):
         raise ValueError(f"{what}: expected scalars {names}, got "
                          f"{len(scalars)}")
     for name, t in zip(names, scalars):
-        if t.numel() != 1:
+        halves = (t.hi, t.lo) if is_df(t) else (t,)
+        if any(h.numel() != 1 for h in halves):
             raise ValueError(f"{what}: scalar {name} has shape "
                              f"{tuple(t.shape)}")
     return dict(zip(names, scalars))
@@ -144,6 +148,52 @@ def band_pass(lib, symbol: str, what: str, vals, offsets: tuple,
         stream_arg())
     _build.check(lib, err, what)
     return outs, dots
+
+
+def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
+            scalars: dict, n_out: int, n_dots: int, n_fold: int = 1):
+    """Check and launch a DF pass whose C launcher takes ([offsets,
+    n_diags,] n, [vals hi, lo,] then (hi, lo) of every vector and scalar
+    in the dicts' order (scalars from check_scalars), of n_out fresh
+    output vectors, then partials, dots, the folded scalars and the
+    stream). vals None: a pointwise pass. Returns (outputs, dots, folded
+    scalars), all DF; the dots and the scalars are 0-d views of
+    [2, n_dots] and [2, n_fold] tensors (row 0 hi)."""
+    first = next(iter(vecs.values()))
+    for name, v in (*vecs.items(), *scalars.items()):
+        if not is_df(v):
+            raise TypeError(f"{what}: {name} must be a DF pair")
+    n = first.hi.shape[0]
+    parts = {}
+    for name, v in vecs.items():
+        check_vectors(what, n, **{f"{name}.hi": v.hi, f"{name}.lo": v.lo})
+    for name, v in (*vecs.items(), *scalars.items()):
+        parts[f"{name}.hi"], parts[f"{name}.lo"] = v.hi, v.lo
+    head = [n]
+    if vals is not None:
+        if not is_df(vals):
+            raise TypeError(f"{what}: vals must be a DF pair")
+        check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
+                   **parts)
+        check_band(what, vals.hi, offsets, n)
+        check_band(what, vals.lo, offsets, n)
+        head = [offsets_arg(offsets), len(offsets), n, vals.hi.data_ptr(),
+                vals.lo.data_ptr()]
+    else:
+        check_cuda(what, torch.float32, **parts)
+    outs = [DF(torch.empty_like(first.hi), torch.empty_like(first.hi))
+            for _ in range(n_out)]
+    partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
+    dots = first.hi.new_empty((2, n_dots))
+    folded = first.hi.new_empty((2, n_fold))
+    err = getattr(lib, symbol)(
+        *head, *(t.data_ptr() for t in parts.values()),
+        *(t.data_ptr() for o in outs for t in (o.hi, o.lo)),
+        partials.data_ptr(), dots.data_ptr(), folded.data_ptr(),
+        stream_arg())
+    _build.check(lib, err, what)
+    return (outs, [DF(dots[0, k], dots[1, k]) for k in range(n_dots)],
+            [DF(folded[0, k], folded[1, k]) for k in range(n_fold)])
 
 
 def band_pass_argtypes(n_pointers: int) -> list:

@@ -102,3 +102,13 @@ def is_rr(k: int, cfg) -> bool:
     """Is iteration k (0-based) a residual-replacement iteration?
     (solver.c:498: every krr iterations, at most nrr times)"""
     return k > 0 and k <= cfg.krr * cfg.nrr and k % cfg.krr == 0
+
+
+def fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw, rhTs, rhTz):
+    """The end of a CA or pipelined iteration (reference solver.c:248-249
+    and 387-388): (beta', alpha') from the iteration's scalars and its
+    dots. On DF pairs the operators are ops/precision.py's, in the JAX
+    expression's nesting, which the DF kernels' FoldBetaAlpha
+    (csrc/df_core.cuh) follows."""
+    beta = (alpha / omega) * (rTr_new / rTr)
+    return beta, rTr_new / (rhTw + beta * (rhTs - omega * rhTz))

@@ -15,7 +15,8 @@ and CLASSIC_SOLVERS, which also holds BiCGStab(l) (solvers/bicgstab_l.py).
 This is the route for float64, for operators other than a DiaMatrix and
 for BiCGStab(l); the float32 DIA routes are the fused drivers of
 ops/cuda_fused_classic.py, ops/cuda_fused_ca.py and ops/cuda_fused_pipe.py,
-the df32 classic DIA route that of ops/cuda_fused_classic_df.py. The same
+the df32 DIA routes those of ops/cuda_fused_classic_df.py,
+ops/cuda_fused_ca_df.py and ops/cuda_fused_pipe_df.py. The same
 code runs on double-float pairs (df32, ops/precision.DF): axpy and the
 Comm dots take the DF forms, and float(dot_r) reads a pair's exact value.
 
@@ -30,7 +31,8 @@ from __future__ import annotations
 
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
 from mpi_bicgstab_tpu_torch.ops.precision import vzeros_like
-from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish, is_rr,
+from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish,
+                                                 fold_beta_alpha, is_rr,
                                                  maybe_print_residual, start)
 from mpi_bicgstab_tpu_torch.solvers.bicgstab_l import bicgstab_l2, bicgstab_l4
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
@@ -107,8 +109,8 @@ def ca_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
         dot_r, rTr_new, rhTw, rhTs, rhTz = comm.dots(
             (r, r), (r_hat, r), (r_hat, w), (r_hat, s),
             (r_hat, z))                                 # solver.c:236,240-247
-        beta = (alpha / omega) * (rTr_new / rTr)        # solver.c:248
-        alpha = rTr_new / (rhTw + beta * (rhTs - omega * rhTz))  # :249
+        beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
+                                      rhTs, rhTz)       # solver.c:248-249
         hist.append(dot_r)
         maybe_print_residual(cfg, k, dot_r, dot_zero)
         rTr = rTr_new
@@ -167,8 +169,8 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
             (r, r), (r_hat, r), (r_hat, w), (r_hat, s),
             (r_hat, z))                                 # solver.c:373,377-380
         t = spmv(w)                                     # solver.c:381
-        beta = (alpha / omega) * (rTr_new / rTr)        # solver.c:387
-        alpha = rTr_new / (rhTw + beta * (rhTs - omega * rhTz))  # :388
+        beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
+                                      rhTs, rhTz)       # solver.c:387-388
         hist.append(dot_r)
         maybe_print_residual(cfg, k, dot_r, dot_zero)
         rTr = rTr_new
@@ -178,9 +180,10 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
 
 
 def pipe_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
-    """Pipelined BiCGStab (reference solver.c:292-417). For df32 the JAX
-    package fuses the iteration bodies into kernels (slice 3c); api.solve
-    refuses df32 pipe_bicgstab until they are ported."""
+    """Pipelined BiCGStab (reference solver.c:292-417). For df32 off the
+    fused DIA route (other layouts, out_iter) the JAX package fuses the
+    iteration bodies into kernels (slice 3c); api.solve refuses that
+    route until they are ported."""
     return _pipe(spmv, comm, b, x0, cfg, rr=False)
 
 

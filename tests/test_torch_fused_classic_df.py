@@ -343,19 +343,28 @@ def test_fused_df_route_equals_the_unfused_solver_on_the_cpu():
     assert bool(fused.converged) and bool(plain.converged)
 
 
-def test_df32_routes():
-    """The df32 dispatch: classic on a DF DiaMatrix takes the fused DF
-    driver; CA, pipelined and pipelined-RR (whose JAX routes are DF
-    kernels of slice 3b) raise; pipelined BiCGStab raises on any layout
-    (its JAX route fuses the DF bodies, slice 3c); the float32 fused
-    route never takes DF values."""
+def test_df32_routes(monkeypatch):
+    """The df32 dispatch: classic, CA, pipelined and pipelined-RR on a DF
+    DiaMatrix take their fused DF drivers (slices 3a and 3b) and
+    converge; pipelined BiCGStab raises on any other layout and with
+    out_iter (its JAX route fuses the DF bodies there, slice 3c); the
+    float32 fused route never takes DF values."""
     pt = _port_problem(1024, (1, -1, 9, -9), 3)
-    cfg = SolverConfig(tol=1e-10, max_iter=200, dtype="df32")
+    cfg = SolverConfig(tol=1e-10, max_iter=200, krr=3, nrr=2, dtype="df32")
     assert not tfcl.format_ok(pt.A, torch.float32)
     assert not tfd.format_ok(pt.A, torch.float64)
+    taken = []
     for method in ("ca_bicgstab", "pipe_bicgstab", "pipe_bicgstab_rr"):
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            tapi.solve(pt.A, pt.b, method=method, cfg=cfg)
+        def spy(*args, _fn=tapi.FUSED_DF[method], _m=method):
+            taken.append(_m)
+            return _fn(*args)
+        monkeypatch.setitem(tapi.FUSED_DF, method, spy)
+        res = tapi.solve(pt.A, pt.b, method=method, cfg=cfg)
+        assert taken[-1] == method and bool(res.converged), method
+        assert np.abs(_t(res.x) - 1.0).max() < 1e-8
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        tapi.solve(pt.A, pt.b, method="pipe_bicgstab",
+                   cfg=cfg.replace(out_iter=4))
     ell = tlayout.build_operator(pt.csr, format="ell", dtype="df32",
                                  device="cpu")
     assert not tfd.format_ok(ell, torch.float32)

@@ -49,6 +49,8 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
     for must in ("chip_smoke.py", "mpi_bicgstab_tpu_torch/api.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic_df.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_ca_df.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_pipe_df.py",
                  "mpi_bicgstab_tpu_torch/ops/precision.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"

@@ -10,6 +10,7 @@ conftest):
 The plain twins themselves are held to the JAX package in the CPU tests
 (test_torch_fused_classic.py, test_torch_fused_ca.py,
 test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
+test_torch_fused_ca_df.py, test_torch_fused_pipe_df.py,
 test_torch_layout.py). The one host-side test here
 (test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
@@ -36,14 +37,17 @@ from mpi_bicgstab_tpu_torch.api import solve
 from mpi_bicgstab_tpu_torch.models.generators import banded_random
 from mpi_bicgstab_tpu_torch.models.problem import build_problem
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia
 from mpi_bicgstab_tpu_torch.ops.layout import build_operator, spmv
-from mpi_bicgstab_tpu_torch.ops.precision import (df_div, df_from_f64,
+from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_div, df_from_f64,
                                                   df_mul, df_to_f64, is_df)
+from mpi_bicgstab_tpu_torch.solvers.base import fold_beta_alpha
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
 torch.set_num_threads(1)
@@ -305,39 +309,64 @@ def _same(a, b):
     return torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)
 
 
-def _df_check(got, want, n_vec, pairs, folded=None):
+def _df_check(got, want, n_vec, pairs, folded=()):
     """Vectors bit-equal, dots within 1e-12 sum|u v|, and the folded
-    scalar equal to the twin's formula on the kernel's own dots."""
+    scalars (the last outputs) equal to the twin's formula on the
+    kernel's own dots."""
     for i in range(n_vec):
         assert _same(got[i], want[i]), f"output {i}"
     for j, (u, v) in enumerate(pairs):
         k = n_vec + j
         scale = float(np.abs(df_to_f64(u) * df_to_f64(v)).sum())
         assert abs(float(got[k]) - float(want[k])) <= 1e-12 * scale, j
-    if folded is not None:
-        assert _same(got[-1], folded)
+    assert len(got) == n_vec + len(pairs) + len(folded)
+    for j, ref in enumerate(folded):
+        assert _same(got[n_vec + len(pairs) + j], ref), f"folded {j}"
+
+
+def _five_dots(rh, s2, z2, nv):
+    """The dots of a CA K2 / phase B output: (r2, r2), (r^, r2),
+    (r^, w2), (r^, s2), (r^, z2), with r2, w2 its last two vectors."""
+    return lambda out: [(out[nv - 2], out[nv - 2]), (rh, out[nv - 2]),
+                        (rh, out[nv - 1]), (rh, s2), (rh, z2)]
 
 
 def _df_kernel_runs(A, dev):
     """(kernel, plain, args, n_vec, dots' pairs of the outputs, folded
-    scalar of the outputs) for the four DF kernels."""
+    scalars of the outputs) for the eight DF kernels."""
     n = A.n_rows
-    r, p, s, rh, x, q, y = _df_vecs(n, 7, dev)
+    r, p, s, rh, x, q, y, wv, z, vv, t = _df_vecs(n, 11, dev)
     a, b, w, rtr = _df_scalars(dev, 0.7, 0.3, 0.2, 2.5)
     v, o = A.vals, A.offsets
     return [
         (cuda_spmv.dia_spmv_df, cuda_spmv.dia_spmv_df_plain, (v, o, x),
-         1, lambda out: [], None),
+         1, lambda out: [], lambda out: []),
         (fcldf.fused_k1_df, fcldf.fused_k1_df_plain,
          (v, r, p, s, rh, (b, w, rtr), o), 2,
-         lambda out: [(rh, out[1])], lambda out: df_div(rtr, out[2])),
+         lambda out: [(rh, out[1])], lambda out: [df_div(rtr, out[2])]),
         (fcldf.fused_k2_df, fcldf.fused_k2_df_plain, (v, r, s, (a,), o), 2,
          lambda out: [(out[0], out[1]), (out[1], out[1])],
-         lambda out: df_div(out[2], out[3])),
+         lambda out: [df_div(out[2], out[3])]),
         (fcldf.fused_k3_df, fcldf.fused_k3_df_plain,
          (x, p, q, y, rh, (a, w, rtr)), 2,
          lambda out: [(out[1], out[1]), (rh, out[1])],
-         lambda out: df_mul(df_div(a, w), df_div(out[3], rtr))),
+         lambda out: [df_mul(df_div(a, w), df_div(out[3], rtr))]),
+        (fcadf.fused_ca_k1_df, fcadf.fused_ca_k1_df_plain,
+         (v, r, p, s, wv, z, (a, b, w), o), 5,
+         lambda out: [(out[3], out[4]), (out[4], out[4])],
+         lambda out: [df_div(out[5], out[6])]),
+        (fcadf.fused_ca_k2_df, fcadf.fused_ca_k2_df_plain,
+         (v, q, y, x, p, rh, s, z, (a, w, rtr), o), 3,
+         _five_dots(rh, s, z, 3),
+         lambda out: list(fold_beta_alpha(a, w, rtr, *out[4:8]))),
+        (fpipedf.fused_phase_a_df, fpipedf.fused_phase_a_df_plain,
+         (v, wv, r, p, s, z, vv, (a, b, w), o), 6,
+         lambda out: [(out[4], out[5]), (out[5], out[5])],
+         lambda out: [df_div(out[6], out[7])]),
+        (fpipedf.fused_phase_b_df, fpipedf.fused_phase_b_df_plain,
+         (v, z, x, p, q, y, t, rh, s, (a, w, rtr), o), 4,
+         _five_dots(rh, s, z, 4),
+         lambda out: list(fold_beta_alpha(a, w, rtr, *out[5:9]))),
     ]
 
 
@@ -353,8 +382,7 @@ def test_df_kernels_match_plain_bit_for_bit(n, offsets):
         got = got if isinstance(got, tuple) else (got,)
         want = plain(*args)
         want = want if isinstance(want, tuple) else (want,)
-        _df_check(got, want, n_vec, pairs(got),
-                  folded(got) if folded else None)
+        _df_check(got, want, n_vec, pairs(got), folded(got))
 
 
 def test_df_dots_are_deterministic():
@@ -385,11 +413,42 @@ def test_df32_fused_route_launches_each_pass_once_per_iteration():
         "dia_spmv_df": 2, "fused_k1": 0, "dia_spmv": 0}
 
 
-@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2"])
+@pytest.mark.parametrize("method,kernels,spmvs", [
+    ("ca_bicgstab", (fcadf.fused_ca_k1_df, fcadf.fused_ca_k2_df), 3),
+    # the DF pipelined drivers form no t0: r0, w0 and the true residual
+    ("pipe_bicgstab", (fpipedf.fused_phase_a_df, fpipedf.fused_phase_b_df),
+     3),
+    # krr 5, nrr 2: iterations 5 and 10 replace, 5 DF SpMVs each
+    ("pipe_bicgstab_rr",
+     (fpipedf.fused_phase_a_df, fpipedf.fused_phase_b_df), 3 + 10),
+])
+def test_df32_ca_and_pipe_routes_launch_their_kernels(method, kernels,
+                                                      spmvs):
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype="df32", device=dev)
+    fns = [fcadf.fused_ca_k1_df, fcadf.fused_ca_k2_df,
+           fpipedf.fused_phase_a_df, fpipedf.fused_phase_b_df,
+           fcldf.fused_k1_df, fca.fused_ca_k1, fpipe.fused_phase_a,
+           cuda_spmv.dia_spmv, cuda_spmv.dia_spmv_df]
+    for fn in fns:
+        fn.launches = 0
+    res = solve(prob.A, prob.b, method=method, cfg=SolverConfig(
+        tol=0.0, max_iter=25, krr=5, nrr=2, dtype="df32"))
+    assert res.n_iter == 25
+    per_iter = 23 if method == "pipe_bicgstab_rr" else 25
+    want = [per_iter if fn in kernels else 0 for fn in fns]
+    want[-1] = spmvs
+    assert [fn.launches for fn in fns] == want
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2",
+                                    "ca_bicgstab", "pipe_bicgstab",
+                                    "pipe_bicgstab_rr"])
 def test_df32_solve_on_card_matches_cpu(method):
     dev = _card()
     csr = banded_random(20000, [1, -1, 40, -40, 2000, -2000], seed=3)
-    cfg = SolverConfig(tol=1e-11, max_iter=300, dtype="df32")
+    cfg = SolverConfig(tol=1e-11, max_iter=300, krr=4, nrr=2, dtype="df32")
     res = {}
     for d in (dev, "cpu"):
         prob = build_problem(csr, dtype="df32", device=d)
@@ -399,12 +458,14 @@ def test_df32_solve_on_card_matches_cpu(method):
     assert np.abs(df_to_f64(res[dev].x) - 1.0).max() < 1e-8
 
 
-@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2"])
+@pytest.mark.parametrize("method", ["bicgstab", "bicgstab_l2",
+                                    "ca_bicgstab", "pipe_bicgstab",
+                                    "pipe_bicgstab_rr"])
 def test_tol0_df32_solve_replays_as_a_cuda_graph(method):
     dev = _card()
     prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
                          dtype="df32", device=dev)
-    cfg = SolverConfig(tol=0.0, max_iter=10, dtype="df32")
+    cfg = SolverConfig(tol=0.0, max_iter=10, krr=4, nrr=2, dtype="df32")
     eager = solve(prob.A, prob.b, method=method, cfg=cfg)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -438,6 +499,20 @@ def test_df_wrappers_raise_instead_of_falling_back():
         fcldf.fused_k3_df(x, x, x, x, x, (a, a))
     with pytest.raises(ValueError):        # vector of the wrong length
         fcldf.fused_k1_df(A.vals, x, x, x[:100], x, (a, a, a), A.offsets)
+    with pytest.raises(ValueError):        # missing scalar (rTr)
+        fcadf.fused_ca_k2_df(A.vals, x, x, x, x, x, x, x, (a, a),
+                             A.offsets)
+    with pytest.raises(TypeError):         # float32 vector, not a pair
+        fcadf.fused_ca_k1_df(A.vals, x, x, x, x.hi, x, (a, a, a),
+                             A.offsets)
+    with pytest.raises(ValueError):        # vector on the CPU
+        fpipedf.fused_phase_a_df(A.vals, x, x, x, x, x, x.to("cpu"),
+                                 (a, a, a), A.offsets)
+    with pytest.raises(ValueError):        # band of the wrong width
+        fpipedf.fused_phase_b_df(
+            DF(A.vals.hi[:, :100].contiguous(),
+               A.vals.lo[:, :100].contiguous()), x, x, x, x, x, x, x, x,
+            (a, a, a), A.offsets)
 
 
 def test_df32_host_side_end_to_end(tmp_path):

@@ -131,13 +131,17 @@ def test_unported_options_raise_naming_their_slice():
                            cfg=SolverConfig(tol=1e-10)).converged)
     with pytest.raises(NotImplementedError, match="slice 7"):
         tapi.solve(pt.A, pt.b, precond=object())
-    # slice 3a is ported: df32 is a config dtype (float32, as in JAX);
-    # the df32 CA and pipelined kernels are slice 3b's
+    # slices 3a and 3b are ported: df32 is a config dtype (float32, as in
+    # JAX), and df32 CA runs on a DF DiaMatrix; df32 pipelined BiCGStab
+    # with out_iter is slice 3c's
     assert SolverConfig(dtype="df32").dtype == torch.float32
     pdf = tprob.build_problem(tgen.poisson2d(8), dtype="df32", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        tapi.solve(pdf.A, pdf.b, method="ca_bicgstab",
-                   cfg=SolverConfig(tol=1e-10, dtype="df32"))
+    assert bool(tapi.solve(pdf.A, pdf.b, method="ca_bicgstab",
+                           cfg=SolverConfig(tol=1e-10,
+                                            dtype="df32")).converged)
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        tapi.solve(pdf.A, pdf.b, method="pipe_bicgstab",
+                   cfg=SolverConfig(tol=1e-10, dtype="df32", out_iter=2))
     with pytest.raises(ValueError):
         tapi.solve(pt.A, pt.b, method="gmres")
     with pytest.raises(SystemExit):       # argparse refuses float16
