@@ -36,13 +36,29 @@ numbers; any failure exits non-zero:
              (At tol 1e-5 the stopping rule itself allows max|x-1| of
              about 2e-3 at this n in f32, in the JAX package as in the
              port.)
+             The shifted family (ROADMAP slice 4) on the same matrix with
+             the flagship ladder (512 shifts, sigma_i = (i + 1) 0.01 / 512,
+             seed 255): `solve-shifted --method shifted_lopbicg_switching`
+             in df32 at tol 1e-10 (the fused DF shift update once per
+             iteration, 2 n_iter + 1 DF SpMVs), float32 at 1e-6 (blocked
+             updates, L = 64) and float64 at 1e-10, each with every shift's
+             true residual computed on the card with the float64 SpMV
+             (<= 100 tol); the four other shifted methods in float64
+             through api.solve_shifted on one built problem; the float32
+             solve at tol 1e-4 refined to 1e-6 by the batched per-shift
+             refinement (refine_shifted_solutions: it must iterate, and
+             every shift's true residual fall to <= 10 tol); a checkpointed
+             df32 run (16 shifts, --checkpoint-every 5) across a seed
+             switch, bit-identical to the uninterrupted one
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
              a replayed CUDA graph (the device's own time; their ratio is
              the device's busy share), beside their byte floors; each
              kernel against its bound, its plain version and, for the
-             f32/f64 SpMV, torch's CSR product
+             f32/f64 SpMV, torch's CSR product; time per shifted
+             iteration at 512 shifts (df32, float32 blocked and
+             per-iteration, float64) beside the shift update's byte floor
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -92,6 +108,7 @@ REPLACES = {
     "fused_ca_k2_df": "mpi_bicgstab_tpu/ops/pallas_fused_ca_df.py:137",
     "fused_phase_a_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:170",
     "fused_phase_b_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:205",
+    "shift_update_df": "mpi_bicgstab_tpu/ops/pallas_shift_update.py:85",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -111,6 +128,7 @@ SOURCES = {
     "fused_ca_k2_df": _CSRC + "fused_ca_df.cu",
     "fused_phase_a_df": _CSRC + "fused_pipe_df.cu",
     "fused_phase_b_df": _CSRC + "fused_pipe_df.cu",
+    "shift_update_df": _CSRC + "shift_update_df.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -156,7 +174,17 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "fused_ca_k1_df": ("ca_df32", "fused_ca_k1_df"),
                  "fused_ca_k2_df": ("ca_df32", "fused_ca_k2_df"),
                  "fused_phase_a_df": ("pipe_df32", "fused_phase_a_df"),
-                 "fused_phase_b_df": ("pipe_df32", "fused_phase_b_df")}
+                 "fused_phase_b_df": ("pipe_df32", "fused_phase_b_df"),
+                 "shift_update_df": ("shifted_df32", "shift_update_df")}
+# the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
+# phase -> (dtype, tol)
+S_MAIN, SEED_MAIN, SIGMA_MAX = 512, 255, 0.01
+SHIFTED_PATHS = {"shifted_df32": ("df32", 1e-10),
+                 "shifted_f32": ("float32", 1e-6),
+                 "shifted_f64": ("float64", 1e-10)}
+REFINE_TOLS = (1e-4, 1e-6)   # the loose shifted solve, the refinement
+SHIFT_ROWS_PER_TWIN = 32   # the DF twin's rows per slice at full width
+DF_MUL_FLOPS, DF_ADD_FLOPS = 10, 20
 
 
 class SmokeFailure(RuntimeError):
@@ -175,6 +203,7 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
+    from mpi_bicgstab_tpu_torch.ops import cuda_shift_update as csu
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
@@ -188,7 +217,8 @@ def _counters():
             "fused_ca_k1_df": fcadf.fused_ca_k1_df,
             "fused_ca_k2_df": fcadf.fused_ca_k2_df,
             "fused_phase_a_df": fpipedf.fused_phase_a_df,
-            "fused_phase_b_df": fpipedf.fused_phase_b_df}
+            "fused_phase_b_df": fpipedf.fused_phase_b_df,
+            "shift_update_df": csu.fused_shift_update_df}
 
 
 def reset_counts() -> None:
@@ -682,7 +712,411 @@ def unfused_df_iters(probdf, phase: str) -> tuple[int, bool]:
     return res.n_iter, bool(res.converged)
 
 
+# --- the shifted family -----------------------------------------------------
+
+def flagship_ladder(S: int = S_MAIN):
+    """main_shifted.c:95-100: sigma_i = (i + 1) sigma_max / S."""
+    import numpy as np
+    return (np.arange(S) + 1) * (SIGMA_MAX / S)
+
+
+def _df_random(rng, shape):
+    """Random normalised DF pairs as float32 NumPy (hi, lo): hi normal,
+    lo below a quarter of hi's ulp, so that hi + lo rounds to hi."""
+    import numpy as np
+    hi = rng.standard_normal(shape, dtype=np.float32)
+    lo = (rng.random(shape, dtype=np.float32) - np.float32(0.5)) \
+        * np.float32(0.5) * np.spacing(np.abs(hi))
+    return hi, np.where(hi == 0, np.float32(0), lo).astype(np.float32)
+
+
+def shift_update_inputs(n: int, S: int = S_MAIN, seed: int = 0,
+                        frozen_share: float = 0.3):
+    """The shift update's inputs at the main path's shapes, on the card:
+    random DF [S, n] x_set and p_set, DF [n] q, r_old and r_new, and six
+    DF [S] coefficients with about `frozen_share` of the rows frozen
+    (0, 0, 0, 0, 1, 0), all from a seeded NumPy generator (the state in
+    blocks of 64 rows, to bound the host's memory). Returns (the 11
+    arguments, the active rows as a NumPy bool array)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.precision import DF
+    rng = np.random.default_rng(seed)
+
+    def pair(shape):
+        h = torch.empty(shape, dtype=torch.float32, device="cuda")
+        lo = torch.empty_like(h)
+        for r0 in range(0, shape[0], 64 if len(shape) == 2 else shape[0]):
+            a, b = _df_random(rng, (min(64, shape[0] - r0), *shape[1:])
+                              if len(shape) == 2 else shape)
+            h[r0:r0 + len(a)].copy_(torch.from_numpy(a))
+            lo[r0:r0 + len(a)].copy_(torch.from_numpy(b))
+        return DF(h, lo)
+
+    x, p = pair((S, n)), pair((S, n))
+    q, ro, rn = pair((n,)), pair((n,)), pair((n,))
+    active = rng.random(S) >= frozen_share
+    act = torch.as_tensor(active, device="cuda")
+    coefs = []
+    for i in range(6):
+        c = pair((S,))
+        coefs.append(DF(torch.where(act, c.hi, 1.0 if i == 4 else 0.0),
+                        torch.where(act, c.lo, 0.0)))
+    return [x, p, q, ro, rn, *coefs], active
+
+
+def shift_update_work(S: int, n: int) -> tuple[float, float]:
+    """(bytes, flops) of one shift update: the four float planes of the
+    state read and written once, q, r_old, r_new and the coefficients
+    read once; three df_fma, three df_mul and two df_add per element."""
+    nbytes = 8 * (4 * S * n + 3 * n + 6 * S)
+    flops = S * n * (3 * DF_FMA_FLOPS + 3 * DF_MUL_FLOPS + 2 * DF_ADD_FLOPS)
+    return nbytes, flops
+
+
+def check_shift_update(n: int) -> tuple[float, dict]:
+    """The shift-update kernel against its twin at S = 512 and the main
+    path's n, then its times. The kernel updates the state in place, so
+    the twin runs on a copy of the inputs; the twin goes over slices of
+    SHIFT_ROWS_PER_TWIN shift rows (the function is independent per row,
+    and the full-width twin's temporaries would take ~3.3 GB each).
+    Returns (max abs error, the times row)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops import cuda_shift_update as csu
+    from mpi_bicgstab_tpu_torch.ops.precision import DF
+    t0 = time.perf_counter()
+    args, active = shift_update_inputs(n)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    S, R = len(active), SHIFT_ROWS_PER_TWIN
+    x0, p0 = (DF(v.hi.clone(), v.lo.clone()) for v in args[:2])
+    got_x, got_p = csu.fused_shift_update_df(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for r0 in range(0, S, R):
+        sl = slice(r0, r0 + R)
+        want = csu.fused_shift_update_df_plain(
+            x0[sl], p0[sl], *args[2:5], *(c[sl] for c in args[5:]))
+        for got, w in zip((got_x[sl], got_p[sl]), want):
+            err = max(err, _err(_f64(got), _f64(w)))
+            if not _same(got, w):
+                raise SmokeFailure(f"shift_update_df rows {r0}..{r0 + R}: "
+                                   f"kernel and twin differ, max abs err "
+                                   f"{_err(_f64(got), _f64(w)):.3e}")
+    frozen = torch.as_tensor(~active, device="cuda")
+    for got, src in ((got_x, x0), (got_p, p0)):
+        if not (torch.equal(got.hi[frozen], src.hi[frozen])
+                and torch.equal(got.lo[frozen], src.lo[frozen])):
+            raise SmokeFailure("shift_update_df changed a frozen row")
+    del x0, p0
+    _say("check", kernel="shift_update_df", ok=True, S=S, n=n,
+         frozen_rows=int((~active).sum()), state="equal",
+         frozen="bit-unchanged", max_abs_err=err,
+         twin=f"over_slices_of_{R}_shift_rows", host_setup_s=round(setup, 3))
+
+    def plain():
+        for r0 in range(0, S, R):
+            sl = slice(r0, r0 + R)
+            csu.fused_shift_update_df_plain(
+                args[0][sl], args[1][sl], *args[2:5],
+                *(c[sl] for c in args[5:]))
+
+    def kern():
+        # in place: every call updates the same state again
+        csu.fused_shift_update_df(*args)
+
+    nbytes, flops = shift_update_work(S, n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["df32"]
+    row = {"ms": time_call(kern, iters=30, graph=True) * 1e3,
+           "eager_ms": time_call(kern, iters=30) * 1e3,
+           "plain_ms": time_call(plain, iters=4, reps=3, graph=True) * 1e3,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    _say("times", kernel="shift_update_df", ms=f"{row['ms']:.4f}",
+         bound_ms=f"{row['bound_ms']:.4f}",
+         bound_share=f"{row['bound_ms'] / row['ms']:.3f}",
+         eager_ms=f"{row['eager_ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+         library_ms=None, bytes=nbytes, flops=flops,
+         ops_ms=f"{t_ops * 1e3:.4f}")
+    return err, row
+
+
+def shifted_residuals(x_set, sigma, A64, b64) -> float:
+    """max_j ||b - (A + sigma_j I) x_j|| / ||b|| on the card, in float64
+    through the DIA SpMV kernel, one row at a time."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.cuda_spmv import dia_spmv
+    norms = []
+    for j, s in enumerate(sigma):
+        xj = (x_set.hi[j].double() + x_set.lo[j].double()
+              if hasattr(x_set, "hi") else x_set[j].double())
+        r = b64 - (dia_spmv(A64.vals, A64.offsets, xj) + float(s) * xj)
+        norms.append(torch.linalg.vector_norm(r))
+    return float((torch.stack(norms) / torch.linalg.vector_norm(b64)).max())
+
+
+def check_shifted_counts(what: str, dtype: str, it: int, counts: dict,
+                         init_spmvs: int = 0) -> None:
+    """A shifted solve's launches: two seed SpMVs per iteration, the
+    exit's true-residual SpMV (and init_spmvs more at set-up); the DF
+    shift update once per iteration in df32; nothing else."""
+    spmv = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
+    want = {k: 0 for k in counts}
+    want[spmv] = 2 * it + 1 + init_spmvs
+    if dtype == "df32":
+        want["shift_update_df"] = it
+    if counts != want:
+        bad = {k: (v, want[k]) for k, v in counts.items() if v != want[k]}
+        raise SmokeFailure(f"{what}: launches (got, expected) {bad} in "
+                           f"{it} iterations")
+
+
+def _solve_shifted_cli(argv):
+    from mpi_bicgstab_tpu_torch import cli
+    return cli.run_solve_shifted(cli.build_parser().parse_args(argv))
+
+
+def run_shifted_path(phase: str, A64, b64):
+    """Drive `solve-shifted --matrix transport-like:N --dtype D --tol T`
+    with the flagship ladder through the CLI's own code, every launch
+    counter set to 0 just before and read just after. Checks that every
+    shift converged, that every shift's true residual (on the card) is at
+    most 100 tol, the df32 seed's true residual, and the launches.
+    Returns (payload, counts, the true residual)."""
+    import gc
+
+    import torch
+    dtype, tol = SHIFTED_PATHS[phase]
+    argv = ["solve-shifted", "--matrix", f"transport-like:{N_MAIN}",
+            "--method", "shifted_lopbicg_switching", "--dtype", dtype,
+            "--sigma-len", str(S_MAIN), "--sigma-max", str(SIGMA_MAX),
+            "--seed", str(SEED_MAIN), "--tol", str(tol)]
+    reset_counts()
+    (row,), res = _solve_shifted_cli(argv)
+    counts = read_counts()
+    it = row["total_iter"]
+    if not row["all_converged"]:
+        raise SmokeFailure(f"{phase}: not every shift converged: {row}")
+    worst = shifted_residuals(res.x_set, flagship_ladder(), A64, b64)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not worst <= 100 * tol:
+        raise SmokeFailure(f"{phase}: max true residual {worst:.3e} > "
+                           f"100 x {tol}")
+    if dtype == "df32" and not row["seed_true_relres"] <= 1e-8:
+        raise SmokeFailure(f"{phase}: seed_true_relres "
+                           f"{row['seed_true_relres']:.3e} > 1e-8")
+    check_shifted_counts(phase, dtype, it, counts)
+    _say(phase, dtype=dtype, tol=tol, sigma_len=S_MAIN, n_iter=it,
+         seed=row["seed"], final_seed=row["final_seed"],
+         all_converged=row["all_converged"],
+         final_relres=row["final_relres"],
+         seed_true_relres=row["seed_true_relres"],
+         max_shift_relres=row["max_shift_relres"],
+         max_true_relres_on_card=worst, solve_s=row["total_time_s"],
+         launches=json.dumps(counts).replace(" ", ""))
+    return row, counts, worst
+
+
+def run_refine_path(prob32, A64, b64, chunk: int = 128) -> None:
+    """The float32 seed-switching solve of the flagship ladder at the
+    loose tolerance, then refine_shifted_solutions to the tight one (one
+    SpMV per row and operator application, in chunks of 128 shifts). The
+    refinement must iterate, every shift's true residual on the card
+    must fall from above the tight tolerance to at most 10 times it, and
+    the launches must be the solve's and the refinement's SpMVs."""
+    import gc
+
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import (refine_shifted_solutions,
+                                            solve_shifted)
+    from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig,
+                                                     SolverConfig)
+    loose, tol = REFINE_TOLS
+    sigma = flagship_ladder()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_shifted(prob32.A, prob32.b, sigma, seed=SEED_MAIN,
+                        method="shifted_lopbicg_switching",
+                        cfg=ShiftedConfig(tol=loose, max_iter=1000,
+                                          dtype="float32"))
+    it = res.n_iter
+    converged = bool(res.stop_flags.all())
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_shifted_counts("shifted_refine solve", "float32", it, counts)
+    before = shifted_residuals(res.x_set, sigma, A64, b64)
+    reset_counts()
+    t0 = time.perf_counter()
+    x2, rk, rres = refine_shifted_solutions(
+        prob32.A, prob32.b, sigma, res.x_set,
+        SolverConfig(tol=tol, max_iter=1000, dtype="float32"), chunk=chunk)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    rcounts = read_counts()
+    del res
+    after = shifted_residuals(x2, sigma, A64, b64)
+    del x2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each chunk applies the operator once, then twice per iteration it
+    # runs (the slowest chunk runs rk of them)
+    S = len(sigma)
+    lo, hi = S + 2 * chunk * rk, S * (1 + 2 * rk)
+    extra = {k: v for k, v in rcounts.items() if k != "dia_spmv" and v}
+    if not (converged and before > tol and rk > 0 and after <= 10 * tol
+            and float(rres.max()) <= tol):
+        raise SmokeFailure(
+            f"shifted_refine: solve converged {converged}, true residual "
+            f"{before:.3e} before and {after:.3e} after {rk} refinement "
+            f"iterations (recurrence {float(rres.max()):.3e})")
+    if extra or not lo <= rcounts["dia_spmv"] <= hi:
+        raise SmokeFailure(f"shifted_refine: refinement launches {rcounts}, "
+                           f"expected only {lo}-{hi} dia_spmv")
+    _say("shifted_refine", dtype="float32", solve_tol=loose, refine_tol=tol,
+         sigma_len=S, n_iter=it, max_true_relres_before=before,
+         refine_iters=rk, max_relres_after_refine=float(rres.max()),
+         max_true_relres_on_card=after, solve_s=round(solve_s, 3),
+         refine_s=round(refine_s, 3),
+         launches=json.dumps(counts).replace(" ", ""),
+         refine_launches=json.dumps(rcounts).replace(" ", ""))
+
+
+def run_other_shifted_methods(prob64, A64, b64, tol: float = 1e-10):
+    """shifted_bicgstab, shifted_lopbicgstab, shifted_pipe_lopbicgstab and
+    shifted_lopbicg in float64 at 512 shifts through api.solve_shifted on
+    one built problem; every shift converged, its true residual at most
+    100 tol, and the launches. shifted_bicgstab's row 0 is its unshifted
+    seed system (reference shifted_solver.c:90), so that row's residual is
+    taken with sigma = 0."""
+    import gc
+
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve_shifted
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+    sigma = flagship_ladder()
+    for method in ("shifted_bicgstab", "shifted_lopbicgstab",
+                   "shifted_pipe_lopbicgstab", "shifted_lopbicg"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_shifted(prob64.A, prob64.b, sigma, seed=SEED_MAIN,
+                            method=method,
+                            cfg=ShiftedConfig(tol=tol, max_iter=1000))
+        converged = bool(res.stop_flags.all())
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        sig = sigma.copy()
+        if method == "shifted_bicgstab":
+            sig[0] = 0.0
+        worst = shifted_residuals(res.x_set, sig, A64, b64)
+        what = f"shifted_f64_methods {method}"
+        if not (converged and worst <= 100 * tol):
+            raise SmokeFailure(f"{what}: converged {converged}, max true "
+                               f"residual {worst:.3e}")
+        # the pipelined seed also multiplies w0 and t0 at set-up
+        check_shifted_counts(what, "float64", res.n_iter, counts,
+                             2 if method == "shifted_pipe_lopbicgstab"
+                             else 0)
+        _say("shifted_f64_methods", method=method, n_iter=res.n_iter,
+             final_seed=res.final_seed,
+             seed_true_relres=float(res.true_relres),
+             max_true_relres_on_card=worst, solve_s=round(secs, 3),
+             launches=json.dumps(counts).replace(" ", ""))
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_checkpoint_path(S: int = 16, every: int = 5,
+                        sigma_max: float = 4.0) -> None:
+    """The df32 seed-switching solve at S shifts on the full matrix,
+    uninterrupted, then checkpointed every `every` iterations, then
+    resumed from the finished checkpoint: both x_sets bit-identical to
+    the uninterrupted one. The ladder is wide (sigma up to 4), so the
+    seed at its top converges first and the solver switches seeds
+    between two checkpoints (the flagship ladder's shifts all stop
+    together)."""
+    import torch
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+        "switching.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    argv = ["solve-shifted", "--matrix", f"transport-like:{N_MAIN}",
+            "--dtype", "df32", "--sigma-len", str(S), "--seed", str(S - 1),
+            "--sigma-max", str(sigma_max), "--tol", "1e-10"]
+    (ref,), res_u = _solve_shifted_cli(argv)
+    if not (ref["all_converged"] and ref["final_seed"] != S - 1):
+        raise SmokeFailure(f"shifted_checkpoint: expected every shift to "
+                           f"converge after a seed switch: {ref}")
+    runs = [_solve_shifted_cli(argv + ["--checkpoint", str(path),
+                                       "--checkpoint-every", str(every)])
+            for _ in range(2)]          # the second resumes the finished one
+    for ((row,), res), what in zip(runs, ("segmented", "resumed")):
+        same = (torch.equal(res.x_set.hi, res_u.x_set.hi)
+                and torch.equal(res.x_set.lo, res_u.x_set.lo))
+        if not (same and row["total_iter"] == ref["total_iter"]
+                and row["final_seed"] == ref["final_seed"]):
+            raise SmokeFailure(f"shifted_checkpoint: the {what} run differs "
+                               f"from the uninterrupted one: {row} vs {ref}")
+    path.unlink()
+    _say("shifted_checkpoint", dtype="df32", sigma_len=S, every=every,
+         sigma_max=sigma_max, seed=S - 1, n_iter=ref["total_iter"],
+         final_seed=ref["final_seed"],
+         all_converged=ref["all_converged"], segmented="bit-identical",
+         resumed="bit-identical")
+
+
+def time_shifted(csr, probs: dict) -> None:
+    """Time per shifted iteration at 512 shifts (tol=0 chains through
+    bench_shifted_iteration), eager and, where two captured chains fit
+    the card's memory, as replayed CUDA graphs, beside the floor of the
+    shift update (4 S n elem bytes at 3.35 TB/s)."""
+    import gc
+
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import \
+        bench_shifted_iteration
+    # (dtype, shift_block, iters, graph): float64's per-iteration updates
+    # hold ~26 GB of state and temporaries, so two captured chains (each
+    # with its own memory pool) would not fit beside the eager pool
+    for dtype, sb, iters, graph in (("df32", -1, 12, True),
+                                    ("float32", -1, 192, True),
+                                    ("float32", 0, 12, True),
+                                    ("float64", -1, 12, False)):
+        kw = dict(sigma_len=S_MAIN, seed=SEED_MAIN, iters=iters,
+                  shift_block=sb, prob=probs[dtype])
+        eager = bench_shifted_iteration(csr, dtype, **kw)
+        dev = bench_shifted_iteration(csr, dtype, graph=True, **kw) \
+            if graph else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms = eager["time_per_iter_s"] * 1e3
+        floor = eager["shift_update_bytes"] / HBM_BYTES_PER_S * 1e3
+        dev_ms = dev["time_per_iter_s"] * 1e3 if dev else None
+        _say("times", shifted=dtype, shift_block=eager["shift_block"],
+             sigma_len=S_MAIN, chains=f"tol=0x{eager['chains'][0]},"
+             f"{eager['chains'][1]}", eager_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=(f"{dev_ms:.4f}" if dev else
+                                 "not_measured(no_graph)"),
+             device_busy_share=(f"{dev_ms / ms:.3f}" if dev else None),
+             shift_update_floor_ms=f"{floor:.4f}",
+             shift_update_bytes=eager["shift_update_bytes"],
+             shift_update_GBps=f"{eager['shift_update_GBps']:.1f}")
+
+
 def main() -> int:
+    import gc
+
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -692,6 +1126,9 @@ def main() -> int:
                                                           bench_spmv)
     from mpi_bicgstab_tpu_torch.models.generators import transport_like
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.solvers.switching_blocked import \
+        resolve_block
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
 
     t_start = time.perf_counter()
     smi = probe()
@@ -705,6 +1142,9 @@ def main() -> int:
          host_setup_s=round(time.perf_counter() - t0, 3))
     calls = kernel_calls(inp)
     errs = check_kernels(calls, inp)
+    errs["shift_update_df"], su_row = check_shift_update(csr.nrows)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     runs, iters = {}, {}
     for phase, (method, dtype, tol, extra) in PATHS.items():
@@ -729,6 +1169,27 @@ def main() -> int:
             raise SmokeFailure(f"{phase}: the fused DF driver took "
                                f"{iters[phase]} iterations, the unfused DF "
                                f"solver {k}: more than 2 apart")
+
+    # the shifted family on the flagship ladder
+    ss = float(flagship_ladder()[SEED_MAIN])
+    A64 = inp["A64"]
+    b64 = torch.as_tensor(csr.matvec(np.ones(csr.nrows)) + ss,
+                          device="cuda")
+    L = resolve_block(ShiftedConfig(dtype="float32"),
+                      torch.ones(1, device="cuda"), S_MAIN)
+    if L != 64:
+        raise SmokeFailure(f"float32 switching on the card takes L = {L}, "
+                           f"not the blocked L = 64")
+    _say("shifted_f32", blocked_L=L)
+    for phase in SHIFTED_PATHS:
+        runs[phase] = run_shifted_path(phase, A64, b64)[1]
+    prob32s = build_problem(csr, dtype=torch.float32, multiple=1,
+                            sigma_seed=ss)
+    run_refine_path(prob32s, A64, b64)
+    prob64s = build_problem(csr, dtype=torch.float64, multiple=1,
+                            sigma_seed=ss)
+    run_other_shifted_methods(prob64s, A64, b64)
+    run_checkpoint_path()
 
     prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
     n = prob32.n
@@ -764,6 +1225,12 @@ def main() -> int:
              bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
              bytes_per_iter=nbytes)
     del probdf
+    time_shifted(csr, {
+        "df32": build_problem(csr, dtype="df32", multiple=1, sigma_seed=ss),
+        "float32": prob32s, "float64": prob64s})
+    del prob64s, prob32s
+    gc.collect()
+    torch.cuda.empty_cache()
     sp = bench_spmv(prob32)
     _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
          spmv_layout=sp["spmv_layout"])
@@ -782,6 +1249,14 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "shift_update_df", "route": "cuda",
+        "source": SOURCES["shift_update_df"],
+        "replaces": REPLACES["shift_update_df"],
+        "launches": runs["shifted_df32"]["shift_update_df"],
+        "max_abs_err": errs["shift_update_df"], "ms": su_row["ms"],
+        "plain_ms": su_row["plain_ms"], "bound_ms": su_row["bound_ms"],
+        "bound_by": su_row["bound_by"], "library_ms": None})
     _say("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,9 +18,13 @@ the card unless the caller asks for the CPU; without a card they raise.
 Ported so far: the classic BiCGStab family on a single device —
 bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr and BiCGStab(l).
 float32 on a DIA matrix runs each classic-family method through its fused
-kernels (ops/cuda_fused_classic.py, cuda_fused_ca.py, cuda_fused_pipe.py);
-float64, other layouts and BiCGStab(l) run the unfused solvers over the
-DIA SpMV kernel of ops/cuda_spmv.py.
+kernels (ops/cuda_fused_classic.py, cuda_fused_ca.py, cuda_fused_pipe.py),
+df32 through the fused DF kernels (ops/cuda_fused_*_df.py); float64,
+other layouts and BiCGStab(l) run the unfused solvers over the DIA SpMV
+kernel of ops/cuda_spmv.py. The shifted family (solvers/shifted.py,
+switching.py, switching_blocked.py, refine.py; api.solve_shifted, CLI
+solve-shifted) runs the df32 seed-switching shift update through the
+fused kernel of ops/cuda_shift_update.py.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """High-level single-device solve API (counterpart of
 mpi_bicgstab_tpu/api.py: `solve`, `_restarted` and the dispatch of
-`_solve_jit`).
+`_solve_jit`; the shifted family's `solve_shifted`,
+`solve_shifted_checkpointed` and `refine_shifted_solutions`).
 
 The solve runs where A and b live: on the card for an operator built
 with device='cuda' (the default of models.problem.build_problem), on the
@@ -155,3 +156,111 @@ def solve(A, b, x0=None, method: str = "bicgstab",
         res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),
                          cfg, res)
     return res
+
+
+# --- the shifted family (api.py:81-204 of the JAX package) -------------------
+
+def _all_shifted_solvers():
+    from mpi_bicgstab_tpu_torch.solvers.shifted import SHIFTED_SOLVERS
+    from mpi_bicgstab_tpu_torch.solvers.switching import SWITCHING_SOLVERS
+    return {**SHIFTED_SOLVERS, **SWITCHING_SOLVERS}
+
+
+def _ladder(b, sigma):
+    """The shift ladder beside b: for a DF b split host-side from float64
+    into pairs, so that sigma keeps its float64 precision; otherwise a
+    tensor of b's dtype. A ladder already of that kind on b's device
+    passes as it is (a captured CUDA graph cannot copy from the host)."""
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    if is_df(b):
+        if is_df(sigma):
+            return sigma.to(b.device)
+        if torch.is_tensor(sigma):
+            sigma = sigma.cpu().numpy()
+        return df_from_f64(np.asarray(sigma, np.float64), b.device)
+    if torch.is_tensor(sigma) and sigma.dtype == b.dtype \
+            and sigma.device == b.device:
+        return sigma
+    return torch.as_tensor(np.asarray(sigma), dtype=b.dtype, device=b.device)
+
+
+def _shifted_inputs(A, b, sigma, seed: int):
+    if not (torch.is_tensor(b) or is_df(b)):
+        b = torch.as_tensor(np.asarray(b), device=A.device)
+    if b.device != A.device:
+        raise ValueError(f"b is on {b.device} but A is on {A.device}; "
+                         f"solve_shifted runs where both live")
+    sigma = _ladder(b, sigma)
+    if not (0 <= seed < sigma.shape[0]):
+        raise ValueError(f"seed {seed} out of range for {sigma.shape[0]} "
+                         f"shifts")
+    return b, sigma
+
+
+def solve_shifted(A, b, sigma, seed: int = 0,
+                  method: str = "shifted_lopbicgstab", cfg=None):
+    """Solve (A + sigma_j I) x_j = b for every shift of the ladder from one
+    Krylov sequence (x0 = 0, as in every reference driver), where A and b
+    live. For method='shifted_bicgstab' the seed is the unshifted system
+    and the seed argument is ignored (reference shifted_solver.c:90)."""
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+    solvers = _all_shifted_solvers()
+    if method not in solvers:
+        raise ValueError(f"unknown method {method!r}; "
+                         f"choose from {sorted(solvers)}")
+    b, sigma = _shifted_inputs(A, b, sigma, seed)
+    if cfg is None:
+        cfg = ShiftedConfig(dtype=b.dtype)
+    spmv = lambda v: generic_spmv(A, v)  # noqa: E731
+    fn = solvers[method]
+    if method == "shifted_bicgstab":
+        return fn(spmv, Comm(), b, sigma, cfg)
+    return fn(spmv, Comm(), b, sigma, int(seed), cfg)
+
+
+def solve_shifted_checkpointed(A, b, sigma, seed: int, cfg, path: str,
+                               segment_iters: int, meta: dict):
+    """Seed-switching shifted solve with FULL-CARRY checkpointing: the
+    solver's whole loop state is saved to `path` every `segment_iters`
+    iterations and resumed from it when present. The segmented run is
+    BIT-IDENTICAL to an uninterrupted solve_shifted(...,
+    method='shifted_lopbicg_switching') on the per-iteration path.
+
+    Returns (ShiftedResult, total_iters)."""
+    from mpi_bicgstab_tpu_torch.solvers.switching import (
+        init_switching_carry, shifted_lopbicg_switching_segment)
+    from mpi_bicgstab_tpu_torch.utils.checkpoint import \
+        solve_switching_with_checkpoints
+    b, sigma = _shifted_inputs(A, b, sigma, seed)
+    init_carry = init_switching_carry(b, sigma, int(seed), cfg, comm=Comm())
+    spmv = lambda v: generic_spmv(A, v)  # noqa: E731
+    runner = lambda carry, k_stop: shifted_lopbicg_switching_segment(  # noqa
+        spmv, Comm(), b, sigma, cfg, carry, k_stop)
+    return solve_switching_with_checkpoints(
+        runner, init_carry, path, segment_iters, cfg.max_iter, meta)
+
+
+def refine_shifted_solutions(A, b, sigma, x_set, cfg=None, chunk: int = 128):
+    """Polish per-shift solutions with a batched BiCGStab over the shift
+    axis until every TRUE residual ||b - (A + sigma_j) x_j|| meets
+    cfg.tol ||b|| (solvers/refine.py). Ladders wider than `chunk` refine in
+    chunks (the batched state is ~5 [S, n] vectors). Returns (x_set,
+    n_iter, true_relres [S])."""
+    from mpi_bicgstab_tpu_torch.ops.precision import vcat, vvalue
+    from mpi_bicgstab_tpu_torch.solvers.refine import refine_shifted
+    b, sigma = _shifted_inputs(A, b, sigma, 0)
+    if cfg is None:
+        cfg = SolverConfig(tol=1e-10, max_iter=500, dtype=vvalue(b).dtype)
+    spmv = lambda v: generic_spmv(A, v)  # noqa: E731
+    S = sigma.shape[0]
+    outs, iters, rels = [], 0, []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        x2, k, rr = refine_shifted(spmv, Comm(), b, sigma[sl], x_set[sl],
+                                   cfg)
+        outs.append(x2)
+        iters = max(iters, k)
+        rels.append(rr)
+    if len(outs) == 1:
+        return outs[0], iters, rels[0]
+    return vcat(outs, 0), iters, torch.cat(rels)

@@ -1,6 +1,6 @@
 """SpMV and solver-iteration timing on the card (counterpart of
 mpi_bicgstab_tpu/benchmarks/runner.py: `_slope_time`, `bench_spmv`,
-`bench_iteration`).
+`bench_iteration`, `bench_shifted_iteration`).
 
 Every time is a slope: the timed operation runs as a chain of K1 and of
 K2 back-to-back calls on the current stream, each chain timed with CUDA
@@ -112,3 +112,60 @@ def bench_iteration(prob, method="bicgstab", iters=60, reps=3,
     return {"iter_method": method, "time_per_iter_s": sec,
             "nnz": prob.csr.nnz,
             "spmv_equiv_nnz_per_s": 2 * prob.csr.nnz / sec}
+
+
+def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
+                            method="shifted_lopbicg_switching", iters=40,
+                            shift_block=-1, graph=False, prob=None) -> dict:
+    """Time per iteration of the SHIFTED family, the reference's flagship
+    workload (its hot phase is the sigma_len x n shift-update traffic,
+    shifted_switching_solver.c:429-445). The slope method of
+    bench_iteration: with tol=0 no shift converges, so exactly max_iter
+    seed iterations and full-ladder shift updates run, and the loop reads
+    nothing from the device (graph=True captures each chain). The ladder
+    is main_shifted.c:95-100's, sigma_i = (i + 1) 0.01 / sigma_len, and
+    b = (A + sigma_seed I) ones. `prob`: a problem already built that way
+    on the card (build_problem(csr, dtype, sigma_seed=...)), to reuse.
+
+    shift_update_GBps divides the shift update's byte floor, two reads
+    and two writes of the [S, n] x_set / p_set state (4 S n elem bytes,
+    elem 8 for float64 and df32, 4 for float32), by the time per
+    iteration."""
+    from mpi_bicgstab_tpu_torch.api import _ladder, solve_shifted
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.solvers.switching_blocked import \
+        resolve_block
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+
+    _require_cuda()
+    sigma = (np.arange(sigma_len, dtype=np.float64) + 1) * (0.01 / sigma_len)
+    seed = min(seed, sigma_len - 1)
+    if prob is None:
+        prob = build_problem(csr, dtype=dtype, multiple=1,
+                             sigma_seed=float(sigma[seed]))
+    sig = _ladder(prob.b, sigma)     # on the card before any capture
+    # the blocked path flushes every L iterations: both chains then run
+    # whole blocks, so the slope carries one L-th of a flush per iteration
+    L = resolve_block(ShiftedConfig(max_iter=iters, dtype=dtype,
+                                    shift_block=shift_block),
+                      prob.b, sigma_len) \
+        if method == "shifted_lopbicg_switching" else 0
+    K1, K2 = (L, max(2, iters // L) * L) if L else (max(2, iters // 6),
+                                                    iters)
+
+    def make_chain(K):
+        cfg = ShiftedConfig(tol=0.0, max_iter=K, dtype=dtype,
+                            shift_block=L or shift_block)
+        chain = lambda: solve_shifted(prob.A, prob.b, sig,  # noqa: E731
+                                      seed=seed, method=method, cfg=cfg)
+        return _graph(chain) if graph else chain
+
+    sec = _slope_time(make_chain, K1=K1, K2=K2, reps=3)
+    elem = 4 if dtype in ("float32", torch.float32) else 8
+    bytes_iter = 4 * sigma_len * csr.nrows * elem
+    return {"iter_method": method, "sigma_len": sigma_len,
+            "time_per_iter_s": sec, "n": csr.nrows,
+            "shift_block": L or shift_block, "graph": graph,
+            "chains": (K1, K2),
+            "shift_update_bytes": bytes_iter,
+            "shift_update_GBps": bytes_iter / sec / 1e9}

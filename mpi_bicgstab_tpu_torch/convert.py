@@ -18,7 +18,13 @@ Any "vals" or "tail_vals" array may come as the pair "<key>_hi",
 vector (b, x0) from the leaves of a JAX DF pair.
 
 config_from_fields builds a SolverConfig from the fields of a JAX
-SolverConfig (dataclasses.asdict).
+SolverConfig (dataclasses.asdict), shifted_config_from_fields a
+ShiftedConfig from those of a JAX ShiftedConfig.
+
+switching_carry_from_arrays turns a JAX seed-switching carry, given as
+its NumPy leaves (as the JAX package's save_carry writes them: np.asarray
+of each leaf of the flattened 16-slot tuple), into the port's carry, so
+that a solve begun in the JAX package resumes in the port.
 """
 from __future__ import annotations
 
@@ -29,11 +35,12 @@ from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
 from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
 from mpi_bicgstab_tpu_torch.ops.precision import DF
-from mpi_bicgstab_tpu_torch.utils.config import SolverConfig, canon_dtype
+from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig, SolverConfig,
+                                                 canon_dtype)
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 _ELL_KEYS = ("cols", "vals", "tail_rows", "tail_cols", "tail_vals")
-# JAX SolverConfig field with no meaning here: history is always recorded
+# JAX config field with no meaning here: history is always recorded
 _IGNORED = ("record_history",)
 
 
@@ -87,11 +94,11 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                      f"'ell' or 'hybrid'")
 
 
-def config_from_fields(fields: dict) -> SolverConfig:
-    """SolverConfig from a JAX SolverConfig's fields (krr and nrr
-    included). record_history is dropped; serialize_comm=True (the JAX
-    package's distributed no-overlap A/B mode) raises until the
-    distributed layer is ported."""
+def _port_fields(fields: dict) -> dict:
+    """A JAX config's fields as the port's config takes them:
+    record_history is dropped; serialize_comm=True (the JAX package's
+    distributed no-overlap A/B mode) raises until the distributed layer
+    is ported."""
     fields = dict(fields)
     if fields.pop("serialize_comm", False):
         raise NotImplementedError(
@@ -101,4 +108,39 @@ def config_from_fields(fields: dict) -> SolverConfig:
         fields.pop(k, None)
     if "dtype" in fields:
         fields["dtype"] = canon_dtype(fields["dtype"])
-    return SolverConfig(**fields)
+    return fields
+
+
+def config_from_fields(fields: dict) -> SolverConfig:
+    """SolverConfig from a JAX SolverConfig's fields (krr and nrr
+    included; see _port_fields)."""
+    return SolverConfig(**_port_fields(fields))
+
+
+def shifted_config_from_fields(fields: dict) -> ShiftedConfig:
+    """ShiftedConfig from a JAX ShiftedConfig's fields (see
+    _port_fields)."""
+    return ShiftedConfig(**_port_fields(fields))
+
+
+# slots of the switching carry (solvers/switching.init_switching_carry):
+# "i" an int32 scalar, "v" a value slot (a DF pair in df32), "t" a tensor
+_CARRY_SLOTS = "iivvvvvvvvvvtvvt"
+
+
+def switching_carry_from_arrays(leaves, device="cuda"):
+    """The port's seed-switching carry on `device` from the NumPy leaves of
+    a JAX carry: 16 leaves for a float32 / float64 solve, 28 for df32
+    (each of its 12 value slots a hi, lo pair)."""
+    from mpi_bicgstab_tpu_torch.utils.checkpoint import unflatten
+    dev = resolve_device(device)
+    df = {16: False, 28: True}.get(len(leaves))
+    if df is None:
+        raise ValueError(f"a switching carry has 16 leaves (28 in df32), "
+                         f"got {len(leaves)}")
+    template = []
+    for kind in _CARRY_SLOTS:
+        z = torch.zeros(0, device=dev)
+        template.append(0 if kind == "i" else DF(z, z)
+                        if kind == "v" and df else z)
+    return unflatten(template, [np.asarray(a) for a in leaves])

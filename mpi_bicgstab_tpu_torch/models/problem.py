@@ -62,9 +62,11 @@ class Problem:
 
 def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
                   device="cuda", format: str = "auto",
-                  ell_width: int | None = None) -> Problem:
-    """b = A * ones (ones over the logical rows only), computed on the host
-    in float64 and cast to dtype; the operator and vectors go to `device`
+                  ell_width: int | None = None,
+                  sigma_seed: float = 0.0) -> Problem:
+    """b = (A + sigma_seed I) * ones (ones over the logical rows only; the
+    shifted drivers' right-hand side, main_shifted.c:109-114), computed on
+    the host in float64 and cast to dtype; the operator and vectors go to `device`
     (default the card; raises without one). format selects the layout
     (ops/layout.build_operator). dtype="df32" builds the double-float
     problem: the operator's values, b and x0 are DF pairs
@@ -78,7 +80,7 @@ def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
     csr_p = pad_csr_identity(csr, multiple)
     ones = np.zeros(csr_p.nrows)
     ones[:n_logical] = 1.0
-    b_host = csr_p.matvec(ones)
+    b_host = csr_p.matvec(ones) + sigma_seed * ones
     b_host[n_logical:] = 0.0  # identity-row RHS: padded solution is 0
     A = build_operator(csr_p, format=format, dtype="df32" if df else dt,
                        ell_width=ell_width, device=dev)

@@ -240,14 +240,21 @@ def df_fma(y, a, b) -> DF:
     return DF(*quick_two_sum(hi, lo))
 
 
+def df_abs(a: DF) -> DF:
+    neg = a.hi < 0
+    return DF(torch.where(neg, -a.hi, a.hi), torch.where(neg, -a.lo, a.lo))
+
+
 def df_where(pred, a, b) -> DF:
     a, b = _as_df(a, b if is_df(b) else None), _as_df(b, a)
     return DF(torch.where(pred, a.hi, b.hi), torch.where(pred, a.lo, b.lo))
 
 
 def df_zeros(shape, device=None) -> DF:
-    z = torch.zeros(shape, dtype=torch.float32, device=device)
-    return DF(z, z)
+    """A zero pair whose halves are distinct tensors (the shifted solvers
+    update their state in place)."""
+    return DF(torch.zeros(shape, dtype=torch.float32, device=device),
+              torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 # --- dtype-generic helpers (tensors as they are, DF-aware otherwise) ---------
@@ -290,6 +297,25 @@ def vones(shape, like):
 
 def vzeros_like(v):
     return vzeros(v.shape, v)
+
+
+def vabs(x):
+    return df_abs(x) if is_df(x) else x.abs()
+
+
+def vbroadcast_rows(v, S: int):
+    """[n] -> [S, n], a materialised copy."""
+    if is_df(v):
+        return DF(v.hi.expand(S, -1).clone(), v.lo.expand(S, -1).clone())
+    return v.expand(S, -1).clone()
+
+
+def vcat(parts, axis: int = 0):
+    if any(is_df(p) for p in parts):
+        parts = [_as_df(p) for p in parts]
+        return DF(torch.cat([p.hi for p in parts], axis),
+                  torch.cat([p.lo for p in parts], axis))
+    return torch.cat(parts, axis)
 
 
 # --- reductions: pairwise DF summation and compensated dot -------------------

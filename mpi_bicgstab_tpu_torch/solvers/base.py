@@ -1,5 +1,5 @@
-"""Result container, the exact-iterations contract and the pieces every
-classic-family solver shares (counterpart of
+"""Result containers (SolveResult, ShiftedResult), the exact-iterations
+contract and the pieces every classic-family solver shares (counterpart of
 mpi_bicgstab_tpu/solvers/base.py, plus `_finish`, `_maybe_print_residual`
 of mpi_bicgstab_tpu/solvers/bicgstab.py)."""
 from __future__ import annotations
@@ -34,6 +34,42 @@ class SolveResult:
     final_relres: torch.Tensor
     history: torch.Tensor
     converged: torch.Tensor
+    true_relres: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedResult:
+    """Result of a shifted-family solve.
+
+    x_set:        [n_sigma, n] solutions of (A + sigma_j I) x_j = b (a DF
+                  pair for df32)
+    n_iter:       iterations executed (int)
+    final_relres: 0-d tensor, the seed system's recursive relative
+                  residual at exit
+    history:      [max_iter] seed relative-residual history, NaN beyond
+                  n_iter
+    stop_flags:   [n_sigma] bool tensor, per-shift converged flags (all
+                  True <=> every shift hit tolerance)
+    final_seed:   seed index at exit (int; changes under seed switching)
+    shift_relres: [n_sigma] ESTIMATED per-shift relative residuals at
+                  exit, |scale_j| ||r_seed|| / ||r0|| (the reference's
+                  DISPLAY_SIGMA_RESIDUAL, shifted_switching_solver.c:
+                  447-478; estimated, never recomputed)
+    true_relres:  0-d tensor, ||b - (A + sigma_seed I) x_seed|| / ||r0||
+                  of the CURRENT seed system (one extra SpMV at exit).
+                  Every per-shift estimate is a multiple of the seed
+                  residual, so a seed recurrence that decoupled from the
+                  truth poisons the whole ladder silently: this field is
+                  the detector.
+    """
+
+    x_set: object
+    n_iter: int
+    final_relres: torch.Tensor
+    history: torch.Tensor
+    stop_flags: torch.Tensor
+    final_seed: int
+    shift_relres: torch.Tensor
     true_relres: torch.Tensor
 
 

@@ -70,3 +70,38 @@ class SolverConfig:
 
     def replace(self, **kw) -> "SolverConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedConfig:
+    """Configuration for the shifted (multi-sigma) solver family.
+
+    Reference defaults: EPS 1e-12 (shifted_solver.c:5,
+    shifted_switching_solver.c:5), MAX_ITER 1000; the sigma ladder and
+    the seed index are runtime inputs of the drivers (main_shifted.c:95-100).
+
+    tol, max_iter, dtype, out_iter: as in SolverConfig (tol == 0 runs
+              exactly max_iter iterations: no shift stops, no seed switch).
+    verbose_switch: print seed-switch events (the reference prints them
+              unconditionally, shifted_switching_solver.c:519-526).
+    shift_block: blocked (deferred, matrix-product) shift updates of the
+              seed-switching solver (solvers/switching_blocked.py): -1
+              auto (L = 64 for a float32 ladder of >= 8 shifts on the
+              card; the Q/R recording buffers take 2 L n 4 bytes, ~820 MB
+              at 1.6M rows), 0 the per-iteration path, > 0 an explicit
+              depth L. The checkpointed segment driver always takes the
+              per-iteration path (bit-exact resume).
+    """
+
+    tol: float = 1.0e-12
+    max_iter: int = 1000
+    dtype: torch.dtype = torch.float64
+    out_iter: int = 0
+    verbose_switch: bool = False
+    shift_block: int = -1
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", canon_dtype(self.dtype))
+
+    def replace(self, **kw) -> "ShiftedConfig":
+        return dataclasses.replace(self, **kw)

@@ -11,7 +11,7 @@ The plain twins themselves are held to the JAX package in the CPU tests
 (test_torch_fused_classic.py, test_torch_fused_ca.py,
 test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
 test_torch_fused_ca_df.py, test_torch_fused_pipe_df.py,
-test_torch_layout.py). The one host-side test here
+test_torch_layout.py, test_torch_shift_update.py). The one host-side test here
 (test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
@@ -23,7 +23,10 @@ rtol 1e-12 with atol 1e-12 times the output's largest entry (rows whose
 terms cancel keep the rounding of the largest terms). Double-float (DF)
 kernels: output vectors and folded scalars bit-equal to the twin's, each
 dot within 1e-12 sum |u_i v_i| (the kernels sum their compensated
-partials in another order).
+partials in another order). The DF shift update: the updated state
+bit-equal to the twin's, frozen rows bit-unchanged. Shifted solves on the
+card against the CPU: n_iter within 2, the same final seed, solutions
+within 1e-8 (1e-3 in float32).
 """
 import contextlib
 import io
@@ -33,7 +36,7 @@ import pytest
 import torch
 
 from mpi_bicgstab_tpu_torch import cli, convert
-from mpi_bicgstab_tpu_torch.api import solve
+from mpi_bicgstab_tpu_torch.api import solve, solve_shifted
 from mpi_bicgstab_tpu_torch.models.generators import banded_random
 from mpi_bicgstab_tpu_torch.models.problem import build_problem
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
@@ -42,13 +45,14 @@ from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
+from mpi_bicgstab_tpu_torch.ops import cuda_shift_update as csu
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia
 from mpi_bicgstab_tpu_torch.ops.layout import build_operator, spmv
 from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_div, df_from_f64,
                                                   df_mul, df_to_f64, is_df)
 from mpi_bicgstab_tpu_torch.solvers.base import fold_beta_alpha
-from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig, SolverConfig
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -550,3 +554,186 @@ def test_df32_host_side_end_to_end(tmp_path):
     assert code == 0 and "converged: True" in out.getvalue()
     x = np.load(sol)
     assert x.dtype == np.float64 and np.abs(x - 1.0).max() < 1e-8
+
+
+# --- the fused df32 shift update (csrc/shift_update_df.cu) --------------------
+
+def _shift_inputs(S, n, dev, frozen_share=0.3, seed=0, offset=0):
+    """Random DF state, vectors and folded coefficients (frozen rows:
+    0, 0, 0, 0, 1, 0); `offset` > 0 places the state off 16-byte
+    alignment."""
+    g = np.random.default_rng(seed)
+
+    def state():
+        t = [torch.empty(S * n + offset, dtype=torch.float32, device=dev)
+             [offset:].view(S, n) for _ in range(2)]
+        v = df_from_f64(g.standard_normal((S, n)), dev)
+        t[0].copy_(v.hi)
+        t[1].copy_(v.lo)
+        return DF(t[0], t[1])
+
+    x, p = state(), state()
+    q, ro, rn = (df_from_f64(g.standard_normal(n), dev) for _ in range(3))
+    active = torch.as_tensor(g.random(S) >= frozen_share, device=dev)
+    coefs = []
+    for i in range(6):
+        c = df_from_f64(g.standard_normal(S), dev)
+        fill = 1.0 if i == 4 else 0.0
+        coefs.append(DF(torch.where(active, c.hi, fill),
+                        torch.where(active, c.lo, 0.0)))
+    return [x, p, q, ro, rn, *coefs], active
+
+
+@pytest.mark.parametrize("S,n,share,offset", [
+    (1, 1, 0.3, 0), (5, 37, 0.3, 0), (32, 1024, 0.3, 0),
+    (33, 4099, 0.3, 0), (70, 4096, 0.3, 0), (16, 2048, 0.3, 1),
+    (16, 2048, 1.0, 0), (16, 2048, 0.0, 0)])
+def test_shift_update_kernel_matches_twin_bit_for_bit(S, n, share, offset):
+    dev = _card()
+    args, active = _shift_inputs(S, n, dev, share, offset=offset)
+    x0 = DF(args[0].hi.clone(), args[0].lo.clone())
+    p0 = DF(args[1].hi.clone(), args[1].lo.clone())
+    want_x, want_p = csu.fused_shift_update_df_plain(*args)
+    before = csu.fused_shift_update_df.launches
+    got_x, got_p = csu.fused_shift_update_df(*args)
+    torch.cuda.synchronize()
+    assert csu.fused_shift_update_df.launches == before + 1
+    assert got_x is args[0] and got_p is args[1]        # in place
+    assert _same(got_x, want_x) and _same(got_p, want_p)
+    frozen = ~active
+    for got, src in ((got_x, x0), (got_p, p0)):
+        assert torch.equal(got.hi[frozen], src.hi[frozen])
+        assert torch.equal(got.lo[frozen], src.lo[frozen])
+
+
+def test_shift_update_wrapper_raises_instead_of_falling_back():
+    dev = _card()
+    args, _ = _shift_inputs(8, 256, dev)
+    bad = list(args)
+    bad[2] = args[2].hi                                 # q not a pair
+    with pytest.raises(TypeError):
+        csu.fused_shift_update_df(*bad)
+    bad = list(args)
+    bad[5] = args[5].to("cpu")                          # coefficient on CPU
+    with pytest.raises(ValueError):
+        csu.fused_shift_update_df(*bad)
+    bad = list(args)
+    bad[3] = args[3][:100]                              # r_old too short
+    with pytest.raises(ValueError):
+        csu.fused_shift_update_df(*bad)
+    bad = list(args)
+    bad[6] = args[6][:4]                                # coefficient too short
+    with pytest.raises(ValueError):
+        csu.fused_shift_update_df(*bad)
+
+
+def _shifted_problem(dtype, dev, S=8, seed=3, sigma_max=0.01):
+    csr = banded_random(8192, [1, -1, 40, -40], seed=12)
+    sigma = (np.arange(S) + 1) * (sigma_max / S)
+    prob = build_problem(csr, dtype=dtype, device=dev,
+                         sigma_seed=float(sigma[seed]))
+    return prob, sigma, seed
+
+
+@pytest.mark.parametrize("dtype,spmv_kernel,update_launches", [
+    ("df32", "dia_spmv_df", 10), ("float32", "dia_spmv", 0),
+    ("float64", "dia_spmv", 0)])
+def test_switching_route_launches_its_kernels(dtype, spmv_kernel,
+                                              update_launches):
+    """tol=0, 10 iterations: the DF shift update once per iteration (df32
+    only), two seed SpMVs per iteration and the true residual's."""
+    dev = _card()
+    prob, sigma, seed = _shifted_problem(dtype, dev)
+    fns = {"shift_update_df": csu.fused_shift_update_df,
+           "dia_spmv": cuda_spmv.dia_spmv,
+           "dia_spmv_df": cuda_spmv.dia_spmv_df}
+    for fn in fns.values():
+        fn.launches = 0
+    res = solve_shifted(prob.A, prob.b, sigma, seed=seed,
+                        method="shifted_lopbicg_switching",
+                        cfg=ShiftedConfig(tol=0.0, max_iter=10, dtype=dtype))
+    assert res.n_iter == 10
+    want = {k: 0 for k in fns}
+    want[spmv_kernel] = 2 * 10 + 1
+    want["shift_update_df"] = update_launches
+    assert {k: fn.launches for k, fn in fns.items()} == want
+
+
+@pytest.mark.parametrize("dtype,tol,shift_block", [
+    ("df32", 1e-10, -1), ("float64", 1e-10, -1), ("float32", 1e-5, 64)])
+def test_switching_on_card_matches_cpu(dtype, tol, shift_block):
+    """A wide ladder whose top seed stops first, so the solver switches
+    seeds. float32 on the card takes the blocked path (auto L = 64); the
+    CPU run is given the same L explicitly."""
+    dev = _card()
+    res = {}
+    for d in (dev, "cpu"):
+        prob, sigma, seed = _shifted_problem(dtype, d, S=16, seed=15,
+                                             sigma_max=4.0)
+        res[d] = solve_shifted(prob.A, prob.b, sigma, seed=seed,
+                               method="shifted_lopbicg_switching",
+                               cfg=ShiftedConfig(tol=tol, max_iter=300,
+                                                 dtype=dtype,
+                                                 shift_block=shift_block
+                                                 if d == "cpu" else -1))
+    assert bool(res[dev].stop_flags.all()) and bool(res["cpu"].stop_flags.all())
+    assert abs(res[dev].n_iter - res["cpu"].n_iter) <= 2
+    assert res[dev].final_seed == res["cpu"].final_seed != 15
+    if dtype == "df32":
+        x = (df_to_f64(res[dev].x_set), df_to_f64(res["cpu"].x_set))
+    else:
+        x = (res[dev].x_set.double().cpu().numpy(),
+             res["cpu"].x_set.double().numpy())
+    np.testing.assert_allclose(*x, atol=1e-3 if dtype == "float32" else 1e-8)
+
+
+@pytest.mark.parametrize("dtype", ["df32", "float32"])
+def test_tol0_switching_replays_as_a_cuda_graph(dtype):
+    dev = _card()
+    prob, sigma, seed = _shifted_problem(dtype, dev)
+    from mpi_bicgstab_tpu_torch.api import _ladder
+    sig = _ladder(prob.b, sigma)
+    cfg = ShiftedConfig(tol=0.0, max_iter=10, dtype=dtype, shift_block=4
+                        if dtype == "float32" else -1)
+
+    def run():
+        return solve_shifted(prob.A, prob.b, sig, seed=seed,
+                             method="shifted_lopbicg_switching", cfg=cfg)
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        res = run()
+    g.replay()
+    torch.cuda.synchronize()
+    assert res.n_iter == 10
+    if dtype == "df32":
+        assert _same(res.x_set, eager.x_set)
+    else:
+        assert torch.equal(res.x_set, eager.x_set)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "df32"])
+def test_refine_on_card_matches_cpu(dtype):
+    """A loose switching solve (tol 1e-4) polished to 1e-10 by the batched
+    per-shift BiCGStab over the DIA SpMV kernels (chunks of 4 shifts)."""
+    from mpi_bicgstab_tpu_torch.api import refine_shifted_solutions
+    dev = _card()
+    out = {}
+    for d in (dev, "cpu"):
+        prob, sigma, seed = _shifted_problem(dtype, d)
+        res = solve_shifted(prob.A, prob.b, sigma, seed=seed,
+                            method="shifted_lopbicg_switching",
+                            cfg=ShiftedConfig(tol=1e-4, dtype=dtype))
+        out[d] = refine_shifted_solutions(
+            prob.A, prob.b, sigma, res.x_set,
+            SolverConfig(tol=1e-10, max_iter=200, dtype=dtype), chunk=4)
+    (xg, kg, rg), (xc, kc, rc) = out[dev], out["cpu"]
+    assert kg > 0 and abs(kg - kc) <= 2
+    assert float(rg.max()) <= 1e-10 and float(rc.max()) <= 1e-10
+    f = df_to_f64 if dtype == "df32" else (lambda t: t.double().cpu().numpy())
+    np.testing.assert_allclose(f(xg), f(xc), atol=1e-8)
