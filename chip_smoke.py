@@ -12,7 +12,9 @@ numbers; any failure exits non-zero:
              with each kernel's registers, shared memory and spills
   3. check   each kernel against its plain PyTorch version on the same
              inputs at the main path's full width: transport_like(1602112),
-             15 diagonals (tolerances in TOL below). The double-float (DF)
+             15 diagonals (tolerances in TOL below); the batched kernels
+             at k = 8 lanes, two of them frozen (their outputs must be
+             their old values bit for bit). The double-float (DF)
              kernels take the band as DF pairs split from float64 and
              random DF vectors from a seeded NumPy generator; their output
              vectors must equal the twin's bit for bit, each dot must lie
@@ -49,7 +51,16 @@ numbers; any failure exits non-zero:
              refinement (refine_shifted_solutions: it must iterate, and
              every shift's true residual fall to <= 10 tol); a checkpointed
              df32 run (16 shifts, --checkpoint-every 5) across a seed
-             switch, bit-identical to the uninterrupted one
+             switch, bit-identical to the uninterrupted one.
+             Batched right-hand sides (ROADMAP slice 5): `solve
+             --rhs-batch B.npy --dtype float32 --tol 1e-6` with k = 8
+             lanes, B[j] = A x_j for seeded x_j (x_0 = ones), through the
+             fused batched kernels (K1b = K2b = K3b = the largest n_iter,
+             the batched SpMV twice, no single-lane kernel), every lane
+             converged with its true residual <= 100 tol and its n_iter
+             within 1 of a single-RHS f32 solve of that lane; the same at
+             k = 2 in float64 and df32 (tol 1e-10), lane by lane through
+             the unfused solvers and the DIA SpMV kernels
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -58,7 +69,9 @@ numbers; any failure exits non-zero:
              kernel against its bound, its plain version and, for the
              f32/f64 SpMV, torch's CSR product; time per shifted
              iteration at 512 shifts (df32, float32 blocked and
-             per-iteration, float64) beside the shift update's byte floor
+             per-iteration, float64) beside the shift update's byte floor;
+             time per batched iteration at k = 8 (eager and device) beside
+             8 single-lane classic f32 iterations and its byte floor
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -109,6 +122,10 @@ REPLACES = {
     "fused_phase_a_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:170",
     "fused_phase_b_df": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df2.py:205",
     "shift_update_df": "mpi_bicgstab_tpu/ops/pallas_shift_update.py:85",
+    "batched_dia_spmv": "mpi_bicgstab_tpu/ops/pallas_batched_spmv.py:91",
+    "fused_k1b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:170",
+    "fused_k2b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:260",
+    "fused_k3b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:297",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -129,6 +146,10 @@ SOURCES = {
     "fused_phase_a_df": _CSRC + "fused_pipe_df.cu",
     "fused_phase_b_df": _CSRC + "fused_pipe_df.cu",
     "shift_update_df": _CSRC + "shift_update_df.cu",
+    "batched_dia_spmv": _CSRC + "batched_spmv.cu",
+    "fused_k1b": _CSRC + "fused_batched.cu",
+    "fused_k2b": _CSRC + "fused_batched.cu",
+    "fused_k3b": _CSRC + "fused_batched.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -175,7 +196,11 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "fused_ca_k2_df": ("ca_df32", "fused_ca_k2_df"),
                  "fused_phase_a_df": ("pipe_df32", "fused_phase_a_df"),
                  "fused_phase_b_df": ("pipe_df32", "fused_phase_b_df"),
-                 "shift_update_df": ("shifted_df32", "shift_update_df")}
+                 "shift_update_df": ("shifted_df32", "shift_update_df"),
+                 "batched_dia_spmv": ("batched", "batched_dia_spmv"),
+                 "fused_k1b": ("batched", "fused_k1b"),
+                 "fused_k2b": ("batched", "fused_k2b"),
+                 "fused_k3b": ("batched", "fused_k3b")}
 # the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
 # phase -> (dtype, tol)
 S_MAIN, SEED_MAIN, SIGMA_MAX = 512, 255, 0.01
@@ -185,6 +210,11 @@ SHIFTED_PATHS = {"shifted_df32": ("df32", 1e-10),
 REFINE_TOLS = (1e-4, 1e-6)   # the loose shifted solve, the refinement
 SHIFT_ROWS_PER_TWIN = 32   # the DF twin's rows per slice at full width
 DF_MUL_FLOPS, DF_ADD_FLOPS = 10, 20
+# batched right-hand sides: lanes, the kernel check's frozen lanes, and the
+# per-lane route's lanes and tolerance
+K_MAIN, FROZEN_LANES = 8, (2, 5)
+BATCHED = ("batched_dia_spmv", "fused_k1b", "fused_k2b", "fused_k3b")
+K_LANES, LANES_TOL = 2, 1e-10
 
 
 class SmokeFailure(RuntimeError):
@@ -204,6 +234,8 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
     from mpi_bicgstab_tpu_torch.ops import cuda_shift_update as csu
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fbat
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
@@ -218,7 +250,10 @@ def _counters():
             "fused_ca_k2_df": fcadf.fused_ca_k2_df,
             "fused_phase_a_df": fpipedf.fused_phase_a_df,
             "fused_phase_b_df": fpipedf.fused_phase_b_df,
-            "shift_update_df": csu.fused_shift_update_df}
+            "shift_update_df": csu.fused_shift_update_df,
+            "batched_dia_spmv": cbs.batched_dia_spmv,
+            "fused_k1b": fbat.fused_k1b, "fused_k2b": fbat.fused_k2b,
+            "fused_k3b": fbat.fused_k3b}
 
 
 def reset_counts() -> None:
@@ -305,6 +340,17 @@ def kernel_inputs(csr, device="cuda", seed=0) -> dict:
     for k, v in (("alpha", 0.7), ("beta", 0.3), ("omega", 0.2),
                  ("rTr", 2.5)):
         inp["df_" + k] = df_from_f64(np.float64(v) * (1 + 1e-9), device)
+    # batched: [K_MAIN, n] planes, per-lane scalars, FROZEN_LANES inactive
+    for k in ("r", "p", "s", "r_hat", "x", "q", "y"):
+        inp["b_" + k] = torch.randn((K_MAIN, csr.nrows), generator=g,
+                                    device=device)
+    for k in ("alpha", "beta", "omega"):
+        inp["b_" + k] = 0.1 + 0.8 * torch.rand(K_MAIN, generator=g,
+                                               device=device)
+    inp["b_active"] = torch.ones(K_MAIN, device=device)
+    inp["b_active"][list(FROZEN_LANES)] = 0.0
+    # the solver loop runs a frozen lane's K2b with alpha = 0
+    inp["b_alpha"][list(FROZEN_LANES)] = 0.0
     return inp
 
 
@@ -349,7 +395,52 @@ def kernel_calls(inp: dict) -> dict:
         "fused_phase_b": (lambda: fpipe.fused_phase_b(*pb),
                           lambda: fpipe.fused_phase_b_plain(*pb), "float32"),
         **df_kernel_calls(inp),
+        **batched_kernel_calls(inp),
     }
+
+
+def batched_kernel_calls(inp: dict) -> dict:
+    """The batched kernels' entries of kernel_calls (k = K_MAIN lanes;
+    each returns its planes, then its [k] dots)."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fbat
+    v, o = inp["A32"].vals, inp["A32"].offsets
+    r, p, s, rh, x, q, y = (inp["b_" + k] for k in
+                            ("r", "p", "s", "r_hat", "x", "q", "y"))
+    a, b, w, act = (inp["b_" + k] for k in
+                    ("alpha", "beta", "omega", "active"))
+    k1 = (v, r, p, s, rh, (b, w, act), o)
+    k2 = (v, r, s, (a,), o)
+    k3 = (x, p, q, y, rh, (a, w, act))
+    return {
+        "batched_dia_spmv": (lambda: (cbs.batched_dia_spmv(v, o, x),),
+                             lambda: (cbs.batched_dia_spmv_plain(v, o, x),),
+                             "float32"),
+        "fused_k1b": (lambda: fbat.fused_k1b(*k1),
+                      lambda: fbat.fused_k1b_plain(*k1), "float32"),
+        "fused_k2b": (lambda: fbat.fused_k2b(*k2),
+                      lambda: fbat.fused_k2b_plain(*k2), "float32"),
+        "fused_k3b": (lambda: fbat.fused_k3b(*k3),
+                      lambda: fbat.fused_k3b_plain(*k3), "float32"),
+    }
+
+
+def check_frozen_lanes(calls: dict, inp: dict) -> None:
+    """The batched passes write a frozen lane's old values back bit for
+    bit: p and s in K1b, q = r in K2b (alpha = 0), x and q in K3b."""
+    import torch
+    fz = list(FROZEN_LANES)
+    keep = {"fused_k1b": ("p", "s"), "fused_k2b": ("r",),
+            "fused_k3b": ("x", "q")}
+    for name, olds in keep.items():
+        got = calls[name][0]()
+        torch.cuda.synchronize()
+        for i, old in enumerate(olds):
+            if not torch.equal(got[i][fz], inp["b_" + old][fz]):
+                raise SmokeFailure(f"{name} output {i}: a frozen lane "
+                                   f"changed")
+    _say("batched_kernels", k=K_MAIN, frozen_lanes=list(FROZEN_LANES),
+         frozen="bit-unchanged")
 
 
 def df_kernel_calls(inp: dict) -> dict:
@@ -490,7 +581,7 @@ def check_kernels(calls: dict, inp: dict) -> dict:
             if dt == "float64":
                 _close(what, g, w, TOL[dt]["rtol"],
                        TOL[dt]["atol_rel"] * float(w.abs().max()))
-            elif g.dim() == 0:
+            elif g.dim() == 0 or (name in BATCHED and g.dim() == 1):
                 _close(what, g, w, TOL["float32_dot"]["rtol"], 0.0)
             else:
                 _close(what, g, w, **TOL["float32"])
@@ -608,6 +699,20 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return 4 * (W * n + 4 * n + 3), 2 * nz + 2 * n + 4 * n, "float32"
     if name == "fused_k3":   # x, p2, q, y, r_hat in; x2, r2 out; 2 dots
         return 4 * (7 * n + 4), 6 * n + 4 * n, "float32"
+    # batched, K_MAIN lanes: the band once for all lanes, every [k, n]
+    # plane once, the [k] scalars and dots; the flops of the single-lane
+    # pass per lane
+    k = K_MAIN
+    if name == "batched_dia_spmv":
+        return 4 * (W * n + 2 * k * n), 2 * nz * k, "float32"
+    if name == "fused_k1b":  # r p s r^ in; p2 s2 out; beta omega active; 1
+        return 4 * (W * n + 6 * k * n + 4 * k), k * (2 * nz + 6 * n), \
+            "float32"
+    if name == "fused_k2b":  # r s2 in; q y out; alpha; 2 dots
+        return 4 * (W * n + 4 * k * n + 3 * k), k * (2 * nz + 6 * n), \
+            "float32"
+    if name == "fused_k3b":  # x p2 q y r^ in; x2 r2 out; 3 scalars; 2 dots
+        return 4 * (7 * k * n + 5 * k), k * 10 * n, "float32"
     # DF: 8 bytes per element; the vectors and scalars as for float32;
     # operations: one df_fma per band entry and per update, and the dots
     fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
@@ -649,6 +754,15 @@ def library_call(name: str, inp: dict, csr):
     """One PyTorch call computing the same function, or None: torch's CSR
     sparse product for the SpMV (a yardstick; the port never calls it)."""
     import torch
+    if name == "batched_dia_spmv":      # torch.sparse.mm(A in CSR, X^T)
+        dev = inp["A32"].device
+        A = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.ptr, device=dev),
+            torch.as_tensor(csr.col, device=dev),
+            torch.as_tensor(csr.val, dtype=torch.float32, device=dev),
+            size=csr.shape)
+        X = inp["b_x"]
+        return lambda: torch.sparse.mm(A, X.t())
     if name not in ("dia_spmv_f32", "dia_spmv_f64"):
         return None     # no PyTorch call computes a fused pass or a DF SpMV
     dt = torch.float32 if name.endswith("f32") else torch.float64
@@ -1074,6 +1188,173 @@ def run_checkpoint_path(S: int = 16, every: int = 5,
          resumed="bit-identical")
 
 
+# --- batched right-hand sides ---------------------------------------------
+
+def batched_rhs(csr, k: int, seed: int = 0):
+    """(B, X): B[j] = A x_j with x_0 = ones and seeded x_j of kinds that
+    stop at different iterations (on transport_like at tol 1e-6 a unit
+    vector stops first, a sparse vector next, a fast wave last)."""
+    import numpy as np
+    n = csr.nrows
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / n
+
+    def unit(j):
+        return np.eye(1, n, rng.integers(n)).ravel()
+
+    def sparse(j):
+        return (rng.random(n) < 0.01) * rng.standard_normal(n)
+
+    kinds = [lambda j: np.ones(n), unit, sparse,
+             lambda j: np.sin(2 * np.pi * 50 * t),
+             lambda j: rng.standard_normal(n),
+             lambda j: rng.uniform(-1.0, 1.0, n)]
+    X = np.stack([kinds[j % len(kinds)](j) for j in range(k)])
+    return np.stack([csr.matvec(x) for x in X]), X
+
+
+def _rhs_batch_cli(n, B, dtype, tol, device, workdir):
+    """`solve --matrix transport-like:n --rhs-batch B.npy` through the
+    CLI's own code (cli.run_solve), every launch counter set to 0 just
+    before and read just after. Returns (report, result, counts)."""
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch import cli
+    workdir.mkdir(parents=True, exist_ok=True)
+    path = workdir / f"B_{B.shape[0]}.npy"
+    np.save(path, B)
+    args = cli.build_parser().parse_args(
+        ["solve", "--matrix", f"transport-like:{n}", "--rhs-batch",
+         str(path), "--dtype", dtype, "--tol", str(tol), "--device",
+         device])
+    reset_counts()
+    report, res = cli.run_solve(args)
+    counts = read_counts()
+    path.unlink()
+    return report, res, counts
+
+
+def _workdir():
+    return Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def run_batched_path(n: int, device: str = "cuda", k: int = K_MAIN,
+                     tol: float = 1e-6, A32=None, workdir=None) -> dict:
+    """The batched main path: `solve --rhs-batch` in float32 with k lanes.
+    Every lane converged, its true residual <= 100 tol, its n_iter within
+    1 of a single-RHS f32 solve of that lane (api.solve on A32, outside
+    the counted run), at least two distinct n_iter (so that lanes freeze
+    while others iterate), lane 0 (x = ones) within 1e-3; on the card the
+    launches are K1b = K2b = K3b = the largest n_iter and 2 batched SpMVs
+    (r0 and the true residual), nothing else; on the CPU none. Returns
+    the counts."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    csr = transport_like(n)
+    B, X = batched_rhs(csr, k)
+    report, res, counts = _rhs_batch_cli(n, B, "float32", tol, device,
+                                         workdir or _workdir())
+    its = report["n_iter"]
+    if A32 is None:
+        A32 = build_problem(csr, dtype=torch.float32, multiple=1,
+                            device=device).A
+    single = [solve(A32, torch.as_tensor(B[j], dtype=torch.float32,
+                                         device=device),
+                    cfg=SolverConfig(tol=tol, dtype="float32")).n_iter
+              for j in range(k)]
+    err0 = float((res.x[0].double() - 1.0).abs().max())
+    err = float((res.x.double().cpu() - torch.as_tensor(X)).abs().max())
+    if not (all(report["converged"])
+            and report["max_true_relres"] <= 100 * tol):
+        raise SmokeFailure(f"batched: {report}")
+    # lanes that stop apart drive the frozen-lane masking at full width
+    if (max(abs(a - b) for a, b in zip(its, single)) > 1 or err0 >= 1e-3
+            or len(set(its)) < 2):
+        raise SmokeFailure(f"batched: n_iter {its} (lanes must stop at "
+                           f"different iterations), single-RHS {single}, "
+                           f"max|x_0 - 1| {err0:.3e}")
+    want = dict.fromkeys(counts, 0)
+    if device != "cpu":
+        want.update(fused_k1b=max(its), fused_k2b=max(its),
+                    fused_k3b=max(its), batched_dia_spmv=2)
+    if counts != want:
+        bad = {c: (v, want[c]) for c, v in counts.items() if v != want[c]}
+        raise SmokeFailure(f"batched: launches (got, expected) {bad}")
+    _say("batched", k=k, dtype="float32", tol=tol, n_iter=its,
+         single_rhs_n_iter=single, distinct_stops=len(set(its)),
+         converged=report["converged"],
+         max_true_relres=report["max_true_relres"],
+         max_abs_x0_minus_1=err0, max_abs_err_all_lanes=err,
+         solve_s=report["total_time_s"],
+         launches=json.dumps({c: v for c, v in counts.items() if v})
+         .replace(" ", ""))
+    return counts
+
+
+def run_batched_lanes(n: int, dtype: str, device: str = "cuda",
+                      workdir=None) -> dict:
+    """The per-lane route: `solve --rhs-batch` with K_LANES lanes in
+    float64 or df32 at LANES_TOL, each lane through the unfused classic
+    solver over the DIA SpMV kernel of its type (2 SpMVs per iteration and
+    2 per solve segment, r0 and the true residual; a lane restart adds a
+    segment), no other kernel; every lane converged, true residual <= 100
+    tol, lane 0 (x = ones) within 1e-6. Returns the counts."""
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    csr = transport_like(n)
+    B, _ = batched_rhs(csr, K_LANES)
+    report, res, counts = _rhs_batch_cli(n, B, dtype, LANES_TOL, device,
+                                         workdir or _workdir())
+    its = report["n_iter"]
+    err0 = float((_f64(res.x[0]) - 1.0).abs().max())
+    if not (all(report["converged"])
+            and report["max_true_relres"] <= 100 * LANES_TOL
+            and err0 < 1e-6):
+        raise SmokeFailure(f"batched_{dtype}: {report}, max|x_0 - 1| "
+                           f"{err0:.3e}")
+    spmv = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
+    segs = counts[spmv] - 2 * sum(its)
+    others = {c: v for c, v in counts.items() if v and c != spmv}
+    ok = (counts[spmv] == 0 if device == "cpu"
+          else segs % 2 == 0 and K_LANES <= segs // 2 <= 3 * K_LANES)
+    if others or not ok:
+        raise SmokeFailure(f"batched_{dtype}: launches {counts} for n_iter "
+                           f"{its}")
+    _say(f"batched_{'df32' if dtype == 'df32' else 'f64'}", k=K_LANES,
+         dtype=dtype, tol=LANES_TOL, n_iter=its,
+         converged=report["converged"],
+         max_true_relres=report["max_true_relres"],
+         max_abs_x0_minus_1=err0, solve_s=report["total_time_s"],
+         launches=json.dumps({c: v for c, v in counts.items() if v})
+         .replace(" ", ""))
+    return counts
+
+
+def time_batched(csr, prob32, inp, single_dev_ms: float) -> None:
+    """Time per batched iteration at K_MAIN lanes (tol=0 chains through
+    bench_batched_iteration), eager and as replayed CUDA graphs, beside
+    K_MAIN single-lane classic f32 iterations on the device and the
+    batched iteration's byte floor (K1b + K2b + K3b)."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import \
+        bench_batched_iteration
+    kw = dict(k=K_MAIN, iters=60, prob=prob32)
+    eager = bench_batched_iteration(csr, "float32", **kw)
+    dev = bench_batched_iteration(csr, "float32", graph=True, **kw)
+    ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+    nbytes = sum(work(k, inp)[0] for k in ("fused_k1b", "fused_k2b",
+                                           "fused_k3b"))
+    _say("batched_bench", k=K_MAIN, chain="tol=0x60",
+         eager_ms_per_iter=f"{ms:.4f}", device_ms_per_iter=f"{dev_ms:.4f}",
+         device_busy_share=f"{dev_ms / ms:.3f}",
+         single_lane_x8_device_ms=f"{K_MAIN * single_dev_ms:.4f}",
+         per_rhs_amortisation=f"{K_MAIN * single_dev_ms / dev_ms:.3f}",
+         bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
+         bytes_per_iter=nbytes)
+
+
 def time_shifted(csr, probs: dict) -> None:
     """Time per shifted iteration at 512 shifts (tol=0 chains through
     bench_shifted_iteration), eager and, where two captured chains fit
@@ -1142,6 +1423,7 @@ def main() -> int:
          host_setup_s=round(time.perf_counter() - t0, 3))
     calls = kernel_calls(inp)
     errs = check_kernels(calls, inp)
+    check_frozen_lanes(calls, inp)
     errs["shift_update_df"], su_row = check_shift_update(csr.nrows)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1169,6 +1451,13 @@ def main() -> int:
             raise SmokeFailure(f"{phase}: the fused DF driver took "
                                f"{iters[phase]} iterations, the unfused DF "
                                f"solver {k}: more than 2 apart")
+
+    # batched right-hand sides: the fused batched route, then lane by lane
+    runs["batched"] = run_batched_path(N_MAIN, A32=inp["A32"])
+    for dtype in ("float64", "df32"):
+        run_batched_lanes(N_MAIN, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the shifted family on the flagship ladder
     ss = float(flagship_ladder()[SEED_MAIN])
@@ -1198,6 +1487,7 @@ def main() -> int:
         "bicgstab": ("fused_k1", "fused_k2", "fused_k3"),
         "ca_bicgstab": ("fused_ca_k1", "fused_ca_k2"),
         "pipe_bicgstab": ("fused_phase_a", "fused_phase_b")}
+    single_dev_ms = {}
     for method, kerns in floors.items():
         nbytes = sum(work(k, inp)[0] for k in kerns)
         if method == "pipe_bicgstab":
@@ -1205,11 +1495,13 @@ def main() -> int:
         eager = bench_iteration(prob32, method=method, iters=200)
         dev = bench_iteration(prob32, method=method, iters=200, graph=True)
         ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        single_dev_ms[method] = dev_ms
         _say("times", method=method, f32_ms_per_iter=f"{ms:.4f}",
              device_ms_per_iter=f"{dev_ms:.4f}",
              device_busy_share=f"{dev_ms / ms:.3f}", chain="tol=0x200",
              bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
              bytes_per_iter=nbytes)
+    time_batched(csr, prob32, inp, single_dev_ms["bicgstab"])
     df_floors = {   # bytes of one fused DF iteration: its passes' bytes
         "bicgstab": ("fused_k1_df", "fused_k2_df", "fused_k3_df"),
         "ca_bicgstab": ("fused_ca_k1_df", "fused_ca_k2_df"),

@@ -29,4 +29,5 @@ fused kernel of ops/cuda_shift_update.py.
 
 __version__ = "0.1.0"
 
-from mpi_bicgstab_tpu_torch.utils.config import SolverConfig  # noqa: F401
+from mpi_bicgstab_tpu_torch.utils.config import (  # noqa: F401
+    ShiftedConfig, SolverConfig)

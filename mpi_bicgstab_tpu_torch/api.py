@@ -1,6 +1,7 @@
 """High-level single-device solve API (counterpart of
 mpi_bicgstab_tpu/api.py: `solve`, `_restarted` and the dispatch of
-`_solve_jit`; the shifted family's `solve_shifted`,
+`_solve_jit`; the batched `solve_batched`, `_restart_batch_lanes` and the
+dispatch of `_solve_batched_jit`; the shifted family's `solve_shifted`,
 `solve_shifted_checkpointed` and `refine_shifted_solutions`).
 
 The solve runs where A and b live: on the card for an operator built
@@ -8,6 +9,16 @@ with device='cuda' (the default of models.problem.build_problem), on the
 CPU only when the caller built it there. A double-float problem
 (build_problem(dtype="df32")) carries DF pairs (ops/precision.DF) in A,
 b and x0.
+
+Batched solves (solve_batched, B [k, n]) route as the JAX package routes
+them on its TPU: float32 bicgstab on a square DiaMatrix with 1 <= k <= 8
+lanes takes the fused batched driver (three passes per iteration over all
+lanes, the band read once per pass; on the card kernels 19-22 of
+csrc/batched_spmv.cu and csrc/fused_batched.cu). Everything else (float64,
+df32, the other methods, other layouts, k > 8) solves lane by lane with
+the unfused solver over the generic SpMV: what jax.vmap computes, each
+lane as if solved alone (on the card through the DIA or ELL SpMV
+kernels).
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
@@ -23,7 +35,7 @@ from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
 from mpi_bicgstab_tpu_torch.ops.layout import spmv as generic_spmv
-from mpi_bicgstab_tpu_torch.ops.precision import is_df, vzeros_like
+from mpi_bicgstab_tpu_torch.ops.precision import DF, is_df, vzeros_like
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import SolveResult, exact_iters
 from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
@@ -142,11 +154,7 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if precond is not None:
         raise NotImplementedError(
             "Chebyshev preconditioning is not ported yet: ROADMAP slice 7")
-    if not (torch.is_tensor(b) or is_df(b)):
-        b = torch.as_tensor(np.asarray(b), device=A.device)
-    if b.device != A.device:
-        raise ValueError(f"b is on {b.device} but A is on {A.device}; "
-                         f"solve runs where both live")
+    b = _check_rhs(A, b, "solve")
     if cfg is None:
         cfg = SolverConfig(dtype=b.dtype)
     if x0 is None:
@@ -155,6 +163,114 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if cfg.restarts:
         res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),
                          cfg, res)
+    return res
+
+
+def _check_rhs(A, b, what: str):
+    if not (torch.is_tensor(b) or is_df(b)):
+        b = torch.as_tensor(np.asarray(b), device=A.device)
+    if b.device != A.device:
+        raise ValueError(f"b is on {b.device} but A is on {A.device}; "
+                         f"{what} runs where both live")
+    return b
+
+
+# --- batched right-hand sides (api.py:292-401 of the JAX package) ------------
+
+def _stack_lanes(lanes: list) -> SolveResult:
+    """One SolveResult with a leading batch axis from per-lane ones."""
+    xs = [r.x for r in lanes]
+    x = DF(torch.stack([v.hi for v in xs]), torch.stack([v.lo for v in xs])) \
+        if is_df(xs[0]) else torch.stack(xs)
+    return SolveResult(
+        x=x, n_iter=torch.tensor([r.n_iter for r in lanes], dtype=torch.int32),
+        **{f: torch.stack([getattr(r, f) for r in lanes])
+           for f in ("final_relres", "history", "converged", "true_relres")})
+
+
+def _solve_batched_once(A, B, X0, method: str, cfg) -> SolveResult:
+    """One batched pass, routed as the JAX `_solve_batched_jit` routes it
+    on its TPU (module doc). The route is the same on the CPU and on the
+    card; only each kernel wrapper's choice between kernel and plain twin
+    follows the tensors' device. The JAX package falls back from its
+    fused batched passes to the SpMV-amortised loop when their VMEM
+    windows do not fit; on the card both take the same operators, so the
+    fused driver always runs and no route reaches the loop."""
+    from mpi_bicgstab_tpu_torch.solvers.batched_fused import \
+        bicgstab_batched_fully_fused
+    k = B.shape[0]
+    if method == "bicgstab" and not is_df(B) \
+            and cbs.format_ok(A, cfg.dtype, k):
+        return bicgstab_batched_fully_fused(A, B, X0, cfg)
+    if is_df(B) and method == "pipe_bicgstab":
+        raise NotImplementedError(
+            f"df32 pipe_bicgstab runs fused DF iteration bodies that are "
+            f"not ported yet: {_SLICE3C}")
+    fn = CLASSIC_SOLVERS[method]
+    return _stack_lanes([fn(lambda v: generic_spmv(A, v), Comm(), B[j],
+                            X0[j], cfg) for j in range(k)])
+
+
+def _restart_batch_lanes(A, B, method: str, cfg, res: SolveResult):
+    """Per-lane refinement restarts after a batched solve: a lane whose
+    recurrence hit tol but failed the true-residual gate re-enters the
+    single-RHS solver (_solve_once) on its own, by the policy of
+    _restarted."""
+    if exact_iters(cfg):
+        return res    # tol=0 contract: no restart segments (and no read)
+    conv = res.converged.cpu().numpy()
+    if conv.all():
+        return res
+    x = DF(res.x.hi.clone(), res.x.lo.clone()) if is_df(res.x) \
+        else res.x.clone()
+    fields = {f: getattr(res, f).clone() for f in (
+        "n_iter", "final_relres", "history", "converged", "true_relres")}
+    for j in np.flatnonzero(~conv):
+        lane = SolveResult(x=x[j], **{f: (int(v[j]) if f == "n_iter"
+                                          else v[j])
+                                      for f, v in fields.items()})
+        lane2 = _restarted(
+            lambda x0, c, j=j: _solve_once(A, B[j], x0, method, c), cfg,
+            lane)
+        if lane2 is lane:
+            continue                # no restart fired for this lane
+        if is_df(x):
+            x.hi[j], x.lo[j] = lane2.x.hi, lane2.x.lo
+        else:
+            x[j] = lane2.x
+        for f, v in fields.items():
+            v[j] = getattr(lane2, f)
+    return SolveResult(x=x, **fields)
+
+
+def solve_batched(A, B, x0=None, method: str = "bicgstab",
+                  cfg: SolverConfig | None = None,
+                  precond=None) -> SolveResult:
+    """Solve A x_j = b_j for a BATCH of right-hand sides at once (beyond
+    the reference, which is strictly one RHS per run), where A and B
+    live. B is [k, n] (a DF pair of [k, n] for df32); the result's fields
+    carry a leading batch axis (n_iter a [k] int32 tensor on the host).
+    The loop runs until the LAST lane stops; stopped lanes freeze, so
+    each lane's n_iter, history, converged and true_relres are those it
+    would have alone. Lanes whose recurrence hit tol but failed the
+    true-residual gate re-enter the single-RHS solver one by one
+    afterwards (cfg.restarts, the policy of `solve`)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; choose from "
+                         f"{sorted(METHODS)}")
+    if precond is not None:
+        raise NotImplementedError(
+            "Chebyshev preconditioning is not ported yet: ROADMAP slice 7")
+    B = _check_rhs(A, B, "solve_batched")
+    if len(B.shape) != 2:
+        raise ValueError(f"B must be [k, n], got shape {tuple(B.shape)}")
+    if cfg is None:
+        cfg = SolverConfig(dtype=B.dtype)
+    if x0 is None:
+        x0 = vzeros_like(B)
+    res = _solve_batched_once(A, B, x0, method, cfg)
+    if cfg.restarts:
+        res = _restart_batch_lanes(A, B, method, cfg, res)
     return res
 
 
@@ -185,11 +301,7 @@ def _ladder(b, sigma):
 
 
 def _shifted_inputs(A, b, sigma, seed: int):
-    if not (torch.is_tensor(b) or is_df(b)):
-        b = torch.as_tensor(np.asarray(b), device=A.device)
-    if b.device != A.device:
-        raise ValueError(f"b is on {b.device} but A is on {A.device}; "
-                         f"solve_shifted runs where both live")
+    b = _check_rhs(A, b, "solve_shifted")
     sigma = _ladder(b, sigma)
     if not (0 <= seed < sigma.shape[0]):
         raise ValueError(f"seed {seed} out of range for {sigma.shape[0]} "

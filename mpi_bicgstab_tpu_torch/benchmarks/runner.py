@@ -1,6 +1,6 @@
 """SpMV and solver-iteration timing on the card (counterpart of
 mpi_bicgstab_tpu/benchmarks/runner.py: `_slope_time`, `bench_spmv`,
-`bench_iteration`, `bench_shifted_iteration`).
+`bench_iteration`, `bench_batched_iteration`, `bench_shifted_iteration`).
 
 Every time is a slope: the timed operation runs as a chain of K1 and of
 K2 back-to-back calls on the current stream, each chain timed with CUDA
@@ -112,6 +112,39 @@ def bench_iteration(prob, method="bicgstab", iters=60, reps=3,
     return {"iter_method": method, "time_per_iter_s": sec,
             "nnz": prob.csr.nnz,
             "spmv_equiv_nnz_per_s": 2 * prob.csr.nnz / sec}
+
+
+def bench_batched_iteration(csr, dtype, k=8, method="bicgstab", iters=60,
+                            graph=False, prob=None) -> dict:
+    """Time per BATCHED solver iteration (api.solve_batched over k
+    right-hand sides): the tol=0 slope of bench_iteration, eager or, with
+    graph=True, as replayed CUDA graphs. The ratio that matters is
+    k * time_per_iter(single) / time_per_iter(batched): how much of the
+    band stream the batch amortises. B is k standard-normal rows from
+    NumPy's generator seeded with 0; `prob`: a problem already built on
+    the card (build_problem(csr, dtype)), to reuse."""
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+
+    _require_cuda()
+    if prob is None:
+        prob = build_problem(csr, dtype=dtype, multiple=1)
+    B_host = np.random.default_rng(0).standard_normal((k, prob.n))
+    dev = prob.A.device
+    B = df_from_f64(B_host, dev) if dtype == "df32" else torch.as_tensor(
+        B_host, dtype=prob.b.dtype, device=dev)
+
+    def make_chain(K):
+        cfg = SolverConfig(tol=0.0, max_iter=K, dtype=dtype)
+        chain = lambda: solve_batched(prob.A, B, method=method,  # noqa: E731
+                                      cfg=cfg)
+        return _graph(chain) if graph else chain
+
+    sec = _slope_time(make_chain, K1=max(2, iters // 6), K2=iters, reps=3)
+    return {"iter_method": method, "batch": k, "time_per_iter_s": sec,
+            "nnz": csr.nnz, "graph": graph}
 
 
 def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,

@@ -10,13 +10,21 @@ reference's main.c).
         --matrix transport-like:1602112 --dtype df32 --sigma-len 512 \\
         --sigma-max 0.01 --seed 255 --tol 1e-10
 
+    python -m mpi_bicgstab_tpu_torch solve --matrix banded:4096 \\
+        --rhs-batch B.npy --dtype float32 --tol 1e-5 --device cpu
+
 `solve` methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
 --krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
 .npz path, or a generator spec 'poisson2d:N', 'poisson3d:N',
-'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N'. The solve
-runs on the card unless --device cpu asks for the CPU. It prints the
-fields the JAX package's `solve` prints and exits 0 when the solve
-converged, 2 when it did not. `solve-shifted` (reference main_shifted.c)
+'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N'; --format
+picks the device layout (ops/layout.build_operator; 'ell' for a matrix
+with under half its nonzeros on diagonals). The solve runs on the card
+unless --device cpu asks for the CPU. It prints the fields the JAX
+package's `solve` prints and exits 0 when the solve converged, 2 when it
+did not. `solve --rhs-batch B.npy` solves every row of a [k, n] array as
+a right-hand side in one batched solve (api.solve_batched), prints the
+JAX package's batched fields and exits 0 only when every lane converged.
+`solve-shifted` (reference main_shifted.c)
 solves a ladder of shifted systems with the seed-switching solver or
 another shifted method, prints the JAX package's solve-shifted fields,
 and exits 0 when every shift converged, 2 otherwise.
@@ -56,7 +64,7 @@ def _load_matrix(spec: str):
             csr = G.skew_banded(n)
         elif kind in ("clustered", "uniform"):
             raise SystemExit(f"generator {kind!r} is not ported yet: "
-                             f"ROADMAP slice 6 (unstructured layouts)")
+                             f"ROADMAP slice 6b (unstructured layouts)")
         else:
             raise SystemExit(f"unknown generator {kind!r}")
     else:
@@ -90,35 +98,65 @@ def _report(payload: dict) -> None:
         print(f"{k:>16s}: {v}")
 
 
+def _build_problem(args, csr, dtype, dev, **kw):
+    """build_problem in the layout --format asks for. The layouts not
+    ported yet, and 'auto' on a matrix it would route to one of them,
+    exit cleanly: nothing falls back to another layout."""
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    if args.format in ("window", "butterfly"):
+        raise SystemExit(f"--format {args.format} is not ported yet: "
+                         f"ROADMAP slice 6b (unstructured layouts)")
+    try:
+        return build_problem(csr, dtype=dtype, multiple=1, device=dev,
+                             format=args.format, **kw)
+    except NotImplementedError as e:     # 'auto' on an unstructured matrix
+        raise SystemExit(f"--format {args.format}: {e}") from None
+
+
+def _ready(dev) -> None:
+    """Build the kernels and drain the card before a timed solve (the
+    build is set-up, not solve time)."""
+    if dev.type == "cuda":
+        import torch
+
+        from mpi_bicgstab_tpu_torch.ops import _build
+        _build.build_all()
+        torch.cuda.synchronize(dev)
+
+
 def run_solve(args):
     """The `solve` command without its printing: returns (report, result)
-    where report holds the fields the JAX package's `solve` prints."""
+    where report holds the fields the JAX package's `solve` prints; with
+    --rhs-batch those of its batched solve, and the batched result."""
     import torch
 
     from mpi_bicgstab_tpu_torch.api import solve
-    from mpi_bicgstab_tpu_torch.models.problem import build_problem
     from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
                                                       df_to_f64, is_df)
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    if args.rhs_batch and args.rhs:
+        raise SystemExit("--rhs-batch cannot be combined with --rhs "
+                         "or --dump-history (one batch IS the set of "
+                         "right-hand sides; per-system histories are "
+                         "available via the library API)")
     df = args.dtype == "df32"
     # "df32" builds DF pairs; its config dtype is float32 (canon_dtype)
     dtype = args.dtype if df else getattr(torch, args.dtype)
     csr, io_time = _load_matrix(args.matrix)
     cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, krr=args.krr,
                        nrr=args.nrr, dtype=dtype, restarts=args.restarts)
-    prob = build_problem(csr, dtype=dtype, multiple=1, device=dev)
+    prob = _build_problem(args, csr, dtype, dev)
+    if args.rhs_batch:
+        return _solve_rhs_batch(args, csr, prob, cfg, io_time)
     b = prob.b
     if args.rhs:
         b_host = _load_rhs(args.rhs, csr.nrows)
         b = df_from_f64(b_host, dev) if df else torch.as_tensor(
             b_host, dtype=dtype, device=dev)
-    if dev.type == "cuda":
-        from mpi_bicgstab_tpu_torch.ops import _build
-        _build.build_all()    # the kernel build is set-up, not solve time
-        torch.cuda.synchronize(dev)
+    _ready(dev)
     t0 = time.perf_counter()
     res = solve(prob.A, b, method=args.method, cfg=cfg)
     converged = bool(res.converged)      # waits for the device
@@ -151,30 +189,68 @@ def run_solve(args):
     return report, res
 
 
+def _solve_rhs_batch(args, csr, prob, cfg, io_time):
+    """--rhs-batch: every row of a [k, n] .npy solved as a right-hand side
+    in one batched solve (api.solve_batched). Returns (report, result),
+    the report with the keys the JAX package's batched solve prints."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
+                                                      df_to_f64, is_df)
+    B = np.load(args.rhs_batch)
+    if B.ndim != 2 or B.shape[1] != csr.nrows:
+        raise SystemExit(f"--rhs-batch: expected [k, {csr.nrows}], "
+                         f"got {B.shape}")
+    B = np.asarray(B, np.float64)
+    dev = prob.A.device
+    B_dev = df_from_f64(B, dev) if args.dtype == "df32" else \
+        torch.as_tensor(B, dtype=cfg.dtype, device=dev)
+    _ready(dev)
+    t0 = time.perf_counter()
+    res = solve_batched(prob.A, B_dev, method=args.method, cfg=cfg)
+    conv = res.converged.cpu().numpy()      # waits for the device
+    wall = time.perf_counter() - t0
+    if args.write_solution:
+        X = df_to_f64(res.x) if is_df(res.x) else \
+            res.x.double().cpu().numpy()
+        np.save(args.write_solution, X[:, : csr.nrows])
+    report = {
+        "method": args.method,
+        "matrix": args.matrix,
+        "n": csr.nrows,
+        "batch": int(res.n_iter.shape[0]),
+        "io_time_s": round(io_time, 6),
+        "n_iter": res.n_iter.tolist(),
+        "converged": conv.tolist(),
+        "max_true_relres": float(res.true_relres.max()),
+        "total_time_s": round(wall, 6),
+    }
+    return report, res
+
+
 def cmd_solve(args) -> int:
     report, _ = run_solve(args)
     _report(report)
-    return 0 if report["converged"] else 2
+    conv = report["converged"]
+    return 0 if (all(conv) if isinstance(conv, list) else conv) else 2
 
 
 def _ladder(args, S: int):
     """(sigma, seed) of one ladder length: main_shifted.c:95-100,
     sigma_i = (i + 1) sigma_max / len, or, for --sigma-len-sweep,
     main_seed_diff.c:15-17, sigma_i = 0.01 + i sigma_max / len with the
-    seed clamped into the ladder. Without --seed the seed is the
-    reference's 255 (main_shifted.c:14), clamped into a shorter ladder;
-    an explicit --seed outside the ladder is refused."""
-    if args.sigma_len_sweep or args.seed is None:
-        seed = min(_SEED if args.seed is None else args.seed, S - 1)
-    else:
-        seed = args.seed
+    seed clamped into the ladder. The direct mode refuses a seed outside
+    the ladder, the default 255 (main_shifted.c:14) included, as the JAX
+    CLI does."""
     if args.sigma_len_sweep:
-        return 0.01 + np.arange(S) * (args.sigma_max / S), seed
-    if not 0 <= seed < S:
+        return (0.01 + np.arange(S) * (args.sigma_max / S),
+                min(args.seed, S - 1))
+    if not 0 <= args.seed < S:
         raise SystemExit(f"--seed {args.seed} out of range for --sigma-len "
                          f"{S} (the sweep mode clamps; the direct mode "
                          f"wants an explicit in-range seed)")
-    return (np.arange(S) + 1) * (args.sigma_max / S), seed
+    return (np.arange(S) + 1) * (args.sigma_max / S), args.seed
 
 
 def _check_shifted_args(args) -> None:
@@ -206,7 +282,6 @@ def run_solve_shifted(args, report=None):
     from mpi_bicgstab_tpu_torch.api import (refine_shifted_solutions,
                                             solve_shifted,
                                             solve_shifted_checkpointed)
-    from mpi_bicgstab_tpu_torch.models.problem import build_problem
     from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
                                                       df_to_f64, is_df)
     from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig,
@@ -235,8 +310,8 @@ def run_solve_shifted(args, report=None):
         # default rhs: b = (A + sigma_seed I) ones (main_shifted.c:109-114)
         b_host = b_user if b_user is not None else \
             csr.matvec(np.ones(n)) + sigma[seed] * np.ones(n)
-        prob = build_problem(csr, dtype=dtype, multiple=1, device=dev,
-                             sigma_seed=float(sigma[seed]))
+        prob = _build_problem(args, csr, dtype, dev,
+                              sigma_seed=float(sigma[seed]))
         b = prob.b
         if b_user is not None:
             b = df_from_f64(b_user, dev) if df else torch.as_tensor(
@@ -319,6 +394,16 @@ def cmd_solve_shifted(args) -> int:
     return 0 if all(r["all_converged"] for r in rows) else 2
 
 
+def _add_format(p) -> None:
+    p.add_argument("--format", default="auto",
+                   choices=["auto", "dia", "hybrid", "ell", "window",
+                            "butterfly"],
+                   help="device layout (ops/layout.build_operator); "
+                        "'auto' routes by structure analysis, 'ell' is "
+                        "the faithful-to-reference gather layout; "
+                        "'window' and 'butterfly' are not ported yet")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from mpi_bicgstab_tpu_torch.api import METHODS
 
@@ -357,8 +442,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rhs", default=None, metavar="FILE",
                    help="right-hand side b (.npy or Matrix Market "
                         "vector); default b = A*ones")
+    p.add_argument("--rhs-batch", default=None, metavar="FILE.npy",
+                   help="solve A x_j = b_j for a BATCH of right-hand "
+                        "sides ([k, n] .npy) in one batched run; float32 "
+                        "bicgstab on a DIA matrix with k <= 8 streams the "
+                        "band once per pass for the whole batch "
+                        "(api.solve_batched)")
     p.add_argument("--write-solution", default=None, metavar="FILE",
-                   help="save the solution x (float64) as .npy")
+                   help="save the solution x (float64) as .npy; with "
+                        "--rhs-batch the stacked [k, n] solutions")
+    _add_format(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to solve (default: the card; raises "
                         "without one)")
@@ -385,10 +478,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iter", type=int, default=1000)
     p.add_argument("--sigma-len", type=int, default=512)
     p.add_argument("--sigma-max", type=float, default=0.01)
-    p.add_argument("--seed", type=int, default=None,
-                   help=f"seed system's index in the ladder (default "
-                        f"{_SEED}, the reference's, or the last shift of a "
-                        f"shorter ladder)")
+    p.add_argument("--seed", type=int, default=_SEED,
+                   help="seed system's index in the ladder (default "
+                        "%(default)s, the reference's; a shorter ladder "
+                        "needs an explicit seed)")
     p.add_argument("--sigma-len-sweep", default=None,
                    help="comma list, e.g. 8,32,128,512 (main_seed_diff.c)")
     p.add_argument("--refine", action="store_true",
@@ -416,6 +509,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose-every", type=int, default=0, metavar="N",
                    help="print the seed relative residual every N "
                         "iterations, and each seed switch; 0 = silent")
+    _add_format(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to solve (default: the card; raises "
                         "without one)")

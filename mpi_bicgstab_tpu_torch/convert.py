@@ -35,6 +35,7 @@ from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
 from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
 from mpi_bicgstab_tpu_torch.ops.precision import DF
+from mpi_bicgstab_tpu_torch.utils.checkpoint import switching_kinds, unflatten
 from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig, SolverConfig,
                                                  canon_dtype)
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -123,24 +124,16 @@ def shifted_config_from_fields(fields: dict) -> ShiftedConfig:
     return ShiftedConfig(**_port_fields(fields))
 
 
-# slots of the switching carry (solvers/switching.init_switching_carry):
-# "i" an int32 scalar, "v" a value slot (a DF pair in df32), "t" a tensor
-_CARRY_SLOTS = "iivvvvvvvvvvtvvt"
-
-
 def switching_carry_from_arrays(leaves, device="cuda"):
     """The port's seed-switching carry on `device` from the NumPy leaves of
     a JAX carry: 16 leaves for a float32 / float64 solve, 28 for df32
     (each of its 12 value slots a hi, lo pair)."""
-    from mpi_bicgstab_tpu_torch.utils.checkpoint import unflatten
     dev = resolve_device(device)
-    df = {16: False, 28: True}.get(len(leaves))
-    if df is None:
+    kinds = switching_kinds(len(leaves))
+    if kinds is None:
         raise ValueError(f"a switching carry has 16 leaves (28 in df32), "
                          f"got {len(leaves)}")
-    template = []
-    for kind in _CARRY_SLOTS:
-        z = torch.zeros(0, device=dev)
-        template.append(0 if kind == "i" else DF(z, z)
-                        if kind == "v" and df else z)
+    z = torch.zeros(0, device=dev)
+    template = [0 if c == "i" else DF(z, z) if c == "d" else z
+                for c in kinds]
     return unflatten(template, [np.asarray(a) for a in leaves])

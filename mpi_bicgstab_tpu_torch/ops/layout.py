@@ -10,7 +10,7 @@ and the generic `spmv(op, x)` the solvers use, on tensors or, for an
 operator built with dtype="df32", on double-float pairs (ops/precision.DF).
 The windowed-ELL and
 butterfly layouts, which the JAX package's 'auto' picks for matrices
-with less than half their nonzeros on diagonals, are ROADMAP slice 6;
+with less than half their nonzeros on diagonals, are ROADMAP slice 6b;
 until then those requests raise NotImplementedError.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
 from mpi_bicgstab_tpu_torch.ops.precision import df_add, is_df
 from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
 
-_SLICE6 = "ROADMAP slice 6 (unstructured layouts and preprocessing)"
+_SLICE6 = "ROADMAP slice 6b (unstructured layouts)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +62,10 @@ def build_operator(csr, format: str = "auto", dtype=None,
     format:
       'auto'   — DIA if the top diagonals cover everything, hybrid if
                  they cover >= 50%; below that the JAX package routes to
-                 windowed-ELL or butterfly layouts (slice 6: raises)
+                 windowed-ELL or butterfly layouts (slice 6b: raises)
       'dia' / 'hybrid' — DIA, plus an ELL remainder if any
       'ell'    — gather-ELL (the layout closest to the reference's CSR)
-      'window', 'butterfly' — slice 6: raise NotImplementedError
+      'window', 'butterfly' — slice 6b: raise NotImplementedError
     """
     if format not in ("auto", "dia", "ell", "hybrid", "window",
                       "butterfly"):
@@ -83,7 +83,7 @@ def build_operator(csr, format: str = "auto", dtype=None,
             f"format 'auto' would route this matrix ({coverage:.1%} of "
             f"nonzeros on {len(offsets)} diagonals) to the windowed-ELL "
             f"or butterfly layout, not ported yet: {_SLICE6}; pass "
-            f"format='ell'")
+            f"format='ell' (CLI: --format ell)")
 
     dia, remainder = csr_to_dia(csr, offsets, dtype=dtype, device=device)
     if remainder is None:

@@ -12,7 +12,9 @@ iteration index and the seed as int32 scalars) and a JSON header with
 the metadata, so a carry saved by either package has the same leaves
 (convert.switching_carry_from_arrays turns the JAX package's into the
 port's). The JAX package also records its pytree's treedef; here a
-structure tag (the kind of each slot) takes its place.
+structure tag (the kind of each slot) takes its place. A file the JAX
+package wrote has no tag: its slot kinds follow from its leaf count, so
+load_carry resumes it too.
 
 The iterate checkpoint of the classic family (`solve --checkpoint`) is
 ROADMAP slice 9.
@@ -30,6 +32,20 @@ from mpi_bicgstab_tpu_torch.ops.precision import DF, is_df
 
 _FORMAT = 2
 _STRUCTURE = "mpi_bicgstab_tpu_torch.switching_carry/"
+# the seed-switching carry's 16 slots (solvers/switching.init_switching_carry):
+# "i" an int32 scalar, "v" a value slot (a DF pair in df32), "t" a tensor
+SWITCHING_SLOTS = "iivvvvvvvvvvtvvt"
+
+
+def switching_kinds(n_leaves: int) -> str | None:
+    """The slot kinds ("i", "t", "d" as in structure()) of a switching
+    carry of n_leaves leaves: 16 for a float32 / float64 solve, 28 for
+    df32 (each of its 12 value slots a hi, lo pair); None for any other
+    count."""
+    df = {16: False, 28: True}.get(n_leaves)
+    if df is None:
+        return None
+    return SWITCHING_SLOTS.replace("v", "d" if df else "t")
 
 
 def _slot_kind(v) -> str:
@@ -113,8 +129,12 @@ def load_carry(path: str, template, expect: dict | None = None):
                 f"{k}={header.get(k)!r}, refusing to resume a run with "
                 f"{k}={v!r}")
     want = _leaf_specs(template)
-    if header.get("structure") != structure(template) \
-            or len(saved) != len(want):
+    tag = header.get("structure")
+    if tag is None and "treedef" in header:
+        # written by the JAX package: the kinds follow from the leaf count
+        kinds = switching_kinds(len(saved))
+        tag = kinds and _STRUCTURE + kinds
+    if tag != structure(template) or len(saved) != len(want):
         raise ValueError(f"carry checkpoint {path} has a different "
                          "solver-state structure (solver version or "
                          "configuration changed)")

@@ -183,3 +183,43 @@ def test_jax_carry_resumes_in_the_port(dtype, tmp_path):
 def test_carry_conversion_refuses_a_wrong_leaf_count():
     with pytest.raises(ValueError, match="16 leaves"):
         convert.switching_carry_from_arrays([np.zeros(1)] * 15, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "df32"])
+def test_jax_written_carry_file_resumes_in_the_port(dtype, tmp_path):
+    """The file the JAX package's save_carry writes (its header records a
+    treedef, no structure tag) resumes through the port's load_carry, as
+    `solve-shifted --checkpoint FILE` does, bit-identical to the resume
+    through convert.switching_carry_from_arrays."""
+    jprob_ = jprob.build_problem(
+        jgen.banded_random(256, [1, -1, 10, -10], seed=7), dtype=dtype,
+        sigma_seed=float(SIGMA[4]))
+    jc = jcfg.ShiftedConfig(tol=1e-11, max_iter=800,
+                            dtype=jnp.float32 if dtype == "df32"
+                            else jnp.float64)
+    sig_j = (jp.df_from_f64(SIGMA) if dtype == "df32"
+             else jnp.asarray(SIGMA, jprob_.b.dtype))
+    carry = jinit(jprob_.b, sig_j, 4, jc, comm=JComm(None))
+    _, carry = japi._switching_segment_jit(jprob_.A, jprob_.b, sig_j, jc,
+                                           carry, jnp.int32(7))
+    path = str(tmp_path / "jax.npz")
+    jckpt.save_carry(path, carry, META)
+    with np.load(path) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
+    prob, cfg = _setup(dtype)
+    # its metadata is still checked
+    with pytest.raises(ValueError, match="refusing to resume"):
+        tapi.solve_shifted_checkpointed(
+            prob.A, prob.b, SIGMA, seed=4, cfg=cfg, path=path,
+            segment_iters=5, meta={**META, "n": 257})
+    # through the file, as the CLI resumes it
+    res, total = tapi.solve_shifted_checkpointed(
+        prob.A, prob.b, SIGMA, seed=4, cfg=cfg, path=path, segment_iters=5,
+        meta=META)
+    # through the leaves
+    ref, _ = shifted_lopbicg_switching_segment(
+        lambda v: spmv(prob.A, v), Comm(), prob.b, _ladder(prob.b, SIGMA),
+        cfg, convert.switching_carry_from_arrays(leaves, device="cpu"),
+        cfg.max_iter + 1)
+    assert total == ref.n_iter and bool(res.stop_flags.all())
+    _assert_same(ref, res)

@@ -51,6 +51,9 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_classic_df.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_ca_df.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_pipe_df.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_batched_spmv.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_fused_batched.py",
+                 "mpi_bicgstab_tpu_torch/solvers/batched_fused.py",
                  "mpi_bicgstab_tpu_torch/ops/precision.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
@@ -61,3 +64,12 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                     "importlib.import_module('jax')\n")
     assert [m.split(".")[0] for m in _imported_modules(bad)] == [
         "mpi_bicgstab_tpu", "jax", "jax"]
+
+
+def test_package_exports_both_configs():
+    """The JAX package's top level exports SolverConfig and ShiftedConfig;
+    so does the port's."""
+    from mpi_bicgstab_tpu import ShiftedConfig as JShifted
+    from mpi_bicgstab_tpu_torch import ShiftedConfig, SolverConfig
+    assert ShiftedConfig().tol == JShifted().tol
+    assert SolverConfig is mpi_bicgstab_tpu_torch.utils.config.SolverConfig

@@ -737,3 +737,173 @@ def test_refine_on_card_matches_cpu(dtype):
     assert float(rg.max()) <= 1e-10 and float(rc.max()) <= 1e-10
     f = df_to_f64 if dtype == "df32" else (lambda t: t.double().cpu().numpy())
     np.testing.assert_allclose(f(xg), f(xc), atol=1e-8)
+
+
+# --- batched right-hand sides (csrc/batched_spmv.cu, fused_batched.cu) -------
+
+def _planes(n, k, m, dev, seed=1):
+    """m random [k, n] float32 planes."""
+    g = np.random.default_rng(seed)
+    return [torch.as_tensor(g.standard_normal((k, n)), dtype=torch.float32,
+                            device=dev) for _ in range(m)]
+
+
+def _lane_scalars(k, dev, frozen=()):
+    """Per-lane (alpha, beta, omega, active) [k] tensors; the lanes in
+    `frozen` inactive."""
+    g = np.random.default_rng(k)
+    a, b, w = (torch.as_tensor(g.uniform(0.1, 0.9, k), dtype=torch.float32,
+                               device=dev) for _ in range(3))
+    act = torch.ones(k, device=dev)
+    act[list(frozen)] = 0.0
+    return a, b, w, act
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_batched_spmv_kernel_matches_plain(n, offsets, k):
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    dev = _card()
+    A = _band(n, offsets, torch.float32, dev)
+    (X,) = _planes(n, k, 1, dev)
+    before = cbs.batched_dia_spmv.launches
+    Y = cbs.batched_dia_spmv(A.vals, A.offsets, X)
+    torch.cuda.synchronize()
+    assert cbs.batched_dia_spmv.launches == before + 1
+    _close([Y], [cbs.batched_dia_spmv_plain(A.vals, A.offsets, X)])
+    # each lane is the single-lane SpMV of that lane
+    for j in range(k):
+        _close([Y[j]], [cuda_spmv.dia_spmv(A.vals, A.offsets, X[j])])
+
+
+@pytest.mark.parametrize("k,frozen", [(1, ()), (3, (1,)), (8, (0, 5))])
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_fused_batched_kernels_match_plain(n, offsets, k, frozen):
+    """K1b, K2b, K3b against their twins; the frozen lanes' outputs are
+    their old values bit for bit."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fb
+    dev = _card()
+    A = _band(n, offsets, torch.float32, dev)
+    R, P, S, Rh, X, Q, Y = _planes(n, k, 7, dev)
+    a, b, w, act = _lane_scalars(k, dev, frozen)
+    v, o = A.vals, A.offsets
+    fz = list(frozen)
+    for kern, plain, args, keep in (
+            (fb.fused_k1b, fb.fused_k1b_plain,
+             (v, R, P, S, Rh, (b, w, act), o), (P, S)),
+            (fb.fused_k2b, fb.fused_k2b_plain, (v, R, S, (a,), o), None),
+            (fb.fused_k3b, fb.fused_k3b_plain,
+             (X, P, Q, Y, Rh, (a, w, act)), (X, Q))):
+        before = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = plain(*args)
+        _close(got[:2], want[:2])
+        for g_, w_ in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-3)
+        if keep is not None:
+            for out, old in zip(got[:2], keep):
+                assert torch.equal(out[fz], old[fz])
+
+
+def test_batched_limits_match_the_libraries():
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    _card()
+    assert cbs._lib().mbt_max_lanes() == cbs.MAX_LANES
+    assert cuda_spmv.max_diags() == cbs.MAX_DIAGS
+
+
+def _batched_problem(dev, k=3, n=8192, seed=12):
+    """A DIA problem and k right-hand sides A x_j for seeded x_j (lane 0
+    the ones vector), so that the lanes stop at different iterations."""
+    csr = banded_random(n, [1, -1, 40, -40], seed=seed)
+    prob = build_problem(csr, dtype="float32", device=dev)
+    g = np.random.default_rng(seed)
+    xs = np.vstack([np.ones(n), g.standard_normal((k - 1, n))])
+    B = np.stack([csr.matvec(x) for x in xs])
+    return prob, torch.as_tensor(B, dtype=torch.float32, device=dev)
+
+
+def test_batched_route_launches_each_pass_once_per_iteration():
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fb
+    dev = _card()
+    prob, B = _batched_problem(dev)
+    fns = (fb.fused_k1b, fb.fused_k2b, fb.fused_k3b,
+           cbs.batched_dia_spmv, fcl.fused_k1, cuda_spmv.dia_spmv)
+    for fn in fns:
+        fn.launches = 0
+    res = solve_batched(prob.A, B,
+                        cfg=SolverConfig(tol=0.0, max_iter=25,
+                                         dtype="float32"))
+    assert res.n_iter.tolist() == [25, 25, 25]
+    assert [fn.launches for fn in fns] == [25, 25, 25, 2, 0, 0]
+
+
+def test_batched_solve_on_card_matches_cpu():
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    dev = _card()
+    cfg = SolverConfig(tol=1e-6, max_iter=300, dtype="float32")
+    res = {}
+    for d in (dev, "cpu"):
+        prob, B = _batched_problem(d)
+        res[d] = solve_batched(prob.A, B, cfg=cfg)
+    assert bool(res[dev].converged.all()) and bool(res["cpu"].converged.all())
+    assert (res[dev].n_iter - res["cpu"].n_iter).abs().max() <= 2
+    assert len(set(res["cpu"].n_iter.tolist())) > 1   # lanes stop apart
+    err = float((res[dev].x.cpu() - res["cpu"].x).abs().max())
+    assert err < 1e-3, err
+
+
+def test_tol0_batched_solve_replays_as_a_cuda_graph():
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    dev = _card()
+    prob, B = _batched_problem(dev)
+    cfg = SolverConfig(tol=0.0, max_iter=10, dtype="float32")
+
+    def run():
+        return solve_batched(prob.A, B, cfg=cfg)
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        res = run()
+    g.replay()
+    torch.cuda.synchronize()
+    assert res.n_iter.tolist() == [10, 10, 10]
+    assert torch.equal(res.x, eager.x)
+
+
+def test_batched_wrappers_raise_instead_of_falling_back():
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fb
+    dev = _card()
+    A = _band(4096, [1, -1, 64, -64], torch.float32, dev)
+    X, = _planes(4096, 9, 1, dev)
+    a, b, w, act = _lane_scalars(3, dev)
+    v, o = A.vals, A.offsets
+    with pytest.raises(ValueError):        # 9 lanes
+        cbs.batched_dia_spmv(v, o, X)
+    with pytest.raises(ValueError):        # one lane as a vector
+        cbs.batched_dia_spmv(v, o, X[0])
+    with pytest.raises(TypeError):         # float64 planes
+        cbs.batched_dia_spmv(v, o, X[:3].double())
+    with pytest.raises(ValueError):        # not contiguous
+        cbs.batched_dia_spmv(v, o, X[:3, ::2])
+    R = X[:3].contiguous()
+    with pytest.raises(ValueError):        # scalar of the wrong length
+        fb.fused_k2b(v, R, R, (a[:2],), o)
+    with pytest.raises(ValueError):        # scalar on the CPU
+        fb.fused_k1b(v, R, R, R, R, (b, w, act.cpu()), o)
+    with pytest.raises(ValueError):        # missing scalar
+        fb.fused_k3b(R, R, R, R, R, (a, w))
+    with pytest.raises(ValueError):        # band on the CPU
+        fb.fused_k2b(v.cpu(), R, R, (a,), o)
+    with pytest.raises(ValueError):        # planes of different shapes
+        fb.fused_k3b(R, R, R[:2], R, R, (a, w, act))

@@ -76,15 +76,20 @@ def test_prints_every_key_and_exits_0():
 
 
 def test_default_seed_fits_a_short_ladder():
-    """Without --seed the reference's 255 is clamped into the ladder."""
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        code = cli.main(["solve-shifted", "--matrix", "banded:4096",
-                         "--sigma-len", "8", "--dtype", "df32", "--tol",
-                         "1e-10", "--device", "cpu"])
-    fields = _parse(out.getvalue())
-    assert code == 0 and fields["all_converged"] == "True"
-    assert fields["seed"] == "7"
+    """Without --seed the reference's 255 does not fit a short ladder: both
+    CLIs refuse it alike (the sweep mode alone clamps the seed), and both
+    take the seed once it is given."""
+    argv = ["solve-shifted", "--matrix", "banded:512", "--sigma-len", "8",
+            "--tol", "1e-10"]
+    with pytest.raises(SystemExit) as jex:
+        jcli.main([*argv, "--platform", "cpu"])
+    with pytest.raises(SystemExit) as tex:
+        cli.main([*argv, "--device", "cpu"])
+    assert str(tex.value) == str(jex.value)
+    assert "--seed 255 out of range for --sigma-len 8" in str(tex.value)
+    (row,), _ = cli.run_solve_shifted(cli.build_parser().parse_args(
+        [*argv, "--seed", "7", "--device", "cpu"]))
+    assert row["seed"] == 7 and row["all_converged"]
 
 
 def test_exit_2_when_a_shift_does_not_converge():

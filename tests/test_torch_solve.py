@@ -220,3 +220,59 @@ def test_chip_smoke_refuses_without_a_card():
             contextlib.redirect_stdout(io.StringIO()) as out:
         assert smoke.main() != 0
     assert out.getvalue() == "" and "no CUDA device" in err.getvalue()
+
+
+def _unstructured_mtx(tmp_path, n=2048, seed=0):
+    """A diagonally dominant .mtx with no band: 10 on the diagonal and up
+    to 5 random off-diagonal entries per row (one diagonal holds ~17% of
+    the nonzeros, so 'auto' would route it to an unported layout)."""
+    from mpi_bicgstab_tpu.io.mmio import write_matrix_market
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [np.arange(n)], [np.arange(n)], [np.full(n, 10.0)]
+    for i in range(n):
+        c = rng.choice(n, rng.integers(0, 6), replace=False)
+        c = c[c != i]
+        rows.append(np.full(c.size, i))
+        cols.append(c)
+        vals.append(rng.uniform(-1.0, 1.0, c.size))
+    path = tmp_path / "u.mtx"
+    write_matrix_market(str(path), np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals), (n, n))
+    return str(path)
+
+
+def test_cli_format_ell_solves_an_unstructured_mtx(tmp_path):
+    """--format ell solves the matrix 'auto' cannot take, as the JAX CLI
+    does; 'auto' exits cleanly naming --format ell, and the layouts not
+    ported yet exit naming their slice: nothing falls back."""
+    import json
+
+    import mpi_bicgstab_tpu.cli as jcli
+    from mpi_bicgstab_tpu_torch import cli
+    mtx = _unstructured_mtx(tmp_path)
+    base = ["solve", "--matrix", mtx, "--tol", "1e-10"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        jcode = jcli.main([*base, "--format", "ell", "--platform", "cpu",
+                           "--json"])
+    want = json.loads(out.getvalue().strip().splitlines()[-1])
+    got, _ = cli.run_solve(cli.build_parser().parse_args(
+        [*base, "--format", "ell", "--device", "cpu"]))
+    assert jcode == 0 and want["converged"] and got["converged"]
+    assert abs(got["total_iter"] - want["total_iter"]) <= 2
+    assert got["true_relres"] <= 100 * 1e-10
+    with pytest.raises(SystemExit, match="--format ell") as ex:
+        cli.main([*base, "--device", "cpu"])
+    assert "Traceback" not in str(ex.value)
+    for fmt in ("window", "butterfly"):
+        with pytest.raises(SystemExit, match="slice 6b"):
+            cli.main([*base, "--format", fmt, "--device", "cpu"])
+    # the shifted command takes the flag too
+    rows, res = cli.run_solve_shifted(cli.build_parser().parse_args(
+        ["solve-shifted", "--matrix", mtx, "--format", "ell",
+         "--sigma-len", "4", "--seed", "3", "--tol", "1e-10",
+         "--device", "cpu"]))
+    assert rows[0]["all_converged"]
+    with pytest.raises(SystemExit, match="--format ell"):
+        cli.main(["solve-shifted", "--matrix", mtx, "--sigma-len", "4",
+                  "--seed", "3", "--device", "cpu"])
