@@ -60,7 +60,24 @@ numbers; any failure exits non-zero:
              converged with its true residual <= 100 tol and its n_iter
              within 1 of a single-RHS f32 solve of that lane; the same at
              k = 2 in float64 and df32 (tol 1e-10), lane by lane through
-             the unfused solvers and the DIA SpMV kernels
+             the unfused solvers and the DIA SpMV kernels.
+             Chebyshev preconditioning (ROADMAP slice 7) and the fused DF
+             pipelined bodies (slice 3c) on transport_hard(1602112) (117^3
+             = 1,601,613 rows, 13 diagonals, offsets up to +-27,378),
+             degree 8 (CHEBY_PATHS): `[cheby]` `solve --precond cheby:8`
+             in float32 through the CLI (the chain kernel twice per
+             iteration and once at exit, beside the float32 DIA SpMV; no
+             fused classic kernel), then through api.solve on one built
+             problem: `[cheby_df32]` (DF chain kernel, DF SpMV),
+             `[cheby_pipe_df32]` (the two body kernels once per
+             iteration), `[cheby_f64]` (the chain as d float64 SpMVs),
+             `[cheby_batched]` (2 lanes, lane by lane, one exit transform
+             each); every one converged with its true residual <= 100 tol.
+             `[pipe_df32_ell]`: df32 pipe_bicgstab on the ELL layout of
+             the main matrix through the body kernels, within 2
+             iterations of `[pipe_df32]`. `[cheby_ab]`: the plain and the
+             preconditioned float32 solve on the hard matrix (restarts
+             0): iterations, wall seconds, true residuals, speedup
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -71,12 +88,18 @@ numbers; any failure exits non-zero:
              iteration at 512 shifts (df32, float32 blocked and
              per-iteration, float64) beside the shift update's byte floor;
              time per batched iteration at k = 8 (eager and device) beside
-             8 single-lane classic f32 iterations and its byte floor
+             8 single-lane classic f32 iterations and its byte floor; the
+             chain kernels beside the unfused chain (bench_cheby), the f32
+             chain at degrees 1, 2, 4 and 8, and the
+             preconditioned f32 classic, df32 classic and df32 pipelined
+             iterations (eager and device) beside 2 x (chain + DIA SpMV)
+             bytes
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -102,6 +125,9 @@ TOL = {   # kernel versus plain version on the same inputs
     # times sum |u_i v_i| (the kernel sums its compensated partials in
     # another order than the twin's pairwise df_sum)
     "df32_dot": 1e-12,
+    # the float32 chain: max |kernel - twin| within this times max |twin|
+    # (the JAX package's own bar for its chain, tests/test_cheby.py:139)
+    "float32_chain": 2e-6,
 }
 REPLACES = {
     "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
@@ -126,6 +152,10 @@ REPLACES = {
     "fused_k1b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:170",
     "fused_k2b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:260",
     "fused_k3b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:297",
+    "fused_body_a": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df.py:124",
+    "fused_body_b": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df.py:153",
+    "cheby_chain": "mpi_bicgstab_tpu/ops/pallas_cheby.py:141",
+    "cheby_chain_df": "mpi_bicgstab_tpu/ops/pallas_cheby_df.py:105",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -150,6 +180,10 @@ SOURCES = {
     "fused_k1b": _CSRC + "fused_batched.cu",
     "fused_k2b": _CSRC + "fused_batched.cu",
     "fused_k3b": _CSRC + "fused_batched.cu",
+    "fused_body_a": _CSRC + "pipe_df_bodies.cu",
+    "fused_body_b": _CSRC + "pipe_df_bodies.cu",
+    "cheby_chain": _CSRC + "cheby.cu",
+    "cheby_chain_df": _CSRC + "cheby.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -200,7 +234,11 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "batched_dia_spmv": ("batched", "batched_dia_spmv"),
                  "fused_k1b": ("batched", "fused_k1b"),
                  "fused_k2b": ("batched", "fused_k2b"),
-                 "fused_k3b": ("batched", "fused_k3b")}
+                 "fused_k3b": ("batched", "fused_k3b"),
+                 "cheby_chain": ("cheby", "cheby_chain"),
+                 "cheby_chain_df": ("cheby_df32", "cheby_chain_df"),
+                 "fused_body_a": ("cheby_pipe_df32", "fused_body_a"),
+                 "fused_body_b": ("cheby_pipe_df32", "fused_body_b")}
 # the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
 # phase -> (dtype, tol)
 S_MAIN, SEED_MAIN, SIGMA_MAX = 512, 255, 0.01
@@ -215,6 +253,13 @@ DF_MUL_FLOPS, DF_ADD_FLOPS = 10, 20
 K_MAIN, FROZEN_LANES = 8, (2, 5)
 BATCHED = ("batched_dia_spmv", "fused_k1b", "fused_k2b", "fused_k3b")
 K_LANES, LANES_TOL = 2, 1e-10
+# Chebyshev preconditioning on transport-hard:N_HARD at CHEBY_DEGREE; the
+# API phases: phase -> (method, dtype, tol)
+N_HARD, CHEBY_DEGREE, CHEBY_MAX_ITER = 1_602_112, 8, 5000
+CHEBY_PATHS = {"cheby_df32": ("bicgstab", "df32", 1e-10),
+               "cheby_pipe_df32": ("pipe_bicgstab", "df32", 1e-10),
+               "cheby_f64": ("bicgstab", "float64", 1e-10)}
+AB_TOL, AB_MAX_ITER = 1e-5, 20000
 
 
 class SmokeFailure(RuntimeError):
@@ -237,6 +282,8 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fbat
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
             "fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
@@ -253,7 +300,11 @@ def _counters():
             "shift_update_df": csu.fused_shift_update_df,
             "batched_dia_spmv": cbs.batched_dia_spmv,
             "fused_k1b": fbat.fused_k1b, "fused_k2b": fbat.fused_k2b,
-            "fused_k3b": fbat.fused_k3b}
+            "fused_k3b": fbat.fused_k3b,
+            "fused_body_a": cpb.fused_body_a,
+            "fused_body_b": cpb.fused_body_b,
+            "cheby_chain": cc.cheby_chain,
+            "cheby_chain_df": cc.cheby_chain_df}
 
 
 def reset_counts() -> None:
@@ -396,6 +447,70 @@ def kernel_calls(inp: dict) -> dict:
                           lambda: fpipe.fused_phase_b_plain(*pb), "float32"),
         **df_kernel_calls(inp),
         **batched_kernel_calls(inp),
+        **cheby_kernel_calls(inp),
+    }
+
+
+def cheby_inputs(prob64, device="cuda") -> dict:
+    """The chain kernels' inputs at the preconditioned path's shapes: the
+    band of prob64 (a float64 DIA problem) as float32 and as DF pairs
+    split from float64, a standard-normal v from a NumPy generator seeded
+    0, and the matrix's Chebyshev bounds (ops/cheby.py)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.cheby import estimate_bounds
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    p32, pdf = problems_from_f64(prob64)
+    v = np.random.default_rng(0).standard_normal(prob64.n)
+    lo, hi = estimate_bounds(prob64.csr)
+    return {"H32": p32.A, "Hdf": pdf.A,
+            "h_v": torch.as_tensor(v, dtype=torch.float32, device=device),
+            "h_vdf": df_from_f64(v, device), "h_lo": lo, "h_hi": hi,
+            "h_prob32": p32, "h_probdf": pdf}
+
+
+def problems_from_f64(prob64):
+    """The float32 and the df32 problem of a float64 DIA problem, made on
+    its device: the band and b rounded to float32, or split into DF pairs
+    (hi = f32(a), lo = f32(a - hi)), as models.problem.build_problem makes
+    them from the host's float64 values, without assembling the band on
+    the host again."""
+    import dataclasses
+
+    from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
+    from mpi_bicgstab_tpu_torch.ops.precision import DF, vzeros_like
+    A = prob64.A
+
+    def split(a):
+        hi = a.float()
+        return DF(hi, (a - hi.double()).float())
+
+    out = []
+    for conv in (lambda a: a.float(), split):
+        b = conv(prob64.b)
+        out.append(dataclasses.replace(
+            prob64, A=DiaMatrix(conv(A.vals), A.offsets, A.n_rows, A.n_cols),
+            b=b, x0=vzeros_like(b)))
+    return out
+
+
+def cheby_kernel_calls(inp: dict) -> dict:
+    """The chain kernels' entries of kernel_calls, at CHEBY_DEGREE on the
+    hard matrix (absent when inp has no "H32")."""
+    if "H32" not in inp:
+        return {}
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    A, Adf = inp["H32"], inp["Hdf"]
+    c = (CHEBY_DEGREE, inp["h_lo"], inp["h_hi"])
+    f32 = (A.vals, inp["h_v"], A.offsets, *c)
+    df = (Adf.vals, inp["h_vdf"], Adf.offsets, *c)
+    return {
+        "cheby_chain": (lambda: (cc.cheby_chain(*f32),),
+                        lambda: (cc.cheby_chain_plain(*f32),),
+                        "float32_chain"),
+        "cheby_chain_df": (lambda: (cc.cheby_chain_df(*df),),
+                           lambda: (cc.cheby_chain_df_plain(*df),), "df32"),
     }
 
 
@@ -449,6 +564,7 @@ def df_kernel_calls(inp: dict) -> dict:
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca_df as fcadf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
     from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     A = inp["Adf"]
     v, o = A.vals, A.offsets
@@ -461,7 +577,17 @@ def df_kernel_calls(inp: dict) -> dict:
     ca2 = (v, q, y, x, p, rh, s, z, (a, w, rtr), o)
     pa = (v, wv, r, p, s, z, vv, (a, b, w), o)
     pb = (v, z, x, p, q, y, t, rh, s, (a, w, rtr), o)
+    ba = (r, p, s, wv, z, t, vv, (a, b, w))
+    bb = (x, p, q, y, t, vv, rh, s, z, (a, w))
+
+    def flat(out):      # the body's vectors, then its dots one by one
+        return (*out[:-1], *out[-1])
+
     return {
+        "fused_body_a": (lambda: flat(cpb.fused_body_a(*ba)),
+                         lambda: flat(cpb.fused_body_a_plain(*ba)), "df32"),
+        "fused_body_b": (lambda: flat(cpb.fused_body_b(*bb)),
+                         lambda: flat(cpb.fused_body_b_plain(*bb)), "df32"),
         "dia_spmv_df": (lambda: (cuda_spmv.dia_spmv_df(v, o, x),),
                         lambda: (cuda_spmv.dia_spmv_df_plain(v, o, x),),
                         "df32"),
@@ -509,8 +635,14 @@ def df_outputs(name: str, out: tuple, inp: dict):
         r2, w2 = out[nv - 2], out[nv - 1]
         return nv, [(r2, r2), (rh, r2), (rh, w2), (rh, s), (rh, z)], list(
             fold_beta_alpha(a, w, rtr, *out[nv + 1:nv + 5]))
-    if name == "dia_spmv_df":
+    if name in ("dia_spmv_df", "cheby_chain_df"):
         return 1, [], []
+    if name == "fused_body_a":      # p2, s2, z2, q, y, (q, y), (y, y)
+        q, y = out[3], out[4]
+        return 5, [(q, y), (y, y)], []
+    if name == "fused_body_b":      # x2, r2, w2, the five dots; s2 = s
+        r2, w2 = out[1], out[2]
+        return 3, [(r2, r2), (rh, r2), (rh, w2), (rh, s), (rh, z)], []
     if name == "fused_k1_df":       # p2, s2, (r^, s2), alpha
         return 2, [(rh, out[1])], [df_div(rtr, out[2])]
     if name == "fused_k2_df":       # q, y, (q, y), (y, y), omega
@@ -575,6 +707,17 @@ def check_kernels(calls: dict, inp: dict) -> dict:
                  scale_per_output="[" + ",".join(
                      f"{float(_f64(w).abs().max()):.3e}" for w in want)
                  + "]")
+            continue
+        if dt == "float32_chain":
+            (g,), (w,) = got, want
+            err, scale = _err(g, w), float(w.abs().max())
+            if not err <= TOL[dt] * scale:
+                raise SmokeFailure(f"{name}: |kernel - twin| = {err:.3e} > "
+                                   f"{TOL[dt]} x max|twin| = {scale:.3e}")
+            errs[name] = err
+            _say("check", kernel=name, ok=True, degree=CHEBY_DEGREE,
+                 max_abs_err=f"{err:.3e}", scale=f"{scale:.3e}",
+                 bit_equal=torch.equal(g, w))
             continue
         for i, (g, w) in enumerate(zip(got, want)):
             what = f"{name} output {i}"
@@ -689,6 +832,20 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
     A = inp["A32"]
     n, W = A.n_rows, A.n_diags
     nz = _band_nnz(A)
+    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
+    if name in ("cheby_chain", "cheby_chain_df"):
+        # the band once, v in, x out; operations of this run's chain: the
+        # band product at every step but the last, 2 flops per entry (one
+        # df_fma in DF), and 5 (in DF 4 df_fma) updates per row and step
+        H = inp["H32"]
+        n, W, nz, d = H.n_rows, H.n_diags, _band_nnz(H), CHEBY_DEGREE
+        if name == "cheby_chain":
+            return 4 * (W * n + 2 * n), 2 * nz * d + 5 * n * d, "float32"
+        return 8 * (W * n + 2 * n), fma * (nz * d + 4 * n * d), "df32"
+    if name == "fused_body_a":   # 7 DF vectors in, 5 out, 3 scalars, 2 dots
+        return 8 * (12 * n + 3 + 2), fma * 8 * n + dot * 2 * n, "df32"
+    if name == "fused_body_b":   # 9 DF vectors in, 3 out, 2 scalars, 5 dots
+        return 8 * (12 * n + 2 + 5), fma * 5 * n + dot * 5 * n, "df32"
     if name == "dia_spmv_f32":
         return 4 * (W * n + 2 * n), 2 * nz, "float32"
     if name == "dia_spmv_f64":
@@ -715,7 +872,6 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return 4 * (7 * k * n + 5 * k), k * 10 * n, "float32"
     # DF: 8 bytes per element; the vectors and scalars as for float32;
     # operations: one df_fma per band entry and per update, and the dots
-    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
     if name == "dia_spmv_df":
         return 8 * (W * n + 2 * n), fma * nz, "df32"
     if name == "fused_k1_df":   # + rTr in, alpha out
@@ -799,6 +955,17 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
                "library_ms": (time_call(lib) * 1e3 if lib is not None
                               else None)}
         out[name] = row
+        extra = {}
+        if name in ("cheby_chain", "cheby_chain_df"):
+            # the floor this design can reach: the band read once per
+            # step that multiplies (CHEBY_DEGREE times), v in, x out
+            H = inp["H32"]
+            elem = 4 if name == "cheby_chain" else 8
+            band = elem * H.n_rows * (CHEBY_DEGREE * H.n_diags + 2)
+            extra = {"band_reads_floor_ms":
+                     f"{band / HBM_BYTES_PER_S * 1e3:.4f}",
+                     "band_reads_floor_share":
+                     f"{band / HBM_BYTES_PER_S * 1e3 / row['ms']:.3f}"}
         _say("times", kernel=name, ms=f"{row['ms']:.4f}",
              bound_ms=f"{row['bound_ms']:.4f}",
              bound_share=f"{row['bound_ms'] / row['ms']:.3f}",
@@ -806,21 +973,26 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
              plain_ms=f"{row['plain_ms']:.4f}",
              library_ms=(f"{row['library_ms']:.4f}"
                          if row["library_ms"] is not None else None),
-             bytes=nbytes)
+             bytes=nbytes, **extra)
     return out
 
 
 def unfused_df_iters(probdf, phase: str) -> tuple[int, bool]:
     """(n_iter, converged) of the unfused DF solver of PATHS[phase]'s
     method over the DF SpMV kernel at the path's tol: the yardstick of
-    that path's fused DF driver."""
+    that path's fused DF driver. pipe_bicgstab runs the plain DF loop
+    (_pipe without its fused bodies), so that no hand-written kernel
+    but the DF SpMV stands in the yardstick."""
     from mpi_bicgstab_tpu_torch.ops.cuda_spmv import dia_spmv_df
     from mpi_bicgstab_tpu_torch.parallel.comm import Comm
-    from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
+    from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS, _pipe
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     method, dtype, tol, _ = PATHS[phase]
     A = probdf.A
-    res = CLASSIC_SOLVERS[method](
+    solver = CLASSIC_SOLVERS[method]
+    if method == "pipe_bicgstab":
+        solver = functools.partial(_pipe, rr=False)
+    res = solver(
         lambda v: dia_spmv_df(A.vals, A.offsets, v), Comm(), probdf.b,
         probdf.x0, SolverConfig(tol=tol, dtype=dtype, krr=KRR, nrr=NRR))
     return res.n_iter, bool(res.converged)
@@ -1290,8 +1462,7 @@ def run_batched_path(n: int, device: str = "cuda", k: int = K_MAIN,
          max_true_relres=report["max_true_relres"],
          max_abs_x0_minus_1=err0, max_abs_err_all_lanes=err,
          solve_s=report["total_time_s"],
-         launches=json.dumps({c: v for c, v in counts.items() if v})
-         .replace(" ", ""))
+         launches=_launches(counts))
     return counts
 
 
@@ -1328,8 +1499,7 @@ def run_batched_lanes(n: int, dtype: str, device: str = "cuda",
          converged=report["converged"],
          max_true_relres=report["max_true_relres"],
          max_abs_x0_minus_1=err0, solve_s=report["total_time_s"],
-         launches=json.dumps({c: v for c, v in counts.items() if v})
-         .replace(" ", ""))
+         launches=_launches(counts))
     return counts
 
 
@@ -1394,6 +1564,258 @@ def time_shifted(csr, probs: dict) -> None:
              shift_update_GBps=f"{eager['shift_update_GBps']:.1f}")
 
 
+# --- Chebyshev preconditioning and the DF pipelined bodies -----------------
+
+def check_cheby_counts(what: str, method: str, dtype: str, it: int,
+                       counts: dict, restarts: int, lanes: int = 1,
+                       device: str = "cuda") -> None:
+    """The launches of a converged preconditioned solve (`lanes` right-
+    hand sides, `it` iterations over every lane and restart segment). One
+    application of A p(A) is a chain and a SpMV: the chain kernel on a
+    float32 or DF band, degree float64 SpMVs in float64. Per segment
+    the classic solver applies it for r0 and the true residual and twice
+    per iteration, df32 pipe_bicgstab also for w0 and t0 (its body kernels
+    once each per iteration); each lane ends with one p(A) (the exit
+    transform). Nothing else launches; on the CPU nothing at all."""
+    if device == "cpu":
+        if any(counts.values()):
+            raise SmokeFailure(f"{what}: launches {counts} on the CPU")
+        return
+    d = CHEBY_DEGREE
+    spmv = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
+    chain = {"float32": "cheby_chain", "df32": "cheby_chain_df"}.get(dtype)
+    bodies = method == "pipe_bicgstab" and dtype == "df32"
+    used = {spmv, chain} | ({"fused_body_a", "fused_body_b"} if bodies
+                            else set())
+    bad = {k: v for k, v in counts.items() if v and k not in used}
+    if chain:
+        applied = counts[spmv]
+        ok = counts[chain] == applied + lanes
+    else:
+        applied, rest = divmod(counts[spmv] - d * lanes, d + 1)
+        ok = rest == 0
+    per_segment = 4 if method == "pipe_bicgstab" else 2
+    segs, rest = divmod(applied - 2 * it, per_segment)
+    ok = ok and rest == 0 and lanes <= segs <= lanes * (restarts + 1)
+    if bodies:
+        ok = ok and counts["fused_body_a"] == counts["fused_body_b"] == it
+    if bad or not ok:
+        raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
+                           f"iterations of {method} {dtype} over {lanes} "
+                           f"lane(s)")
+
+
+def _launches(counts: dict) -> str:
+    return json.dumps({c: v for c, v in counts.items() if v}).replace(" ",
+                                                                       "")
+
+
+def run_cheby_cli(n: int, device: str = "cuda"):
+    """`[cheby]`: `solve --matrix transport-hard:n --method bicgstab
+    --precond cheby:8 --dtype float32 --tol 1e-5` (AB_TOL) through the
+    CLI's own code, every launch counter set to 0 just before and read
+    just after: converged, true residual <= 100 tol, and the launches of
+    check_cheby_counts. Returns the counts."""
+    from mpi_bicgstab_tpu_torch import cli
+    tol = AB_TOL
+    args = cli.build_parser().parse_args(
+        ["solve", "--matrix", f"transport-hard:{n}", "--method", "bicgstab",
+         "--dtype", "float32", "--tol", str(tol), "--precond",
+         f"cheby:{CHEBY_DEGREE}", "--max-iter", str(CHEBY_MAX_ITER),
+         "--device", device])
+    reset_counts()
+    report, res = cli.run_solve(args)
+    counts = read_counts()
+    err = float((res.x.double() - 1.0).abs().max())
+    if not (report["converged"] and report["true_relres"] <= 100 * tol):
+        raise SmokeFailure(f"cheby: {report}")
+    check_cheby_counts("cheby", "bicgstab", "float32", report["total_iter"],
+                       counts, args.restarts, device=device)
+    _say("cheby", method="bicgstab", dtype="float32", tol=tol,
+         precond=report["precond"], n=report["n"],
+         n_iter=report["total_iter"], converged=report["converged"],
+         final_relres=report["final_relres"],
+         true_relres=report["true_relres"], max_abs_x_minus_1=err,
+         solve_s=report["total_time_s"], launches=_launches(counts))
+    return counts
+
+
+def run_cheby_api(phase: str, probs: dict, prec, device: str = "cuda"):
+    """One of CHEBY_PATHS through api.solve on the built problem of its
+    dtype, counted as run_cheby_cli. Returns the counts."""
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    method, dtype, tol = CHEBY_PATHS[phase]
+    prob = probs[dtype]
+    cfg = SolverConfig(tol=tol, max_iter=CHEBY_MAX_ITER, dtype=dtype)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(prob.A, prob.b, method=method, cfg=cfg, precond=prec)
+    converged = bool(res.converged)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    err = float((_f64(res.x) - 1.0).abs().max())
+    true = float(res.true_relres)
+    if not (converged and true <= 100 * tol):
+        raise SmokeFailure(f"{phase}: converged {converged}, true residual "
+                           f"{true:.3e} after {res.n_iter} iterations")
+    check_cheby_counts(phase, method, dtype, res.n_iter, counts,
+                       cfg.restarts, device=device)
+    _say(phase, method=method, dtype=dtype, tol=tol, n_iter=res.n_iter,
+         converged=converged, final_relres=float(res.final_relres),
+         true_relres=true, max_abs_x_minus_1=err, solve_s=round(secs, 3),
+         launches=_launches(counts))
+    return counts
+
+
+def run_cheby_batched(prob32, prec, device: str = "cuda"):
+    """`[cheby_batched]`: api.solve_batched with K_LANES float32 right-hand
+    sides B[j] = A x_j (batched_rhs) at AB_TOL and the preconditioner: a
+    ChebyOperator solves lane by lane, and each lane ends with its own
+    p(A). Every lane converged, its true residual <= 100 tol."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    k, tol = K_LANES, AB_TOL
+    B, _ = batched_rhs(prob32.csr, k)
+    Bt = torch.as_tensor(B, dtype=torch.float32, device=prob32.A.device)
+    cfg = SolverConfig(tol=tol, max_iter=CHEBY_MAX_ITER, dtype="float32")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_batched(prob32.A, Bt, cfg=cfg, precond=prec)
+    conv = res.converged.cpu().tolist()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    its = res.n_iter.tolist()
+    true = float(res.true_relres.max())
+    err0 = float((res.x[0].double() - 1.0).abs().max())
+    if not (all(conv) and true <= 100 * tol):
+        raise SmokeFailure(f"cheby_batched: converged {conv}, n_iter {its}, "
+                           f"max true residual {true:.3e}")
+    check_cheby_counts("cheby_batched", "bicgstab", "float32", sum(its),
+                       counts, cfg.restarts, lanes=k, device=device)
+    _say("cheby_batched", k=k, dtype="float32", tol=tol, n_iter=its,
+         converged=conv, max_true_relres=true, max_abs_x0_minus_1=err0,
+         solve_s=round(secs, 3), launches=_launches(counts))
+
+
+def run_pipe_df32_ell(csr, b, it_dia: int, device: str = "cuda"):
+    """`[pipe_df32_ell]`: df32 pipe_bicgstab on the ELL layout of csr (no
+    Chebyshev) at `[pipe_df32]`'s tol: the fused DF body kernels once each
+    per iteration and no DIA kernel (the ELL SpMV is PyTorch code),
+    converged, true residual <= 100 tol, n_iter within 2 of the fully
+    fused DIA route's it_dia."""
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.ops.layout import build_operator
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    tol = PATHS["pipe_df32"][2]
+    A = build_operator(csr, format="ell", dtype="df32", device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(A, b, method="pipe_bicgstab",
+                cfg=SolverConfig(tol=tol, dtype="df32"))
+    converged = bool(res.converged)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    true = float(res.true_relres)
+    want = dict.fromkeys(counts, 0)
+    if device != "cpu":
+        want.update(fused_body_a=res.n_iter, fused_body_b=res.n_iter)
+    if not (converged and true <= 100 * tol
+            and abs(res.n_iter - it_dia) <= 2 and counts == want):
+        raise SmokeFailure(f"pipe_df32_ell: converged {converged}, true "
+                           f"residual {true:.3e}, {res.n_iter} iterations "
+                           f"(DIA route {it_dia}), launches {counts}")
+    _say("pipe_df32_ell", method="pipe_bicgstab", dtype="df32", tol=tol,
+         layout=type(A).__name__, n_iter=res.n_iter, dia_n_iter=it_dia,
+         converged=converged, true_relres=true,
+         max_abs_x_minus_1=float((_f64(res.x) - 1.0).abs().max()),
+         solve_s=round(secs, 3), launches=_launches(counts))
+
+
+def run_cheby_ab(probs: dict, prec) -> None:
+    """`[cheby_ab]`: the plain and the preconditioned classic solve on the
+    hard matrix at AB_TOL, AB_MAX_ITER and restarts 0 (the A/B of the
+    JAX bench.py:443-476), in float32 and, when the plain float32 run
+    does not converge, again in df32. Prints iterations, wall seconds,
+    residuals and the speedup of each dtype tried; the last
+    preconditioned solve must converge."""
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    for dtype in ("float32", "df32"):
+        prob = probs[dtype]
+        cfg = SolverConfig(tol=AB_TOL, max_iter=AB_MAX_ITER, dtype=dtype,
+                           restarts=0)
+        rows = {}
+        for label, p in (("plain", None), ("cheby", prec)):
+            t0 = time.perf_counter()
+            res = solve(prob.A, prob.b, cfg=cfg, precond=p)
+            conv = bool(res.converged)
+            rows[label] = (res.n_iter, time.perf_counter() - t0, conv,
+                           float(res.final_relres), float(res.true_relres))
+        (pi, ps, pc, pf, pt), (ci, cs, cc_, cf, ct) = (rows["plain"],
+                                                       rows["cheby"])
+        _say("cheby_ab", dtype=dtype, tol=AB_TOL, restarts=0,
+             plain_n_iter=pi, plain_converged=pc, plain_final_relres=pf,
+             plain_true_relres=pt, plain_s=round(ps, 3), cheby_n_iter=ci,
+             cheby_converged=cc_, cheby_true_relres=ct, cheby_s=round(cs, 3),
+             iteration_ratio=round(pi / max(ci, 1), 3),
+             speedup=round(ps / cs, 3))
+        if pc:
+            break
+    if not cc_:
+        raise SmokeFailure(f"cheby_ab: the preconditioned {dtype} solve "
+                           f"did not converge: {rows['cheby']}")
+
+
+def time_cheby(inp: dict, prec) -> None:
+    """The chain kernels beside the unfused chain (bench_cheby, graph
+    replays); the float32 chain kernel at degrees 1, 2, 4 and 8 (it reads
+    the band once per degree, so the slope over the degree is one step's
+    cost and the intercept the launch's and the barriers' rest); and the
+    preconditioned float32 classic, df32 classic and df32 pipelined
+    iterations (tol=0 chains through bench_iteration), eager and as
+    replayed CUDA graphs, beside their floor 2 x (chain + DIA SpMV)
+    bytes."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_cheby,
+                                                          bench_iteration,
+                                                          time_call)
+    from mpi_bicgstab_tpu_torch.ops.cuda_cheby import cheby_chain
+    lo, hi = inp["h_lo"], inp["h_hi"]
+    for prob in (inp["h_prob32"], inp["h_probdf"]):
+        r = bench_cheby(prob, lo, hi, degree=CHEBY_DEGREE)
+        _say("times", cheby_apply=r["dtype"], degree=CHEBY_DEGREE,
+             chain_kernel_ms=f"{r['cheby_fused_apply_s'] * 1e3:.4f}",
+             unfused_chain_ms=f"{r['cheby_unfused_apply_s'] * 1e3:.4f}",
+             chain_speedup=f"{r['cheby_fused_speedup']:.3f}")
+    H = inp["H32"]
+    band_ms = 4 * H.n_diags * H.n_rows / HBM_BYTES_PER_S * 1e3
+    for d in (1, 2, 4, CHEBY_DEGREE):
+        ms = time_call(lambda: cheby_chain(H.vals, inp["h_v"], H.offsets, d,
+                                           lo, hi), iters=30, graph=True) * 1e3
+        _say("times", kernel="cheby_chain", degree=d, ms=f"{ms:.4f}",
+             ms_per_degree=f"{ms / d:.4f}",
+             band_read_floor_ms_per_degree=f"{band_ms:.4f}")
+    spmv_bytes = 4 * (H.n_diags * H.n_rows + 2 * H.n_rows)
+    nbytes = 2 * (work("cheby_chain", inp)[0] + spmv_bytes)
+    for dtype, method, iters in (("float32", "bicgstab", 60),
+                                 ("df32", "bicgstab", 30),
+                                 ("df32", "pipe_bicgstab", 30)):
+        prob = inp["h_prob32" if dtype == "float32" else "h_probdf"]
+        kw = dict(method=method, iters=iters, precond=prec)
+        eager = bench_iteration(prob, **kw)
+        dev = bench_iteration(prob, graph=True, **kw)
+        ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        floor = nbytes * (1 if dtype == "float32" else 2)
+        _say("times", method=f"{method}+cheby:{CHEBY_DEGREE}", dtype=dtype,
+             eager_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=f"{dev_ms:.4f}",
+             device_busy_share=f"{dev_ms / ms:.3f}", chain=f"tol=0x{iters}",
+             bound_ms_per_iter=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}",
+             bytes_per_iter=floor)
+
+
 def main() -> int:
     import gc
 
@@ -1405,8 +1827,10 @@ def main() -> int:
         return 1
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
                                                           bench_spmv)
-    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    from mpi_bicgstab_tpu_torch.models.generators import (transport_hard,
+                                                          transport_like)
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
     from mpi_bicgstab_tpu_torch.solvers.switching_blocked import \
         resolve_block
     from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
@@ -1420,6 +1844,15 @@ def main() -> int:
     inp = kernel_inputs(csr)
     _say("check", n=csr.nrows, nnz=csr.nnz, W=inp["A32"].n_diags,
          max_offset=max(abs(o) for o in inp["A32"].offsets),
+         host_setup_s=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    csr_h = transport_hard(N_HARD)
+    prob64h = build_problem(csr_h, dtype=torch.float64, multiple=1)
+    inp.update(cheby_inputs(prob64h))
+    _say("check", matrix="transport_hard", n=csr_h.nrows, nnz=csr_h.nnz,
+         W=inp["H32"].n_diags,
+         max_offset=max(abs(o) for o in inp["H32"].offsets),
+         bounds=f"[{inp['h_lo']},{inp['h_hi']}]", degree=CHEBY_DEGREE,
          host_setup_s=round(time.perf_counter() - t0, 3))
     calls = kernel_calls(inp)
     errs = check_kernels(calls, inp)
@@ -1451,11 +1884,25 @@ def main() -> int:
             raise SmokeFailure(f"{phase}: the fused DF driver took "
                                f"{iters[phase]} iterations, the unfused DF "
                                f"solver {k}: more than 2 apart")
+    run_pipe_df32_ell(csr, probdf.b, iters["pipe_df32"])
 
     # batched right-hand sides: the fused batched route, then lane by lane
     runs["batched"] = run_batched_path(N_MAIN, A32=inp["A32"])
     for dtype in ("float64", "df32"):
         run_batched_lanes(N_MAIN, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Chebyshev preconditioning on the hard matrix
+    prec = ChebyPrecond(CHEBY_DEGREE, inp["h_lo"], inp["h_hi"])
+    runs["cheby"] = run_cheby_cli(N_HARD)
+    probs_h = {"float32": inp["h_prob32"], "df32": inp["h_probdf"],
+               "float64": prob64h}
+    for phase in CHEBY_PATHS:
+        runs[phase] = run_cheby_api(phase, probs_h, prec)
+    run_cheby_batched(inp["h_prob32"], prec)
+    run_cheby_ab(probs_h, prec)
+    del prob64h, probs_h
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1517,6 +1964,7 @@ def main() -> int:
              bound_ms_per_iter=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
              bytes_per_iter=nbytes)
     del probdf
+    time_cheby(inp, prec)
     time_shifted(csr, {
         "df32": build_problem(csr, dtype="df32", multiple=1, sigma_seed=ss),
         "float32": prob32s, "float64": prob64s})

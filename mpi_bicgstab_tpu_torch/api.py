@@ -19,9 +19,19 @@ df32, the other methods, other layouts, k > 8) solves lane by lane with
 the unfused solver over the generic SpMV: what jax.vmap computes, each
 lane as if solved alone (on the card through the DIA or ELL SpMV
 kernels).
+
+Chebyshev preconditioning (precond=ops.cheby.ChebyPrecond, or A already
+an ops.cheby.ChebyOperator) wraps A, and the solve runs right-
+preconditioned, as in the JAX package (api.py:281-289,398-440): the
+solver iterates on A p(A) in y, restarts re-enter it in y, and x = p(A) y
+is applied once per solve and once per lane at exit. A ChebyOperator is
+not a DiaMatrix, so every fused route refuses it and the unfused solver
+runs over layout.spmv, whose p(A) is the chain kernel on a float32 or DF
+DIA operator (ops/cuda_cheby.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -34,6 +44,7 @@ from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
 from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe_df as fpipedf
+from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator, wrap_operator
 from mpi_bicgstab_tpu_torch.ops.layout import spmv as generic_spmv
 from mpi_bicgstab_tpu_torch.ops.precision import DF, is_df, vzeros_like
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
@@ -52,8 +63,6 @@ FUSED_DF = {"bicgstab": fcldf.bicgstab_fused_df,
             "ca_bicgstab": fcadf.ca_bicgstab_fused_df,
             "pipe_bicgstab": fpipedf.pipe_bicgstab_fused_df,
             "pipe_bicgstab_rr": fpipedf.pipe_bicgstab_rr_fused_df}
-# the df32 route the JAX package sends through DF kernels not ported yet
-_SLICE3C = "ROADMAP slice 3c (the fused DF pipelined iteration bodies)"
 
 
 def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
@@ -65,19 +74,13 @@ def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     route is the same on the CPU and on the card; only each kernel
     wrapper's choice between kernel and plain twin follows the tensors'
     device. cfg.out_iter != 0 takes the unfused route, where the
-    periodic residual print lives.
-
-    df32 pipelined BiCGStab on any other operator or with out_iter
-    raises NotImplementedError rather than take the unfused solver: the
-    JAX package fuses its DF iteration bodies there, kernels not ported
-    yet (slice 3c)."""
+    periodic residual print lives. A ChebyOperator takes the unfused
+    route; there df32 pipelined BiCGStab runs its fused DF iteration
+    bodies (solvers/bicgstab.pipe_bicgstab), as on any other layout and
+    with out_iter."""
     if is_df(b) and method in FUSED_DF and not cfg.out_iter \
             and fcldf.format_ok(A, cfg.dtype):
         return FUSED_DF[method](A, b, x0, cfg)
-    if is_df(b) and method == "pipe_bicgstab":
-        raise NotImplementedError(
-            f"df32 pipe_bicgstab runs fused DF iteration bodies that are "
-            f"not ported yet: {_SLICE3C}")
     if method in FUSED and not cfg.out_iter \
             and fcl.format_ok(A, cfg.dtype):
         return FUSED[method](A, b, x0, cfg)
@@ -147,13 +150,17 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     """Solve A x = b with a method of the classic family (METHODS) where
     A and b live. When the true-residual gate fails after the recurrence
     hit tol, up to cfg.restarts refinement restarts re-enter the solver
-    from the current iterate."""
+    from the current iterate.
+
+    precond: an ops.cheby.ChebyPrecond with its bounds set, or pass A
+    already wrapped in a ChebyOperator. The solve then runs right-
+    preconditioned (module doc): every residual is the original
+    system's, x0 (if given) is in the preconditioned space, and x = p(A) y
+    is applied once at exit."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from "
                          f"{sorted(METHODS)}")
-    if precond is not None:
-        raise NotImplementedError(
-            "Chebyshev preconditioning is not ported yet: ROADMAP slice 7")
+    A = _wrap(A, precond)
     b = _check_rhs(A, b, "solve")
     if cfg is None:
         cfg = SolverConfig(dtype=b.dtype)
@@ -163,7 +170,17 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if cfg.restarts:
         res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),
                          cfg, res)
+    if isinstance(A, ChebyOperator):
+        res = dataclasses.replace(res, x=A.apply(res.x))
     return res
+
+
+def _wrap(A, precond):
+    """A wrapped in the Chebyshev operator of `precond` (its bounds set;
+    ChebyPrecond.resolve estimates them from a host CSR)."""
+    if precond is not None and not isinstance(A, ChebyOperator):
+        A = wrap_operator(A, precond)
+    return A
 
 
 def _check_rhs(A, b, what: str):
@@ -177,13 +194,19 @@ def _check_rhs(A, b, what: str):
 
 # --- batched right-hand sides (api.py:292-401 of the JAX package) ------------
 
+def _stack_x(xs: list):
+    """[k, n] from k lane vectors (tensors or DF pairs)."""
+    if is_df(xs[0]):
+        return DF(torch.stack([v.hi for v in xs]),
+                  torch.stack([v.lo for v in xs]))
+    return torch.stack(xs)
+
+
 def _stack_lanes(lanes: list) -> SolveResult:
     """One SolveResult with a leading batch axis from per-lane ones."""
-    xs = [r.x for r in lanes]
-    x = DF(torch.stack([v.hi for v in xs]), torch.stack([v.lo for v in xs])) \
-        if is_df(xs[0]) else torch.stack(xs)
     return SolveResult(
-        x=x, n_iter=torch.tensor([r.n_iter for r in lanes], dtype=torch.int32),
+        x=_stack_x([r.x for r in lanes]),
+        n_iter=torch.tensor([r.n_iter for r in lanes], dtype=torch.int32),
         **{f: torch.stack([getattr(r, f) for r in lanes])
            for f in ("final_relres", "history", "converged", "true_relres")})
 
@@ -195,17 +218,14 @@ def _solve_batched_once(A, B, X0, method: str, cfg) -> SolveResult:
     follows the tensors' device. The JAX package falls back from its
     fused batched passes to the SpMV-amortised loop when their VMEM
     windows do not fit; on the card both take the same operators, so the
-    fused driver always runs and no route reaches the loop."""
+    fused driver always runs and no route reaches the loop. A
+    ChebyOperator solves lane by lane."""
     from mpi_bicgstab_tpu_torch.solvers.batched_fused import \
         bicgstab_batched_fully_fused
     k = B.shape[0]
     if method == "bicgstab" and not is_df(B) \
             and cbs.format_ok(A, cfg.dtype, k):
         return bicgstab_batched_fully_fused(A, B, X0, cfg)
-    if is_df(B) and method == "pipe_bicgstab":
-        raise NotImplementedError(
-            f"df32 pipe_bicgstab runs fused DF iteration bodies that are "
-            f"not ported yet: {_SLICE3C}")
     fn = CLASSIC_SOLVERS[method]
     return _stack_lanes([fn(lambda v: generic_spmv(A, v), Comm(), B[j],
                             X0[j], cfg) for j in range(k)])
@@ -254,13 +274,12 @@ def solve_batched(A, B, x0=None, method: str = "bicgstab",
     each lane's n_iter, history, converged and true_relres are those it
     would have alone. Lanes whose recurrence hit tol but failed the
     true-residual gate re-enter the single-RHS solver one by one
-    afterwards (cfg.restarts, the policy of `solve`)."""
+    afterwards (cfg.restarts, the policy of `solve`). precond as for
+    `solve`: each lane's x = p(A) y_j at exit."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from "
                          f"{sorted(METHODS)}")
-    if precond is not None:
-        raise NotImplementedError(
-            "Chebyshev preconditioning is not ported yet: ROADMAP slice 7")
+    A = _wrap(A, precond)
     B = _check_rhs(A, B, "solve_batched")
     if len(B.shape) != 2:
         raise ValueError(f"B must be [k, n], got shape {tuple(B.shape)}")
@@ -271,6 +290,9 @@ def solve_batched(A, B, x0=None, method: str = "bicgstab",
     res = _solve_batched_once(A, B, x0, method, cfg)
     if cfg.restarts:
         res = _restart_batch_lanes(A, B, method, cfg, res)
+    if isinstance(A, ChebyOperator):
+        res = dataclasses.replace(res, x=_stack_x(
+            [A.apply(res.x[j]) for j in range(res.x.shape[0])]))
     return res
 
 

@@ -1,6 +1,7 @@
 """SpMV and solver-iteration timing on the card (counterpart of
 mpi_bicgstab_tpu/benchmarks/runner.py: `_slope_time`, `bench_spmv`,
-`bench_iteration`, `bench_batched_iteration`, `bench_shifted_iteration`).
+`bench_iteration`, `bench_batched_iteration`, `bench_shifted_iteration`,
+and `bench_cheby`, the `--what cheby` section of its run_bench).
 
 Every time is a slope: the timed operation runs as a chain of K1 and of
 K2 back-to-back calls on the current stream, each chain timed with CUDA
@@ -91,20 +92,22 @@ def bench_spmv(prob, iters=60, seed=0) -> dict:
 
 
 def bench_iteration(prob, method="bicgstab", iters=60, reps=3,
-                    graph=False) -> dict:
+                    graph=False, precond=None) -> dict:
     """Time per solver iteration: solves with tol=0 (exactly max_iter
     iterations, no host synchronisation at all) at two max_iter, and the
     slope between them — the avg time/iter the reference prints
     (solver.c:139). With graph=True each solve is captured in a CUDA
     graph and replayed: the device's own time per iteration, every
-    kernel of the loop included and the host's gaps left out."""
+    kernel of the loop included and the host's gaps left out. precond:
+    a ChebyPrecond with its bounds set (the exit transform is a fixed
+    cost per solve, so the slope leaves it out)."""
     from mpi_bicgstab_tpu_torch.api import solve
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
     def make_chain(K):
         cfg = SolverConfig(tol=0.0, max_iter=K, dtype=prob.b.dtype)
         chain = lambda: solve(prob.A, prob.b, method=method,  # noqa: E731
-                              cfg=cfg)
+                              cfg=cfg, precond=precond)
         return _graph(chain) if graph else chain
 
     sec = _slope_time(make_chain, K1=max(2, iters // 6), K2=iters,
@@ -202,3 +205,31 @@ def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
             "chains": (K1, K2),
             "shift_update_bytes": bytes_iter,
             "shift_update_GBps": bytes_iter / sec / 1e9}
+
+
+def bench_cheby(prob, lo: float, hi: float, degree: int = 8) -> dict:
+    """Chebyshev application time p(A) v on prob's float32 or df32 DIA
+    operator (JAX run_bench --what cheby, runner.py:504-570): the chain
+    kernel (ops/cuda_cheby) against the unfused chain, ops/cheby.cheby_apply
+    over the DIA SpMV kernel, each as replayed CUDA graphs of 30
+    back-to-back applications on one standard-normal v (NumPy, seed 0)."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby
+    from mpi_bicgstab_tpu_torch.ops.cheby import cheby_apply
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, is_df
+
+    _require_cuda()
+    A = prob.A
+    v_host = np.random.default_rng(0).standard_normal(prob.n)
+    df = is_df(A.vals)
+    v = df_from_f64(v_host, A.device) if df else torch.as_tensor(
+        v_host, dtype=A.vals.dtype, device=A.device)
+    chain = cuda_cheby.cheby_chain_df if df else cuda_cheby.cheby_chain
+    fused = time_call(lambda: chain(A.vals, v, A.offsets, degree, lo, hi),
+                      iters=30, graph=True)
+    unfused = time_call(lambda: cheby_apply(lambda u: spmv(A, u), v, degree,
+                                            lo, hi),
+                        iters=30, graph=True)
+    return {"cheby_degree": degree, "dtype": "df32" if df else "float32",
+            "cheby_fused_apply_s": fused, "cheby_unfused_apply_s": unfused,
+            "cheby_fused_speedup": unfused / fused}

@@ -15,7 +15,9 @@ leaf), so that one operator can be driven through both packages:
 
 Any "vals" or "tail_vals" array may come as the pair "<key>_hi",
 "<key>_lo" instead, which gives DF values. df_from_arrays builds a DF
-vector (b, x0) from the leaves of a JAX DF pair.
+vector (b, x0) from the leaves of a JAX DF pair. cheby_operator_from_arrays
+builds the port's ops/cheby.ChebyOperator from a JAX ChebyOperator: its
+inner operator's arrays and meta as above, and its degree, lo and hi.
 
 config_from_fields builds a SolverConfig from the fields of a JAX
 SolverConfig (dataclasses.asdict), shifted_config_from_fields a
@@ -31,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator
 from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
 from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
@@ -93,6 +96,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                                  "ell_"))
     raise ValueError(f"unknown operator kind {kind!r}; expected 'dia', "
                      f"'ell' or 'hybrid'")
+
+
+def cheby_operator_from_arrays(kind: str, arrays: dict, meta: dict,
+                               degree: int, lo: float, hi: float,
+                               device="cuda") -> ChebyOperator:
+    """The port's ChebyOperator over operator_from_arrays(kind, arrays,
+    meta), with a JAX ChebyOperator's degree and bounds."""
+    return ChebyOperator(operator_from_arrays(kind, arrays, meta, device),
+                         int(degree), float(lo), float(hi))
 
 
 def _port_fields(fields: dict) -> dict:

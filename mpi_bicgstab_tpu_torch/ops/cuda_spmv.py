@@ -156,9 +156,10 @@ def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
     n_diags,] n, [vals hi, lo,] then (hi, lo) of every vector and scalar
     in the dicts' order (scalars from check_scalars), of n_out fresh
     output vectors, then partials, dots, the folded scalars and the
-    stream). vals None: a pointwise pass. Returns (outputs, dots, folded
-    scalars), all DF; the dots and the scalars are 0-d views of
-    [2, n_dots] and [2, n_fold] tensors (row 0 hi)."""
+    stream; no folded scalars when n_fold is 0). vals None: a pointwise
+    pass. Returns (outputs, dots, folded scalars), all DF: the dots a
+    DF [n_dots] (rows of one [2, n_dots] tensor, row 0 hi) that unpacks
+    into 0-d pairs, the scalars 0-d views of a [2, n_fold] tensor."""
     first = next(iter(vecs.values()))
     for name, v in (*vecs.items(), *scalars.items()):
         if not is_df(v):
@@ -189,10 +190,10 @@ def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
     err = getattr(lib, symbol)(
         *head, *(t.data_ptr() for t in parts.values()),
         *(t.data_ptr() for o in outs for t in (o.hi, o.lo)),
-        partials.data_ptr(), dots.data_ptr(), folded.data_ptr(),
-        stream_arg())
+        partials.data_ptr(), dots.data_ptr(),
+        *((folded.data_ptr(),) if n_fold else ()), stream_arg())
     _build.check(lib, err, what)
-    return (outs, [DF(dots[0, k], dots[1, k]) for k in range(n_dots)],
+    return (outs, DF(dots[0], dots[1]),
             [DF(folded[0, k], folded[1, k]) for k in range(n_fold)])
 
 

@@ -7,7 +7,9 @@ mpi_bicgstab_tpu/ops/layout.py).
         EllMatrix            (format='ell')
 
 and the generic `spmv(op, x)` the solvers use, on tensors or, for an
-operator built with dtype="df32", on double-float pairs (ops/precision.DF).
+operator built with dtype="df32", on double-float pairs (ops/precision.DF);
+on a Chebyshev-wrapped operator (ops/cheby.ChebyOperator) it is the
+right-preconditioned product A p(A) x.
 The windowed-ELL and
 butterfly layouts, which the JAX package's 'auto' picks for matrices
 with less than half their nonzeros on diagonals, are ROADMAP slice 6b;
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator, precond_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, analyze_diagonals,
                                             csr_to_dia, dia_spmv)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
@@ -95,6 +98,8 @@ def build_operator(csr, format: str = "auto", dtype=None,
 def spmv(op, x):
     """Generic y = op @ x over any ported layout (DF values take the DF
     SpMVs, as in the JAX package)."""
+    if isinstance(op, ChebyOperator):
+        return precond_spmv(op, x)       # y = A p(A) x (ops/cheby.py)
     if isinstance(op, DiaMatrix):
         return dia_spmv(op, x)
     if isinstance(op, EllMatrix):

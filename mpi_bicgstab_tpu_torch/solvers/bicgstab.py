@@ -12,13 +12,17 @@ mpi_bicgstab_tpu/solvers/bicgstab.py):
 
 and CLASSIC_SOLVERS, which also holds BiCGStab(l) (solvers/bicgstab_l.py).
 
-This is the route for float64, for operators other than a DiaMatrix and
-for BiCGStab(l); the float32 DIA routes are the fused drivers of
+This is the route for float64, for operators other than a DiaMatrix
+(ELL, hybrid, a Chebyshev-preconditioned ops/cheby.ChebyOperator) and for
+BiCGStab(l); the float32 DIA routes are the fused drivers of
 ops/cuda_fused_classic.py, ops/cuda_fused_ca.py and ops/cuda_fused_pipe.py,
 the df32 DIA routes those of ops/cuda_fused_classic_df.py,
 ops/cuda_fused_ca_df.py and ops/cuda_fused_pipe_df.py. The same
 code runs on double-float pairs (df32, ops/precision.DF): axpy and the
 Comm dots take the DF forms, and float(dot_r) reads a pair's exact value.
+pipe_bicgstab on DF pairs runs its iteration bodies as the two kernels
+of ops/cuda_pipe_df_bodies.py (_pipe's fused_bodies), as the JAX package
+does on its TPU.
 
 Each solver takes spmv: x -> A@x, a Comm for the global dots, b, x0 and a
 SolverConfig. The loop runs on the host; the scalars stay on the device
@@ -29,8 +33,9 @@ explicit zeros, which give the same first step because beta = 0.
 """
 from __future__ import annotations
 
+from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as bodies
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
-from mpi_bicgstab_tpu_torch.ops.precision import vzeros_like
+from mpi_bicgstab_tpu_torch.ops.precision import is_df, vvalue, vzeros_like
 from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish,
                                                  fold_beta_alpha, is_rr,
                                                  maybe_print_residual, start)
@@ -119,7 +124,8 @@ def ca_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
                   comm, b)
 
 
-def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
+def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool,
+          fused_bodies: bool = False) -> SolveResult:
     """Pipelined BiCGStab, with residual replacement when rr is set.
 
     Each SpMV follows the dot batch whose latency it hides in the
@@ -129,7 +135,16 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
     device has no reduction latency to hide, so the port has no seq.
     A replacement iteration (host test on the iteration counter, the
     JAX lax.cond) re-anchors s <- A p, z <- A s (solver.c:498-500) and
-    the true residual r <- b - A x, w <- A r (solver.c:522-526)."""
+    the true residual r <- b - A x, w <- A r (solver.c:522-526).
+
+    fused_bodies (DF pairs, no replacement) runs each iteration's updates
+    and dot partials as the two fused passes of ops/cuda_pipe_df_bodies.py
+    (JAX solvers/bicgstab._pipe_bicgstab_fused_bodies): the dots come
+    back local and Comm completes them; spmv and the scalar recurrences
+    stay outside. The kernels take any n, so nothing is padded (the JAX
+    package pads to its 8192-row tile grid, with inert zero tails). Its
+    stop test compares float32 values, as the JAX loop's does."""
+    read = vvalue if fused_bodies else (lambda a: a)
     tol2, exact, zero = start(b, cfg)
     r0 = b - spmv(x0)                                   # solver.c:333-334
     r_hat = r0                                          # solver.c:335
@@ -142,32 +157,42 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
     dot_zero = rTr = dot_r = rTr0
     x, r = x0, r0
     hist = []
-    thresh = None if exact else float(dot_zero * tol2)
+    thresh = None if exact else float(read(dot_zero) * tol2)
     k = 0
-    while k < cfg.max_iter and (exact or float(dot_r) > thresh):  # :351
-        replace = rr and is_rr(k, cfg)
-        p = axpy(beta, axpy(-omega, s, p), r)           # solver.c:352-354
-        if replace:
-            s = spmv(p)                                 # solver.c:499
-            z = spmv(s)                                 # solver.c:500
-        else:       # s reads the old z: z is replaced after it
-            s = axpy(beta, axpy(-omega, z, s), w)       # solver.c:355-357
-            z = axpy(beta, axpy(-omega, v, z), t)       # solver.c:358-360
-        q = axpy(-alpha, s, r)                          # solver.c:361
-        y = axpy(-alpha, z, w)                          # solver.c:362
-        qTy, yTy = comm.dots((q, y), (y, y))            # solver.c:363-364
+    while k < cfg.max_iter and (exact or float(read(dot_r)) > thresh):
+        replace = rr and is_rr(k, cfg)                  # solver.c:351
+        if fused_bodies:
+            p, s, z, q, y, dots = bodies.fused_body_a(
+                r, p, s, w, z, t, v, (alpha, beta, omega))  # :352-362
+            qTy, yTy = comm.allreduce(dots)             # solver.c:363-364
+        else:
+            p = axpy(beta, axpy(-omega, s, p), r)       # solver.c:352-354
+            if replace:
+                s = spmv(p)                             # solver.c:499
+                z = spmv(s)                             # solver.c:500
+            else:   # s reads the old z: z is replaced after it
+                s = axpy(beta, axpy(-omega, z, s), w)   # solver.c:355-357
+                z = axpy(beta, axpy(-omega, v, z), t)   # solver.c:358-360
+            q = axpy(-alpha, s, r)                      # solver.c:361
+            y = axpy(-alpha, z, w)                      # solver.c:362
+            qTy, yTy = comm.dots((q, y), (y, y))        # solver.c:363-364
         v = spmv(z)                                     # solver.c:365
         omega = qTy / yTy                               # solver.c:369
-        x = axpy(omega, q, axpy(alpha, p, x))           # solver.c:370-371
-        if replace:
-            r = b - spmv(x)                             # solver.c:523-525
-            w = spmv(r)                                 # solver.c:526
+        if fused_bodies:
+            x, r, w, dots = bodies.fused_body_b(
+                x, p, q, y, t, v, r_hat, s, z, (alpha, omega))  # :370-375
+            dot_r, rTr_new, rhTw, rhTs, rhTz = comm.allreduce(dots)
         else:
-            r = axpy(-omega, y, q)                      # solver.c:372
-            w = axpy(-omega, axpy(-alpha, v, t), y)     # solver.c:374-375
-        dot_r, rTr_new, rhTw, rhTs, rhTz = comm.dots(
-            (r, r), (r_hat, r), (r_hat, w), (r_hat, s),
-            (r_hat, z))                                 # solver.c:373,377-380
+            x = axpy(omega, q, axpy(alpha, p, x))       # solver.c:370-371
+            if replace:
+                r = b - spmv(x)                         # solver.c:523-525
+                w = spmv(r)                             # solver.c:526
+            else:
+                r = axpy(-omega, y, q)                  # solver.c:372
+                w = axpy(-omega, axpy(-alpha, v, t), y)  # solver.c:374-375
+            dot_r, rTr_new, rhTw, rhTs, rhTz = comm.dots(
+                (r, r), (r_hat, r), (r_hat, w), (r_hat, s),
+                (r_hat, z))                             # solver.c:373,377-380
         t = spmv(w)                                     # solver.c:381
         beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
                                       rhTs, rhTz)       # solver.c:387-388
@@ -180,11 +205,10 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool) -> SolveResult:
 
 
 def pipe_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
-    """Pipelined BiCGStab (reference solver.c:292-417). For df32 off the
-    fused DIA route (other layouts, out_iter) the JAX package fuses the
-    iteration bodies into kernels (slice 3c); api.solve refuses that
-    route until they are ported."""
-    return _pipe(spmv, comm, b, x0, cfg, rr=False)
+    """Pipelined BiCGStab (reference solver.c:292-417). DF right-hand
+    sides take the fused iteration bodies, as every DF b does in the JAX
+    package on its TPU."""
+    return _pipe(spmv, comm, b, x0, cfg, rr=False, fused_bodies=is_df(b))
 
 
 def pipe_bicgstab_rr(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:

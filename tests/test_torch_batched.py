@@ -233,13 +233,17 @@ def test_lane_restarts_match_jax():
 def test_solve_batched_refusals():
     pt = tprob.build_problem(tgen.poisson2d(8), device="cpu")
     B = torch.stack([pt.b, pt.b])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tapi.solve_batched(pt.A, B, precond=object())
+    # slices 7 and 3c are ported: a preconditioner without bounds is
+    # refused, df32 pipelined BiCGStab solves lane by lane
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    with pytest.raises(ValueError, match="bounds"):
+        tapi.solve_batched(pt.A, B, precond=ChebyPrecond(4))
     pdf = tprob.build_problem(tgen.poisson2d(8), dtype="df32", device="cpu")
     Bdf = tp.DF(torch.stack([pdf.b.hi] * 2), torch.stack([pdf.b.lo] * 2))
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        tapi.solve_batched(pdf.A, Bdf, method="pipe_bicgstab",
-                           cfg=SolverConfig(tol=1e-10, dtype="df32"))
+    res = tapi.solve_batched(pdf.A, Bdf, method="pipe_bicgstab",
+                             cfg=SolverConfig(tol=1e-10, dtype="df32"))
+    assert res.converged.all() and tp.is_df(res.x)
+    assert np.abs(tp.df_to_f64(res.x) - 1.0).max() < 1e-8
     with pytest.raises(ValueError, match="k, n"):
         tapi.solve_batched(pt.A, pt.b)
     with pytest.raises(ValueError, match="unknown method"):

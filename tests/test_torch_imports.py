@@ -54,6 +54,9 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/ops/cuda_batched_spmv.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_fused_batched.py",
                  "mpi_bicgstab_tpu_torch/solvers/batched_fused.py",
+                 "mpi_bicgstab_tpu_torch/ops/cheby.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_cheby.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_pipe_df_bodies.py",
                  "mpi_bicgstab_tpu_torch/ops/precision.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"

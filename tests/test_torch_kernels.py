@@ -11,7 +11,8 @@ The plain twins themselves are held to the JAX package in the CPU tests
 (test_torch_fused_classic.py, test_torch_fused_ca.py,
 test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
 test_torch_fused_ca_df.py, test_torch_fused_pipe_df.py,
-test_torch_layout.py, test_torch_shift_update.py). The one host-side test here
+test_torch_layout.py, test_torch_shift_update.py, test_torch_cheby.py,
+test_torch_pipe_df_bodies.py). The one host-side test here
 (test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
@@ -26,7 +27,9 @@ dot within 1e-12 sum |u_i v_i| (the kernels sum their compensated
 partials in another order). The DF shift update: the updated state
 bit-equal to the twin's, frozen rows bit-unchanged. Shifted solves on the
 card against the CPU: n_iter within 2, the same final seed, solutions
-within 1e-8 (1e-3 in float32).
+within 1e-8 (1e-3 in float32). The float32 Chebyshev chain: within 2e-6
+of the twin's largest entry (the JAX package's bar, tests/test_cheby.py);
+the DF chain and the DF pipelined bodies as the other DF kernels.
 """
 import contextlib
 import io
@@ -907,3 +910,165 @@ def test_batched_wrappers_raise_instead_of_falling_back():
         fb.fused_k2b(v.cpu(), R, R, (a,), o)
     with pytest.raises(ValueError):        # planes of different shapes
         fb.fused_k3b(R, R, R[:2], R, R, (a, w, act))
+
+
+# --- Chebyshev chains and the DF pipelined bodies (slices 7 and 3c) ---------
+
+@pytest.mark.parametrize("degree", [1, 2, 8])
+@pytest.mark.parametrize("n,offsets", CASES)
+def test_cheby_chain_kernels_match_plain(n, offsets, degree):
+    """The float32 chain within 2e-6 of the twin's largest entry (the JAX
+    package's bar for its chain kernel), the DF chain bit for bit."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    dev = _card()
+    lo, hi = 0.05, 9.0
+    A32 = _band(n, offsets, torch.float32, dev)
+    Adf = _band(n, offsets, "df32", dev)
+    (v,) = _vecs(n, 1, dev)
+    (vdf,) = _df_vecs(n, 1, dev)
+    before = (cc.cheby_chain.launches, cc.cheby_chain_df.launches)
+    got = cc.cheby_chain(A32.vals, v, A32.offsets, degree, lo, hi)
+    got_df = cc.cheby_chain_df(Adf.vals, vdf, Adf.offsets, degree, lo, hi)
+    torch.cuda.synchronize()
+    assert (cc.cheby_chain.launches, cc.cheby_chain_df.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = cc.cheby_chain_plain(A32.vals, v, A32.offsets, degree, lo, hi)
+    assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    assert _same(got_df, cc.cheby_chain_df_plain(Adf.vals, vdf, Adf.offsets,
+                                                 degree, lo, hi))
+
+
+@pytest.mark.parametrize("n", [100, 5000, 16384])
+def test_pipe_df_body_kernels_match_plain_bit_for_bit(n):
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    dev = _card()
+    r, p, s, rh, x, q, y, wv, z, vv, t = _df_vecs(n, 11, dev)
+    a, b, w = _df_scalars(dev, 0.7, 0.3, 0.2)
+    for kern, plain, args, n_vec, pairs in (
+            (cpb.fused_body_a, cpb.fused_body_a_plain,
+             (r, p, s, wv, z, t, vv, (a, b, w)), 5,
+             lambda out: [(out[3], out[4]), (out[4], out[4])]),
+            (cpb.fused_body_b, cpb.fused_body_b_plain,
+             (x, p, q, y, t, vv, rh, s, z, (a, w)), 3,
+             lambda out: [(out[1], out[1]), (rh, out[1]), (rh, out[2]),
+                          (rh, s), (rh, z)])):
+        before = kern.launches
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        flat = lambda o: (*o[:-1], *o[-1])  # noqa: E731
+        _df_check(flat(got), flat(want), n_vec, pairs(got))
+
+
+@pytest.mark.parametrize("dtype,method,chain,spmv,per_segment", [
+    ("float32", "bicgstab", "cheby_chain", "dia_spmv", 2),
+    ("df32", "bicgstab", "cheby_chain_df", "dia_spmv_df", 2),
+    ("df32", "pipe_bicgstab", "cheby_chain_df", "dia_spmv_df", 4),
+])
+def test_cheby_routes_launch_their_kernels(dtype, method, chain, spmv,
+                                           per_segment):
+    """A preconditioned tol=0 solve of 10 iterations: p(A) through the
+    chain kernel twice per iteration, per_segment times at set-up and
+    exit, once for x = p(A) y; df32 pipe_bicgstab's body kernels once
+    each per iteration; no fused pass."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype=dtype, device=dev)
+    fns = {"cheby_chain": cc.cheby_chain, "cheby_chain_df": cc.cheby_chain_df,
+           "dia_spmv": cuda_spmv.dia_spmv,
+           "dia_spmv_df": cuda_spmv.dia_spmv_df,
+           "fused_body_a": cpb.fused_body_a, "fused_body_b": cpb.fused_body_b,
+           "fused_k1": fcl.fused_k1, "fused_k1_df": fcldf.fused_k1_df,
+           "fused_phase_a_df": fpipedf.fused_phase_a_df}
+    for fn in fns.values():
+        fn.launches = 0
+    res = solve(prob.A, prob.b, method=method,
+                cfg=SolverConfig(tol=0.0, max_iter=10, dtype=dtype),
+                precond=ChebyPrecond(4, 0.05, 9.0))
+    assert res.n_iter == 10
+    want = dict.fromkeys(fns, 0)
+    want[spmv] = 2 * 10 + per_segment
+    want[chain] = want[spmv] + 1
+    if method == "pipe_bicgstab":
+        want["fused_body_a"] = want["fused_body_b"] = 10
+    assert {k: fn.launches for k, fn in fns.items()} == want
+
+
+@pytest.mark.parametrize("dtype,method", [("float32", "bicgstab"),
+                                          ("df32", "bicgstab"),
+                                          ("df32", "pipe_bicgstab"),
+                                          ("float64", "bicgstab")])
+def test_cheby_solve_on_card_matches_cpu(dtype, method):
+    from mpi_bicgstab_tpu_torch.models.generators import transport_hard
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond, estimate_bounds
+    dev = _card()
+    csr = transport_hard(4096)
+    prec = ChebyPrecond(8, *estimate_bounds(csr))
+    tol = 1e-5 if dtype == "float32" else 1e-10
+    cfg = SolverConfig(tol=tol, max_iter=500, dtype=dtype)
+    res = {}
+    for d in (dev, "cpu"):
+        prob = build_problem(csr, dtype=dtype, device=d)
+        res[d] = solve(prob.A, prob.b, method=method, cfg=cfg, precond=prec)
+    assert bool(res[dev].converged) and bool(res["cpu"].converged)
+    assert abs(res[dev].n_iter - res["cpu"].n_iter) <= 2
+    x = df_to_f64(res[dev].x) if is_df(res[dev].x) else \
+        res[dev].x.double().cpu().numpy()
+    assert np.abs(x - 1.0).max() < (3e-2 if dtype == "float32" else 1e-6)
+
+
+@pytest.mark.parametrize("dtype,method", [("float32", "bicgstab"),
+                                          ("df32", "pipe_bicgstab")])
+def test_tol0_cheby_solve_replays_as_a_cuda_graph(dtype, method):
+    """The chain kernels take their coefficients by value, so a
+    preconditioned tol=0 solve (exit transform included) captures."""
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    dev = _card()
+    prob = build_problem(banded_random(8192, [1, -1, 40, -40], seed=12),
+                         dtype=dtype, device=dev)
+    cfg = SolverConfig(tol=0.0, max_iter=6, dtype=dtype)
+    prec = ChebyPrecond(4, 0.05, 9.0)
+    eager = solve(prob.A, prob.b, method=method, cfg=cfg, precond=prec)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve(prob.A, prob.b, method=method, cfg=cfg, precond=prec)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        res = solve(prob.A, prob.b, method=method, cfg=cfg, precond=prec)
+    g.replay()
+    torch.cuda.synchronize()
+    same = _same(res.x, eager.x) if is_df(res.x) else torch.equal(res.x,
+                                                                   eager.x)
+    assert res.n_iter == 6 and same
+
+
+def test_cheby_and_body_wrappers_raise_instead_of_falling_back():
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    dev = _card()
+    A32 = _band(4096, [1, -1, 64, -64], torch.float32, dev)
+    Adf = _band(4096, [1, -1, 64, -64], "df32", dev)
+    (v,) = _vecs(4096, 1, dev)
+    (x,) = _df_vecs(4096, 1, dev)
+    a, = _df_scalars(dev, 0.7)
+    with pytest.raises(TypeError):         # float64 vector
+        cc.cheby_chain(A32.vals, v.double(), A32.offsets, 4, 0.1, 9.0)
+    with pytest.raises(ValueError):        # degree beyond the kernel's
+        cc.cheby_chain(A32.vals, v, A32.offsets, cc.MAX_DEGREE + 1, 0.1, 9.0)
+    with pytest.raises(ValueError):        # band on the CPU
+        cc.cheby_chain(A32.vals.cpu(), v, A32.offsets, 4, 0.1, 9.0)
+    with pytest.raises(TypeError):         # float32 vector, not a pair
+        cc.cheby_chain_df(Adf.vals, x.hi, Adf.offsets, 4, 0.1, 9.0)
+    with pytest.raises(ValueError):        # vector of the wrong length
+        cc.cheby_chain_df(Adf.vals, x[:100], Adf.offsets, 4, 0.1, 9.0)
+    with pytest.raises(TypeError):         # float32 vector, not a pair
+        cpb.fused_body_a(x, x, x, x.hi, x, x, x, (a, a, a))
+    with pytest.raises(ValueError):        # missing scalar
+        cpb.fused_body_b(x, x, x, x, x, x, x, x, x, (a,))
+    with pytest.raises(ValueError):        # vector on the CPU
+        cpb.fused_body_b(x, x, x, x, x, x, x.to("cpu"), x, x, (a, a))

@@ -129,19 +129,25 @@ def test_unported_options_raise_naming_their_slice():
     # slice 2 is ported: pipe_bicgstab runs on the CPU now
     assert bool(tapi.solve(pt.A, pt.b, method="pipe_bicgstab",
                            cfg=SolverConfig(tol=1e-10)).converged)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tapi.solve(pt.A, pt.b, precond=object())
-    # slices 3a and 3b are ported: df32 is a config dtype (float32, as in
-    # JAX), and df32 CA runs on a DF DiaMatrix; df32 pipelined BiCGStab
-    # with out_iter is slice 3c's
+    # slice 7 is ported: a Chebyshev preconditioner with bounds solves,
+    # one without bounds and no host matrix to estimate them is refused
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    assert bool(tapi.solve(pt.A, pt.b, cfg=SolverConfig(tol=1e-10),
+                           precond=ChebyPrecond(2, 0.08, 8.0)).converged)
+    with pytest.raises(ValueError, match="bounds"):
+        tapi.solve(pt.A, pt.b, precond=ChebyPrecond(2))
+    # slices 3a, 3b and 3c are ported: df32 is a config dtype (float32, as
+    # in JAX), df32 CA runs on a DF DiaMatrix, and df32 pipelined
+    # BiCGStab with out_iter runs its fused DF iteration bodies
     assert SolverConfig(dtype="df32").dtype == torch.float32
     pdf = tprob.build_problem(tgen.poisson2d(8), dtype="df32", device="cpu")
     assert bool(tapi.solve(pdf.A, pdf.b, method="ca_bicgstab",
                            cfg=SolverConfig(tol=1e-10,
                                             dtype="df32")).converged)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        tapi.solve(pdf.A, pdf.b, method="pipe_bicgstab",
-                   cfg=SolverConfig(tol=1e-10, dtype="df32", out_iter=2))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert bool(tapi.solve(pdf.A, pdf.b, method="pipe_bicgstab",
+                               cfg=SolverConfig(tol=1e-10, dtype="df32",
+                                                out_iter=2)).converged)
     with pytest.raises(ValueError):
         tapi.solve(pt.A, pt.b, method="gmres")
     with pytest.raises(SystemExit):       # argparse refuses float16
