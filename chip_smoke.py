@@ -20,7 +20,13 @@ numbers; any failure exits non-zero:
              vectors must equal the twin's bit for bit, each dot must lie
              within 1e-12 sum|u_i v_i| of the twin's, and the scalar each
              pass folds into its finishing stage must equal the twin's
-             formula (ops/precision.py) applied to the kernel's own dots
+             formula (ops/precision.py) applied to the kernel's own dots.
+             The windowed-ELL kernels (slab part of y = A x; float32,
+             float64, DF) on the layout of clustered_random(1602560)
+             (W = 24), built once on the host in float64 and cast, with x
+             from a seeded NumPy generator: bit-equal to their twins; the
+             whole float64 SpMV (kernel plus COO tail) within 1e-12 of
+             torch's CSR product
   4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
              transport-like:1602112 --method M --dtype D --tol T`, every
              launch counter set to 0 just before and read just after
@@ -77,7 +83,22 @@ numbers; any failure exits non-zero:
              the main matrix through the body kernels, within 2
              iterations of `[pipe_df32]`. `[cheby_ab]`: the plain and the
              preconditioned float32 solve on the hard matrix (restarts
-             0): iterations, wall seconds, true residuals, speedup
+             0): iterations, wall seconds, true residuals, speedup.
+             Unstructured input (ROADMAP slices 6a, 6b): `[window]` is
+             `solve --matrix clustered:1602560 --dtype float32 --tol
+             1e-6` with the CLI defaults (--format auto, --reorder auto):
+             the WindowEllMatrix route, the window kernel twice per
+             iteration and per segment for r0 and the true residual, no
+             other kernel; `[window_f64]`, `[window_df32]` (the DF kernel)
+             and `[window_pipe_df32]` (the DF kernel and the two DF body
+             kernels once per iteration) through api.solve at 1e-10; each
+             converged, max|x-1| < 1e-3 (f32) or 1e-6, and within 2
+             iterations of the same solve on gather-ELL. `[reorder]`:
+             banded_random(1602112, [1, -1, 5, -5], seed=3) shuffled by
+             default_rng(7).permutation, as an .npz, solved with the CLI
+             defaults in float64 at 1e-10 with --write-solution: reordered,
+             the DIA/hybrid route, the written (unpermuted) solution
+             within 1e-6 of ones
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -93,7 +114,10 @@ numbers; any failure exits non-zero:
              chain at degrees 1, 2, 4 and 8, and the
              preconditioned f32 classic, df32 classic and df32 pipelined
              iterations (eager and device) beside 2 x (chain + DIA SpMV)
-             bytes
+             bytes; the window kernels beside their bounds, twins and
+             torch's CSR product, the window build's host seconds, and
+             the f32 and df32 classic iterations on the window layout
+             (eager and device) beside two window SpMVs' bytes
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -128,6 +152,9 @@ TOL = {   # kernel versus plain version on the same inputs
     # the float32 chain: max |kernel - twin| within this times max |twin|
     # (the JAX package's own bar for its chain, tests/test_cheby.py:139)
     "float32_chain": 2e-6,
+    # the window kernels (all three dtypes): bit-equal, no tolerance;
+    # unfused multiplies and adds in the twin's slab order
+    "window": 0.0,
 }
 REPLACES = {
     "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
@@ -156,6 +183,8 @@ REPLACES = {
     "fused_body_b": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df.py:153",
     "cheby_chain": "mpi_bicgstab_tpu/ops/pallas_cheby.py:141",
     "cheby_chain_df": "mpi_bicgstab_tpu/ops/pallas_cheby_df.py:105",
+    "window_spmv": "mpi_bicgstab_tpu/ops/pallas_window_spmv.py:43",
+    "window_spmv_df": "mpi_bicgstab_tpu/ops/pallas_window_spmv.py:122",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -184,6 +213,8 @@ SOURCES = {
     "fused_body_b": _CSRC + "pipe_df_bodies.cu",
     "cheby_chain": _CSRC + "cheby.cu",
     "cheby_chain_df": _CSRC + "cheby.cu",
+    "window_spmv": _CSRC + "window_spmv.cu",
+    "window_spmv_df": _CSRC + "window_spmv.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -238,7 +269,10 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "cheby_chain": ("cheby", "cheby_chain"),
                  "cheby_chain_df": ("cheby_df32", "cheby_chain_df"),
                  "fused_body_a": ("cheby_pipe_df32", "fused_body_a"),
-                 "fused_body_b": ("cheby_pipe_df32", "fused_body_b")}
+                 "fused_body_b": ("cheby_pipe_df32", "fused_body_b"),
+                 "window_spmv_f32": ("window", "window_slabs"),
+                 "window_spmv_f64": ("window_f64", "window_slabs"),
+                 "window_spmv_df": ("window_df32", "window_slabs_df")}
 # the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
 # phase -> (dtype, tol)
 S_MAIN, SEED_MAIN, SIGMA_MAX = 512, 255, 0.01
@@ -260,6 +294,16 @@ CHEBY_PATHS = {"cheby_df32": ("bicgstab", "df32", 1e-10),
                "cheby_pipe_df32": ("pipe_bicgstab", "df32", 1e-10),
                "cheby_f64": ("bicgstab", "float64", 1e-10)}
 AB_TOL, AB_MAX_ITER = 1e-5, 20000
+# windowed-ELL (slice 6b) on clustered_random(N_WINDOW): `[window]` is the
+# CLI in float32 at WINDOW_TOL, these through api.solve: phase -> (method,
+# dtype, tol); each against the same solve on gather-ELL
+N_WINDOW, WINDOW_TOL = 1_602_560, 1e-6
+WINDOW_PATHS = {"window_f64": ("bicgstab", "float64", 1e-10),
+                "window_df32": ("bicgstab", "df32", 1e-10),
+                "window_pipe_df32": ("pipe_bicgstab", "df32", 1e-10)}
+# the reorder path (slice 6a): banded_random(N_MAIN, REORDER_OFFSETS,
+# seed=3) in the order of default_rng(7).permutation
+REORDER_OFFSETS, REORDER_SEEDS = [1, -1, 5, -5], (3, 7)
 
 
 class SmokeFailure(RuntimeError):
@@ -284,6 +328,7 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
             "fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
@@ -304,7 +349,9 @@ def _counters():
             "fused_body_a": cpb.fused_body_a,
             "fused_body_b": cpb.fused_body_b,
             "cheby_chain": cc.cheby_chain,
-            "cheby_chain_df": cc.cheby_chain_df}
+            "cheby_chain_df": cc.cheby_chain_df,
+            "window_slabs": cws.window_slabs,
+            "window_slabs_df": cws.window_slabs_df}
 
 
 def reset_counts() -> None:
@@ -708,6 +755,18 @@ def check_kernels(calls: dict, inp: dict) -> dict:
                      f"{float(_f64(w).abs().max()):.3e}" for w in want)
                  + "]")
             continue
+        if dt == "window":
+            (g,), (w,) = got, want
+            same = _same(g, w) if hasattr(g, "hi") else torch.equal(g, w)
+            err = _err(_f64(g), _f64(w))
+            if not same or err > TOL[dt]:
+                raise SmokeFailure(f"{name}: kernel and twin differ, max "
+                                   f"abs err {err:.3e} (bit-equal wanted)")
+            errs[name] = err
+            _say("check", kernel=name, ok=True, bit_equal=True,
+                 max_abs_err=f"{err:.3e}",
+                 scale=f"{float(_f64(w).abs().max()):.3e}")
+            continue
         if dt == "float32_chain":
             (g,), (w,) = got, want
             err, scale = _err(g, w), float(w.abs().max())
@@ -829,6 +888,8 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
     """(bytes, flops, dtype) the function must move and do on these
     inputs: each input read once, each output written once; flops count
     the band's structural entries."""
+    if name.startswith("window_spmv"):
+        return window_work(name, inp)
     A = inp["A32"]
     n, W = A.n_rows, A.n_diags
     nz = _band_nnz(A)
@@ -906,28 +967,35 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
             "float32")
 
 
+def torch_csr(csr, dtype, device):
+    """The host CSR as torch's sparse CSR tensor on `device`."""
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.ptr, device=device),
+        torch.as_tensor(csr.col, device=device),
+        torch.as_tensor(csr.val, dtype=dtype, device=device),
+        size=csr.shape)
+
+
 def library_call(name: str, inp: dict, csr):
     """One PyTorch call computing the same function, or None: torch's CSR
     sparse product for the SpMV (a yardstick; the port never calls it)."""
     import torch
     if name == "batched_dia_spmv":      # torch.sparse.mm(A in CSR, X^T)
-        dev = inp["A32"].device
-        A = torch.sparse_csr_tensor(
-            torch.as_tensor(csr.ptr, device=dev),
-            torch.as_tensor(csr.col, device=dev),
-            torch.as_tensor(csr.val, dtype=torch.float32, device=dev),
-            size=csr.shape)
+        A = torch_csr(csr, torch.float32, inp["A32"].device)
         X = inp["b_x"]
         return lambda: torch.sparse.mm(A, X.t())
+    f32 = name.endswith("f32")
+    if name in ("window_spmv_f32", "window_spmv_f64"):
+        A = torch_csr(csr, torch.float32 if f32 else torch.float64,
+                      inp["W32"].device)
+        x = inp["wx32" if f32 else "wx64"]
+        return lambda: A @ x
     if name not in ("dia_spmv_f32", "dia_spmv_f64"):
         return None     # no PyTorch call computes a fused pass or a DF SpMV
-    dt = torch.float32 if name.endswith("f32") else torch.float64
-    dev = inp["A32"].device
-    A = torch.sparse_csr_tensor(
-        torch.as_tensor(csr.ptr, device=dev),
-        torch.as_tensor(csr.col, device=dev),
-        torch.as_tensor(csr.val, dtype=dt, device=dev), size=csr.shape)
-    x = inp["x"] if dt == torch.float32 else inp["x64"]
+    A = torch_csr(csr, torch.float32 if f32 else torch.float64,
+                  inp["A32"].device)
+    x = inp["x"] if f32 else inp["x64"]
     return lambda: A @ x
 
 
@@ -1816,6 +1884,315 @@ def time_cheby(inp: dict, prec) -> None:
              bytes_per_iter=floor)
 
 
+# --- windowed-ELL (slice 6b) and the reorder path (slice 6a) ----------------
+
+def window_inputs(csr, device="cuda", seed=0) -> dict:
+    """The window kernels' inputs at the path's shapes: the layout of csr
+    built once on the host in float64 (its seconds in "w_build_s") and
+    cast to float32, float64 and DF pairs, and x from a NumPy generator
+    seeded `seed`."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    from mpi_bicgstab_tpu_torch.ops.window_ell import (
+        csr_to_window_ell, window_ell_with_values)
+    t0 = time.perf_counter()
+    host = csr_to_window_ell(csr, device="cpu")
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(seed).standard_normal(csr.nrows)
+    return {"w_csr": csr, "w_build_s": build_s,
+            "W32": window_ell_with_values(host, torch.float32, device),
+            "W64": window_ell_with_values(host, torch.float64, device),
+            "Wdf": window_ell_with_values(host, "df32", device),
+            "wx32": torch.as_tensor(x, dtype=torch.float32, device=device),
+            "wx64": torch.as_tensor(x, device=device),
+            "wxdf": df_from_f64(x, device)}
+
+
+def window_kernel_calls(inp: dict) -> dict:
+    """The window kernels (the slab part of y = A x) beside their twins,
+    as kernel_calls gives them; both must agree bit for bit."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
+    W32, W64, Wdf = inp["W32"], inp["W64"], inp["Wdf"]
+    x32, x64, xdf = inp["wx32"], inp["wx64"], inp["wxdf"]
+    return {
+        "window_spmv_f32": (lambda: (cws.window_slabs(W32, x32),),
+                            lambda: (wsp.window_slabs_plain(W32, x32),),
+                            "window"),
+        "window_spmv_f64": (lambda: (cws.window_slabs(W64, x64),),
+                            lambda: (wsp.window_slabs_plain(W64, x64),),
+                            "window"),
+        "window_spmv_df": (lambda: (cws.window_slabs_df(Wdf, xdf),),
+                           lambda: (wsp.window_slabs_df_plain(Wdf, xdf),),
+                           "window")}
+
+
+def check_window_spmv(inp: dict) -> float:
+    """The whole float64 SpMV (kernel plus tail) against torch's CSR
+    product on the card: within 1e-12 of the product's largest entry.
+    Returns the relative error."""
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    y = spmv(inp["W64"], inp["wx64"])
+    ref = torch_csr(inp["w_csr"], inp["wx64"].dtype, y.device) @ inp["wx64"]
+    rel = _err(y, ref) / float(ref.abs().max())
+    if not rel <= 1e-12:
+        raise SmokeFailure(f"window SpMV with its tail: {rel:.3e} from the "
+                           f"CSR product, relative (> 1e-12)")
+    return rel
+
+
+def window_work(name: str, inp: dict) -> tuple[float, float, str]:
+    """(bytes, flops, dtype) of the slab part of y = A x: every slot's
+    value, lane_idx and sub_sel, the window bases and x read once, y
+    written once; operations on the slots that hold an entry of this
+    matrix (the padding multiplies zeros)."""
+    W = inp["W32"]
+    slots = W.width * W.n_rows
+    held = inp["w_csr"].nnz - sum(W.tail_counts)
+    elem = 4 if name == "window_spmv_f32" else 8
+    nbytes = slots * (elem + 2) + 4 * W.n_tiles + (W.n_cols + W.n_rows) * elem
+    if name == "window_spmv_df":
+        return nbytes, (DF_MUL_FLOPS + DF_ADD_FLOPS) * held, "df32"
+    return nbytes, 2 * held, "float32" if elem == 4 else "float64"
+
+
+def check_window_counts(what: str, method: str, dtype: str, it: int,
+                        counts: dict, restarts: int,
+                        device: str = "cuda") -> None:
+    """The launches of a converged solve on the window layout: the window
+    SpMV kernel (its DF form in df32) twice per iteration and, per solver
+    segment, for r0 and the true residual (pipe_bicgstab also w0 and
+    t0); df32 pipe_bicgstab its two body kernels once per iteration;
+    nothing else. On the CPU nothing at all."""
+    want = dict.fromkeys(counts, 0)
+    if device != "cpu":
+        spmv = "window_slabs_df" if dtype == "df32" else "window_slabs"
+        if method == "pipe_bicgstab" and dtype == "df32":
+            want.update(fused_body_a=it, fused_body_b=it)
+        segs, rest = divmod(counts[spmv] - 2 * it,
+                            4 if method == "pipe_bicgstab" else 2)
+        if rest == 0 and 1 <= segs <= restarts + 1:
+            want[spmv] = counts[spmv]
+    if counts != want:
+        raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
+                           f"iterations of {method} {dtype} on the window "
+                           f"layout")
+
+
+def window_problems(inp: dict, device: str = "cuda") -> dict:
+    """Problems (b = A 1 from the host CSR, x0 = 0) over the window layouts
+    of window_inputs and over gather-ELL layouts of the same CSR, by
+    dtype: {"float32": (window, ell), ...}."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.models.problem import Problem
+    from mpi_bicgstab_tpu_torch.ops.layout import build_operator
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, vzeros_like
+    csr = inp["w_csr"]
+    b_host = csr.matvec(np.ones(csr.nrows))
+    out = {}
+    for dtype, key in (("float32", "W32"), ("float64", "W64"),
+                       ("df32", "Wdf")):
+        b = (df_from_f64(b_host, device) if dtype == "df32" else
+             torch.as_tensor(b_host, dtype=getattr(torch, dtype),
+                             device=device))
+        ell = build_operator(csr, format="ell", device=device,
+                             dtype=dtype if dtype == "df32"
+                             else getattr(torch, dtype))
+        out[dtype] = tuple(Problem(csr, A, b, vzeros_like(b), csr.nrows)
+                           for A in (inp[key], ell))
+    return out
+
+
+def _ell_iters(prob, method: str, dtype: str, tol: float) -> int:
+    """n_iter of the same solve on gather-ELL (the plain PyTorch gather
+    SpMV); it must converge."""
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    res = solve(prob.A, prob.b, method=method,
+                cfg=SolverConfig(tol=tol, dtype=dtype))
+    if not bool(res.converged):
+        raise SmokeFailure(f"{method} {dtype} on gather-ELL did not "
+                           f"converge: n_iter {res.n_iter}")
+    return res.n_iter
+
+
+def run_window_cli(n: int, ell_prob, device: str = "cuda") -> dict:
+    """`[window]`: `solve --matrix clustered:n --dtype float32 --tol 1e-6`
+    through the CLI's own code with its defaults (--format auto, --reorder
+    auto), counted as run_main_path: the WindowEllMatrix route,
+    converged, max|x-1| < 1e-3, the launches of check_window_counts, and
+    n_iter within 2 of the same solve on gather-ELL. Returns the
+    counts."""
+    from mpi_bicgstab_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        ["solve", "--matrix", f"clustered:{n}", "--dtype", "float32",
+         "--tol", str(WINDOW_TOL), "--device", device])
+    reset_counts()
+    report, res = cli.run_solve(args)
+    counts = read_counts()
+    err = float((res.x.double() - 1.0).abs().max())
+    it = report["total_iter"]
+    ell_it = _ell_iters(ell_prob, "bicgstab", "float32", WINDOW_TOL)
+    if not (report["converged"] and report["layout"] == "WindowEllMatrix"
+            and err < 1e-3 and abs(it - ell_it) <= 2):
+        raise SmokeFailure(f"window: {report}, max|x-1| {err:.3e}, "
+                           f"gather-ELL n_iter {ell_it}")
+    check_window_counts("window", "bicgstab", "float32", it, counts,
+                        args.restarts, device)
+    _say("window", method="bicgstab", dtype="float32", tol=WINDOW_TOL,
+         layout=report["layout"], n=report["n"], nnz=report["nnz"],
+         reordered=report["reordered"], n_iter=it, ell_n_iter=ell_it,
+         converged=report["converged"], final_relres=report["final_relres"],
+         true_relres=report["true_relres"], max_abs_x_minus_1=err,
+         io_time_s=report["io_time_s"], setup_s=report["setup_s"],
+         solve_s=report["total_time_s"], launches=_launches(counts))
+    return counts
+
+
+def run_window_api(phase: str, probs: dict, device: str = "cuda") -> dict:
+    """One of WINDOW_PATHS through api.solve on the window problem of its
+    dtype, counted as run_window_cli: converged, max|x-1| < 1e-6, the
+    launches of check_window_counts, n_iter within 2 of gather-ELL's.
+    Returns the counts."""
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    method, dtype, tol = WINDOW_PATHS[phase]
+    prob, ell = probs[dtype]
+    cfg = SolverConfig(tol=tol, dtype=dtype)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(prob.A, prob.b, method=method, cfg=cfg)
+    converged = bool(res.converged)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    err = float((_f64(res.x) - 1.0).abs().max())
+    ell_it = _ell_iters(ell, method, dtype, tol)
+    if not (converged and err < 1e-6 and abs(res.n_iter - ell_it) <= 2):
+        raise SmokeFailure(f"{phase}: converged {converged}, max|x-1| "
+                           f"{err:.3e}, {res.n_iter} iterations (gather-ELL "
+                           f"{ell_it})")
+    check_window_counts(phase, method, dtype, res.n_iter, counts,
+                        cfg.restarts, device)
+    _say(phase, method=method, dtype=dtype, tol=tol, n_iter=res.n_iter,
+         ell_n_iter=ell_it, converged=converged,
+         final_relres=float(res.final_relres),
+         true_relres=float(res.true_relres), max_abs_x_minus_1=err,
+         solve_s=round(secs, 3), launches=_launches(counts))
+    return counts
+
+
+def shuffled_banded(n: int):
+    """banded_random(n, REORDER_OFFSETS, seed=3) in the order of
+    default_rng(7).permutation(n)."""
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch.models.generators import banded_random
+    from mpi_bicgstab_tpu_torch.ops.reorder import permute_csr
+    seed, shuffle = REORDER_SEEDS
+    return permute_csr(banded_random(n, REORDER_OFFSETS, seed=seed),
+                       np.random.default_rng(shuffle).permutation(n))
+
+
+def run_reorder_path(n: int, device: str = "cuda") -> dict:
+    """`[reorder]`: the shuffled band written to an .npz in a temporary
+    directory, then `solve --matrix X.npz --dtype float64 --tol 1e-10
+    --write-solution x.npy` with the CLI defaults (--reorder auto):
+    reordered, the DIA or hybrid route (the float64 DIA SpMV kernel and
+    no window kernel; an ELL remainder is PyTorch code), converged, and
+    the written solution (original order) within 1e-6 of ones. Returns
+    the counts."""
+    import tempfile
+
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch import cli
+    t0 = time.perf_counter()
+    csr = shuffled_banded(n)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, xpath = Path(tmp) / "shuffled.npz", Path(tmp) / "x.npy"
+        np.savez(path, ptr=csr.ptr, col=csr.col, val=csr.val,
+                 shape=np.array(csr.shape))
+        write_s = time.perf_counter() - t0
+        args = cli.build_parser().parse_args(
+            ["solve", "--matrix", str(path), "--dtype", "float64", "--tol",
+             "1e-10", "--write-solution", str(xpath), "--device", device])
+        reset_counts()
+        report, _ = cli.run_solve(args)
+        counts = read_counts()
+        err = float(np.abs(np.load(xpath) - 1.0).max())
+    want = dict.fromkeys(counts, 0)
+    if device != "cpu":
+        want["dia_spmv"] = counts["dia_spmv"]
+    if not (report["converged"] and report["reordered"] and err < 1e-6
+            and report["layout"] in ("DiaMatrix", "HybridMatrix")
+            and counts == want
+            and (device == "cpu"
+                 or counts["dia_spmv"] >= 2 * report["total_iter"])):
+        raise SmokeFailure(f"reorder: {report}, max|x-1| {err:.3e}, "
+                           f"launches {counts}")
+    _say("reorder", matrix="shuffled banded_random", n=report["n"],
+         nnz=report["nnz"], reordered=report["reordered"],
+         layout=report["layout"], dtype="float64", tol=1e-10,
+         n_iter=report["total_iter"], converged=report["converged"],
+         true_relres=report["true_relres"],
+         max_abs_written_x_minus_1=err, io_time_s=report["io_time_s"],
+         write_s=round(write_s, 3), setup_s=report["setup_s"],
+         solve_s=report["total_time_s"],
+         launches=_launches(counts))
+    return counts
+
+
+def time_routing(csr) -> None:
+    """The host seconds of the two analyses the CLI's defaults run on a
+    DIA matrix before its build (both inside every CLI phase's
+    setup_s): maybe_reorder(csr, 'auto'), which keeps the ordering, and
+    the 'auto' route decided on the matrix padded to 1024."""
+    from mpi_bicgstab_tpu_torch.models.problem import pad_csr_identity
+    from mpi_bicgstab_tpu_torch.ops.layout import auto_route
+    from mpi_bicgstab_tpu_torch.ops.reorder import maybe_reorder
+    t0 = time.perf_counter()
+    _, perm = maybe_reorder(csr, "auto")
+    t1 = time.perf_counter()
+    route, _ = auto_route(pad_csr_identity(csr, 1024))
+    t2 = time.perf_counter()
+    if perm is not None or route != "hybrid":
+        raise SmokeFailure(f"transport_like: reordered {perm is not None}, "
+                           f"route {route}")
+    _say("times", matrix="transport_like", n=csr.nrows,
+         reorder_auto_host_s=round(t1 - t0, 3),
+         route_padded_host_s=round(t2 - t1, 3))
+
+
+def time_window(inp: dict, probs: dict) -> None:
+    """The f32 and df32 classic iteration on the window layout (tol=0
+    chains through bench_iteration, eager and as replayed CUDA graphs)
+    beside 2 x the window SpMV's bytes, and the SpMV rate of
+    bench_spmv."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
+                                                          bench_spmv)
+    sp = bench_spmv(probs["float32"][0])
+    _say("times", spmv_layout=sp["spmv_layout"],
+         spmv_window_width=sp["spmv_window_width"],
+         spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
+         window_build_host_s=round(inp["w_build_s"], 3))
+    for dtype, name, iters in (("float32", "window_spmv_f32", 60),
+                               ("df32", "window_spmv_df", 30)):
+        prob = probs[dtype][0]
+        eager = bench_iteration(prob, iters=iters)
+        dev = bench_iteration(prob, iters=iters, graph=True)
+        ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        floor = 2 * window_work(name, inp)[0]
+        _say("times", method="bicgstab", layout="WindowEllMatrix",
+             dtype=dtype, eager_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=f"{dev_ms:.4f}",
+             device_busy_share=f"{dev_ms / ms:.3f}", chain=f"tol=0x{iters}",
+             two_spmv_bound_ms=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
 def main() -> int:
     import gc
 
@@ -1827,7 +2204,8 @@ def main() -> int:
         return 1
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
                                                           bench_spmv)
-    from mpi_bicgstab_tpu_torch.models.generators import (transport_hard,
+    from mpi_bicgstab_tpu_torch.models.generators import (clustered_random,
+                                                          transport_hard,
                                                           transport_like)
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
     from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
@@ -1860,6 +2238,20 @@ def main() -> int:
     errs["shift_update_df"], su_row = check_shift_update(csr.nrows)
     gc.collect()
     torch.cuda.empty_cache()
+    # windowed-ELL: the layout built once on the host, in three dtypes
+    t0 = time.perf_counter()
+    csr_w = clustered_random(N_WINDOW)
+    winp = window_inputs(csr_w)
+    W = winp["W32"]
+    _say("check", matrix="clustered_random", n=csr_w.nrows, nnz=csr_w.nnz,
+         W=W.width, tiles=W.n_tiles, tail_counts=list(W.tail_counts),
+         slots=W.width * W.n_rows,
+         window_build_host_s=round(winp["w_build_s"], 3),
+         host_setup_s=round(time.perf_counter() - t0, 3))
+    wcalls = window_kernel_calls(winp)
+    errs.update(check_kernels(wcalls, winp))
+    _say("check", window_spmv_f64_with_tail_vs_torch_csr_rel_err=(
+        f"{check_window_spmv(winp):.3e}"))
 
     runs, iters = {}, {}
     for phase, (method, dtype, tol, extra) in PATHS.items():
@@ -1870,7 +2262,7 @@ def main() -> int:
              converged=report["converged"], n_iter=report["total_iter"],
              final_relres=report["final_relres"],
              true_relres=report["true_relres"], max_abs_x_minus_1=err,
-             solve_s=report["total_time_s"],
+             setup_s=report["setup_s"], solve_s=report["total_time_s"],
              launches=json.dumps(counts).replace(" ", ""))
     if abs(iters["df32"] - iters["f64"]) > 2:
         raise SmokeFailure(f"df32 classic took {iters['df32']} iterations, "
@@ -1903,6 +2295,15 @@ def main() -> int:
     run_cheby_batched(inp["h_prob32"], prec)
     run_cheby_ab(probs_h, prec)
     del prob64h, probs_h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # windowed-ELL solves, each beside gather-ELL; the reorder path
+    wprobs = window_problems(winp)
+    runs["window"] = run_window_cli(N_WINDOW, wprobs["float32"][1])
+    for phase in WINDOW_PATHS:
+        runs[phase] = run_window_api(phase, wprobs)
+    runs["reorder"] = run_reorder_path(N_MAIN)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1975,13 +2376,17 @@ def main() -> int:
     _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
          spmv_layout=sp["spmv_layout"])
     times = time_kernels(calls, inp, csr)
+    time_routing(csr)
+    time_window(winp, wprobs)
+    times.update(time_kernels(wcalls, winp, csr_w))
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 
     kernels = []
     for name, row in times.items():
-        base = "dia_spmv" if name in ("dia_spmv_f32", "dia_spmv_f64") \
-            else name
+        base = {"dia_spmv_f32": "dia_spmv", "dia_spmv_f64": "dia_spmv",
+                "window_spmv_f32": "window_spmv",
+                "window_spmv_f64": "window_spmv"}.get(name, name)
         phase, counter = LAUNCHES_FROM[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

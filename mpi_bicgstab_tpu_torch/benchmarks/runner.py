@@ -87,8 +87,13 @@ def bench_spmv(prob, iters=60, seed=0) -> dict:
     x = torch.as_tensor(np.random.default_rng(seed).standard_normal(prob.n),
                         dtype=prob.b.dtype, device=prob.b.device)
     sec = time_call(lambda: spmv(prob.A, x), iters=iters)
-    return {"spmv_s": sec, "spmv_nnz_per_s": prob.csr.nnz / sec,
-            "spmv_layout": type(prob.A).__name__}
+    out = {"spmv_s": sec, "spmv_nnz_per_s": prob.csr.nnz / sec,
+           "spmv_layout": type(prob.A).__name__}
+    if out["spmv_layout"] == "WindowEllMatrix":
+        # the built layout's slab count (vals is [W, T, 8, 128]): the
+        # padded width the byte count needs, as the JAX bench reports it
+        out["spmv_window_width"] = int(prob.A.width)
+    return out
 
 
 def bench_iteration(prob, method="bicgstab", iters=60, reps=3,

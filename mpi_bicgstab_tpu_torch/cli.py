@@ -16,12 +16,21 @@ reference's main.c).
     python -m mpi_bicgstab_tpu_torch solve --matrix transport-hard:4096 \\
         --precond cheby:8 --device cpu
 
+    python -m mpi_bicgstab_tpu_torch solve --matrix clustered:8192 \\
+        --device cpu
+
 `solve` methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
 --krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
 .npz path, or a generator spec 'poisson2d:N', 'poisson3d:N',
-'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N'; --format
-picks the device layout (ops/layout.build_operator; 'ell' for a matrix
-with under half its nonzeros on diagonals); --precond cheby[:D[:LO:HI]]
+'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N',
+'clustered:N'. --reorder (default auto) permutes the matrix with RCM when
+that moves it onto diagonals, --scale jacobi equilibrates it
+(ops/reorder.py, ops/scale.py); --rhs, --x0 and --write-solution stay in
+the original row order and scale. --format picks the device layout
+(ops/layout.build_operator: 'auto' routes by structure analysis on the
+matrix padded to a multiple of 1024, as the JAX CLI pads it; a
+windowed-ELL route is built on that padded matrix, a DIA or hybrid one
+on the unpadded matrix; 'ell' takes any matrix); --precond cheby[:D[:LO:HI]]
 solves right-preconditioned with a degree-D Chebyshev polynomial, its
 bounds estimated from the matrix unless given (ops/cheby.py). The solve
 runs on the card unless --device cpu asks for the CPU. It prints the
@@ -68,9 +77,13 @@ def _load_matrix(spec: str):
             # skew-dominant (convection-like) spectrum: the classic
             # family stagnates; use --method bicgstab_l2 / _l4
             csr = G.skew_banded(n)
-        elif kind in ("clustered", "uniform"):
-            raise SystemExit(f"generator {kind!r} is not ported yet: "
-                             f"ROADMAP slice 6b (unstructured layouts)")
+        elif kind == "clustered":
+            # unstructured but clustered (the windowed-ELL layout's
+            # matrix); n rounds down to a multiple of 1024
+            csr = G.clustered_random(max(n // 1024, 1) * 1024)
+        elif kind == "uniform":
+            raise SystemExit("generator 'uniform' is not ported yet: "
+                             "ROADMAP slice 6c (the butterfly layout)")
         else:
             raise SystemExit(f"unknown generator {kind!r}")
     else:
@@ -78,21 +91,24 @@ def _load_matrix(spec: str):
     return csr, time.perf_counter() - t0
 
 
-def _load_rhs(spec: str, n: int) -> np.ndarray:
-    """A user right-hand side: .npy, or a Matrix Market vector (array
-    n x 1 or coordinate; duplicate coordinate entries sum)."""
+def _load_rhs(spec: str, n: int, flag: str = "--rhs") -> np.ndarray:
+    """A user vector (right-hand side, or --x0): .npy, or a Matrix Market
+    vector (array n x 1 or coordinate; duplicate coordinate entries
+    sum)."""
     if spec.endswith(".npy"):
         b = np.load(spec)
     else:
         from mpi_bicgstab_tpu_torch.io.mmio import read_matrix_market
         rows, cols, vals, shape = read_matrix_market(spec)
         if 1 not in shape:
-            raise SystemExit(f"--rhs {spec}: expected a vector, got {shape}")
+            raise SystemExit(f"{flag} {spec}: expected a vector, got "
+                             f"{shape}")
         b = np.zeros(max(shape))
         np.add.at(b, rows if shape[1] == 1 else cols, vals)
     b = np.asarray(b, np.float64).ravel()
     if b.size != n:
-        raise SystemExit(f"--rhs has {b.size} entries, matrix has {n} rows")
+        raise SystemExit(f"{flag} has {b.size} entries, matrix has {n} "
+                         f"rows")
     return b
 
 
@@ -105,18 +121,62 @@ def _report(payload: dict) -> None:
 
 
 def _build_problem(args, csr, dtype, dev, **kw):
-    """build_problem in the layout --format asks for. The layouts not
-    ported yet, and 'auto' on a matrix it would route to one of them,
-    exit cleanly: nothing falls back to another layout."""
-    from mpi_bicgstab_tpu_torch.models.problem import build_problem
-    if args.format in ("window", "butterfly"):
-        raise SystemExit(f"--format {args.format} is not ported yet: "
-                         f"ROADMAP slice 6b (unstructured layouts)")
+    """build_problem in the layout --format asks for, padded as the JAX
+    CLI would need it: the JAX CLI pads every problem to a multiple of
+    1024 and routes 'auto' on that, so 'auto' is decided on the padded
+    matrix here too (ops/layout.auto_route), and the route it picks is
+    built. A windowed-ELL route (and --format window) builds on the
+    padded matrix; a DIA or hybrid route, and the other formats, on the
+    unpadded one (the port's DIA and ELL kernels need no padding). The
+    butterfly layout (not ported yet), and 'auto' on a matrix it would
+    route there, exit cleanly: nothing falls back to another layout."""
+    from mpi_bicgstab_tpu_torch.models.problem import (build_problem,
+                                                       pad_csr_identity)
+    from mpi_bicgstab_tpu_torch.ops.layout import (auto_route,
+                                                   butterfly_refusal)
+    fmt = args.format
+    if fmt == "auto":
+        fmt, _ = auto_route(pad_csr_identity(csr, 1024))
     try:
-        return build_problem(csr, dtype=dtype, multiple=1, device=dev,
-                             format=args.format, **kw)
-    except NotImplementedError as e:     # 'auto' on an unstructured matrix
+        return build_problem(csr, dtype=dtype,
+                             multiple=1024 if fmt == "window" else 1,
+                             device=dev, format=fmt, **kw)
+    except NotImplementedError as e:     # butterfly, or 'auto' routing there
         raise SystemExit(f"--format {args.format}: {e}") from None
+    except ValueError:
+        if args.format != "auto" or fmt != "window":
+            raise
+        # the window build spilled too deep: 'auto' goes on to butterfly
+        raise SystemExit(f"--format auto: {butterfly_refusal('auto')}") \
+            from None
+
+
+def _device_vector(v: np.ndarray, n: int, df: bool, dtype, dev):
+    """A host float64 vector zero-padded to n entries, on the device in
+    the solve's dtype (a DF pair for df32)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    vp = np.zeros(n)
+    vp[: v.size] = v
+    return df_from_f64(vp, dev) if df else torch.as_tensor(
+        vp, dtype=dtype, device=dev)
+
+
+def _host_solution(x, n: int, perm, d_invsqrt) -> np.ndarray:
+    """A solution ([n_pad] or [k, n_pad], tensor or DF pair) as host
+    float64 in the original ordering and scale: the first n entries,
+    unscaled (x = D^-1/2 y), unpermuted."""
+    from mpi_bicgstab_tpu_torch.ops.precision import df_to_f64, is_df
+    from mpi_bicgstab_tpu_torch.ops.reorder import unpermute_vector
+    from mpi_bicgstab_tpu_torch.ops.scale import unscale_solution
+    X = df_to_f64(x) if is_df(x) else x.double().cpu().numpy()
+    X = X[..., :n]
+    if d_invsqrt is not None:
+        X = unscale_solution(X, d_invsqrt)
+    if perm is not None:
+        X = unpermute_vector(X.T, perm).T
+    return X
 
 
 def _ready(dev) -> None:
@@ -132,13 +192,17 @@ def _ready(dev) -> None:
 
 def run_solve(args):
     """The `solve` command without its printing: returns (report, result)
-    where report holds the fields the JAX package's `solve` prints; with
-    --rhs-batch those of its batched solve, and the batched result."""
+    where report holds the fields the JAX package's `solve` prints, the
+    device layout's name and setup_s (the host seconds from the loaded
+    matrix to the device problem: reorder, scaling, the route and the
+    layout's build); with --rhs-batch the fields of the JAX package's
+    batched solve, and the batched result."""
     import torch
 
     from mpi_bicgstab_tpu_torch.api import solve
-    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
-                                                      df_to_f64, is_df)
+    from mpi_bicgstab_tpu_torch.ops.reorder import (maybe_reorder,
+                                                    permute_vector)
+    from mpi_bicgstab_tpu_torch.ops.scale import jacobi_scale, scale_rhs
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
@@ -148,31 +212,58 @@ def run_solve(args):
                          "or --dump-history (one batch IS the set of "
                          "right-hand sides; per-system histories are "
                          "available via the library API)")
+    if args.rhs_batch and args.x0:
+        raise SystemExit("--rhs-batch cannot be combined with --x0")
     df = args.dtype == "df32"
     # "df32" builds DF pairs; its config dtype is float32 (canon_dtype)
     dtype = args.dtype if df else getattr(torch, args.dtype)
     csr, io_time = _load_matrix(args.matrix)
+    t_set = time.perf_counter()
+    csr, perm = maybe_reorder(csr, args.reorder)
     cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, krr=args.krr,
                        nrr=args.nrr, dtype=dtype, restarts=args.restarts)
-    prec = _precond(args.precond, csr)
+    # a user b in the original row order, permuted with the matrix:
+    # (P A P^T)(P x) = P b
+    b_user = _load_rhs(args.rhs, csr.nrows) if args.rhs else None
+    if b_user is not None and perm is not None:
+        b_user = permute_vector(b_user, perm)
+    d_invsqrt = None
+    if args.scale == "jacobi":
+        csr, d_invsqrt = jacobi_scale(csr)
+        if b_user is not None:
+            b_user = scale_rhs(b_user, d_invsqrt)
+    prec = _precond(args.precond, csr)   # bounds of the final operator
+    if prec is not None and args.x0:
+        raise SystemExit("--precond cannot be combined with --x0: the "
+                         "preconditioned solver iterates in the "
+                         "transformed space y (x = p(A) y), so an x-space "
+                         "warm start does not map")
+    x0_host = None
+    if args.x0:
+        x0_host = _load_rhs(args.x0, csr.nrows, flag="--x0")
+        if perm is not None:
+            x0_host = permute_vector(x0_host, perm)
+        if d_invsqrt is not None:
+            x0_host = x0_host / d_invsqrt    # y = D^1/2 x
     prob = _build_problem(args, csr, dtype, dev)
     if args.rhs_batch:
-        return _solve_rhs_batch(args, csr, prob, cfg, io_time, prec)
-    b = prob.b
-    if args.rhs:
-        b_host = _load_rhs(args.rhs, csr.nrows)
-        b = df_from_f64(b_host, dev) if df else torch.as_tensor(
-            b_host, dtype=dtype, device=dev)
+        return _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
+                                d_invsqrt)
+    b = prob.b if b_user is None else _device_vector(b_user, prob.n, df,
+                                                     dtype, dev)
+    x0 = None if x0_host is None else _device_vector(x0_host, prob.n, df,
+                                                     dtype, dev)
+    setup = time.perf_counter() - t_set
     _ready(dev)
     t0 = time.perf_counter()
-    res = solve(prob.A, b, method=args.method, cfg=cfg, precond=prec)
+    res = solve(prob.A, b, x0=x0, method=args.method, cfg=cfg,
+                precond=prec)
     converged = bool(res.converged)      # waits for the device
     total = time.perf_counter() - t0
     done = res.n_iter
     if args.write_solution:
-        x = df_to_f64(res.x) if is_df(res.x) else \
-            res.x.double().cpu().numpy()
-        np.save(args.write_solution, x[: csr.nrows])
+        np.save(args.write_solution,
+                _host_solution(res.x, csr.nrows, perm, d_invsqrt))
     if prec is None and done >= 1000:
         print(f"hint: this solve took {done} iterations; Chebyshev "
               f"preconditioning (--precond cheby:8) typically cuts "
@@ -185,11 +276,13 @@ def run_solve(args):
         "nnz": csr.nnz,
         "devices": 1,
         "device": str(dev),
-        "reordered": False,
-        "scaled": False,
+        "layout": type(prob.A).__name__,
+        "reordered": perm is not None,
+        "scaled": d_invsqrt is not None,
         "precond": (f"cheby:{prec.degree}:{prec.lo}:{prec.hi}"
                     if prec is not None else "none"),
         "io_time_s": round(io_time, 6),
+        "setup_s": round(setup, 6),
         "total_iter": done,
         "final_relres": float(res.final_relres),
         # recursive vs TRUE residual at exit: `converged` is gated on the
@@ -214,23 +307,31 @@ def _precond(spec: str, csr):
         raise SystemExit(f"--precond {spec}: {e}") from None
 
 
-def _solve_rhs_batch(args, csr, prob, cfg, io_time, prec):
+def _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
+                     d_invsqrt):
     """--rhs-batch: every row of a [k, n] .npy solved as a right-hand side
-    in one batched solve (api.solve_batched). Returns (report, result),
-    the report with the keys the JAX package's batched solve prints."""
+    in one batched solve (api.solve_batched); the rows are permuted and
+    scaled with the matrix, the solutions mapped back. Returns (report,
+    result), the report with the keys the JAX package's batched solve
+    prints."""
     import torch
 
     from mpi_bicgstab_tpu_torch.api import solve_batched
-    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
-                                                      df_to_f64, is_df)
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
     B = np.load(args.rhs_batch)
     if B.ndim != 2 or B.shape[1] != csr.nrows:
         raise SystemExit(f"--rhs-batch: expected [k, {csr.nrows}], "
                          f"got {B.shape}")
     B = np.asarray(B, np.float64)
+    if perm is not None:
+        B = B[:, perm]
+    if d_invsqrt is not None:
+        B = B * d_invsqrt
+    Bp = np.zeros((B.shape[0], prob.n))
+    Bp[:, : csr.nrows] = B
     dev = prob.A.device
-    B_dev = df_from_f64(B, dev) if args.dtype == "df32" else \
-        torch.as_tensor(B, dtype=cfg.dtype, device=dev)
+    B_dev = df_from_f64(Bp, dev) if args.dtype == "df32" else \
+        torch.as_tensor(Bp, dtype=cfg.dtype, device=dev)
     _ready(dev)
     t0 = time.perf_counter()
     res = solve_batched(prob.A, B_dev, method=args.method, cfg=cfg,
@@ -238,9 +339,8 @@ def _solve_rhs_batch(args, csr, prob, cfg, io_time, prec):
     conv = res.converged.cpu().numpy()      # waits for the device
     wall = time.perf_counter() - t0
     if args.write_solution:
-        X = df_to_f64(res.x) if is_df(res.x) else \
-            res.x.double().cpu().numpy()
-        np.save(args.write_solution, X[:, : csr.nrows])
+        np.save(args.write_solution,
+                _host_solution(res.x, csr.nrows, perm, d_invsqrt))
     report = {
         "method": args.method,
         "matrix": args.matrix,
@@ -280,6 +380,10 @@ def _ladder(args, S: int):
 
 
 def _check_shifted_args(args) -> None:
+    if args.x0:
+        raise SystemExit("--x0 is not valid for the shifted family: the "
+                         "single-Krylov-sequence recurrences require "
+                         "x0 = 0 for every shift")
     if args.checkpoint:
         if args.method != "shifted_lopbicg_switching":
             raise SystemExit("--checkpoint is the seed-switching solver's "
@@ -308,8 +412,8 @@ def run_solve_shifted(args, report=None):
     from mpi_bicgstab_tpu_torch.api import (refine_shifted_solutions,
                                             solve_shifted,
                                             solve_shifted_checkpointed)
-    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64,
-                                                      df_to_f64, is_df)
+    from mpi_bicgstab_tpu_torch.ops.reorder import (maybe_reorder,
+                                                    permute_vector)
     from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig,
                                                      SolverConfig)
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -319,8 +423,11 @@ def run_solve_shifted(args, report=None):
     df = args.dtype == "df32"
     dtype = args.dtype if df else getattr(torch, args.dtype)
     csr, io_time = _load_matrix(args.matrix)
+    csr, perm = maybe_reorder(csr, args.reorder)
     n = csr.nrows
     b_user = _load_rhs(args.rhs, n) if args.rhs else None
+    if b_user is not None and perm is not None:
+        b_user = permute_vector(b_user, perm)
     tol = args.tol if args.tol is not None else 1e-12
     if dev.type == "cuda":
         from mpi_bicgstab_tpu_torch.ops import _build
@@ -338,17 +445,15 @@ def run_solve_shifted(args, report=None):
             csr.matvec(np.ones(n)) + sigma[seed] * np.ones(n)
         prob = _build_problem(args, csr, dtype, dev,
                               sigma_seed=float(sigma[seed]))
-        b = prob.b
-        if b_user is not None:
-            b = df_from_f64(b_user, dev) if df else torch.as_tensor(
-                b_user, dtype=dtype, device=dev)
+        b = prob.b if b_user is None else _device_vector(b_user, prob.n, df,
+                                                         dtype, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if args.checkpoint:
             meta = {"n": n, "nnz": int(csr.nnz), "matrix": args.matrix,
                     "dtype": args.dtype, "sigma_len": S, "seed": int(seed),
                     "sigma_max": float(args.sigma_max), "tol": float(tol),
-                    "reorder": "none",
+                    "reorder": args.reorder,
                     "rhs": hashlib.sha256(np.ascontiguousarray(
                         b_host, np.float64)).hexdigest()[:16]}
             t0 = time.perf_counter()
@@ -396,19 +501,17 @@ def run_solve_shifted(args, report=None):
             "avg_time_per_iter_s": round(total / iters, 9),
             **refine_info,
         }
-        if args.write_solution or args.check_error:
-            xs = df_to_f64(res.x_set) if is_df(res.x_set) else \
-                res.x_set.double().cpu().numpy()
-            xs = xs[:, :n]
-            if args.write_solution:
-                np.save(args.write_solution, xs)
-            if args.check_error:
-                # test_shifted.c:129-154: the true relative error per shift
-                nb = np.linalg.norm(b_host)
-                payload["max_true_rel_error"] = max(
-                    float(np.linalg.norm(csr.matvec(xs[j]) + sigma[j] * xs[j]
-                                         - b_host) / nb)
-                    for j in range(S))
+        if args.write_solution:
+            np.save(args.write_solution,
+                    _host_solution(res.x_set, n, perm, None))
+        if args.check_error:
+            xs = _host_solution(res.x_set, n, None, None)   # permuted
+            # test_shifted.c:129-154: the true relative error per shift
+            nb = np.linalg.norm(b_host)
+            payload["max_true_rel_error"] = max(
+                float(np.linalg.norm(csr.matvec(xs[j]) + sigma[j] * xs[j]
+                                     - b_host) / nb)
+                for j in range(S))
         rows.append(payload)
         if report is not None:
             report(payload)
@@ -420,14 +523,21 @@ def cmd_solve_shifted(args) -> int:
     return 0 if all(r["all_converged"] for r in rows) else 2
 
 
-def _add_format(p) -> None:
+def _add_layout(p) -> None:
     p.add_argument("--format", default="auto",
                    choices=["auto", "dia", "hybrid", "ell", "window",
                             "butterfly"],
                    help="device layout (ops/layout.build_operator); "
-                        "'auto' routes by structure analysis, 'ell' is "
-                        "the faithful-to-reference gather layout; "
-                        "'window' and 'butterfly' are not ported yet")
+                        "'auto' routes by structure analysis on the "
+                        "matrix padded to a multiple of 1024, 'window' is "
+                        "windowed-ELL (built padded), 'ell' the "
+                        "faithful-to-reference gather layout; "
+                        "'butterfly' is not ported yet")
+    p.add_argument("--reorder", choices=["none", "rcm", "auto"],
+                   default="auto",
+                   help="bandwidth-reducing RCM permutation; 'auto' "
+                        "reorders only when it moves the matrix onto "
+                        "diagonals (ops/reorder.py)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -442,7 +552,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matrix", required=True,
                    help=".mtx/.npz path or generator spec (poisson2d:N, "
                         "poisson3d:N, transport-like:N, transport-hard:N, "
-                        "banded:N, skew:N)")
+                        "banded:N, skew:N, clustered:N)")
     p.add_argument("--method", default="bicgstab", choices=METHODS,
                    help="the classic family (reference main.c:122-141) "
                         "and BiCGStab(l); float32 on a DIA matrix takes "
@@ -481,9 +591,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "float32 or df32 DIA matrix the chain runs as one "
                         "CUDA kernel (ops/cheby.py)")
     p.add_argument("--write-solution", default=None, metavar="FILE",
-                   help="save the solution x (float64) as .npy; with "
-                        "--rhs-batch the stacked [k, n] solutions")
-    _add_format(p)
+                   help="save the solution x (float64, original row "
+                        "order and scale) as .npy; with --rhs-batch the "
+                        "stacked [k, n] solutions")
+    p.add_argument("--x0", default=None, metavar="FILE",
+                   help="warm-start iterate (.npy or Matrix Market "
+                        "vector, original row order), e.g. a previous "
+                        "--write-solution output")
+    p.add_argument("--scale", choices=["none", "jacobi"], default="none",
+                   help="symmetric Jacobi scaling D^-1/2 A D^-1/2 "
+                        "(ops/scale.py); the solution is unscaled")
+    _add_layout(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to solve (default: the card; raises "
                         "without one)")
@@ -533,15 +651,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="right-hand side b (.npy or Matrix Market "
                         "vector); default b = (A + sigma_seed I) ones")
     p.add_argument("--write-solution", default=None, metavar="FILE",
-                   help="save the [sigma_len, n] solutions (float64) as "
-                        ".npy")
+                   help="save the [sigma_len, n] solutions (float64, "
+                        "original row order) as .npy")
+    p.add_argument("--x0", default=None, metavar="FILE",
+                   help="refused: the shifted family starts from x0 = 0")
     p.add_argument("--repeat", type=int, default=1,
                    help="repeat the solve N times for timing stability "
                         "(main_repeat.c:109-132)")
     p.add_argument("--verbose-every", type=int, default=0, metavar="N",
                    help="print the seed relative residual every N "
                         "iterations, and each seed switch; 0 = silent")
-    _add_format(p)
+    _add_layout(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to solve (default: the card; raises "
                         "without one)")

@@ -1,8 +1,9 @@
 """State carried across from the JAX package.
 
 operator_from_arrays builds the port's operator from the arrays of a JAX
-DiaMatrix, EllMatrix or HybridMatrix passed as NumPy (np.asarray of each
-leaf), so that one operator can be driven through both packages:
+DiaMatrix, EllMatrix, HybridMatrix or WindowEllMatrix passed as NumPy
+(np.asarray of each leaf), so that one operator can be driven through
+both packages:
 
     kind 'dia':    arrays {"vals": [W, n]}, or {"vals_hi", "vals_lo"}
                    for a double-float operator (the JAX DF pair's leaves);
@@ -12,6 +13,13 @@ leaf), so that one operator can be driven through both packages:
                    meta {"n_rows": int, "n_cols": int}
     kind 'hybrid': the 'dia' arrays prefixed "dia_" and the 'ell' arrays
                    prefixed "ell_"; the 'dia' meta (n is the square size)
+    kind 'window': arrays {"sub_sel", "lane_idx" (int8 [W, T, 8, 128]),
+                   "vals" ([W, T, 8, 128]), "window_base" (int32 [T]),
+                   "tail_rows", "tail_cols" (int32 [L, cap]),
+                   "tail_vals"}; meta {"n_rows", "n_cols", "width",
+                   "x_rows", "tail_counts"} (a WindowEllMatrix's static
+                   fields; a tail needs its per-level counts, which the
+                   JAX package's distributed shards leave empty)
 
 Any "vals" or "tail_vals" array may come as the pair "<key>_hi",
 "<key>_lo" instead, which gives DF values. df_from_arrays builds a DF
@@ -38,12 +46,15 @@ from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
 from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
 from mpi_bicgstab_tpu_torch.ops.precision import DF
+from mpi_bicgstab_tpu_torch.ops.window_ell import WindowEllMatrix
 from mpi_bicgstab_tpu_torch.utils.checkpoint import switching_kinds, unflatten
 from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig, SolverConfig,
                                                  canon_dtype)
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 _ELL_KEYS = ("cols", "vals", "tail_rows", "tail_cols", "tail_vals")
+_WINDOW_KEYS = ("sub_sel", "lane_idx", "vals", "window_base", "tail_rows",
+                "tail_cols", "tail_vals")
 # JAX config field with no meaning here: history is always recorded
 _IGNORED = ("record_history",)
 
@@ -81,6 +92,16 @@ def _ell(arrays, meta, dev, prefix=""):
                      int(meta["n_cols"]))
 
 
+def _window(arrays, meta, dev):
+    t = {k: _values(arrays, k, dev) for k in _WINDOW_KEYS}
+    return WindowEllMatrix(
+        t["sub_sel"], t["lane_idx"], t["vals"], t["window_base"],
+        t["tail_rows"], t["tail_cols"], t["tail_vals"],
+        n_rows=int(meta["n_rows"]), n_cols=int(meta["n_cols"]),
+        width=int(meta["width"]), x_rows=int(meta["x_rows"]),
+        tail_counts=tuple(int(c) for c in meta["tail_counts"]))
+
+
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                          device="cuda"):
     """The port's operator of `kind` from NumPy arrays (see module doc)."""
@@ -89,13 +110,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         return _dia(arrays, meta, dev)
     if kind == "ell":
         return _ell(arrays, meta, dev)
+    if kind == "window":
+        return _window(arrays, meta, dev)
     if kind == "hybrid":
         n = int(meta["n"])
         return HybridMatrix(_dia(arrays, meta, dev, "dia_"),
                             _ell(arrays, {"n_rows": n, "n_cols": n}, dev,
                                  "ell_"))
     raise ValueError(f"unknown operator kind {kind!r}; expected 'dia', "
-                     f"'ell' or 'hybrid'")
+                     f"'ell', 'hybrid' or 'window'")
 
 
 def cheby_operator_from_arrays(kind: str, arrays: dict, meta: dict,

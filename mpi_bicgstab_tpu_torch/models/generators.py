@@ -15,6 +15,9 @@ generators synthesise matrices with matching profiles:
   reference's regime (thousands of iterations).
 * banded_tough — banded_random made sub-dominant: long, erratic
   convergence.
+* clustered_random — unstructured but clustered: each 1024-row block's
+  columns fall in its own 1024-column block, plus a few long-range
+  entries (the windowed-ELL layout's matrix).
 * skew_banded — a skew-dominant operator (conjugate-pair spectrum) on
   which the classic family fails and BiCGStab(l) converges.
 """
@@ -219,6 +222,40 @@ def transport_like(n: int = 1_602_112, seed: int = 0) -> CSRMatrix:
                w * w + w, -(w * w + w), w * w + w + 1, -(w * w + w + 1)]
     offsets = [o for o in offsets if abs(o) < n]
     return banded_random(n, offsets, seed=seed, diag_boost=1.0)
+
+
+def clustered_random(n: int, nnz_per_row: int = 8, seed: int = 0,
+                     global_frac: float = 0.003) -> CSRMatrix:
+    """Unstructured-but-CLUSTERED sparsity: each 1024-row block draws
+    its columns uniformly at random WITHIN its own 1024-column block,
+    plus a `global_frac` fraction of long-range entries anywhere —
+    the sparsity profile of partitioned FEM meshes / community graphs.
+
+    Not bandable: within a block the pattern is uniform random over
+    ~1024 distinct diagonals, so no permutation (RCM included) exposes
+    a DIA structure, yet ops/window_ell.py captures >= 99% of the
+    nonzeros in per-tile windows. The benchmark matrix of the
+    windowed-ELL layout; diagonally dominant, so the solvers converge
+    on it. n must be a multiple of 1024."""
+    if n % 1024:
+        raise ValueError("clustered_random needs n % 1024 == 0")
+    rng = np.random.default_rng(seed)
+    k = max(1, nnz_per_row - 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    block = rows // 1024
+    local = rng.integers(0, 1024, size=n * k)
+    cols = block * 1024 + local
+    n_glob = int(global_frac * n * k)
+    if n_glob:
+        pick = rng.choice(n * k, size=n_glob, replace=False)
+        cols[pick] = rng.integers(0, n, size=n_glob)
+    vals = rng.uniform(-1.0, 1.0, size=n * k)
+    rows_all = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+    cols_all = np.concatenate([cols, np.arange(n, dtype=np.int64)])
+    row_abs = np.abs(vals).reshape(n, k).sum(axis=1)
+    vals_all = np.concatenate([vals, 1.0 + row_abs])
+    coo = COOMatrix(rows_all, cols_all, vals_all, (n, n))
+    return coo_to_csr(coo, sum_duplicates=True)
 
 
 def skew_banded(n: int, w: int = 0, diag: float = 0.05,

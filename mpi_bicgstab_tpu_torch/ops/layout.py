@@ -4,16 +4,16 @@ mpi_bicgstab_tpu/ops/layout.py).
     build_operator(csr, format='auto') ->
         DiaMatrix            (fully diagonal-structured)
         HybridMatrix         (DIA majority + ELL remainder)
+        WindowEllMatrix      (unstructured with column locality)
         EllMatrix            (format='ell')
 
 and the generic `spmv(op, x)` the solvers use, on tensors or, for an
 operator built with dtype="df32", on double-float pairs (ops/precision.DF);
 on a Chebyshev-wrapped operator (ops/cheby.ChebyOperator) it is the
 right-preconditioned product A p(A) x.
-The windowed-ELL and
-butterfly layouts, which the JAX package's 'auto' picks for matrices
-with less than half their nonzeros on diagonals, are ROADMAP slice 6b;
-until then those requests raise NotImplementedError.
+The butterfly layout, which the JAX package's 'auto' picks for a matrix
+with under half its nonzeros on diagonals and no window locality, is
+ROADMAP slice 6c; until then those requests raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,8 +25,12 @@ from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, analyze_diagonals,
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
 from mpi_bicgstab_tpu_torch.ops.precision import df_add, is_df
 from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
+from mpi_bicgstab_tpu_torch.ops.window_ell import (WindowEllMatrix,
+                                                   csr_to_window_ell,
+                                                   window_ell_stats)
+from mpi_bicgstab_tpu_torch.ops.window_spmv import window_spmv, window_spmv_df
 
-_SLICE6 = "ROADMAP slice 6b (unstructured layouts)"
+_SLICE6C = "ROADMAP slice 6c (the butterfly layout)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,35 +68,67 @@ def build_operator(csr, format: str = "auto", dtype=None,
 
     format:
       'auto'   — DIA if the top diagonals cover everything, hybrid if
-                 they cover >= 50%; below that the JAX package routes to
-                 windowed-ELL or butterfly layouts (slice 6b: raises)
+                 they cover >= 50%; else windowed-ELL when n % 1024 == 0
+                 and >= 95% of the nonzeros lie in their row tile's
+                 1024-column window (and the build takes it); else the
+                 JAX package's butterfly layout (slice 6c: raises)
       'dia' / 'hybrid' — DIA, plus an ELL remainder if any
+      'window' — windowed-ELL (ops/window_ell.py; n % 1024 == 0)
       'ell'    — gather-ELL (the layout closest to the reference's CSR)
-      'window', 'butterfly' — slice 6b: raise NotImplementedError
+      'butterfly' — slice 6c: raises NotImplementedError
     """
     if format not in ("auto", "dia", "ell", "hybrid", "window",
                       "butterfly"):
         raise ValueError(f"unknown format {format!r}")
-    if format in ("window", "butterfly"):
-        raise NotImplementedError(
-            f"format {format!r} is not ported yet: {_SLICE6}")
-    if format == "ell":
+    route, offsets = (auto_route(csr, max_diags, dia_min_fill)
+                      if format == "auto" else (format, None))
+    if route == "window":
+        try:
+            return csr_to_window_ell(csr, dtype=dtype, device=device)
+        except ValueError:
+            if format != "auto":
+                raise
+            route = "butterfly"     # hub rows overflow the tail levels
+    if route == "butterfly":
+        raise NotImplementedError(butterfly_refusal(format))
+    if route == "ell":
         return csr_to_ell(csr, width=ell_width, dtype=dtype, device=device)
-
-    offsets, coverage = analyze_diagonals(csr, max_diags=max_diags,
-                                          min_fill=dia_min_fill)
-    if format == "auto" and (not offsets or coverage < 0.5):
-        raise NotImplementedError(
-            f"format 'auto' would route this matrix ({coverage:.1%} of "
-            f"nonzeros on {len(offsets)} diagonals) to the windowed-ELL "
-            f"or butterfly layout, not ported yet: {_SLICE6}; pass "
-            f"format='ell' (CLI: --format ell)")
-
+    if offsets is None:
+        offsets, _ = analyze_diagonals(csr, max_diags=max_diags,
+                                       min_fill=dia_min_fill)
     dia, remainder = csr_to_dia(csr, offsets, dtype=dtype, device=device)
     if remainder is None:
         return dia
     ell = csr_to_ell(remainder, width=ell_width, dtype=dtype, device=device)
     return HybridMatrix(dia, ell)
+
+
+def auto_route(csr, max_diags: int = 64, dia_min_fill: float = 0.02):
+    """(route, offsets): the layout 'auto' builds for this matrix, by the
+    JAX package's rule (mpi_bicgstab_tpu/ops/layout.py), and the diagonal
+    offsets the analysis found. route is 'hybrid' (DIA, plus an ELL
+    remainder if any) when the top diagonals hold >= 50% of the nonzeros;
+    else 'window' when n % 1024 == 0 and >= 95% of the nonzeros lie in
+    their row tile's window; else 'butterfly'. A window build that
+    spills too deep still falls through to 'butterfly' (build_operator)."""
+    offsets, coverage = analyze_diagonals(csr, max_diags=max_diags,
+                                          min_fill=dia_min_fill)
+    if offsets and coverage >= 0.5:
+        return "hybrid", offsets
+    if (csr.nrows % 1024 == 0
+            and window_ell_stats(csr)["window_frac"] >= 0.95):
+        return "window", offsets
+    return "butterfly", offsets
+
+
+def butterfly_refusal(format: str) -> str:
+    """Why a matrix routed to the butterfly layout is refused."""
+    what = ("format 'butterfly' is" if format == "butterfly" else
+            f"format {format!r} routes this matrix (under half its "
+            f"nonzeros on diagonals, too little window locality) to the "
+            f"butterfly layout, which is")
+    return f"{what} not ported yet: {_SLICE6C}; pass format='ell' " \
+           f"(CLI: --format ell)"
 
 
 def spmv(op, x):
@@ -104,6 +140,9 @@ def spmv(op, x):
         return dia_spmv(op, x)
     if isinstance(op, EllMatrix):
         return ell_spmv_df(op, x) if is_df(op.vals) else ell_spmv(op, x)
+    if isinstance(op, WindowEllMatrix):
+        return (window_spmv_df(op, x) if is_df(op.vals)
+                else window_spmv(op, x))
     if isinstance(op, HybridMatrix):
         if is_df(op.dia.vals):
             return df_add(dia_spmv(op.dia, x), ell_spmv_df(op.ell, x))

@@ -211,7 +211,7 @@ def test_cli_skew_spec(monkeypatch):
     code, f = _run_module([*args, "--method", "bicgstab", "--restarts",
                            "0"], monkeypatch)
     assert code == 2 and f["converged"] == "False"
-    with pytest.raises(SystemExit, match="slice 6"):
+    with pytest.raises(SystemExit, match="slice 6c"):
         from mpi_bicgstab_tpu_torch import cli
         cli.main(["solve", "--matrix", "uniform:512", "--device", "cpu"])
 

@@ -57,6 +57,11 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/ops/cheby.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_cheby.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_pipe_df_bodies.py",
+                 "mpi_bicgstab_tpu_torch/ops/window_ell.py",
+                 "mpi_bicgstab_tpu_torch/ops/window_spmv.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_window_spmv.py",
+                 "mpi_bicgstab_tpu_torch/ops/reorder.py",
+                 "mpi_bicgstab_tpu_torch/ops/scale.py",
                  "mpi_bicgstab_tpu_torch/ops/precision.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
@@ -76,3 +81,24 @@ def test_package_exports_both_configs():
     from mpi_bicgstab_tpu_torch import ShiftedConfig, SolverConfig
     assert ShiftedConfig().tol == JShifted().tol
     assert SolverConfig is mpi_bicgstab_tpu_torch.utils.config.SolverConfig
+
+
+def test_new_modules_import_without_jax():
+    """Importing the windowed-ELL, reorder and scale modules and the CLI
+    in a fresh interpreter leaves JAX and the JAX package out of
+    sys.modules."""
+    import subprocess
+    import sys
+    mods = ("mpi_bicgstab_tpu_torch.ops.window_ell",
+            "mpi_bicgstab_tpu_torch.ops.window_spmv",
+            "mpi_bicgstab_tpu_torch.ops.cuda_window_spmv",
+            "mpi_bicgstab_tpu_torch.ops.reorder",
+            "mpi_bicgstab_tpu_torch.ops.scale",
+            "mpi_bicgstab_tpu_torch.cli")
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(sorted(FORBIDDEN)) + ")\nprint(bad)\n"
+            + "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1072,3 +1072,106 @@ def test_cheby_and_body_wrappers_raise_instead_of_falling_back():
         cpb.fused_body_b(x, x, x, x, x, x, x, x, x, (a,))
     with pytest.raises(ValueError):        # vector on the CPU
         cpb.fused_body_b(x, x, x, x, x, x, x.to("cpu"), x, x, (a, a))
+
+
+# --- windowed-ELL SpMV (kernels 23, 24) --------------------------------------
+
+def _window(dtype, dev, case):
+    """A windowed-ELL layout on the card: 'tail' a clustered matrix with a
+    leveled tail, 'beyond' tile 0's window forced past the last column (its
+    padded slots point beyond n_cols and must read 0), 'wide' 8 nonzeros per
+    row (W = 24)."""
+    from mpi_bicgstab_tpu_torch.models.generators import clustered_random
+    from mpi_bicgstab_tpu_torch.ops.window_ell import csr_to_window_ell
+    kw = {}
+    if case == "wide":
+        csr = clustered_random(8192, seed=2)
+    else:
+        csr = clustered_random(2048, nnz_per_row=3, seed=9,
+                               global_frac=0.02)
+        if case == "beyond":
+            kw = dict(window_base=np.array([2, 1]), force_x_rows=24)
+    return csr, csr_to_window_ell(csr, dtype=dtype, device=dev, **kw)
+
+
+@pytest.mark.parametrize("case", ["tail", "beyond", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
+def test_window_kernels_match_twins_bit_for_bit(dtype, case):
+    """Kernels 23 (float32, float64) and 24 (DF) against their twins on
+    the same inputs: equal bit for bit (no contraction, slab order); the
+    whole SpMV (kernel plus tail) against the CSR."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
+    dev = _card()
+    csr, A = _window(dtype, dev, case)
+    x_host = np.random.default_rng(3).standard_normal(csr.nrows)
+    if dtype == "df32":
+        x = df_from_f64(x_host, dev)
+        before = cws.window_slabs_df.launches
+        got = cws.window_slabs_df(A, x)
+        torch.cuda.synchronize()
+        assert cws.window_slabs_df.launches == before + 1
+        assert _same(got, wsp.window_slabs_df_plain(A, x))
+        y = df_to_f64(spmv(A, x))
+    else:
+        x = torch.as_tensor(x_host, dtype=dtype, device=dev)
+        before = cws.window_slabs.launches
+        got = cws.window_slabs(A, x)
+        torch.cuda.synchronize()
+        assert cws.window_slabs.launches == before + 1
+        assert torch.equal(got, wsp.window_slabs_plain(A, x))
+        y = spmv(A, x).double().cpu().numpy()
+    ref = csr.matvec(x_host)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype,method", [("float32", "bicgstab"),
+                                          ("float64", "bicgstab"),
+                                          ("df32", "bicgstab"),
+                                          ("df32", "pipe_bicgstab")])
+def test_window_route_launches_its_kernel(dtype, method):
+    """A solve on the window layout runs the window SpMV kernel (the DF one
+    for df32; df32 pipe_bicgstab also its fused bodies once per
+    iteration) and no DIA kernel, and agrees with the CPU solve."""
+    from mpi_bicgstab_tpu_torch.models.generators import clustered_random
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    dev = _card()
+    csr = clustered_random(8192, seed=4)
+    tol = 1e-6 if dtype == "float32" else 1e-10
+    dt = dtype if dtype == "df32" else getattr(torch, dtype)
+    cfg = SolverConfig(tol=tol, dtype=dtype)
+    counters = {"window": cws.window_slabs, "window_df": cws.window_slabs_df,
+                "dia": cuda_spmv.dia_spmv, "dia_df": cuda_spmv.dia_spmv_df,
+                "body_a": cpb.fused_body_a}
+    cpu = build_problem(csr, dtype=dt, device="cpu")
+    ref = solve(cpu.A, cpu.b, method=method, cfg=cfg)
+    prob = build_problem(csr, dtype=dt, device=dev)
+    assert type(prob.A).__name__ == "WindowEllMatrix"
+    before = {k: f.launches for k, f in counters.items()}
+    res = solve(prob.A, prob.b, method=method, cfg=cfg)
+    assert bool(res.converged) and abs(res.n_iter - ref.n_iter) <= 2
+    used = {k: f.launches - before[k] for k, f in counters.items()}
+    spmv_name = "window_df" if dtype == "df32" else "window"
+    assert used.pop(spmv_name) >= 2 * res.n_iter
+    bodies = res.n_iter if method == "pipe_bicgstab" else 0
+    assert used == {**dict.fromkeys(used, 0), "body_a": bodies}
+
+
+def test_window_wrappers_raise_instead_of_falling_back():
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    dev = _card()
+    _, A = _window(torch.float32, dev, "tail")
+    _, Adf = _window("df32", dev, "tail")
+    x = torch.ones(A.n_cols, device=dev)
+    with pytest.raises(TypeError):         # float64 x, float32 values
+        cws.window_slabs(A, x.double())
+    with pytest.raises(ValueError):        # x on the CPU
+        cws.window_slabs(A, x.cpu())
+    with pytest.raises(ValueError):        # x of the wrong length
+        cws.window_slabs(A, x[:100])
+    with pytest.raises(TypeError):         # float32 x, not a pair
+        cws.window_slabs_df(Adf, x)
+    with pytest.raises(TypeError):         # DF x, float32 values
+        cws.window_slabs_df(A, DF(x, x))

@@ -133,10 +133,19 @@ def test_spmv_matches_jax(kind, fmt, dtype, rtol):
 
 
 def test_unported_layouts_raise():
+    """The butterfly layout (slice 6c) and 'auto' on a matrix with neither
+    diagonals nor window locality, which JAX routes to it, raise naming
+    the slice; 'window' builds (the out-of-window entries go to its tail)
+    and multiplies as the CSR does; an unknown format is a ValueError."""
     t, _ = _pair("unstructured")
-    for fmt in ("window", "butterfly", "auto"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
+    for fmt in ("butterfly", "auto"):
+        with pytest.raises(NotImplementedError, match="slice 6c"):
             tlayout.build_operator(t, format=fmt, device="cpu")
+    op = tlayout.build_operator(t, format="window", device="cpu")
+    assert type(op).__name__ == "WindowEllMatrix" and op.tail_size > 0
+    x = np.random.default_rng(8).standard_normal(t.nrows)
+    np.testing.assert_allclose(tlayout.spmv(op, torch.as_tensor(x)).numpy(),
+                               t.matvec(x), rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):
         tlayout.build_operator(t, format="csr", device="cpu")
 

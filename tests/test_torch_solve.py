@@ -179,7 +179,8 @@ def test_cli_solve_on_cpu(monkeypatch, tmp_path):
     assert fields["converged"] == "True"
     assert fields["method"] == "bicgstab" and fields["n"] == "4096"
     for key in ("total_iter", "final_relres", "true_relres",
-                "total_time_s", "avg_time_per_iter_s", "io_time_s"):
+                "total_time_s", "avg_time_per_iter_s", "io_time_s",
+                "setup_s"):
         assert key in fields
     np.testing.assert_allclose(np.load(sol), 1.0, atol=1e-10)
 
@@ -231,7 +232,8 @@ def test_chip_smoke_refuses_without_a_card():
 def _unstructured_mtx(tmp_path, n=2048, seed=0):
     """A diagonally dominant .mtx with no band: 10 on the diagonal and up
     to 5 random off-diagonal entries per row (one diagonal holds ~17% of
-    the nonzeros, so 'auto' would route it to an unported layout)."""
+    the nonzeros and its columns have no window locality, so 'auto'
+    would route it to the butterfly layout, not ported yet)."""
     from mpi_bicgstab_tpu.io.mmio import write_matrix_market
     rng = np.random.default_rng(seed)
     rows, cols, vals = [np.arange(n)], [np.arange(n)], [np.full(n, 10.0)]
@@ -249,8 +251,11 @@ def _unstructured_mtx(tmp_path, n=2048, seed=0):
 
 def test_cli_format_ell_solves_an_unstructured_mtx(tmp_path):
     """--format ell solves the matrix 'auto' cannot take, as the JAX CLI
-    does; 'auto' exits cleanly naming --format ell, and the layouts not
-    ported yet exit naming their slice: nothing falls back."""
+    does; 'auto' exits cleanly naming --format ell and slice 6c, as does
+    the butterfly layout (not ported yet): nothing falls back. --format
+    window builds the windowed-ELL layout on the matrix padded to 1024
+    rows (its tail holds the out-of-window entries) and solves it in the
+    ell solve's iterations."""
     import json
 
     import mpi_bicgstab_tpu.cli as jcli
@@ -269,10 +274,13 @@ def test_cli_format_ell_solves_an_unstructured_mtx(tmp_path):
     assert got["true_relres"] <= 100 * 1e-10
     with pytest.raises(SystemExit, match="--format ell") as ex:
         cli.main([*base, "--device", "cpu"])
-    assert "Traceback" not in str(ex.value)
-    for fmt in ("window", "butterfly"):
-        with pytest.raises(SystemExit, match="slice 6b"):
-            cli.main([*base, "--format", fmt, "--device", "cpu"])
+    assert "Traceback" not in str(ex.value) and "slice 6c" in str(ex.value)
+    win, _ = cli.run_solve(cli.build_parser().parse_args(
+        [*base, "--format", "window", "--device", "cpu"]))
+    assert win["layout"] == "WindowEllMatrix" and win["converged"]
+    assert abs(win["total_iter"] - got["total_iter"]) <= 2
+    with pytest.raises(SystemExit, match="slice 6c"):
+        cli.main([*base, "--format", "butterfly", "--device", "cpu"])
     # the shifted command takes the flag too
     rows, res = cli.run_solve_shifted(cli.build_parser().parse_args(
         ["solve-shifted", "--matrix", mtx, "--format", "ell",
