@@ -26,7 +26,15 @@ numbers; any failure exits non-zero:
              (W = 24), built once on the host in float64 and cast, with x
              from a seeded NumPy generator: bit-equal to their twins; the
              whole float64 SpMV (kernel plus COO tail) within 1e-12 of
-             torch's CSR product
+             torch's CSR product. The butterfly kernels (K1, K2 in 4- and
+             8-byte elements, a DF vector as packed pairs; K3 in float32
+             and float64; K3 DF) on the layout of uniform:1602112 padded
+             to 1,602,560 rows as the CLI pads it (P = 25,600, W = 16),
+             routed once on the host in float64 (the C++ router, built by
+             g++) and cast, on each stage's input as the twins route a
+             seeded x: bit-equal to their twins; the whole float64 SpMV
+             (stages, transposes, tail) within 1e-12 of torch's CSR
+             product
   4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
              transport-like:1602112 --method M --dtype D --tol T`, every
              launch counter set to 0 just before and read just after
@@ -98,7 +106,17 @@ numbers; any failure exits non-zero:
              default_rng(7).permutation, as an .npz, solved with the CLI
              defaults in float64 at 1e-10 with --write-solution: reordered,
              the DIA/hybrid route, the written (unpermuted) solution
-             within 1e-6 of ones
+             within 1e-6 of ones. The butterfly (ROADMAP slice 6c):
+             `[butterfly]` is `solve --matrix uniform:1602112 --dtype
+             float32 --tol 1e-6` with the CLI defaults: the
+             ButterflyMatrix route, one K1, K2 and K3 launch per SpMV, x
+             held to a residual taken with torch's float64 CSR product
+             (<= 10 tol) and to the error bound it gives;
+             `[butterfly_f64]`, `[butterfly_df32]` (K3 DF) and
+             `[butterfly_pipe_df32]` (and the two DF body kernels once per
+             iteration) through api.solve at 1e-10, max|x-1| < 1e-6;
+             each within 2 iterations of gather-ELL, launches in
+             `check_butterfly_counts`
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -117,7 +135,12 @@ numbers; any failure exits non-zero:
              bytes; the window kernels beside their bounds, twins and
              torch's CSR product, the window build's host seconds, and
              the f32 and df32 classic iterations on the window layout
-             (eager and device) beside two window SpMVs' bytes
+             (eager and device) beside two window SpMVs' bytes; the
+             butterfly kernels and the whole butterfly SpMV (f32, f64,
+             DF) beside their bounds, the twins and torch's CSR
+             product, the two transposes, the route's host seconds,
+             and the f32 and df32 classic iterations on the butterfly
+             layout beside two SpMVs' bytes
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -152,9 +175,10 @@ TOL = {   # kernel versus plain version on the same inputs
     # the float32 chain: max |kernel - twin| within this times max |twin|
     # (the JAX package's own bar for its chain, tests/test_cheby.py:139)
     "float32_chain": 2e-6,
-    # the window kernels (all three dtypes): bit-equal, no tolerance;
-    # unfused multiplies and adds in the twin's slab order
-    "window": 0.0,
+    # the window and butterfly kernels (every dtype): bit-equal, no
+    # tolerance; unfused multiplies and adds in the twin's slab order, the
+    # routing stages pure movement
+    "bit_equal": 0.0,
 }
 REPLACES = {
     "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
@@ -185,6 +209,10 @@ REPLACES = {
     "cheby_chain_df": "mpi_bicgstab_tpu/ops/pallas_cheby_df.py:105",
     "window_spmv": "mpi_bicgstab_tpu/ops/pallas_window_spmv.py:43",
     "window_spmv_df": "mpi_bicgstab_tpu/ops/pallas_window_spmv.py:122",
+    "butterfly_k1": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:87",
+    "butterfly_k2": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:133",
+    "butterfly_k3": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:163",
+    "butterfly_k3_df": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:327",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -215,6 +243,10 @@ SOURCES = {
     "cheby_chain_df": _CSRC + "cheby.cu",
     "window_spmv": _CSRC + "window_spmv.cu",
     "window_spmv_df": _CSRC + "window_spmv.cu",
+    "butterfly_k1": _CSRC + "butterfly.cu",
+    "butterfly_k2": _CSRC + "butterfly.cu",
+    "butterfly_k3": _CSRC + "butterfly.cu",
+    "butterfly_k3_df": _CSRC + "butterfly.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -272,7 +304,16 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "fused_body_b": ("cheby_pipe_df32", "fused_body_b"),
                  "window_spmv_f32": ("window", "window_slabs"),
                  "window_spmv_f64": ("window_f64", "window_slabs"),
-                 "window_spmv_df": ("window_df32", "window_slabs_df")}
+                 "window_spmv_df": ("window_df32", "window_slabs_df"),
+                 "butterfly_k1_f32": ("butterfly", "butterfly_k1"),
+                 "butterfly_k2_f32": ("butterfly", "butterfly_k2"),
+                 "butterfly_k3_f32": ("butterfly", "butterfly_k3"),
+                 "butterfly_k1_f64": ("butterfly_f64", "butterfly_k1"),
+                 "butterfly_k2_f64": ("butterfly_f64", "butterfly_k2"),
+                 "butterfly_k3_f64": ("butterfly_f64", "butterfly_k3"),
+                 "butterfly_k1_df": ("butterfly_df32", "butterfly_k1"),
+                 "butterfly_k2_df": ("butterfly_df32", "butterfly_k2"),
+                 "butterfly_k3_df": ("butterfly_df32", "butterfly_k3_df")}
 # the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
 # phase -> (dtype, tol)
 S_MAIN, SEED_MAIN, SIGMA_MAX = 512, 255, 0.01
@@ -304,6 +345,15 @@ WINDOW_PATHS = {"window_f64": ("bicgstab", "float64", 1e-10),
 # the reorder path (slice 6a): banded_random(N_MAIN, REORDER_OFFSETS,
 # seed=3) in the order of default_rng(7).permutation
 REORDER_OFFSETS, REORDER_SEEDS = [1, -1, 5, -5], (3, 7)
+# the butterfly layout (slice 6c) on uniform:N_UNIFORM (the JAX CLI's
+# random_diag_dominant(N, 8 nonzeros a row, seed 0), padded to a multiple
+# of 1024 as the CLI pads it): `[butterfly]` is the CLI in float32 at
+# UNIFORM_TOL, these through api.solve: phase -> (method, dtype, tol);
+# each against the same solve on gather-ELL
+N_UNIFORM, UNIFORM_TOL = 1_602_112, 1e-6
+BUTTERFLY_PATHS = {"butterfly_f64": ("bicgstab", "float64", 1e-10),
+                   "butterfly_df32": ("bicgstab", "df32", 1e-10),
+                   "butterfly_pipe_df32": ("pipe_bicgstab", "df32", 1e-10)}
 
 
 class SmokeFailure(RuntimeError):
@@ -329,6 +379,7 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
             "fused_k2": fcl.fused_k2, "fused_k3": fcl.fused_k3,
             "fused_ca_k1": fca.fused_ca_k1, "fused_ca_k2": fca.fused_ca_k2,
@@ -351,7 +402,11 @@ def _counters():
             "cheby_chain": cc.cheby_chain,
             "cheby_chain_df": cc.cheby_chain_df,
             "window_slabs": cws.window_slabs,
-            "window_slabs_df": cws.window_slabs_df}
+            "window_slabs_df": cws.window_slabs_df,
+            "butterfly_k1": cbf.butterfly_k1,
+            "butterfly_k2": cbf.butterfly_k2,
+            "butterfly_k3": cbf.butterfly_k3,
+            "butterfly_k3_df": cbf.butterfly_k3_df}
 
 
 def reset_counts() -> None:
@@ -755,7 +810,7 @@ def check_kernels(calls: dict, inp: dict) -> dict:
                      f"{float(_f64(w).abs().max()):.3e}" for w in want)
                  + "]")
             continue
-        if dt == "window":
+        if dt == "bit_equal":
             (g,), (w,) = got, want
             same = _same(g, w) if hasattr(g, "hi") else torch.equal(g, w)
             err = _err(_f64(g), _f64(w))
@@ -890,6 +945,8 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
     the band's structural entries."""
     if name.startswith("window_spmv"):
         return window_work(name, inp)
+    if name.startswith("butterfly"):
+        return butterfly_work(name, inp)
     A = inp["A32"]
     n, W = A.n_rows, A.n_diags
     nz = _band_nnz(A)
@@ -1920,13 +1977,13 @@ def window_kernel_calls(inp: dict) -> dict:
     return {
         "window_spmv_f32": (lambda: (cws.window_slabs(W32, x32),),
                             lambda: (wsp.window_slabs_plain(W32, x32),),
-                            "window"),
+                            "bit_equal"),
         "window_spmv_f64": (lambda: (cws.window_slabs(W64, x64),),
                             lambda: (wsp.window_slabs_plain(W64, x64),),
-                            "window"),
+                            "bit_equal"),
         "window_spmv_df": (lambda: (cws.window_slabs_df(Wdf, xdf),),
                            lambda: (wsp.window_slabs_df_plain(Wdf, xdf),),
-                           "window")}
+                           "bit_equal")}
 
 
 def check_window_spmv(inp: dict) -> float:
@@ -1981,30 +2038,36 @@ def check_window_counts(what: str, method: str, dtype: str, it: int,
                            f"layout")
 
 
-def window_problems(inp: dict, device: str = "cuda") -> dict:
-    """Problems (b = A 1 from the host CSR, x0 = 0) over the window layouts
-    of window_inputs and over gather-ELL layouts of the same CSR, by
-    dtype: {"float32": (window, ell), ...}."""
+def _layout_problems(csr, layouts: dict, device: str) -> dict:
+    """Problems (b = A 1 from the host CSR, x0 = 0) over `layouts` (dtype
+    -> operator) and over gather-ELL layouts of the same CSR, by dtype:
+    {"float32": (layout, ell), ...}."""
     import numpy as np
     import torch
 
     from mpi_bicgstab_tpu_torch.models.problem import Problem
     from mpi_bicgstab_tpu_torch.ops.layout import build_operator
     from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, vzeros_like
-    csr = inp["w_csr"]
     b_host = csr.matvec(np.ones(csr.nrows))
     out = {}
-    for dtype, key in (("float32", "W32"), ("float64", "W64"),
-                       ("df32", "Wdf")):
+    for dtype, A in layouts.items():
         b = (df_from_f64(b_host, device) if dtype == "df32" else
              torch.as_tensor(b_host, dtype=getattr(torch, dtype),
                              device=device))
         ell = build_operator(csr, format="ell", device=device,
                              dtype=dtype if dtype == "df32"
                              else getattr(torch, dtype))
-        out[dtype] = tuple(Problem(csr, A, b, vzeros_like(b), csr.nrows)
-                           for A in (inp[key], ell))
+        out[dtype] = tuple(Problem(csr, op, b, vzeros_like(b), csr.nrows)
+                           for op in (A, ell))
     return out
+
+
+def window_problems(inp: dict, device: str = "cuda") -> dict:
+    """Problems over the window layouts of window_inputs and over
+    gather-ELL layouts of the same CSR, by dtype (_layout_problems)."""
+    return _layout_problems(inp["w_csr"], {"float32": inp["W32"],
+                                           "float64": inp["W64"],
+                                           "df32": inp["Wdf"]}, device)
 
 
 def _ell_iters(prob, method: str, dtype: str, tol: float) -> int:
@@ -2053,15 +2116,15 @@ def run_window_cli(n: int, ell_prob, device: str = "cuda") -> dict:
     return counts
 
 
-def run_window_api(phase: str, probs: dict, device: str = "cuda") -> dict:
-    """One of WINDOW_PATHS through api.solve on the window problem of its
-    dtype, counted as run_window_cli: converged, max|x-1| < 1e-6, the
-    launches of check_window_counts, n_iter within 2 of gather-ELL's.
-    Returns the counts."""
+def _run_layout_api(phase: str, method: str, dtype: str, tol: float,
+                    pair: tuple, check_counts, device: str) -> dict:
+    """api.solve on pair's layout problem, every launch counter set to 0
+    just before and read just after: converged, max|x-1| < 1e-6, the
+    launches check_counts allows, n_iter within 2 of the same solve on
+    pair's gather-ELL problem. Returns the counts."""
     from mpi_bicgstab_tpu_torch.api import solve
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
-    method, dtype, tol = WINDOW_PATHS[phase]
-    prob, ell = probs[dtype]
+    prob, ell = pair
     cfg = SolverConfig(tol=tol, dtype=dtype)
     reset_counts()
     t0 = time.perf_counter()
@@ -2075,14 +2138,23 @@ def run_window_api(phase: str, probs: dict, device: str = "cuda") -> dict:
         raise SmokeFailure(f"{phase}: converged {converged}, max|x-1| "
                            f"{err:.3e}, {res.n_iter} iterations (gather-ELL "
                            f"{ell_it})")
-    check_window_counts(phase, method, dtype, res.n_iter, counts,
-                        cfg.restarts, device)
+    check_counts(phase, method, dtype, res.n_iter, counts, cfg.restarts,
+                 device)
     _say(phase, method=method, dtype=dtype, tol=tol, n_iter=res.n_iter,
          ell_n_iter=ell_it, converged=converged,
          final_relres=float(res.final_relres),
          true_relres=float(res.true_relres), max_abs_x_minus_1=err,
          solve_s=round(secs, 3), launches=_launches(counts))
     return counts
+
+
+def run_window_api(phase: str, probs: dict, device: str = "cuda") -> dict:
+    """One of WINDOW_PATHS through api.solve on the window problem of its
+    dtype (_run_layout_api, with check_window_counts). Returns the
+    counts."""
+    method, dtype, tol = WINDOW_PATHS[phase]
+    return _run_layout_api(phase, method, dtype, tol, probs[dtype],
+                           check_window_counts, device)
 
 
 def shuffled_banded(n: int):
@@ -2193,6 +2265,290 @@ def time_window(inp: dict, probs: dict) -> None:
              two_spmv_bound_ms=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}")
 
 
+# --- the butterfly layout (slice 6c) ----------------------------------------
+
+def uniform_csr(n: int):
+    """uniform:n as the CLI builds it: random_diag_dominant(n, 8 nonzeros
+    a row, seed 0), padded to a multiple of 1024 with identity rows."""
+    from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
+    from mpi_bicgstab_tpu_torch.models.problem import pad_csr_identity
+    return pad_csr_identity(random_diag_dominant(n, nnz_per_row=8, seed=0),
+                            1024)
+
+
+def butterfly_inputs(csr, device="cuda", seed=0) -> dict:
+    """The butterfly kernels' inputs at the path's shapes: the layout of
+    csr routed once on the host in float64 (its seconds in "b_build_s")
+    and cast to float32, float64 and DF pairs; x from a NumPy generator
+    seeded `seed`; and each stage's input as the twins route x: mid (K2's
+    input, T1 of K1's output) and z (K3's), per dtype, DF as packed
+    pairs."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import native_route
+    from mpi_bicgstab_tpu_torch.ops.butterfly import (build_butterfly,
+                                                      butterfly_with_values)
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+    t0 = time.perf_counter()
+    host = build_butterfly(csr, device="cpu")
+    build_s = time.perf_counter() - t0
+    if native_route.library.cache_info().currsize != 1:
+        raise SmokeFailure("the butterfly build did not load the native "
+                           "route assigner")
+    x = np.random.default_rng(seed).standard_normal(csr.nrows)
+    inp = {"b_csr": csr, "b_build_s": build_s,
+           "B32": butterfly_with_values(host, torch.float32, device),
+           "B64": butterfly_with_values(host, torch.float64, device),
+           "Bdf": butterfly_with_values(host, "df32", device),
+           "bx32": torch.as_tensor(x, dtype=torch.float32, device=device),
+           "bx64": torch.as_tensor(x, device=device),
+           "bxdf": df_from_f64(x, device)}
+    for sfx, B, v in (("32", inp["B32"], inp["bx32"]),
+                      ("64", inp["B64"], inp["bx64"]),
+                      ("df", inp["Bdf"], bs.pack_df(inp["bxdf"]))):
+        inp["bv" + sfx] = v
+        inp["bmid" + sfx] = bs.transpose(B, bs.k1_plain(B, v))
+        inp["bz" + sfx] = bs.transpose(B, bs.k2_plain(B, inp["bmid" + sfx]))
+    return inp
+
+
+def butterfly_kernel_calls(inp: dict) -> dict:
+    """Kernels 25-28 in every dtype the path runs them (K1, K2 move a
+    DF vector's packed pairs; K3 DF reads them) beside their twins, on
+    the stage inputs of butterfly_inputs; each must equal its twin bit
+    for bit."""
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    calls = {}
+    for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
+        B, v, mid, z = (inp[k + key] for k in ("B", "bv", "bmid", "bz"))
+        calls[f"butterfly_k1_{sfx}"] = (
+            lambda B=B, v=v: (cbf.butterfly_k1(B, v),),
+            lambda B=B, v=v: (bs.k1_plain(B, v),), "bit_equal")
+        calls[f"butterfly_k2_{sfx}"] = (
+            lambda B=B, m=mid: (cbf.butterfly_k2(B, m),),
+            lambda B=B, m=mid: (bs.k2_plain(B, m),), "bit_equal")
+        k3, k3_plain = ((cbf.butterfly_k3_df, bs.k3_df_plain) if sfx == "df"
+                        else (cbf.butterfly_k3, bs.k3_plain))
+        calls[f"butterfly_k3_{sfx}"] = (
+            lambda B=B, z=z, f=k3: (f(B, z),),
+            lambda B=B, z=z, f=k3_plain: (f(B, z),), "bit_equal")
+    return calls
+
+
+def check_butterfly_spmv(inp: dict) -> float:
+    """The whole float64 SpMV (stages, transposes, tail) against torch's
+    CSR product on the card: within 1e-12 of the product's largest
+    entry. Returns the relative error."""
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    y = spmv(inp["B64"], inp["bx64"])
+    ref = torch_csr(inp["b_csr"], inp["bx64"].dtype, y.device) @ inp["bx64"]
+    rel = _err(y, ref) / float(ref.abs().max())
+    if not rel <= 1e-12:
+        raise SmokeFailure(f"butterfly SpMV with its tail: {rel:.3e} from "
+                           f"the CSR product, relative (> 1e-12)")
+    return rel
+
+
+def butterfly_work(name: str, inp: dict) -> tuple[float, float, str]:
+    """(bytes, flops, dtype) of one stage: K1 its two int8 tables, k1_src,
+    x and u1; K2 the tables, mid and z1; K3 its three slab tables, the z
+    windows its rows read (n_pad / rb of them) and y; each read or written
+    once; an element of 4 bytes in float32, 8 in float64 and DF (a packed
+    pair). Operations: K3's entries held in the slabs (2 each, a df_fma
+    in DF); K1 and K2 only move data. "butterfly_spmv_*" is the whole
+    SpMV: the three stages, the two transposes (each element read and
+    written) and the tail (values, rows, columns, the x it reads, y's
+    rows read and written)."""
+    B = inp["B32"]
+    slots, e = B.P * 1024, (4 if name.endswith("f32") else 8)
+    k1 = 2 * slots + 4 * B.P + e * B.n_cols + e * slots
+    k2 = 2 * slots + 2 * e * slots
+    k3 = (2 + e) * B.width * B.n_pad + e * (B.n_pad // B.rb) * 1024 \
+        + e * B.n_pad
+    held = inp["b_csr"].nnz - B.tail_n
+    flops = (DF_FMA_FLOPS if name.endswith("df") else 2) * held
+    dt = {"f32": "float32", "f64": "float64", "df": "df32"}[
+        name.rsplit("_", 1)[1]]
+    if name.startswith("butterfly_k1"):
+        return k1, 0, dt
+    if name.startswith("butterfly_k2"):
+        return k2, 0, dt
+    if name.startswith("butterfly_k3"):
+        return k3, flops, dt
+    tail = B.tail_n * (e + 8 + 3 * e)
+    return k1 + k2 + k3 + 2 * 2 * e * slots + tail, flops, dt
+
+
+def check_butterfly_counts(what: str, method: str, dtype: str, it: int,
+                           counts: dict, restarts: int,
+                           device: str = "cuda") -> None:
+    """The launches of a converged solve on the butterfly layout: per
+    SpMV one K1, one K2 and one K3 (its DF form in df32; K1 and K2 move
+    the packed pairs in one launch each), twice per iteration and, per
+    solver segment, for r0 and the true residual (pipe_bicgstab also w0
+    and t0); df32 pipe_bicgstab its two body kernels once per iteration;
+    nothing else. On the CPU nothing at all."""
+    want = dict.fromkeys(counts, 0)
+    if device != "cpu":
+        k3 = "butterfly_k3_df" if dtype == "df32" else "butterfly_k3"
+        if method == "pipe_bicgstab" and dtype == "df32":
+            want.update(fused_body_a=it, fused_body_b=it)
+        spmvs = counts[k3]
+        segs, rest = divmod(spmvs - 2 * it,
+                            4 if method == "pipe_bicgstab" else 2)
+        if rest == 0 and 1 <= segs <= restarts + 1:
+            want.update({k3: spmvs, "butterfly_k1": spmvs,
+                         "butterfly_k2": spmvs})
+    if counts != want:
+        raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
+                           f"iterations of {method} {dtype} on the "
+                           f"butterfly layout")
+
+
+def butterfly_problems(inp: dict, device: str = "cuda") -> dict:
+    """Problems (b = A 1 from the host CSR, x0 = 0) over the butterfly
+    layouts of butterfly_inputs and over gather-ELL layouts of the same
+    CSR, by dtype: {"float32": (butterfly, ell), ...}."""
+    return _layout_problems(inp["b_csr"], {"float32": inp["B32"],
+                                           "float64": inp["B64"],
+                                           "df32": inp["Bdf"]}, device)
+
+
+def dominance_margin(csr) -> float:
+    """min_i (|a_ii| - sum_{j != i} |a_ij|): for a strictly diagonally
+    dominant A, ||e||_inf <= ||A e||_inf / margin (Varah's bound)."""
+    import numpy as np
+    rows = np.repeat(np.arange(csr.nrows), np.diff(csr.ptr))
+    diag = rows == csr.col
+    a = np.abs(csr.val)
+    off = np.bincount(rows[~diag], a[~diag], minlength=csr.nrows)
+    return float((np.bincount(rows[diag], a[diag], minlength=csr.nrows)
+                  - off).min())
+
+
+def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
+    """`[butterfly]`: `solve --matrix uniform:n --dtype float32 --tol
+    1e-6` through the CLI's own code with its defaults (--format auto,
+    --reorder auto), counted as run_main_path: the ButterflyMatrix route,
+    converged, the launches of check_butterfly_counts, and n_iter within
+    2 of the same solve on gather-ELL. The solution is held to its
+    residual, computed apart from the butterfly kernels with torch's
+    float64 CSR product on ell_prob's CSR (the same padded matrix): the
+    relative residual within 10 tol, and max|x - 1| within the bound that
+    residual allows (Varah: ||r||_inf / dominance_margin). (At tol 1e-6
+    the stopping rule leaves max|x - 1| ~1e-3 on this matrix at n = 1.6M
+    in float32, growing with n; the JAX package's solves leave the same
+    error as the port's, tests/test_torch_butterfly.py.) Returns the
+    counts."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        ["solve", "--matrix", f"uniform:{n}", "--dtype", "float32",
+         "--tol", str(UNIFORM_TOL), "--device", device])
+    reset_counts()
+    report, res = cli.run_solve(args)
+    counts = read_counts()
+    csr = ell_prob.csr
+    if report["reordered"] or res.x.shape != (csr.nrows,):
+        raise SmokeFailure(f"butterfly: {report}: not the padded "
+                           f"uniform:{n} (x {tuple(res.x.shape)})")
+    exact = np.zeros(csr.nrows)
+    exact[: report["n"]] = 1.0        # the identity pad rows' solution: 0
+    A = torch_csr(csr, torch.float64, res.x.device)
+    e = torch.as_tensor(exact, device=res.x.device)
+    x = res.x.double()
+    b = A @ e
+    r = A @ x - b
+    relres = float(r.norm() / b.norm())
+    margin = dominance_margin(csr)
+    bound = float(r.abs().max()) / margin
+    err = float((x - e).abs().max())
+    it = report["total_iter"]
+    ell_it = _ell_iters(ell_prob, "bicgstab", "float32", UNIFORM_TOL)
+    if not (report["converged"] and report["layout"] == "ButterflyMatrix"
+            and relres <= 10 * UNIFORM_TOL and err <= bound
+            and abs(it - ell_it) <= 2):
+        raise SmokeFailure(f"butterfly: {report}, max|x-1| {err:.3e} "
+                           f"(bound {bound:.3e}), CSR relres {relres:.3e}, "
+                           f"gather-ELL n_iter {ell_it}")
+    check_butterfly_counts("butterfly", "bicgstab", "float32", it, counts,
+                           args.restarts, device)
+    _say("butterfly", method="bicgstab", dtype="float32", tol=UNIFORM_TOL,
+         layout=report["layout"], n=report["n"], nnz=report["nnz"],
+         reordered=report["reordered"], n_iter=it, ell_n_iter=ell_it,
+         converged=report["converged"], final_relres=report["final_relres"],
+         true_relres=report["true_relres"], csr_f64_relres=f"{relres:.3e}",
+         max_abs_x_minus_1=err, varah_bound=f"{bound:.3e}",
+         dominance_margin=margin, io_time_s=report["io_time_s"],
+         setup_s=report["setup_s"], solve_s=report["total_time_s"],
+         launches=_launches(counts))
+    return counts
+
+
+def run_butterfly_api(phase: str, probs: dict, device: str = "cuda") -> dict:
+    """One of BUTTERFLY_PATHS through api.solve on the butterfly problem
+    of its dtype, counted as run_window_api: converged, max|x-1| < 1e-6,
+    the launches of check_butterfly_counts, n_iter within 2 of
+    gather-ELL's. Returns the counts."""
+    method, dtype, tol = BUTTERFLY_PATHS[phase]
+    return _run_layout_api(phase, method, dtype, tol, probs[dtype],
+                           check_butterfly_counts, device)
+
+
+def time_butterfly(inp: dict, probs: dict) -> None:
+    """The whole SpMV (float32, float64 and DF; replayed CUDA graphs)
+    beside its bound and torch's CSR product, the two transposes in each
+    element size, the route build's host seconds, and the f32 and df32
+    classic iterations on the butterfly layout (tol=0 chains, eager and
+    as replayed CUDA graphs) beside two SpMVs' bytes."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
+                                                          bench_spmv,
+                                                          time_call)
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    sp = bench_spmv(probs["float32"][0])
+    _say("times", spmv_layout=sp["spmv_layout"],
+         spmv_butterfly_P=sp["spmv_butterfly_P"],
+         spmv_butterfly_width=sp["spmv_butterfly_width"],
+         spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
+         butterfly_route_host_s=round(inp["b_build_s"], 3))
+    csr = inp["b_csr"]
+    for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
+        B, x, mid = inp["B" + key], inp["bx" + key], inp["bmid" + key]
+        bound = butterfly_work(f"butterfly_spmv_{sfx}", inp)[0] \
+            / HBM_BYTES_PER_S * 1e3
+        t_bound = 2 * mid.element_size() * mid.numel() \
+            / HBM_BYTES_PER_S * 1e3
+        ms = time_call(lambda B=B, x=x: spmv(B, x), graph=True) * 1e3
+        t_ms = time_call(lambda B=B, m=mid: bs.transpose(B, m),
+                         graph=True) * 1e3
+        lib = None
+        if sfx != "df":
+            A = torch_csr(csr, x.dtype, x.device)
+            lib = time_call(lambda A=A, x=x: A @ x) * 1e3
+        _say("times", butterfly_spmv=sfx, ms=f"{ms:.4f}",
+             bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}",
+             transpose_ms=f"{t_ms:.4f}", transpose_bound_ms=f"{t_bound:.4f}",
+             torch_csr_ms=None if lib is None else f"{lib:.4f}",
+             butterfly_over_csr=None if lib is None else f"{ms / lib:.3f}")
+    for dtype, sfx, iters in (("float32", "f32", 60), ("df32", "df", 30)):
+        prob = probs[dtype][0]
+        eager = bench_iteration(prob, iters=iters)
+        dev = bench_iteration(prob, iters=iters, graph=True)
+        ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
+        floor = 2 * butterfly_work(f"butterfly_spmv_{sfx}", inp)[0]
+        _say("times", method="bicgstab", layout="ButterflyMatrix",
+             dtype=dtype, eager_ms_per_iter=f"{ms:.4f}",
+             device_ms_per_iter=f"{dev_ms:.4f}",
+             device_busy_share=f"{dev_ms / ms:.3f}", chain=f"tol=0x{iters}",
+             two_spmv_bound_ms=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
 def main() -> int:
     import gc
 
@@ -2208,6 +2564,7 @@ def main() -> int:
                                                           transport_hard,
                                                           transport_like)
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops import native_route
     from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
     from mpi_bicgstab_tpu_torch.solvers.switching_blocked import \
         resolve_block
@@ -2252,6 +2609,21 @@ def main() -> int:
     errs.update(check_kernels(wcalls, winp))
     _say("check", window_spmv_f64_with_tail_vs_torch_csr_rel_err=(
         f"{check_window_spmv(winp):.3e}"))
+    # the butterfly layout: routed once on the host, in three dtypes
+    t0 = time.perf_counter()
+    csr_u = uniform_csr(N_UNIFORM)
+    binp = butterfly_inputs(csr_u)
+    B = binp["B32"]
+    _say("check", matrix="random_diag_dominant", n=csr_u.nrows,
+         nnz=csr_u.nnz, route_host_s=round(binp["b_build_s"], 3), P=B.P,
+         G=B.G, rb=B.rb, W=B.width, n_pad=B.n_pad, nc_pad=B.nc_pad,
+         tail_n=B.tail_n, tail_levels=B.tail_rows.shape[0],
+         router=native_route.lib_path(),
+         host_setup_s=round(time.perf_counter() - t0, 3))
+    bcalls = butterfly_kernel_calls(binp)
+    errs.update(check_kernels(bcalls, binp))
+    _say("check", butterfly_spmv_f64_with_tail_vs_torch_csr_rel_err=(
+        f"{check_butterfly_spmv(binp):.3e}"))
 
     runs, iters = {}, {}
     for phase, (method, dtype, tol, extra) in PATHS.items():
@@ -2304,6 +2676,14 @@ def main() -> int:
     for phase in WINDOW_PATHS:
         runs[phase] = run_window_api(phase, wprobs)
     runs["reorder"] = run_reorder_path(N_MAIN)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # butterfly solves, each beside gather-ELL
+    bprobs = butterfly_problems(binp)
+    runs["butterfly"] = run_butterfly_cli(N_UNIFORM, bprobs["float32"][1])
+    for phase in BUTTERFLY_PATHS:
+        runs[phase] = run_butterfly_api(phase, bprobs)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2379,6 +2759,8 @@ def main() -> int:
     time_routing(csr)
     time_window(winp, wprobs)
     times.update(time_kernels(wcalls, winp, csr_w))
+    time_butterfly(binp, bprobs)
+    times.update(time_kernels(bcalls, binp, csr_u))
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 
@@ -2387,6 +2769,8 @@ def main() -> int:
         base = {"dia_spmv_f32": "dia_spmv", "dia_spmv_f64": "dia_spmv",
                 "window_spmv_f32": "window_spmv",
                 "window_spmv_f64": "window_spmv"}.get(name, name)
+        if name.startswith("butterfly") and name != "butterfly_k3_df":
+            base = name.rsplit("_", 1)[0]    # K1-K3 in each dtype
         phase, counter = LAUNCHES_FROM[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

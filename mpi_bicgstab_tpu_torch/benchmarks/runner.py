@@ -82,7 +82,9 @@ def time_call(fn, iters=60, reps=5, graph=False) -> float:
 def bench_spmv(prob, iters=60, seed=0) -> dict:
     """SpMV time and rate of prob.A on a random x (layout.spmv, so the
     DIA kernel for a DiaMatrix on the card). Rate = nnz of the host CSR
-    per second, as the JAX bench reports it."""
+    per second, as the JAX bench reports it; the windowed-ELL and
+    butterfly layouts add their padded widths (and the butterfly its
+    window count P)."""
     from mpi_bicgstab_tpu_torch.ops.layout import spmv
     x = torch.as_tensor(np.random.default_rng(seed).standard_normal(prob.n),
                         dtype=prob.b.dtype, device=prob.b.device)
@@ -93,6 +95,11 @@ def bench_spmv(prob, iters=60, seed=0) -> dict:
         # the built layout's slab count (vals is [W, T, 8, 128]): the
         # padded width the byte count needs, as the JAX bench reports it
         out["spmv_window_width"] = int(prob.A.width)
+    elif out["spmv_layout"] == "ButterflyMatrix":
+        # the routed layout's window count and K3 slab count, which its
+        # stages' bytes follow
+        out["spmv_butterfly_P"] = int(prob.A.P)
+        out["spmv_butterfly_width"] = int(prob.A.width)
     return out
 
 

@@ -18,19 +18,21 @@ reference's main.c).
 
     python -m mpi_bicgstab_tpu_torch solve --matrix clustered:8192 \\
         --device cpu
+    python -m mpi_bicgstab_tpu_torch solve --matrix uniform:8192 \\
+        --device cpu
 
 `solve` methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
 --krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
 .npz path, or a generator spec 'poisson2d:N', 'poisson3d:N',
 'transport-like:N', 'transport-hard:N', 'banded:N', 'skew:N',
-'clustered:N'. --reorder (default auto) permutes the matrix with RCM when
-that moves it onto diagonals, --scale jacobi equilibrates it
+'clustered:N', 'uniform:N'. --reorder (default auto) permutes the matrix
+with RCM when that moves it onto diagonals, --scale jacobi equilibrates it
 (ops/reorder.py, ops/scale.py); --rhs, --x0 and --write-solution stay in
 the original row order and scale. --format picks the device layout
 (ops/layout.build_operator: 'auto' routes by structure analysis on the
 matrix padded to a multiple of 1024, as the JAX CLI pads it; a
-windowed-ELL route is built on that padded matrix, a DIA or hybrid one
-on the unpadded matrix; 'ell' takes any matrix); --precond cheby[:D[:LO:HI]]
+windowed-ELL or butterfly route is built on that padded matrix, a DIA or
+hybrid one on the unpadded matrix; 'ell' takes any matrix); --precond cheby[:D[:LO:HI]]
 solves right-preconditioned with a degree-D Chebyshev polynomial, its
 bounds estimated from the matrix unless given (ops/cheby.py). The solve
 runs on the card unless --device cpu asks for the CPU. It prints the
@@ -82,8 +84,8 @@ def _load_matrix(spec: str):
             # matrix); n rounds down to a multiple of 1024
             csr = G.clustered_random(max(n // 1024, 1) * 1024)
         elif kind == "uniform":
-            raise SystemExit("generator 'uniform' is not ported yet: "
-                             "ROADMAP slice 6c (the butterfly layout)")
+            # uniform random columns, no locality (the butterfly layout)
+            csr = G.random_diag_dominant(n, nnz_per_row=8, seed=0)
         else:
             raise SystemExit(f"unknown generator {kind!r}")
     else:
@@ -125,30 +127,27 @@ def _build_problem(args, csr, dtype, dev, **kw):
     CLI would need it: the JAX CLI pads every problem to a multiple of
     1024 and routes 'auto' on that, so 'auto' is decided on the padded
     matrix here too (ops/layout.auto_route), and the route it picks is
-    built. A windowed-ELL route (and --format window) builds on the
-    padded matrix; a DIA or hybrid route, and the other formats, on the
-    unpadded one (the port's DIA and ELL kernels need no padding). The
-    butterfly layout (not ported yet), and 'auto' on a matrix it would
-    route there, exit cleanly: nothing falls back to another layout."""
+    built. A windowed-ELL or butterfly route (and --format window or
+    butterfly) builds on the padded matrix, as does what 'auto' falls
+    through to when that build refuses the matrix (layout.FALL_THROUGH:
+    butterfly, then gather-ELL, as in the JAX package); a DIA or hybrid
+    route, and the other formats, on the unpadded one (the port's DIA and
+    ELL kernels need no padding)."""
     from mpi_bicgstab_tpu_torch.models.problem import (build_problem,
                                                        pad_csr_identity)
-    from mpi_bicgstab_tpu_torch.ops.layout import (auto_route,
-                                                   butterfly_refusal)
+    from mpi_bicgstab_tpu_torch.ops.layout import FALL_THROUGH, auto_route
     fmt = args.format
     if fmt == "auto":
         fmt, _ = auto_route(pad_csr_identity(csr, 1024))
-    try:
-        return build_problem(csr, dtype=dtype,
-                             multiple=1024 if fmt == "window" else 1,
-                             device=dev, format=fmt, **kw)
-    except NotImplementedError as e:     # butterfly, or 'auto' routing there
-        raise SystemExit(f"--format {args.format}: {e}") from None
-    except ValueError:
-        if args.format != "auto" or fmt != "window":
-            raise
-        # the window build spilled too deep: 'auto' goes on to butterfly
-        raise SystemExit(f"--format auto: {butterfly_refusal('auto')}") \
-            from None
+    multiple = 1024 if fmt in FALL_THROUGH else 1
+    while True:
+        try:
+            return build_problem(csr, dtype=dtype, multiple=multiple,
+                                 device=dev, format=fmt, **kw)
+        except ValueError:
+            if args.format != "auto" or fmt not in FALL_THROUGH:
+                raise
+            fmt = FALL_THROUGH[fmt]
 
 
 def _device_vector(v: np.ndarray, n: int, df: bool, dtype, dev):
@@ -529,10 +528,12 @@ def _add_layout(p) -> None:
                             "butterfly"],
                    help="device layout (ops/layout.build_operator); "
                         "'auto' routes by structure analysis on the "
-                        "matrix padded to a multiple of 1024, 'window' is "
-                        "windowed-ELL (built padded), 'ell' the "
-                        "faithful-to-reference gather layout; "
-                        "'butterfly' is not ported yet")
+                        "matrix padded to a multiple of 1024 (DIA/hybrid, "
+                        "else windowed-ELL, else butterfly, else "
+                        "gather-ELL), 'window' is windowed-ELL and "
+                        "'butterfly' the routed layout for matrices "
+                        "without locality (both built padded), 'ell' the "
+                        "faithful-to-reference gather layout")
     p.add_argument("--reorder", choices=["none", "rcm", "auto"],
                    default="auto",
                    help="bandwidth-reducing RCM permutation; 'auto' "
@@ -552,7 +553,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matrix", required=True,
                    help=".mtx/.npz path or generator spec (poisson2d:N, "
                         "poisson3d:N, transport-like:N, transport-hard:N, "
-                        "banded:N, skew:N, clustered:N)")
+                        "banded:N, skew:N, clustered:N, uniform:N)")
     p.add_argument("--method", default="bicgstab", choices=METHODS,
                    help="the classic family (reference main.c:122-141) "
                         "and BiCGStab(l); float32 on a DIA matrix takes "

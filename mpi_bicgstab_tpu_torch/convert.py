@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 operator_from_arrays builds the port's operator from the arrays of a JAX
-DiaMatrix, EllMatrix, HybridMatrix or WindowEllMatrix passed as NumPy
+DiaMatrix, EllMatrix, HybridMatrix, WindowEllMatrix or ButterflyMatrix
+passed as NumPy
 (np.asarray of each leaf), so that one operator can be driven through
 both packages:
 
@@ -20,8 +21,15 @@ both packages:
                    "x_rows", "tail_counts"} (a WindowEllMatrix's static
                    fields; a tail needs its per-level counts, which the
                    JAX package's distributed shards leave empty)
+    kind 'butterfly': arrays {"k1_src" (int32 [P]), "k1_sub", "k1_lane",
+                   "k2_sub", "k2_lane" (int8 [P, 8, 128]), "k3_sub",
+                   "k3_lane" (int8 [W//8, 8, NR, 128]), "k3_vals" (same
+                   shape), "tail_rows", "tail_cols" (int32 [L, cap]),
+                   "tail_vals"}; meta {"rb", "n_rows", "n_cols", "n_pad",
+                   "nc_pad", "P", "nnz", "tail_n"} (a ButterflyMatrix's
+                   static fields)
 
-Any "vals" or "tail_vals" array may come as the pair "<key>_hi",
+Any "vals", "k3_vals" or "tail_vals" array may come as the pair "<key>_hi",
 "<key>_lo" instead, which gives DF values. df_from_arrays builds a DF
 vector (b, x0) from the leaves of a JAX DF pair. cheby_operator_from_arrays
 builds the port's ops/cheby.ChebyOperator from a JAX ChebyOperator: its
@@ -41,6 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpi_bicgstab_tpu_torch.ops.butterfly import ButterflyMatrix
 from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator
 from mpi_bicgstab_tpu_torch.ops.dia import DiaMatrix
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix
@@ -55,6 +64,11 @@ from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 _ELL_KEYS = ("cols", "vals", "tail_rows", "tail_cols", "tail_vals")
 _WINDOW_KEYS = ("sub_sel", "lane_idx", "vals", "window_base", "tail_rows",
                 "tail_cols", "tail_vals")
+_BUTTERFLY_KEYS = ("k1_src", "k1_sub", "k1_lane", "k2_sub", "k2_lane",
+                   "k3_sub", "k3_lane", "k3_vals", "tail_rows", "tail_cols",
+                   "tail_vals")
+_BUTTERFLY_META = ("rb", "n_rows", "n_cols", "n_pad", "nc_pad", "P", "nnz",
+                   "tail_n")
 # JAX config field with no meaning here: history is always recorded
 _IGNORED = ("record_history",)
 
@@ -102,6 +116,12 @@ def _window(arrays, meta, dev):
         tail_counts=tuple(int(c) for c in meta["tail_counts"]))
 
 
+def _butterfly(arrays, meta, dev):
+    return ButterflyMatrix(
+        **{k: _values(arrays, k, dev) for k in _BUTTERFLY_KEYS},
+        **{k: int(meta[k]) for k in _BUTTERFLY_META})
+
+
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                          device="cuda"):
     """The port's operator of `kind` from NumPy arrays (see module doc)."""
@@ -112,13 +132,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         return _ell(arrays, meta, dev)
     if kind == "window":
         return _window(arrays, meta, dev)
+    if kind == "butterfly":
+        return _butterfly(arrays, meta, dev)
     if kind == "hybrid":
         n = int(meta["n"])
         return HybridMatrix(_dia(arrays, meta, dev, "dia_"),
                             _ell(arrays, {"n_rows": n, "n_cols": n}, dev,
                                  "ell_"))
     raise ValueError(f"unknown operator kind {kind!r}; expected 'dia', "
-                     f"'ell', 'hybrid' or 'window'")
+                     f"'ell', 'hybrid', 'window' or 'butterfly'")
 
 
 def cheby_operator_from_arrays(kind: str, arrays: dict, meta: dict,

@@ -56,6 +56,22 @@ __device__ __forceinline__ T dia_row(const DiaOffsets& offs,
   return acc;
 }
 
+// A product and a sum each rounded on its own, never contracted into an
+// FMA: the order of operations of a plain PyTorch twin, whose elementwise
+// multiply and add round separately (the window and butterfly kernels).
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
 // Deterministic block sum of K per-thread values: warp shuffles, then
 // one warp over the per-warp sums. The tree's shape depends only on
 // blockDim, so the same inputs always give the same bits (no float

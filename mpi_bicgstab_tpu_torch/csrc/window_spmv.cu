@@ -47,19 +47,6 @@
 #define MBT_TILE_ROWS 1024    // rows per tile: 8 sublanes x 128 lanes
 #define MBT_WINDOW_COLS 1024  // columns per window
 
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
 // The x column of row r's slot in slab `slab` (an offset of w * n_rows
 // into the [W, T, 8, 128] arrays); `win` is the tile's first column.
 __device__ __forceinline__ long long slot_col(

@@ -20,6 +20,8 @@ generators synthesise matrices with matching profiles:
   entries (the windowed-ELL layout's matrix).
 * skew_banded — a skew-dominant operator (conjugate-pair spectrum) on
   which the classic family fails and BiCGStab(l) converges.
+* random_diag_dominant — uniform random columns, no locality at any
+  permutation (the butterfly layout's matrix).
 """
 from __future__ import annotations
 
@@ -125,6 +127,24 @@ def banded_random(n: int, offsets, seed: int = 0,
     offs = [0] + [o for o, _ in entries]
     vals = [main] + [v for _, v in entries]
     return _dia_to_csr(n, offs, vals)
+
+
+def random_diag_dominant(n: int, nnz_per_row: int = 8,
+                         seed: int = 0) -> CSRMatrix:
+    """Random sparsity pattern (not banded), strictly diagonally dominant:
+    nnz_per_row - 1 uniform random columns per row plus the diagonal,
+    1 + the row's absolute off-diagonal sum (duplicates summed)."""
+    rng = np.random.default_rng(seed)
+    k = max(1, nnz_per_row - 1)
+    cols = rng.integers(0, n, size=(n, k))
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    vals = rng.uniform(-1.0, 1.0, size=n * k)
+    rows_all = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+    cols_all = np.concatenate([cols.ravel(), np.arange(n, dtype=np.int64)])
+    row_abs = np.abs(vals).reshape(n, k).sum(axis=1)
+    vals_all = np.concatenate([vals, 1.0 + row_abs])
+    coo = COOMatrix(rows_all, cols_all, vals_all, (n, n))
+    return coo_to_csr(coo, sum_duplicates=True)
 
 
 def banded_tough(n: int, offsets, seed: int = 0,

@@ -5,32 +5,33 @@ mpi_bicgstab_tpu/ops/layout.py).
         DiaMatrix            (fully diagonal-structured)
         HybridMatrix         (DIA majority + ELL remainder)
         WindowEllMatrix      (unstructured with column locality)
-        EllMatrix            (format='ell')
+        ButterflyMatrix      (unstructured, no locality)
+        EllMatrix            (format='ell', or a matrix no other
+                              layout takes)
 
 and the generic `spmv(op, x)` the solvers use, on tensors or, for an
 operator built with dtype="df32", on double-float pairs (ops/precision.DF);
 on a Chebyshev-wrapped operator (ops/cheby.ChebyOperator) it is the
 right-preconditioned product A p(A) x.
-The butterfly layout, which the JAX package's 'auto' picks for a matrix
-with under half its nonzeros on diagonals and no window locality, is
-ROADMAP slice 6c; until then those requests raise NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from mpi_bicgstab_tpu_torch.ops.butterfly import (ButterflyMatrix,
+                                                 build_butterfly)
+from mpi_bicgstab_tpu_torch.ops.butterfly_spmv import (butterfly_spmv,
+                                                       butterfly_spmv_df)
 from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator, precond_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, analyze_diagonals,
                                             csr_to_dia, dia_spmv)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
-from mpi_bicgstab_tpu_torch.ops.precision import df_add, is_df
+from mpi_bicgstab_tpu_torch.ops.precision import DF, df_add, is_df
 from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
 from mpi_bicgstab_tpu_torch.ops.window_ell import (WindowEllMatrix,
                                                    csr_to_window_ell,
                                                    window_ell_stats)
 from mpi_bicgstab_tpu_torch.ops.window_spmv import window_spmv, window_spmv_df
-
-_SLICE6C = "ROADMAP slice 6c (the butterfly layout)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,13 @@ class HybridMatrix:
     def device(self):
         return self.dia.device
 
+# 'auto''s fall-through when a build refuses the matrix (JAX
+# ops/layout.py:120-130): a windowed-ELL build whose hub rows overflow the
+# tail levels goes on to butterfly, a butterfly build that cannot route
+# the matrix (wide rows, dense blocks) to gather-ELL
+FALL_THROUGH = {"window": "butterfly", "butterfly": "ell"}
+_BUILDERS = {"window": csr_to_window_ell, "butterfly": build_butterfly}
+
 
 def build_operator(csr, format: str = "auto", dtype=None,
                    max_diags: int = 64, dia_min_fill: float = 0.02,
@@ -71,26 +79,26 @@ def build_operator(csr, format: str = "auto", dtype=None,
                  they cover >= 50%; else windowed-ELL when n % 1024 == 0
                  and >= 95% of the nonzeros lie in their row tile's
                  1024-column window (and the build takes it); else the
-                 JAX package's butterfly layout (slice 6c: raises)
+                 butterfly layout, and gather-ELL where the butterfly
+                 build refuses the matrix (a row wider than 24, a dense
+                 block): the JAX package's layout rule
       'dia' / 'hybrid' — DIA, plus an ELL remainder if any
       'window' — windowed-ELL (ops/window_ell.py; n % 1024 == 0)
+      'butterfly' — the butterfly-routed layout (ops/butterfly.py)
       'ell'    — gather-ELL (the layout closest to the reference's CSR)
-      'butterfly' — slice 6c: raises NotImplementedError
     """
     if format not in ("auto", "dia", "ell", "hybrid", "window",
                       "butterfly"):
         raise ValueError(f"unknown format {format!r}")
     route, offsets = (auto_route(csr, max_diags, dia_min_fill)
                       if format == "auto" else (format, None))
-    if route == "window":
+    while route in FALL_THROUGH:
         try:
-            return csr_to_window_ell(csr, dtype=dtype, device=device)
+            return _BUILDERS[route](csr, dtype=dtype, device=device)
         except ValueError:
             if format != "auto":
                 raise
-            route = "butterfly"     # hub rows overflow the tail levels
-    if route == "butterfly":
-        raise NotImplementedError(butterfly_refusal(format))
+            route = FALL_THROUGH[route]
     if route == "ell":
         return csr_to_ell(csr, width=ell_width, dtype=dtype, device=device)
     if offsets is None:
@@ -109,8 +117,8 @@ def auto_route(csr, max_diags: int = 64, dia_min_fill: float = 0.02):
     offsets the analysis found. route is 'hybrid' (DIA, plus an ELL
     remainder if any) when the top diagonals hold >= 50% of the nonzeros;
     else 'window' when n % 1024 == 0 and >= 95% of the nonzeros lie in
-    their row tile's window; else 'butterfly'. A window build that
-    spills too deep still falls through to 'butterfly' (build_operator)."""
+    their row tile's window; else 'butterfly'. A build that refuses the
+    matrix falls through (FALL_THROUGH, in build_operator)."""
     offsets, coverage = analyze_diagonals(csr, max_diags=max_diags,
                                           min_fill=dia_min_fill)
     if offsets and coverage >= 0.5:
@@ -119,16 +127,6 @@ def auto_route(csr, max_diags: int = 64, dia_min_fill: float = 0.02):
             and window_ell_stats(csr)["window_frac"] >= 0.95):
         return "window", offsets
     return "butterfly", offsets
-
-
-def butterfly_refusal(format: str) -> str:
-    """Why a matrix routed to the butterfly layout is refused."""
-    what = ("format 'butterfly' is" if format == "butterfly" else
-            f"format {format!r} routes this matrix (under half its "
-            f"nonzeros on diagonals, too little window locality) to the "
-            f"butterfly layout, which is")
-    return f"{what} not ported yet: {_SLICE6C}; pass format='ell' " \
-           f"(CLI: --format ell)"
 
 
 def spmv(op, x):
@@ -143,6 +141,11 @@ def spmv(op, x):
     if isinstance(op, WindowEllMatrix):
         return (window_spmv_df(op, x) if is_df(op.vals)
                 else window_spmv(op, x))
+    if isinstance(op, ButterflyMatrix):
+        if is_df(op.k3_vals):
+            y = butterfly_spmv_df(op, x)
+            return DF(y.hi[: op.n_rows], y.lo[: op.n_rows])
+        return butterfly_spmv(op, x)[: op.n_rows]
     if isinstance(op, HybridMatrix):
         if is_df(op.dia.vals):
             return df_add(dia_spmv(op.dia, x), ell_spmv_df(op.ell, x))

@@ -211,9 +211,13 @@ def test_cli_skew_spec(monkeypatch):
     code, f = _run_module([*args, "--method", "bicgstab", "--restarts",
                            "0"], monkeypatch)
     assert code == 2 and f["converged"] == "False"
-    with pytest.raises(SystemExit, match="slice 6c"):
-        from mpi_bicgstab_tpu_torch import cli
-        cli.main(["solve", "--matrix", "uniform:512", "--device", "cpu"])
+    # the uniform generator solves too: padded to one 1024-row tile, its
+    # columns all lie in the tile's window, so 'auto' takes windowed-ELL
+    # (as the JAX CLI does; larger uniform matrices take the butterfly)
+    code, f = _run_module(["solve", "--matrix", "uniform:512", "--tol",
+                           "1e-10", "--device", "cpu"], monkeypatch)
+    assert code == 0 and f["converged"] == "True"
+    assert f["layout"] == "WindowEllMatrix" and f["n"] == "512"
 
 
 def _chip_smoke():

@@ -60,6 +60,10 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/ops/window_ell.py",
                  "mpi_bicgstab_tpu_torch/ops/window_spmv.py",
                  "mpi_bicgstab_tpu_torch/ops/cuda_window_spmv.py",
+                 "mpi_bicgstab_tpu_torch/ops/butterfly.py",
+                 "mpi_bicgstab_tpu_torch/ops/butterfly_spmv.py",
+                 "mpi_bicgstab_tpu_torch/ops/cuda_butterfly.py",
+                 "mpi_bicgstab_tpu_torch/ops/native_route.py",
                  "mpi_bicgstab_tpu_torch/ops/reorder.py",
                  "mpi_bicgstab_tpu_torch/ops/scale.py",
                  "mpi_bicgstab_tpu_torch/ops/precision.py"):

@@ -12,7 +12,8 @@ The plain twins themselves are held to the JAX package in the CPU tests
 test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
 test_torch_fused_ca_df.py, test_torch_fused_pipe_df.py,
 test_torch_layout.py, test_torch_shift_update.py, test_torch_cheby.py,
-test_torch_pipe_df_bodies.py). The one host-side test here
+test_torch_pipe_df_bodies.py, test_torch_window.py,
+test_torch_butterfly.py). The one host-side test here
 (test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
@@ -29,7 +30,10 @@ bit-equal to the twin's, frozen rows bit-unchanged. Shifted solves on the
 card against the CPU: n_iter within 2, the same final seed, solutions
 within 1e-8 (1e-3 in float32). The float32 Chebyshev chain: within 2e-6
 of the twin's largest entry (the JAX package's bar, tests/test_cheby.py);
-the DF chain and the DF pipelined bodies as the other DF kernels.
+the DF chain and the DF pipelined bodies as the other DF kernels. The
+windowed-ELL and butterfly kernels: bit-equal to their twins (unfused
+products and sums in the twins' order; the butterfly's routing stages
+move bits).
 """
 import contextlib
 import io
@@ -1175,3 +1179,136 @@ def test_window_wrappers_raise_instead_of_falling_back():
         cws.window_slabs_df(Adf, x)
     with pytest.raises(TypeError):         # DF x, float32 values
         cws.window_slabs_df(A, DF(x, x))
+
+
+# --- butterfly SpMV (kernels 25-28) ------------------------------------------
+
+def _butterfly(dtype, dev, case):
+    """A butterfly layout on the card: 'routed' uniform random (rb = 64),
+    'rb32' 12 nonzeros a row (rb = 32, four stacked windows), 'beyond'
+    3000 columns with random K1/K2 tables whose first windows read the
+    last source window (slots past column 2999 must read 0)."""
+    from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
+    from mpi_bicgstab_tpu_torch.ops.butterfly import build_butterfly
+    if case == "rb32":
+        csr = random_diag_dominant(20480, nnz_per_row=12, seed=1)
+    else:
+        csr = random_diag_dominant(3000 if case == "beyond" else 4096,
+                                   seed=3)
+    A = build_butterfly(csr, dtype=dtype, device=dev)
+    if case == "beyond":
+        import dataclasses
+        g = np.random.default_rng(5)
+
+        def rand(hi):
+            return torch.as_tensor(g.integers(0, hi, (A.P, 8, 128)).astype(
+                np.int8), device=dev)
+        src = g.integers(0, A.nc_pad // 1024, A.P).astype(np.int32)
+        src[:4] = A.nc_pad // 1024 - 1
+        A = dataclasses.replace(A, k1_src=torch.as_tensor(src, device=dev),
+                                k1_sub=rand(8), k1_lane=rand(128),
+                                k2_sub=rand(8), k2_lane=rand(128))
+    return csr, A
+
+
+@pytest.mark.parametrize("case", ["routed", "rb32", "beyond"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
+def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
+    """Kernels 25-26 (K1, K2: a DF vector as packed pairs) and 27-28 (K3,
+    K3 DF) against their twins on the same inputs: equal bit for bit;
+    each launch counted once; the whole SpMV against the CSR (routed
+    tables only)."""
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    dev = _card()
+    csr, A = _butterfly(dtype, dev, case)
+    x_host = np.random.default_rng(3).standard_normal(csr.shape[1])
+    df = dtype == "df32"
+    x = df_from_f64(x_host, dev) if df else torch.as_tensor(
+        x_host, dtype=dtype, device=dev)
+    v = bs.pack_df(x) if df else x
+    before = {f: f.launches for f in (cbf.butterfly_k1, cbf.butterfly_k2,
+                                      cbf.butterfly_k3, cbf.butterfly_k3_df)}
+    u1 = cbf.butterfly_k1(A, v)
+    assert torch.equal(u1, bs.k1_plain(A, v))
+    mid = bs.transpose(A, u1)
+    z1 = cbf.butterfly_k2(A, mid)
+    assert torch.equal(z1, bs.k2_plain(A, mid))
+    z = bs.transpose(A, z1)
+    if df:
+        assert _same(cbf.butterfly_k3_df(A, z), bs.k3_df_plain(A, z))
+    else:
+        assert torch.equal(cbf.butterfly_k3(A, z), bs.k3_plain(A, z))
+    torch.cuda.synchronize()
+    k3 = cbf.butterfly_k3_df if df else cbf.butterfly_k3
+    assert {f: f.launches - n for f, n in before.items()} == {
+        **dict.fromkeys(before, 0), cbf.butterfly_k1: 1,
+        cbf.butterfly_k2: 1, k3: 1}
+    if case == "beyond":
+        return
+    y = df_to_f64(spmv(A, x)) if df else spmv(A, x).double().cpu().numpy()
+    ref = csr.matvec(x_host)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype,method", [("float32", "bicgstab"),
+                                          ("float64", "bicgstab"),
+                                          ("df32", "bicgstab"),
+                                          ("df32", "pipe_bicgstab")])
+def test_butterfly_route_launches_its_kernels(dtype, method):
+    """A solve on the butterfly layout runs K1, K2 and K3 (K3 DF in df32)
+    once per SpMV, df32 pipe_bicgstab also its fused bodies once per
+    iteration, and no other kernel; it agrees with the CPU solve."""
+    from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
+    dev = _card()
+    csr = random_diag_dominant(8192, seed=4)
+    tol = 1e-6 if dtype == "float32" else 1e-10
+    dt = dtype if dtype == "df32" else getattr(torch, dtype)
+    cfg = SolverConfig(tol=tol, dtype=dtype)
+    counters = {"k1": cbf.butterfly_k1, "k2": cbf.butterfly_k2,
+                "k3": cbf.butterfly_k3, "k3_df": cbf.butterfly_k3_df,
+                "window": cws.window_slabs, "dia": cuda_spmv.dia_spmv,
+                "dia_df": cuda_spmv.dia_spmv_df, "body_a": cpb.fused_body_a}
+    cpu = build_problem(csr, dtype=dt, device="cpu")
+    ref = solve(cpu.A, cpu.b, method=method, cfg=cfg)
+    prob = build_problem(csr, dtype=dt, device=dev)
+    assert type(prob.A).__name__ == "ButterflyMatrix"
+    before = {k: f.launches for k, f in counters.items()}
+    res = solve(prob.A, prob.b, method=method, cfg=cfg)
+    assert bool(res.converged) and abs(res.n_iter - ref.n_iter) <= 2
+    used = {k: f.launches - before[k] for k, f in counters.items()}
+    k3 = "k3_df" if dtype == "df32" else "k3"
+    spmvs = used.pop(k3)
+    assert spmvs >= 2 * res.n_iter
+    assert used.pop("k1") == used.pop("k2") == spmvs
+    bodies = res.n_iter if method == "pipe_bicgstab" else 0
+    assert used == {**dict.fromkeys(used, 0), "body_a": bodies}
+
+
+def test_butterfly_wrappers_raise_instead_of_falling_back():
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    dev = _card()
+    _, A = _butterfly(torch.float32, dev, "routed")
+    _, Adf = _butterfly("df32", dev, "routed")
+    x = torch.ones(A.n_cols, device=dev)
+    z = torch.ones(A.P * 1024, device=dev)
+    with pytest.raises(TypeError):         # a float16 vector
+        cbf.butterfly_k1(A, x.half())
+    with pytest.raises(ValueError):        # x on the CPU
+        cbf.butterfly_k1(A, x.cpu())
+    with pytest.raises(ValueError):        # x of the wrong length
+        cbf.butterfly_k1(A, x[:100])
+    with pytest.raises(ValueError):        # mid of the wrong length
+        cbf.butterfly_k2(A, x)
+    with pytest.raises(TypeError):         # float64 z, float32 values
+        cbf.butterfly_k3(A, z.double())
+    with pytest.raises(TypeError):         # DF values take the DF kernel
+        cbf.butterfly_k3(Adf, z)
+    with pytest.raises(TypeError):         # float32 z, not packed pairs
+        cbf.butterfly_k3_df(Adf, z)
+    with pytest.raises(TypeError):         # float values, not a DF pair
+        cbf.butterfly_k3_df(A, z.double().view(torch.int64))

@@ -133,17 +133,23 @@ def test_spmv_matches_jax(kind, fmt, dtype, rtol):
 
 
 def test_unported_layouts_raise():
-    """The butterfly layout (slice 6c) and 'auto' on a matrix with neither
-    diagonals nor window locality, which JAX routes to it, raise naming
-    the slice; 'window' builds (the out-of-window entries go to its tail)
-    and multiplies as the CSR does; an unknown format is a ValueError."""
-    t, _ = _pair("unstructured")
+    """Every layout is ported now: 'butterfly', and 'auto' on a matrix with
+    neither diagonals nor window locality (which routes it there, as JAX
+    does), build the butterfly layout and multiply as the CSR does, as
+    does 'window' (the out-of-window entries go to its tail); an unknown
+    format is still a ValueError."""
+    t, j = _pair("unstructured")
+    x = np.random.default_rng(8).standard_normal(t.nrows)
+    assert type(jlayout.build_operator(j, cache_dir="off")).__name__ \
+        == "ButterflyMatrix"
     for fmt in ("butterfly", "auto"):
-        with pytest.raises(NotImplementedError, match="slice 6c"):
-            tlayout.build_operator(t, format=fmt, device="cpu")
+        op = tlayout.build_operator(t, format=fmt, device="cpu")
+        assert type(op).__name__ == "ButterflyMatrix"
+        np.testing.assert_allclose(
+            tlayout.spmv(op, torch.as_tensor(x)).numpy(), t.matvec(x),
+            rtol=1e-12, atol=1e-12)
     op = tlayout.build_operator(t, format="window", device="cpu")
     assert type(op).__name__ == "WindowEllMatrix" and op.tail_size > 0
-    x = np.random.default_rng(8).standard_normal(t.nrows)
     np.testing.assert_allclose(tlayout.spmv(op, torch.as_tensor(x)).numpy(),
                                t.matvec(x), rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):

@@ -229,33 +229,36 @@ def test_chip_smoke_refuses_without_a_card():
     assert out.getvalue() == "" and "no CUDA device" in err.getvalue()
 
 
-def _unstructured_mtx(tmp_path, n=2048, seed=0):
+def _unstructured_mtx(tmp_path, n=2048, seed=0, wide_row=False):
     """A diagonally dominant .mtx with no band: 10 on the diagonal and up
     to 5 random off-diagonal entries per row (one diagonal holds ~17% of
     the nonzeros and its columns have no window locality, so 'auto'
-    would route it to the butterfly layout, not ported yet)."""
+    routes it to the butterfly layout). wide_row: row 0 also takes 40
+    entries, wider than the butterfly's 24 slabs, so its build refuses
+    the matrix and 'auto' lands on gather-ELL."""
     from mpi_bicgstab_tpu.io.mmio import write_matrix_market
     rng = np.random.default_rng(seed)
     rows, cols, vals = [np.arange(n)], [np.arange(n)], [np.full(n, 10.0)]
     for i in range(n):
-        c = rng.choice(n, rng.integers(0, 6), replace=False)
+        c = rng.choice(n, 40 if wide_row and i == 0 else rng.integers(0, 6),
+                       replace=False)
         c = c[c != i]
         rows.append(np.full(c.size, i))
         cols.append(c)
-        vals.append(rng.uniform(-1.0, 1.0, c.size))
-    path = tmp_path / "u.mtx"
+        vals.append(rng.uniform(-1.0, 1.0, c.size) / (8 if i == 0 else 1))
+    path = tmp_path / ("w.mtx" if wide_row else "u.mtx")
     write_matrix_market(str(path), np.concatenate(rows), np.concatenate(cols),
                         np.concatenate(vals), (n, n))
     return str(path)
 
 
 def test_cli_format_ell_solves_an_unstructured_mtx(tmp_path):
-    """--format ell solves the matrix 'auto' cannot take, as the JAX CLI
-    does; 'auto' exits cleanly naming --format ell and slice 6c, as does
-    the butterfly layout (not ported yet): nothing falls back. --format
-    window builds the windowed-ELL layout on the matrix padded to 1024
-    rows (its tail holds the out-of-window entries) and solves it in the
-    ell solve's iterations."""
+    """--format ell solves an unstructured matrix as the JAX CLI does;
+    --format window builds the windowed-ELL layout on the matrix padded to
+    1024 rows (its tail holds the out-of-window entries) and solves it in
+    the ell solve's iterations within 2; 'auto' and --format butterfly
+    (the next test) now solve it too, where they exited naming the
+    unported layout."""
     import json
 
     import mpi_bicgstab_tpu.cli as jcli
@@ -272,21 +275,57 @@ def test_cli_format_ell_solves_an_unstructured_mtx(tmp_path):
     assert jcode == 0 and want["converged"] and got["converged"]
     assert abs(got["total_iter"] - want["total_iter"]) <= 2
     assert got["true_relres"] <= 100 * 1e-10
-    with pytest.raises(SystemExit, match="--format ell") as ex:
-        cli.main([*base, "--device", "cpu"])
-    assert "Traceback" not in str(ex.value) and "slice 6c" in str(ex.value)
     win, _ = cli.run_solve(cli.build_parser().parse_args(
         [*base, "--format", "window", "--device", "cpu"]))
     assert win["layout"] == "WindowEllMatrix" and win["converged"]
     assert abs(win["total_iter"] - got["total_iter"]) <= 2
-    with pytest.raises(SystemExit, match="slice 6c"):
-        cli.main([*base, "--format", "butterfly", "--device", "cpu"])
     # the shifted command takes the flag too
     rows, res = cli.run_solve_shifted(cli.build_parser().parse_args(
         ["solve-shifted", "--matrix", mtx, "--format", "ell",
          "--sigma-len", "4", "--seed", "3", "--tol", "1e-10",
          "--device", "cpu"]))
     assert rows[0]["all_converged"]
-    with pytest.raises(SystemExit, match="--format ell"):
-        cli.main(["solve-shifted", "--matrix", mtx, "--sigma-len", "4",
-                  "--seed", "3", "--device", "cpu"])
+
+
+def test_cli_auto_and_butterfly_solve_an_unstructured_mtx(tmp_path):
+    """'auto' routes the unstructured matrix to the butterfly layout, as
+    JAX does, built on the matrix padded to 1024 rows, as is --format
+    butterfly: both solve it, in solve and solve-shifted."""
+    import mpi_bicgstab_tpu.models.problem as jprob
+    import mpi_bicgstab_tpu.ops.sparse as jsparse
+    from mpi_bicgstab_tpu_torch import cli
+    mtx = _unstructured_mtx(tmp_path)
+    pj = jprob.build_problem(jsparse.load_csr(mtx), multiple=1024)
+    assert type(pj.A).__name__ == "ButterflyMatrix"
+    iters = []
+    for fmt in ("auto", "butterfly"):
+        rep, _ = cli.run_solve(cli.build_parser().parse_args(
+            ["solve", "--matrix", mtx, "--tol", "1e-10", "--format", fmt,
+             "--device", "cpu"]))
+        assert rep["layout"] == "ButterflyMatrix" and rep["converged"], fmt
+        iters.append(rep["total_iter"])
+    assert iters[0] == iters[1]
+    rows, res = cli.run_solve_shifted(cli.build_parser().parse_args(
+        ["solve-shifted", "--matrix", mtx, "--sigma-len", "4", "--seed",
+         "3", "--tol", "1e-10", "--device", "cpu"]))
+    assert rows[0]["all_converged"] and res.x_set.shape == (4, 2048)
+
+
+def test_cli_auto_lands_on_gather_ell_when_butterfly_refuses(tmp_path):
+    """A row of 40 entries: the butterfly build refuses the matrix (wider
+    than its 24 slabs), so 'auto' lands on gather-ELL in both packages
+    (JAX ops/layout.py:120-130, on the matrix padded to 1024 rows), and
+    --format butterfly raises the build's error."""
+    import mpi_bicgstab_tpu.models.problem as jprob
+    import mpi_bicgstab_tpu.ops.sparse as jsparse
+    from mpi_bicgstab_tpu_torch import cli
+    mtx = _unstructured_mtx(tmp_path, n=2000, wide_row=True)
+    pj = jprob.build_problem(jsparse.load_csr(mtx), multiple=1024)
+    assert type(pj.A).__name__ == "EllMatrix" and pj.n == 2048
+    got, res = cli.run_solve(cli.build_parser().parse_args(
+        ["solve", "--matrix", mtx, "--tol", "1e-10", "--device", "cpu"]))
+    assert got["layout"] == "EllMatrix" and got["converged"]
+    assert res.x.shape == (2048,)
+    with pytest.raises(ValueError, match="row width"):
+        cli.main(["solve", "--matrix", mtx, "--format", "butterfly",
+                  "--device", "cpu"])

@@ -159,9 +159,9 @@ def _hub_matrices():
 
 
 def test_hub_row_refused_by_both_builds():
-    """Too deep a tail refuses the layout in both packages; JAX's 'auto'
-    then tries the butterfly layout (it falls back to gather-ELL on this
-    matrix), which the port has not ported: it raises naming slice 6c."""
+    """Too deep a tail refuses the layout in both packages; 'auto' then
+    tries the butterfly layout, whose build refuses the 100-entry row
+    too, and lands on gather-ELL in both packages."""
     t, j = _hub_matrices()
     with pytest.raises(ValueError, match="tail entries"):
         twin.csr_to_window_ell(t, device="cpu")
@@ -169,21 +169,27 @@ def test_hub_row_refused_by_both_builds():
         jwin.csr_to_window_ell(j)
     assert twin.window_ell_stats(t)["window_frac"] >= 0.95
     assert type(jlayout.build_operator(j, cache_dir="off")).__name__ \
+        == type(tlayout.build_operator(t, device="cpu")).__name__ \
         == "EllMatrix"
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        tlayout.build_operator(t, device="cpu")
 
 
 def test_cli_hub_row_falls_through_to_the_butterfly_refusal(tmp_path):
     """The CLI routes the hub-row matrix to windowed-ELL, whose build
-    refuses it: 'auto' then exits cleanly naming slice 6c and --format
-    ell, while --format window raises the build's own error."""
-    t, _ = _hub_matrices()
+    refuses it: 'auto' then falls through the butterfly layout, whose
+    build refuses it too, to gather-ELL, where the JAX CLI lands (its
+    build_problem on the 1024-padded matrix), and solves it; --format
+    window raises the build's own error. (JAX's solve on this gather-ELL
+    layout takes ~5 s on the CPU; the ELL SpMV itself is held to JAX's in
+    tests/test_torch_layout.py.)"""
+    t, j = _hub_matrices()
     assert tlayout.auto_route(t)[0] == "window"
     mtx = _write_mtx(tmp_path / "hub.mtx", t)
-    with pytest.raises(SystemExit, match="slice 6c") as ex:
-        cli.main(["solve", "--matrix", mtx, "--device", "cpu"])
-    assert "--format ell" in str(ex.value)
+    pj = jprob.build_problem(j, multiple=1024)      # as the JAX CLI builds
+    assert type(pj.A).__name__ == "EllMatrix"
+    got, res = cli.run_solve(cli.build_parser().parse_args(
+        ["solve", "--matrix", mtx, "--tol", "1e-10", "--device", "cpu"]))
+    assert got["layout"] == "EllMatrix" and got["n"] == 2048
+    assert got["converged"] and float((res.x - 1.0).abs().max()) < 1e-7
     with pytest.raises(ValueError, match="tail entries"):
         cli.main(["solve", "--matrix", mtx, "--format", "window",
                   "--device", "cpu"])
@@ -302,19 +308,14 @@ ROUTES = {
 
 @pytest.mark.parametrize("kind", sorted(ROUTES))
 def test_auto_route_matches_jax(kind):
-    """'auto' picks JAX's layout, or raises naming slice 6c where JAX
-    picks the butterfly layout."""
+    """'auto' picks JAX's layout, the butterfly layout included."""
     make, cls = ROUTES[kind]
     t, j = make()
     assert type(jlayout.build_operator(j, cache_dir="off")).__name__ == cls
-    if cls == "ButterflyMatrix":
-        with pytest.raises(NotImplementedError, match="slice 6c"):
-            tlayout.build_operator(t, device="cpu")
-        assert tlayout.auto_route(t)[0] == "butterfly"
-        return
     assert type(tlayout.build_operator(t, device="cpu")).__name__ == cls
-    assert tlayout.auto_route(t)[0] == ("window" if kind == "window"
-                                        else "hybrid")
+    assert tlayout.auto_route(t)[0] == {"window": "window",
+                                        "unstructured": "butterfly"}.get(
+                                            kind, "hybrid")
 
 
 def _jax_cli(argv):
