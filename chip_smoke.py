@@ -26,15 +26,19 @@ numbers; any failure exits non-zero:
              (W = 24), built once on the host in float64 and cast, with x
              from a seeded NumPy generator: bit-equal to their twins; the
              whole float64 SpMV (kernel plus COO tail) within 1e-12 of
-             torch's CSR product. The butterfly kernels (K1, K2 in 4- and
-             8-byte elements, a DF vector as packed pairs; K3 in float32
-             and float64; K3 DF) on the layout of uniform:1602112 padded
-             to 1,602,560 rows as the CLI pads it (P = 25,600, W = 16),
-             routed once on the host in float64 (the C++ router, built by
-             g++) and cast, on each stage's input as the twins route a
-             seeded x: bit-equal to their twins; the whole float64 SpMV
-             (stages, transposes, tail) within 1e-12 of torch's CSR
-             product
+             torch's CSR product. The butterfly kernels on the layout of
+             uniform:1602112 padded to 1,602,560 rows as the CLI pads it
+             (P = 25,600, W = 16), routed once on the host in float64
+             (the C++ router, built by g++), its column table built by
+             the CPU twins, then cast to each dtype on the card, where
+             K1 and K2 route the table anew: that table equal to the
+             CPU's; K1 and K2 on 4-byte (the table's iota) and 8-byte
+             elements (a float64 x) and K3 in float32, float64 and DF on
+             a seeded x, bit-equal to their twins; K3 on x with a NaN
+             and an inf planted bit-equal to its twin and to the routed
+             pipeline (x through K1, T1, K2, T2 and the z-form
+             arithmetic, staged_slabs); the whole float64 SpMV (K3 and
+             the tail) within 1e-12 of torch's CSR product
   4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
              transport-like:1602112 --method M --dtype D --tol T`, every
              launch counter set to 0 just before and read just after
@@ -109,13 +113,15 @@ numbers; any failure exits non-zero:
              within 1e-6 of ones. The butterfly (ROADMAP slice 6c):
              `[butterfly]` is `solve --matrix uniform:1602112 --dtype
              float32 --tol 1e-6` with the CLI defaults: the
-             ButterflyMatrix route, one K1, K2 and K3 launch per SpMV, x
-             held to a residual taken with torch's float64 CSR product
-             (<= 10 tol) and to the error bound it gives;
+             ButterflyMatrix route, one K1 and one K2 launch for the
+             layout it builds and one K3 launch per SpMV, x held to a
+             residual taken with torch's float64 CSR product (<= 10 tol)
+             and to the error bound it gives;
              `[butterfly_f64]`, `[butterfly_df32]` (K3 DF) and
              `[butterfly_pipe_df32]` (and the two DF body kernels once per
-             iteration) through api.solve at 1e-10, max|x-1| < 1e-6;
-             each within 2 iterations of gather-ELL, launches in
+             iteration) through api.solve at 1e-10 on layouts built
+             before the count (no K1, K2), max|x-1| < 1e-6; each within 2
+             iterations of gather-ELL, launches in
              `check_butterfly_counts`
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
@@ -137,10 +143,10 @@ numbers; any failure exits non-zero:
              the f32 and df32 classic iterations on the window layout
              (eager and device) beside two window SpMVs' bytes; the
              butterfly kernels and the whole butterfly SpMV (f32, f64,
-             DF) beside their bounds, the twins and torch's CSR
-             product, the two transposes, the route's host seconds,
-             and the f32 and df32 classic iterations on the butterfly
-             layout beside two SpMVs' bytes
+             DF) beside their bounds, the twins and torch's CSR product,
+             the column table's build, the route's host seconds, and the
+             f32 and df32 classic iterations on the butterfly layout
+             beside two SpMVs' bytes
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 """
@@ -305,14 +311,10 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "window_spmv_f32": ("window", "window_slabs"),
                  "window_spmv_f64": ("window_f64", "window_slabs"),
                  "window_spmv_df": ("window_df32", "window_slabs_df"),
-                 "butterfly_k1_f32": ("butterfly", "butterfly_k1"),
-                 "butterfly_k2_f32": ("butterfly", "butterfly_k2"),
+                 "butterfly_k1": ("butterfly", "butterfly_k1"),
+                 "butterfly_k2": ("butterfly", "butterfly_k2"),
                  "butterfly_k3_f32": ("butterfly", "butterfly_k3"),
-                 "butterfly_k1_f64": ("butterfly_f64", "butterfly_k1"),
-                 "butterfly_k2_f64": ("butterfly_f64", "butterfly_k2"),
                  "butterfly_k3_f64": ("butterfly_f64", "butterfly_k3"),
-                 "butterfly_k1_df": ("butterfly_df32", "butterfly_k1"),
-                 "butterfly_k2_df": ("butterfly_df32", "butterfly_k2"),
                  "butterfly_k3_df": ("butterfly_df32", "butterfly_k3_df")}
 # the flagship ladder (main_shifted.c:13-14,95-100) and the shifted paths:
 # phase -> (dtype, tol)
@@ -2276,13 +2278,23 @@ def uniform_csr(n: int):
                             1024)
 
 
+def planted(x, seed: int):
+    """x (host float64) with one NaN and one inf at seeded positions."""
+    import numpy as np
+    x = x.copy()
+    i, j = np.random.default_rng(seed).choice(x.size, 2, replace=False)
+    x[i], x[j] = np.nan, np.inf
+    return x
+
+
 def butterfly_inputs(csr, device="cuda", seed=0) -> dict:
     """The butterfly kernels' inputs at the path's shapes: the layout of
-    csr routed once on the host in float64 (its seconds in "b_build_s")
-    and cast to float32, float64 and DF pairs; x from a NumPy generator
-    seeded `seed`; and each stage's input as the twins route x: mid (K2's
-    input, T1 of K1's output) and z (K3's), per dtype, DF as packed
-    pairs."""
+    csr routed once on the host in float64 (its seconds in "b_build_s"),
+    its column table built by the CPU twins, and the layout cast to
+    float32, float64 and DF pairs on `device` (each table routed anew
+    there); x from a NumPy generator seeded `seed`, and x with a NaN and
+    an inf planted ("bn" keys); the table build's input (the int32 iota)
+    and K2's input for it and for the float64 x, routed by the twins."""
     import numpy as np
     import torch
 
@@ -2298,50 +2310,153 @@ def butterfly_inputs(csr, device="cuda", seed=0) -> dict:
         raise SmokeFailure("the butterfly build did not load the native "
                            "route assigner")
     x = np.random.default_rng(seed).standard_normal(csr.nrows)
-    inp = {"b_csr": csr, "b_build_s": build_s,
+    xn = planted(x, seed + 1)
+    inp = {"b_csr": csr, "b_build_s": build_s, "b_host": host,
            "B32": butterfly_with_values(host, torch.float32, device),
            "B64": butterfly_with_values(host, torch.float64, device),
-           "Bdf": butterfly_with_values(host, "df32", device),
-           "bx32": torch.as_tensor(x, dtype=torch.float32, device=device),
-           "bx64": torch.as_tensor(x, device=device),
-           "bxdf": df_from_f64(x, device)}
-    for sfx, B, v in (("32", inp["B32"], inp["bx32"]),
-                      ("64", inp["B64"], inp["bx64"]),
-                      ("df", inp["Bdf"], bs.pack_df(inp["bxdf"]))):
-        inp["bv" + sfx] = v
-        inp["bmid" + sfx] = bs.transpose(B, bs.k1_plain(B, v))
-        inp["bz" + sfx] = bs.transpose(B, bs.k2_plain(B, inp["bmid" + sfx]))
+           "Bdf": butterfly_with_values(host, "df32", device)}
+    for key, v in (("bx", x), ("bn", xn)):
+        inp[key + "32"] = torch.as_tensor(v, dtype=torch.float32,
+                                          device=device)
+        inp[key + "64"] = torch.as_tensor(v, device=device)
+        inp[key + "df"] = df_from_f64(v, device)
+    B = inp["B32"]
+    inp["biota"] = torch.arange(1, B.n_cols + 1, dtype=torch.int32,
+                                device=device)
+    for key, v in (("iota", inp["biota"]), ("64", inp["bx64"])):
+        inp["bmid" + key] = bs.transpose(B, bs.k1_plain(B, v))
     return inp
 
 
+def pack_df(x):
+    """x's (hi, lo) pairs as one int64 [n] vector (the bits of each pair
+    side by side, hi first): how the routed pipeline moved a DF vector."""
+    import torch
+    return torch.stack((x.hi, x.lo), dim=-1).view(torch.int64).view(-1)
+
+
+def staged_slabs(A, x):
+    """The slab part of A x as the routed pipeline computes it (the port's
+    SpMV before its column table, and JAX's 'lane' form): x routed to z
+    through K1, T1, K2 and T2 (ops/butterfly_spmv.route: the kernels on
+    the card, a DF vector as packed pairs) and K3's arithmetic on z, each
+    slot reading z element ops/butterfly_spmv.k3_elem. The reference the
+    column-table kernels and twins must equal bit for bit."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_fma, df_zeros,
+                                                      is_df, two_sum)
+    shape = A.k3_lane.shape[1:]
+    C = A.width // 8
+    if not is_df(x):
+        z = bs.route(A, x)
+        acc = z.new_zeros(shape)
+        for c in range(C):
+            acc = acc + A.k3_vals[c] * z.index_select(
+                0, bs.k3_elem(A, c)).view(shape)
+        for h in (4, 2, 1):
+            acc = acc[:h] + acc[h:2 * h]
+        return acc[0].reshape(-1)
+    zf = bs.route(A, pack_df(x)).view(torch.float32).view(-1, 2)
+    zh, zl = zf[:, 0], zf[:, 1]
+    acc = df_zeros(shape, zh.device)
+    for c in range(C):
+        e = bs.k3_elem(A, c)
+        acc = df_fma(acc, A.k3_vals[c],
+                     DF(zh.index_select(0, e).view(shape),
+                        zl.index_select(0, e).view(shape)))
+    p, lo = acc.hi, acc.lo
+    for h in (4, 2, 1):
+        s, err = two_sum(p[:h], p[h:2 * h])
+        p, lo = s, (lo[:h] + lo[h:2 * h]) + err
+    return DF(p[0].reshape(-1), lo[0].reshape(-1))
+
+
+def x_on_card(x) -> bool:
+    return (x.hi if hasattr(x, "hi") else x).is_cuda
+
+
+def same_bits(a, b) -> bool:
+    """a and b (tensors or DF pairs) equal bit for bit, NaN included."""
+    import torch
+    if hasattr(a, "hi"):
+        return same_bits(a.hi, b.hi) and same_bits(a.lo, b.lo)
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
 def butterfly_kernel_calls(inp: dict) -> dict:
-    """Kernels 25-28 in every dtype the path runs them (K1, K2 move a
-    DF vector's packed pairs; K3 DF reads them) beside their twins, on
-    the stage inputs of butterfly_inputs; each must equal its twin bit
-    for bit."""
+    """Kernels 25-28 beside their twins on the path's inputs, each to equal
+    its twin bit for bit: K1 and K2 moving 4-byte elements (the table
+    build's iota) and 8-byte elements (the float64 x, routed as the JAX
+    pipeline routes it); K3 in float32 and float64 and K3 DF, on x."""
     from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    B = inp["B32"]
     calls = {}
+    for name, v, mid in (("", inp["biota"], inp["bmidiota"]),
+                         ("_b64", inp["bx64"], inp["bmid64"])):
+        calls["butterfly_k1" + name] = (
+            lambda v=v: (cbf.butterfly_k1(B, v),),
+            lambda v=v: (bs.k1_plain(B, v),), "bit_equal")
+        calls["butterfly_k2" + name] = (
+            lambda m=mid: (cbf.butterfly_k2(B, m),),
+            lambda m=mid: (bs.k2_plain(B, m),), "bit_equal")
     for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
-        B, v, mid, z = (inp[k + key] for k in ("B", "bv", "bmid", "bz"))
-        calls[f"butterfly_k1_{sfx}"] = (
-            lambda B=B, v=v: (cbf.butterfly_k1(B, v),),
-            lambda B=B, v=v: (bs.k1_plain(B, v),), "bit_equal")
-        calls[f"butterfly_k2_{sfx}"] = (
-            lambda B=B, m=mid: (cbf.butterfly_k2(B, m),),
-            lambda B=B, m=mid: (bs.k2_plain(B, m),), "bit_equal")
+        A, x = inp["B" + key], inp["bx" + key]
         k3, k3_plain = ((cbf.butterfly_k3_df, bs.k3_df_plain) if sfx == "df"
                         else (cbf.butterfly_k3, bs.k3_plain))
         calls[f"butterfly_k3_{sfx}"] = (
-            lambda B=B, z=z, f=k3: (f(B, z),),
-            lambda B=B, z=z, f=k3_plain: (f(B, z),), "bit_equal")
+            lambda A=A, x=x, f=k3: (f(A, x),),
+            lambda A=A, x=x, f=k3_plain: (f(A, x),), "bit_equal")
     return calls
 
 
+# the kernels line's butterfly entries: the forms the path launches (K1
+# and K2 on 4-byte elements, once per layout; K3 per SpMV)
+BUTTERFLY_TIMED = ("butterfly_k1", "butterfly_k2", "butterfly_k3_f32",
+                   "butterfly_k3_f64", "butterfly_k3_df")
+
+
+def check_column_tables(inp: dict) -> None:
+    """The column table each card layout routed with K1 and K2 equals the
+    one the CPU twins routed for the host layout."""
+    host = inp["b_host"].k3_col
+    for key in ("B32", "B64", "Bdf"):
+        if not same_bits(inp[key].k3_col.cpu(), host):
+            raise SmokeFailure(f"butterfly {key}: the column table built "
+                               f"on the card differs from the CPU twins'")
+
+
+def check_butterfly_staged(inp: dict) -> None:
+    """K3 (f32, f64) and K3 DF on x with a NaN and an inf planted, bit for
+    bit against their twins and against the routed pipeline on the same
+    x (staged_slabs: K1, T1, K2, T2 and the z-form arithmetic)."""
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
+        A, x = inp["B" + key], inp["bn" + key]
+        df = sfx == "df"
+        kernels = ((cbf.butterfly_k3_df, cbf.butterfly_k3) if x_on_card(x)
+                   else (bs.k3_df_plain, bs.k3_plain))   # the CPU test
+        got = kernels[0 if df else 1](A, x)
+        twin = (bs.k3_df_plain if df else bs.k3_plain)(A, x)
+        staged = staged_slabs(A, x)
+        nan = int(((got.hi if df else got) != (got.hi if df else got)).sum())
+        if not (same_bits(got, twin) and same_bits(got, staged)):
+            raise SmokeFailure(f"butterfly_k3_{sfx}: on x with NaN and inf "
+                               f"the kernel, its twin and the routed "
+                               f"pipeline differ")
+        _say("check", kernel=f"butterfly_k3_{sfx}", x="nan_and_inf_planted",
+             bit_equal_twin=True, bit_equal_routed_pipeline=True,
+             nan_rows=nan)
+
+
 def check_butterfly_spmv(inp: dict) -> float:
-    """The whole float64 SpMV (stages, transposes, tail) against torch's
-    CSR product on the card: within 1e-12 of the product's largest
-    entry. Returns the relative error."""
+    """The whole float64 SpMV (K3 and the tail) against torch's CSR
+    product on the card: within 1e-12 of the product's largest entry.
+    Returns the relative error."""
     from mpi_bicgstab_tpu_torch.ops.layout import spmv
     y = spmv(inp["B64"], inp["bx64"])
     ref = torch_csr(inp["b_csr"], inp["bx64"].dtype, y.device) @ inp["bx64"]
@@ -2353,59 +2468,59 @@ def check_butterfly_spmv(inp: dict) -> float:
 
 
 def butterfly_work(name: str, inp: dict) -> tuple[float, float, str]:
-    """(bytes, flops, dtype) of one stage: K1 its two int8 tables, k1_src,
-    x and u1; K2 the tables, mid and z1; K3 its three slab tables, the z
-    windows its rows read (n_pad / rb of them) and y; each read or written
-    once; an element of 4 bytes in float32, 8 in float64 and DF (a packed
-    pair). Operations: K3's entries held in the slabs (2 each, a df_fma
-    in DF); K1 and K2 only move data. "butterfly_spmv_*" is the whole
-    SpMV: the three stages, the two transposes (each element read and
-    written) and the tail (values, rows, columns, the x it reads, y's
-    rows read and written)."""
+    """(bytes, flops, dtype) of one stage, each input read once and each
+    output written once. K1 (4-byte elements; "_b64" 8): its two int8
+    tables, k1_src, x and u1; K2: the tables, mid and z1; K1 and K2 only
+    move data. K3: the column table (4 bytes a slot), the values (4 bytes
+    in float32, 8 in float64 and DF), x and y (8 bytes an element in
+    float64 and DF); operations: the nonzeros the slabs hold, 2 each (a
+    df_fma in DF). "butterfly_spmv_*" is the whole SpMV: K3 and the tail
+    (values, rows, columns, the x it reads, y's rows read and written)."""
     B = inp["B32"]
-    slots, e = B.P * 1024, (4 if name.endswith("f32") else 8)
-    k1 = 2 * slots + 4 * B.P + e * B.n_cols + e * slots
-    k2 = 2 * slots + 2 * e * slots
-    k3 = (2 + e) * B.width * B.n_pad + e * (B.n_pad // B.rb) * 1024 \
-        + e * B.n_pad
+    slots = B.P * 1024
+    if name.startswith(("butterfly_k1", "butterfly_k2")):
+        e = 8 if name.endswith("_b64") else 4
+        dt = "float64" if e == 8 else "float32"
+        if name.startswith("butterfly_k1"):
+            return 2 * slots + 4 * B.P + e * B.n_cols + e * slots, 0, dt
+        return 2 * slots + 2 * e * slots, 0, dt
+    sfx = name.rsplit("_", 1)[1]
+    e = 4 if sfx == "f32" else 8
+    dt = {"f32": "float32", "f64": "float64", "df": "df32"}[sfx]
+    k3 = (4 + e) * B.width * B.n_pad + e * B.n_cols + e * B.n_pad
     held = inp["b_csr"].nnz - B.tail_n
-    flops = (DF_FMA_FLOPS if name.endswith("df") else 2) * held
-    dt = {"f32": "float32", "f64": "float64", "df": "df32"}[
-        name.rsplit("_", 1)[1]]
-    if name.startswith("butterfly_k1"):
-        return k1, 0, dt
-    if name.startswith("butterfly_k2"):
-        return k2, 0, dt
+    flops = (DF_FMA_FLOPS if sfx == "df" else 2) * held
     if name.startswith("butterfly_k3"):
         return k3, flops, dt
-    tail = B.tail_n * (e + 8 + 3 * e)
-    return k1 + k2 + k3 + 2 * 2 * e * slots + tail, flops, dt
+    return k3 + B.tail_n * (e + 8 + 3 * e), flops, dt
 
 
 def check_butterfly_counts(what: str, method: str, dtype: str, it: int,
                            counts: dict, restarts: int,
-                           device: str = "cuda") -> None:
-    """The launches of a converged solve on the butterfly layout: per
-    SpMV one K1, one K2 and one K3 (its DF form in df32; K1 and K2 move
-    the packed pairs in one launch each), twice per iteration and, per
-    solver segment, for r0 and the true residual (pipe_bicgstab also w0
-    and t0); df32 pipe_bicgstab its two body kernels once per iteration;
-    nothing else. On the CPU nothing at all."""
+                           device: str = "cuda", layouts: int = 0) -> None:
+    """The launches of a converged solve on the butterfly layout: one K1
+    and one K2 per layout built inside the counted window (`layouts`: 1
+    when the run builds its layout, 0 when it was built before the
+    counters were reset), and per SpMV one K3 (its DF form in df32), twice
+    per iteration and, per solver segment, for r0 and the true residual
+    (pipe_bicgstab also w0 and t0); df32 pipe_bicgstab its two body
+    kernels once per iteration; nothing else. On the CPU nothing at
+    all."""
     want = dict.fromkeys(counts, 0)
     if device != "cpu":
         k3 = "butterfly_k3_df" if dtype == "df32" else "butterfly_k3"
         if method == "pipe_bicgstab" and dtype == "df32":
             want.update(fused_body_a=it, fused_body_b=it)
+        want.update(butterfly_k1=layouts, butterfly_k2=layouts)
         spmvs = counts[k3]
         segs, rest = divmod(spmvs - 2 * it,
                             4 if method == "pipe_bicgstab" else 2)
         if rest == 0 and 1 <= segs <= restarts + 1:
-            want.update({k3: spmvs, "butterfly_k1": spmvs,
-                         "butterfly_k2": spmvs})
+            want[k3] = spmvs
     if counts != want:
         raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
                            f"iterations of {method} {dtype} on the "
-                           f"butterfly layout")
+                           f"butterfly layout ({layouts} built)")
 
 
 def butterfly_problems(inp: dict, device: str = "cuda") -> dict:
@@ -2433,8 +2548,9 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
     """`[butterfly]`: `solve --matrix uniform:n --dtype float32 --tol
     1e-6` through the CLI's own code with its defaults (--format auto,
     --reorder auto), counted as run_main_path: the ButterflyMatrix route,
-    converged, the launches of check_butterfly_counts, and n_iter within
-    2 of the same solve on gather-ELL. The solution is held to its
+    converged, the launches of check_butterfly_counts (the run builds its
+    layout: one K1 and one K2), and n_iter within 2 of the same solve on
+    gather-ELL. The solution is held to its
     residual, computed apart from the butterfly kernels with torch's
     float64 CSR product on ell_prob's CSR (the same padded matrix): the
     relative residual within 10 tol, and max|x - 1| within the bound that
@@ -2477,7 +2593,7 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
                            f"(bound {bound:.3e}), CSR relres {relres:.3e}, "
                            f"gather-ELL n_iter {ell_it}")
     check_butterfly_counts("butterfly", "bicgstab", "float32", it, counts,
-                           args.restarts, device)
+                           args.restarts, device, layouts=1)
     _say("butterfly", method="bicgstab", dtype="float32", tol=UNIFORM_TOL,
          layout=report["layout"], n=report["n"], nnz=report["nnz"],
          reordered=report["reordered"], n_iter=it, ell_n_iter=ell_it,
@@ -2501,11 +2617,13 @@ def run_butterfly_api(phase: str, probs: dict, device: str = "cuda") -> dict:
 
 
 def time_butterfly(inp: dict, probs: dict) -> None:
-    """The whole SpMV (float32, float64 and DF; replayed CUDA graphs)
-    beside its bound and torch's CSR product, the two transposes in each
-    element size, the route build's host seconds, and the f32 and df32
-    classic iterations on the butterfly layout (tol=0 chains, eager and
-    as replayed CUDA graphs) beside two SpMVs' bytes."""
+    """The butterfly SpMV on the card (K3 alone is timed in the kernels
+    line): the whole SpMV (float32, float64 and DF; replayed CUDA
+    graphs) beside its bound and torch's CSR product; the column table's
+    build (K1, T1, K2, T2 and the gather; once per layout) and the route's
+    host seconds; the f32 and df32 classic iterations on the butterfly
+    layout (tol=0 chains, eager and as replayed CUDA graphs) beside two
+    SpMVs' bytes."""
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
                                                           bench_spmv,
                                                           time_call)
@@ -2519,23 +2637,31 @@ def time_butterfly(inp: dict, probs: dict) -> None:
          butterfly_route_host_s=round(inp["b_build_s"], 3))
     csr = inp["b_csr"]
     for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
-        B, x, mid = inp["B" + key], inp["bx" + key], inp["bmid" + key]
+        B, x = inp["B" + key], inp["bx" + key]
         bound = butterfly_work(f"butterfly_spmv_{sfx}", inp)[0] \
             / HBM_BYTES_PER_S * 1e3
-        t_bound = 2 * mid.element_size() * mid.numel() \
-            / HBM_BYTES_PER_S * 1e3
         ms = time_call(lambda B=B, x=x: spmv(B, x), graph=True) * 1e3
-        t_ms = time_call(lambda B=B, m=mid: bs.transpose(B, m),
-                         graph=True) * 1e3
         lib = None
         if sfx != "df":
             A = torch_csr(csr, x.dtype, x.device)
             lib = time_call(lambda A=A, x=x: A @ x) * 1e3
         _say("times", butterfly_spmv=sfx, ms=f"{ms:.4f}",
              bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}",
-             transpose_ms=f"{t_ms:.4f}", transpose_bound_ms=f"{t_bound:.4f}",
              torch_csr_ms=None if lib is None else f"{lib:.4f}",
              butterfly_over_csr=None if lib is None else f"{ms / lib:.3f}")
+    B = inp["B32"]
+    iota, mid = inp["biota"], inp["bmidiota"]
+    build = time_call(lambda: bs.column_table(B), iters=12, reps=3,
+                      graph=True) * 1e3
+    t_ms = time_call(lambda: bs.transpose(B, mid), graph=True) * 1e3
+    stage_bytes = sum(butterfly_work(k, inp)[0]
+                      for k in ("butterfly_k1", "butterfly_k2")) \
+        + 2 * 2 * 4 * B.P * 1024
+    _say("times", column_table_build_ms=f"{build:.4f}",
+         k1_k2_transposes_bound_ms=(
+             f"{stage_bytes / HBM_BYTES_PER_S * 1e3:.4f}"),
+         transpose_b32_ms=f"{t_ms:.4f}", table_mb=round(
+             B.k3_col.numel() * 4 / 1e6, 1), input=f"iota {iota.numel()}")
     for dtype, sfx, iters in (("float32", "f32", 60), ("df32", "df", 30)):
         prob = probs[dtype][0]
         eager = bench_iteration(prob, iters=iters)
@@ -2622,6 +2748,10 @@ def main() -> int:
          host_setup_s=round(time.perf_counter() - t0, 3))
     bcalls = butterfly_kernel_calls(binp)
     errs.update(check_kernels(bcalls, binp))
+    check_column_tables(binp)
+    _say("check", butterfly_column_table="card equals CPU twins",
+         slots=B.k3_col.numel(), minus_one=int((B.k3_col < 0).sum()))
+    check_butterfly_staged(binp)
     _say("check", butterfly_spmv_f64_with_tail_vs_torch_csr_rel_err=(
         f"{check_butterfly_spmv(binp):.3e}"))
 
@@ -2760,7 +2890,8 @@ def main() -> int:
     time_window(winp, wprobs)
     times.update(time_kernels(wcalls, winp, csr_w))
     time_butterfly(binp, bprobs)
-    times.update(time_kernels(bcalls, binp, csr_u))
+    times.update(time_kernels({k: bcalls[k] for k in BUTTERFLY_TIMED},
+                              binp, csr_u))
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 
@@ -2768,9 +2899,9 @@ def main() -> int:
     for name, row in times.items():
         base = {"dia_spmv_f32": "dia_spmv", "dia_spmv_f64": "dia_spmv",
                 "window_spmv_f32": "window_spmv",
-                "window_spmv_f64": "window_spmv"}.get(name, name)
-        if name.startswith("butterfly") and name != "butterfly_k3_df":
-            base = name.rsplit("_", 1)[0]    # K1-K3 in each dtype
+                "window_spmv_f64": "window_spmv",
+                "butterfly_k3_f32": "butterfly_k3",
+                "butterfly_k3_f64": "butterfly_k3"}.get(name, name)
         phase, counter = LAUNCHES_FROM[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

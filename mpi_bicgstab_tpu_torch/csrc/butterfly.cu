@@ -1,66 +1,74 @@
-// Butterfly-routed SpMV stages (ops/butterfly.py, ops/butterfly_spmv.py):
-// K1 and K2 (routed copies of 4- and 8-byte elements) and K3 (the SpMV
-// from the routed vector: float32, float64 and double-float pairs).
+// Butterfly-routed SpMV (ops/butterfly.py, ops/butterfly_spmv.py): K1 and
+// K2 (routed copies of 4- and 8-byte elements), which build the layout's
+// column table once, and K3 (the SpMV over x through that table: float32,
+// float64 and double-float pairs).
 //
 // Replaces: mpi_bicgstab_tpu/ops/pallas_butterfly.py::_k1_kernel (driver
 // _k1), ::_k2_kernel (_k2), ::_k3_kernel (_k3, its 'lane' variant) and
-// ::_k3_df_kernel (_k3_df). The tables are the JAX package's: K1 and K2
+// ::_k3_df_kernel (_k3_df). K1's and K2's tables are the JAX package's:
 // [P, 8, 128] int8 pairs (sublane, lane) in which slot (i, j) of a window
 // reads window element sub[i, lam] * 128 + lam with lam = lane[i, j] (the
-// sublane table indexed by the SOURCE lane); K3's [W//8, 8, NR, 128]
-// tables, which are [W, n_pad] byte for byte, so slab w of row r sits at
-// w * n_pad + r. The two transposes between the stages and the leveled
-// tail stay in PyTorch (ops/butterfly_spmv.py), as they are XLA code in
-// the JAX package.
+// sublane table indexed by the SOURCE lane). K3's tables are
+// [W//8, 8, NR, 128], which is [W, n_pad] byte for byte, so slab w of
+// row r sits at w * n_pad + r.
 //
 // What the TPU kernels do and why these do not: Mosaic gathers only
-// inside one [8, 128] register window, so the Pallas kernels chain a
-// sublane gather and a lane gather per window, DMA the whole iterate into
-// VMEM for K1, and in K3 select between the F = 128 / rb stacked windows
-// with a lane mask. A Hopper thread reads any address: here one thread
-// owns one output slot (K1, K2) or one output row (K3) and reads lam,
-// then the sublane byte in the same 128-byte table row (its warp reads
-// that row too: an L1 hit), then its element of the window (K1: a 4 KB
-// window of x in float32; K2: the slot's own window of mid; K3: the row
-// tile's 8F x 128-element stacked block of z, 8 KB in float32), which L1
-// and L2 serve. No residency, no grid steps.
+// inside one [8, 128] register window, so JAX factors the random gather
+// x -> z of every SpMV into K1, a transpose, K2 and a transpose, and K3
+// reads z with chained sublane and lane gathers. The route depends only on
+// the layout: every element of z is one column of x, or K1's zero. A
+// Hopper thread reads any address, and x (6.4 MB in float32, 12.8 MB in
+// float64 or DF at the main path's shapes) sits in the 50 MB L2, so the
+// port routes once per layout: K1 and K2 move the int32 iota 1..n_cols
+// (b32), the transposes and one gather in PyTorch finish the column table
+// k3_col (ops/butterfly_spmv.column_table), and each SpMV is one K3 pass
+// that streams k3_col and the values and gathers x by column. K1 and K2
+// keep one thread per output slot, reading lam, then the sublane byte in
+// the same 128-byte table row (an L1 hit), then its element of the
+// window; K1 reads 0 for a column >= n_cols (JAX zero-pads x to nc_pad,
+// the port passes x unpadded).
 //
-// K1 reads 0 for a column >= n_cols and never loads it: the JAX pipeline
-// zero-pads x to nc_pad, the port passes x unpadded.
+// K3: a thread owns R consecutive rows (R = 1 in float32, 2 in float64
+// and DF: MBT_K3_ROWS_*, chosen by measurement on the H100, PERF.md); per
+// chunk of 8 slabs it loads the 8 x R columns and values (R * 4 bytes of
+// columns and R elements of values in one vector load a slab,
+// evict-first: they are read once), then the 8 x R gathers of x (__ldg),
+// then accumulates. A -1 column reads +0 without a load (the bits K1
+// writes past the last column), and its product is formed like any
+// other, so the result is the routed pipeline's bit for bit, NaN, inf and
+// the sign of zero included.
 //
-// K3 takes the window of output lane j as f = j / rb and the sublane as
-// (s & 7) within it: the Pallas 'lane' form. The router stores s =
-// (row % 128) / rb * 8 + slot / 128, so for every placed slot this is the
-// element JAX's XLA form (the full stacked sublane s) reads too; padded
-// slots carry value 0.
-//
-// Rounding: K3 keeps 8 accumulators, slab w adding to accumulator w % 8
-// as JAX's [8, 128] accumulator does (chunk by chunk over the W/8 chunks),
-// each step a rounded product and a rounded sum (mul_rn / add_rn, never an
-// FMA); then the 8 sums combine by halving, a[i] + a[i + h] for h = 4, 2,
-// 1. The DF kernel accumulates with df_fma in JAX's order and halves with
-// two_sum, the low parts added as (e[i] + e[i + h]) + err
-// (pallas_butterfly.py:342-352); its output pair is not renormalised, as
-// in JAX. The plain twins (ops/butterfly_spmv.py) do the same operations,
-// so every kernel is bit-equal to its twin.
+// Rounding: K3 keeps 8 accumulators a row, slab w adding to accumulator
+// w % 8 as JAX's [8, 128] accumulator does (chunk by chunk over the W/8
+// chunks), each step a rounded product and a rounded sum (mul_rn /
+// add_rn, never an FMA); then the 8 sums combine by halving, a[i] +
+// a[i + h] for h = 4, 2, 1. The DF kernel accumulates with df_fma in JAX's
+// order and halves with two_sum, the low parts added as (e[i] + e[i + h])
+// + err (pallas_butterfly.py:342-352); its output pair is not
+// renormalised, as in JAX. It gathers x as packed (hi, lo) pairs, one
+// 8-byte load a slot (the wrapper packs x once per SpMV). The plain twins
+// (ops/butterfly_spmv.py) do the same operations, so every kernel is
+// bit-equal to its twin.
 //
 // Bound on the H100: memory. At the main path's shapes (uniform:1602112
 // padded to 1,602,560 rows: P = 25,600 windows, rb = 64, W = 16, n_pad =
-// 1,603,584) K1 moves its two int8 tables, k1_src, x and u1: 163.8 MB in
-// float32 (a 48.9 us floor at 3.35 TB/s), 274.9 MB in float64; K2 the two
-// tables, mid and z1: 262.1 MB (78.3 us), 471.9 MB; K3 the three slab
-// tables, the z windows it reads and y: 262.9 MB (78.5 us), 474.7 MB in
-// float64 and DF. A DF vector is routed in one K1 and one K2 launch that
-// move both planes: each (hi, lo) pair travels as one 8-byte element
-// (ops/butterfly_spmv.pack_df), so the tables are read once, not once per
-// plane, and K3 DF reads the pair with one 8-byte load. K1 and K2 copy
-// bits (unsigned integer elements), never values. The design spends
-// nothing on the gathers beyond L1 and L2 hits; tables and values stream
-// once, loaded evict-first.
+// 1,603,584) K3 reads 25,657,344 columns (102.6 MB) and as many values
+// (102.6 MB in float32, 205.3 in float64 and DF), x once and writes y:
+// 218 MB (65.1 us at 3.35 TB/s) in float32, 333.5 MB (99.6 us) in
+// float64 and DF, and gathers x for the 12.8M slots that hold a
+// nonzero (a slab's padded slots in one row tile all name one column).
+// K1 moves its two
+// int8 tables, k1_src, x and u1 (163.8 MB in b32, 48.9 us), K2 the tables,
+// mid and z1 (262.1 MB, 78.3 us): once per layout.
+#include <cstdint>
+#include <cstring>
+
 #include "df_core.cuh"
 
 #define MBT_BFLY_WIN 1024  // window: 8 sublanes x 128 lanes
 #define MBT_BFLY_SUB 8     // K3 accumulators: slabs per chunk
+#define MBT_K3_ROWS_F32 1  // K3's rows a thread: float32
+#define MBT_K3_ROWS_F64 2  // float64 and DF
 
 // lam = lane[i], then the window element sub[row of i, lam] * 128 + lam
 // of the slot's window (an offset within the window).
@@ -101,93 +109,153 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                 slot_elem(sub, lane, i));
 }
 
-// K3's gather for slab offset `at` = w * n_pad + r: the element of z that
-// row r's entry in that slab reads. `block` is the row tile's first
-// element of z plus its window's (row % 128 / rb) sublane offset.
-__device__ __forceinline__ long long k3_elem(
-    const signed char* __restrict__ sub,
-    const signed char* __restrict__ lane, long long at, long long block) {
-  const int lam = __ldcs(lane + at);
-  const int s = __ldg(sub + (at & ~127LL) + lam) & (MBT_BFLY_SUB - 1);
-  return block + s * 128 + lam;
+// R consecutive elements from p (R * sizeof(T) bytes, aligned to that
+// size), read once: an evict-first vector load of 4, 8 or 16 bytes.
+template <int R, typename T>
+__device__ __forceinline__ void ld_stream(const T* __restrict__ p,
+                                          T (&o)[R]) {
+  constexpr int bytes = R * (int)sizeof(T);
+  if constexpr (bytes == 16) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
+    memcpy(o, &v, 16);
+  } else if constexpr (bytes == 8) {
+    const float2 v = __ldcs(reinterpret_cast<const float2*>(p));
+    memcpy(o, &v, 8);
+  } else {
+    static_assert(bytes == 4, "4, 8 or 16 bytes");
+    const float v = __ldcs(reinterpret_cast<const float*>(p));
+    memcpy(o, &v, 4);
+  }
 }
 
-__device__ __forceinline__ long long k3_block(long long r, int rb) {
-  const long long tile = r >> 7;
-  const int j = (int)(r & 127);
-  return (tile * MBT_BFLY_SUB * (128 / rb) + (j / rb) * MBT_BFLY_SUB) * 128;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(MBT_BLOCK)
-    bfly_k3_kernel(long long n_pad, int chunks, int rb,
-                   const signed char* __restrict__ sub,
-                   const signed char* __restrict__ lane,
-                   const T* __restrict__ vals, const T* __restrict__ z,
-                   T* __restrict__ y) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_pad) return;
-  const long long block = k3_block(r, rb);
-  T acc[MBT_BFLY_SUB];
+// R consecutive elements to p.
+template <int R, typename T>
+__device__ __forceinline__ void st_rows(T* __restrict__ p, const T (&v)[R]) {
 #pragma unroll
-  for (int i = 0; i < MBT_BFLY_SUB; ++i) acc[i] = T(0);
+  for (int k = 0; k < R; ++k) p[k] = v[k];
+}
+
+// x[c], +0 (all bits zero) for c = -1.
+template <typename T>
+__device__ __forceinline__ T gather(const T* __restrict__ x, int c) {
+  if (c < 0) return T{};
+  return __ldg(x + c);
+}
+
+// y[r] = sum over the W slabs of vals[w, r] * x[col[w, r]], rows r0 ..
+// r0 + R - 1 of one thread.
+template <typename T, int R>
+__global__ void __launch_bounds__(MBT_BLOCK)
+    bfly_k3_kernel(long long n_pad, int chunks, const int* __restrict__ col,
+                   const T* __restrict__ vals, const T* __restrict__ x,
+                   T* __restrict__ y) {
+  const long long r0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (r0 >= n_pad) return;
+  T acc[R][MBT_BFLY_SUB];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int i = 0; i < MBT_BFLY_SUB; ++i) acc[k][i] = T(0);
   for (int c = 0; c < chunks; ++c) {
+    int cc[MBT_BFLY_SUB][R];
+    T v[MBT_BFLY_SUB][R], xg[MBT_BFLY_SUB][R];
 #pragma unroll
     for (int i = 0; i < MBT_BFLY_SUB; ++i) {
-      const long long at = (long long)(c * MBT_BFLY_SUB + i) * n_pad + r;
-      const T xg = __ldg(z + k3_elem(sub, lane, at, block));
-      acc[i] = add_rn(acc[i], mul_rn(__ldcs(vals + at), xg));
+      const long long at = (long long)(c * MBT_BFLY_SUB + i) * n_pad + r0;
+      ld_stream<R>(col + at, cc[i]);
+      ld_stream<R>(vals + at, v[i]);
     }
-  }
 #pragma unroll
-  for (int h = MBT_BFLY_SUB / 2; h >= 1; h >>= 1) {
+    for (int i = 0; i < MBT_BFLY_SUB; ++i)
 #pragma unroll
-    for (int i = 0; i < h; ++i) acc[i] = add_rn(acc[i], acc[i + h]);
+      for (int k = 0; k < R; ++k) xg[i][k] = gather(x, cc[i][k]);
+#pragma unroll
+    for (int i = 0; i < MBT_BFLY_SUB; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        acc[k][i] = add_rn(acc[k][i], mul_rn(v[i][k], xg[i][k]));
   }
-  y[r] = acc[0];
+  T out[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int h = MBT_BFLY_SUB / 2; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) acc[k][i] = add_rn(acc[k][i], acc[k][i + h]);
+    }
+    out[k] = acc[k][0];
+  }
+  st_rows<R>(y + r0, out);
 }
 
-// z: the routed DF vector, one (hi, lo) pair per element.
+// The DF form: values as (hi, lo) planes, x as packed (hi, lo) pairs.
+template <int R>
 __global__ void __launch_bounds__(MBT_BLOCK)
-    bfly_k3_df_kernel(long long n_pad, int chunks, int rb,
-                      const signed char* __restrict__ sub,
-                      const signed char* __restrict__ lane,
+    bfly_k3_df_kernel(long long n_pad, int chunks,
+                      const int* __restrict__ col,
                       const float* __restrict__ vh,
                       const float* __restrict__ vl,
-                      const float2* __restrict__ z, float* __restrict__ yh,
+                      const float2* __restrict__ x, float* __restrict__ yh,
                       float* __restrict__ yl) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_pad) return;
-  const long long block = k3_block(r, rb);
-  df_t acc[MBT_BFLY_SUB];
+  const long long r0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (r0 >= n_pad) return;
+  df_t acc[R][MBT_BFLY_SUB];
 #pragma unroll
-  for (int i = 0; i < MBT_BFLY_SUB; ++i) acc[i] = {0.0f, 0.0f};
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int i = 0; i < MBT_BFLY_SUB; ++i) acc[k][i] = {0.0f, 0.0f};
   for (int c = 0; c < chunks; ++c) {
+    int cc[MBT_BFLY_SUB][R];
+    float h[MBT_BFLY_SUB][R], l[MBT_BFLY_SUB][R];
+    float2 xg[MBT_BFLY_SUB][R];
 #pragma unroll
     for (int i = 0; i < MBT_BFLY_SUB; ++i) {
-      const long long at = (long long)(c * MBT_BFLY_SUB + i) * n_pad + r;
-      const float2 zp = __ldg(z + k3_elem(sub, lane, at, block));
-      const df_t xg = {zp.x, zp.y};
-      const df_t v = {__ldcs(vh + at), __ldcs(vl + at)};
-      acc[i] = df_fma(acc[i], v, xg);
+      const long long at = (long long)(c * MBT_BFLY_SUB + i) * n_pad + r0;
+      ld_stream<R>(col + at, cc[i]);
+      ld_stream<R>(vh + at, h[i]);
+      ld_stream<R>(vl + at, l[i]);
     }
+#pragma unroll
+    for (int i = 0; i < MBT_BFLY_SUB; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k) xg[i][k] = gather(x, cc[i][k]);
+#pragma unroll
+    for (int i = 0; i < MBT_BFLY_SUB; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        acc[k][i] = df_fma(acc[k][i], df_t{h[i][k], l[i][k]},
+                           df_t{xg[i][k].x, xg[i][k].y});
   }
   // the 8 sums by compensated halving: the high parts by two_sum, the
   // low parts and the rounding errors added, no renormalisation
+  float oh[R], ol[R];
 #pragma unroll
-  for (int h = MBT_BFLY_SUB / 2; h >= 1; h >>= 1) {
+  for (int k = 0; k < R; ++k) {
 #pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const df_t s = two_sum(acc[i].hi, acc[i + h].hi);
-      acc[i] = {s.hi, __fadd_rn(__fadd_rn(acc[i].lo, acc[i + h].lo), s.lo)};
+    for (int hh = MBT_BFLY_SUB / 2; hh >= 1; hh >>= 1) {
+#pragma unroll
+      for (int i = 0; i < hh; ++i) {
+        const df_t s = two_sum(acc[k][i].hi, acc[k][i + hh].hi);
+        acc[k][i] = {s.hi, __fadd_rn(__fadd_rn(acc[k][i].lo,
+                                               acc[k][i + hh].lo), s.lo)};
+      }
     }
+    oh[k] = acc[k][0].hi;
+    ol[k] = acc[k][0].lo;
   }
-  st_df(yh, yl, r, acc[0]);
+  st_rows<R>(yh + r0, oh);
+  st_rows<R>(yl + r0, ol);
 }
 
-static inline bool k3_shape_ok(long long n_pad, int width, int rb) {
-  return n_pad >= 1 && n_pad % 128 == 0 && width >= MBT_BFLY_SUB &&
-         width % MBT_BFLY_SUB == 0 && (rb == 16 || rb == 32 || rb == 64);
+// K3's rows: whole row tiles; slabs: whole chunks of 8; the streamed
+// tables aligned for the R-wide vector loads.
+static inline bool k3_args_ok(long long n_pad, int width, const void* col,
+                              const void* vals) {
+  return n_pad >= 128 && n_pad % 128 == 0 && width >= MBT_BFLY_SUB &&
+         width % MBT_BFLY_SUB == 0 &&
+         ((uintptr_t)col | (uintptr_t)vals) % 16 == 0;
 }
 
 template <typename T>
@@ -212,14 +280,13 @@ static cudaError_t launch_k2(long long P, const signed char* sub,
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_k3(long long n_pad, int width, int rb,
-                             const signed char* sub, const signed char* lane,
-                             const T* vals, const T* z, T* y,
+template <typename T, int R>
+static cudaError_t launch_k3(long long n_pad, int width, const int* col,
+                             const T* vals, const T* x, T* y,
                              cudaStream_t stream) {
-  if (!k3_shape_ok(n_pad, width, rb)) return cudaErrorInvalidValue;
-  bfly_k3_kernel<T><<<mbt_grid(n_pad), MBT_BLOCK, 0, stream>>>(
-      n_pad, width / MBT_BFLY_SUB, rb, sub, lane, vals, z, y);
+  if (!k3_args_ok(n_pad, width, col, vals)) return cudaErrorInvalidValue;
+  bfly_k3_kernel<T, R><<<mbt_grid(n_pad / R), MBT_BLOCK, 0, stream>>>(
+      n_pad, width / MBT_BFLY_SUB, col, vals, x, y);
   return cudaGetLastError();
 }
 
@@ -255,33 +322,34 @@ cudaError_t mbt_bfly_k2_b64(long long P, const signed char* sub,
   return launch_k2(P, sub, lane, mid, z1, stream);
 }
 
-// K3: k3_sub, k3_lane, vals [width, n_pad] (the [W//8, 8, NR, 128]
-// tables); z covers n_pad / rb windows of 1024; y [n_pad].
-cudaError_t mbt_bfly_k3_f32(long long n_pad, int width, int rb,
-                            const signed char* sub, const signed char* lane,
-                            const float* vals, const float* z, float* y,
+// K3: k3_col (int32) and vals [width, n_pad] (the [W//8, 8, NR, 128]
+// tables); x [n_cols]; y [n_pad].
+cudaError_t mbt_bfly_k3_f32(long long n_pad, int width, const int* col,
+                            const float* vals, const float* x, float* y,
                             cudaStream_t stream) {
-  return launch_k3<float>(n_pad, width, rb, sub, lane, vals, z, y, stream);
+  return launch_k3<float, MBT_K3_ROWS_F32>(n_pad, width, col, vals, x, y,
+                                           stream);
 }
 
-cudaError_t mbt_bfly_k3_f64(long long n_pad, int width, int rb,
-                            const signed char* sub, const signed char* lane,
-                            const double* vals, const double* z, double* y,
+cudaError_t mbt_bfly_k3_f64(long long n_pad, int width, const int* col,
+                            const double* vals, const double* x, double* y,
                             cudaStream_t stream) {
-  return launch_k3<double>(n_pad, width, rb, sub, lane, vals, z, y, stream);
+  return launch_k3<double, MBT_K3_ROWS_F64>(n_pad, width, col, vals, x, y,
+                                            stream);
 }
 
-// K3 in DF: vals and y as (hi, lo) float arrays of the shapes above; z
-// the routed pairs, (hi, lo) interleaved.
-cudaError_t mbt_bfly_k3_df(long long n_pad, int width, int rb,
-                           const signed char* sub, const signed char* lane,
+// K3 in DF: vals and y as (hi, lo) float arrays of the shapes above; x
+// the packed pairs, (hi, lo) interleaved.
+cudaError_t mbt_bfly_k3_df(long long n_pad, int width, const int* col,
                            const float* vals_hi, const float* vals_lo,
-                           const float2* z, float* y_hi, float* y_lo,
+                           const float2* x, float* y_hi, float* y_lo,
                            cudaStream_t stream) {
-  if (!k3_shape_ok(n_pad, width, rb)) return cudaErrorInvalidValue;
-  bfly_k3_df_kernel<<<mbt_grid(n_pad), MBT_BLOCK, 0, stream>>>(
-      n_pad, width / MBT_BFLY_SUB, rb, sub, lane, vals_hi, vals_lo, z,
-      y_hi, y_lo);
+  if (!k3_args_ok(n_pad, width, col, vals_hi) ||
+      (uintptr_t)vals_lo % 16 != 0)
+    return cudaErrorInvalidValue;
+  constexpr int R = MBT_K3_ROWS_F64;
+  bfly_k3_df_kernel<R><<<mbt_grid(n_pad / R), MBT_BLOCK, 0, stream>>>(
+      n_pad, width / MBT_BFLY_SUB, col, vals_hi, vals_lo, x, y_hi, y_lo);
   return cudaGetLastError();
 }
 

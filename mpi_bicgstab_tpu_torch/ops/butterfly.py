@@ -3,9 +3,9 @@ permutation, such as uniform random sparse operators (counterpart of
 mpi_bicgstab_tpu/ops/butterfly.py; the same CSR and seed give the same
 arrays, so a layout built by either package runs in the other).
 
-An SpMV over it factors the arbitrary gather of x into three stages
-whose gathers stay inside 1024-element windows, around two element
-transposes (ops/butterfly_spmv.py):
+The JAX package's SpMV over it factors the arbitrary gather of x into
+three stages whose gathers stay inside 1024-element windows, around two
+element transposes:
 
   x --K1--> u1 [P,1024] --T1--> mid [P,1024] --K2--> z1 --T2--> z --K3--> y
 
@@ -28,6 +28,12 @@ lane of a [8, 128] window: slot (i, j) reads window element
 sub[i, lam] * 128 + lam with lam = lane[i, j] (the sublane table is
 indexed by the source lane: the form the TPU's chained gathers need).
 
+The route does not depend on x, so the port runs it once per layout:
+the column table k3_col (ops/butterfly_spmv.column_table, derived when
+the layout is constructed, never part of the JAX arrays) names the
+column of x each K3 slot reads, and an SpMV on the card is one K3 launch
+over x and the tail (ops/butterfly_spmv.py).
+
 Routing (host, once per matrix): an element bound for destination (d,
 m_lo) has m_hi = d mod G and q = d div G fixed; the assigner picks its u1
 window and its middle window under the slot and lane uniqueness rules
@@ -47,7 +53,8 @@ import numpy as np
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import native_route
-from mpi_bicgstab_tpu_torch.ops.dia import host_dtype, is_df32
+from mpi_bicgstab_tpu_torch.ops.dia import (LayoutRefused, host_dtype,
+                                            is_df32)
 from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, is_df
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -71,6 +78,11 @@ class ButterflyMatrix:
              lane within the row tile; the [W, n_pad] form reshaped
     k3_lane: int8 [W//8, 8, NR, 128]: the slot's lane
     k3_vals: [W//8, 8, NR, 128] values (a DF pair for df32)
+    k3_col:  int32 [W//8, 8, NR, 128]: the column of x the slot reads
+             through K1, T1, K2, T2 (-1: K1's zero past the last column);
+             derived: every construction (dataclasses.replace too) routes
+             it from the tables above, on their device (on the card one K1
+             and one K2 launch)
     tail_rows, tail_cols: int32 [L, cap]; tail_vals [L, cap]: the spill
     rb: output rows per destination window (64, 32 or 16)
     n_pad: rows padded to a multiple of 2048; nc_pad: columns to 1024
@@ -97,6 +109,11 @@ class ButterflyMatrix:
     P: int
     nnz: int
     tail_n: int
+    k3_col: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        from mpi_bicgstab_tpu_torch.ops.butterfly_spmv import column_table
+        object.__setattr__(self, "k3_col", column_table(self))
 
     @property
     def G(self) -> int:
@@ -170,7 +187,7 @@ def _window_table(k_s, G: int):
             break
         g[order[over]] = (gs[over] + 1) % G
     else:
-        raise ValueError("u1 window placement overflow")
+        raise LayoutRefused("u1 window placement overflow")
     win_a = np.full((Ts, max_k), -1, np.int64)
     win_a[pair_s, pair_j] = g * WIN + rank
     return win_a
@@ -230,12 +247,13 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
                     max_tail_frac: float = 0.005,
                     device="cuda") -> ButterflyMatrix:
     """Route csr (square or rectangular) and build the layout on
-    `device`; ValueError when it is not routable (a row wider than
-    max_width, a block whose distinct columns overflow a window, or a
-    spill above max_tail_frac of the nonzeros). The destination block's
-    row count rb adapts (64 -> 32 -> 16) until every block's distinct
-    columns fit a window at <= 0.55 load. dtype: float32, float64 (the
-    CSR's by default) or "df32" (DF pairs split from float64)."""
+    `device`; LayoutRefused (a ValueError) when it is not routable (a row
+    wider than max_width, a block whose distinct columns overflow a
+    window, or a spill above max_tail_frac of the nonzeros). The
+    destination block's row count rb adapts (64 -> 32 -> 16) until every
+    block's distinct columns fit a window at <= 0.55 load. dtype:
+    float32, float64 (the CSR's by default) or "df32" (DF pairs split
+    from float64)."""
     dev = resolve_device(device)
     vals_dtype = host_dtype(dtype, csr.val.dtype)
     n, n_cols = csr.shape
@@ -244,7 +262,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     lengths = csr.row_lengths
     W = int(lengths.max()) if n else 0
     if W == 0 or W > max_width:
-        raise ValueError(f"row width {W} outside (0, {max_width}]")
+        raise LayoutRefused(f"row width {W} outside (0, {max_width}]")
 
     rows = np.repeat(np.arange(n, dtype=np.int64), lengths)
     cols = csr.col.astype(np.int64)
@@ -259,7 +277,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
             break
     else:
         if per_blk.max() > WIN:
-            raise ValueError(
+            raise LayoutRefused(
                 f"a {rb}-row block needs {int(per_blk.max())} distinct "
                 f"columns (> {WIN}): not butterfly-routable")
 
@@ -267,7 +285,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
                                          n_pad // rb)
     G = P // WIN
     if (~ok).sum() > max_tail_frac * max(u_blk.size, 1):
-        raise ValueError(f"routing spill {int((~ok).sum())}/{u_blk.size} "
+        raise LayoutRefused(f"routing spill {int((~ok).sum())}/{u_blk.size} "
                          f"exceeds {max_tail_frac:.1%}")
 
     # K1: the lane table at the OUTPUT slot, the sublane table at the
@@ -333,7 +351,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     t_vals = np.concatenate([vals[~entry_ok], v_all[~placed]])
     tail_n = int(t_rows.size)
     if tail_n > max_tail_frac * max(csr.nnz, 1):
-        raise ValueError(
+        raise LayoutRefused(
             f"total spill {tail_n}/{csr.nnz} exceeds {max_tail_frac:.1%}")
     tail_rows, tail_cols, tail_vals = _tail_levels(t_rows, t_cols, t_vals,
                                                    vals_dtype)
@@ -360,7 +378,7 @@ def butterfly_with_values(A: ButterflyMatrix, dtype,
     (float32, float64, or "df32" pairs split from float64) on `device`:
     what build_butterfly(csr, dtype=dtype) builds from A's CSR (the
     routing does not depend on the value type), without a second
-    routing."""
+    routing. The column table is routed anew on `device`."""
     dev = resolve_device(device)
     if is_df(A.k3_vals) or A.k3_vals.dtype != torch.float64:
         raise TypeError("butterfly_with_values takes float64 values")

@@ -2,15 +2,19 @@
 mpi_bicgstab_tpu/ops/pallas_butterfly.py: butterfly_spmv,
 butterfly_spmv_df, the pipelines _pipeline / _pipeline_df).
 
+The JAX pipeline routes x on every SpMV:
+
     x --K1--> u1 --T1--> mid --K2--> z1 --T2--> z --K3--> y (+ the tail)
 
-K1, K2 and K3 are CUDA kernels on the card (ops/cuda_butterfly.py,
-csrc/butterfly.cu) and the plain twins below on the CPU; T1 and T2 are
-PyTorch transposes on both (XLA code in the JAX package too). A DF
-vector is routed as one vector of 8-byte elements, each its (hi, lo)
-pair (pack_df): the movement copies bits, so both planes arrive exact in
-one pass through K1, T1, K2 and T2 (JAX routes the planes one after the
-other); K3's DF form multiplies and accumulates.
+Every element of z is one column of x (or K1's zero past the last
+column), whatever x holds, so the port routes once per layout, not once
+per SpMV: column_table sends the int32 iota 1..n_cols through K1, T1,
+K2 and T2 (the b32 kernels on the card, the twins below on the CPU; T1
+and T2 are PyTorch transposes), subtracts 1 and gathers each K3 slot's
+element, giving ButterflyMatrix.k3_col, the column of x each slot reads
+(-1 for K1's zero). An SpMV is then one K3 launch over x (ops/
+cuda_butterfly.py, csrc/butterfly.cu) and the leveled tail: the same
+bits as the routed pipeline, since routing only copies them.
 
 The twins compute what the kernels compute, operation for operation:
 
@@ -18,13 +22,17 @@ The twins compute what the kernels compute, operation for operation:
   lam = k1_lane[a, i, j], 0 for a column >= n_cols (the JAX pipeline's
   zero-padded x).
 - K2: z1[m, i, j] = mid[m, k2_sub[m, i, lam], lam], lam = k2_lane[m, i, j].
-- K3: output row r = R * 128 + j reads, in slab w, the z element
-  ((R * F + j // rb) * 8 + (s & 7)) * 128 + lam of its row tile's stacked
-  windows, lam = k3_lane[w, r], s = k3_sub[w, R, lam] (the Pallas 'lane'
-  form); accumulator w % 8 adds v * xg chunk by chunk (rounded product,
-  rounded sum), then the 8 sums combine by halving, a[i] + a[i + h] for
-  h = 4, 2, 1. DF: acc = df_fma(acc, v, xg) and the compensated halving
-  of pallas_butterfly.py:342-352, the pair left unnormalised.
+- K3's slot (w, r): output row r = R * 128 + j read, in slab w, the z
+  element ((R * F + j // rb) * 8 + (s & 7)) * 128 + lam of its row tile's
+  stacked windows, lam = k3_lane[w, r], s = k3_sub[w, R, lam] (the Pallas
+  'lane' form): k3_col[w, r] is that element's column.
+- K3: xg = x[k3_col[w, r]] (+0 for -1); accumulator w % 8 adds v * xg
+  chunk by chunk (rounded product, rounded sum, the product formed for
+  every slot, padding included, so that NaN, inf and the sign of zero
+  come out as the routed pipeline gives them), then the 8 sums combine by
+  halving, a[i] + a[i + h] for h = 4, 2, 1. DF: acc = df_fma(acc, v, xg)
+  and the compensated halving of pallas_butterfly.py:342-352, the pair
+  left unnormalised.
 
 The tail (ops/butterfly.py) goes level by level: within a level a real
 row appears at most once and the padding entries (row 0, value 0) add
@@ -83,7 +91,7 @@ def transpose(A, u: torch.Tensor) -> torch.Tensor:
     return u.view(A.P, WIN).t().contiguous().view(-1)
 
 
-def _k3_elem(A, c: int) -> torch.Tensor:
+def k3_elem(A, c: int) -> torch.Tensor:
     """Flat [8 * NR * 128] int32: the z element each row reads in the
     slabs of chunk c (module doc)."""
     NR = A.n_pad // LANES
@@ -96,40 +104,38 @@ def _k3_elem(A, c: int) -> torch.Tensor:
     return e.add_(lam.view(SUB, NR, LANES)).view(-1)
 
 
-def k3_plain(A, z: torch.Tensor) -> torch.Tensor:
-    """K3's twin (float32 / float64): y [n_pad] from the routed z."""
-    C, NR = A.width // SUB, A.n_pad // LANES
-    acc = z.new_zeros(SUB, NR, LANES)
-    for c in range(C):
-        acc = acc + A.k3_vals[c] * z.index_select(0, _k3_elem(A, c)).view(
-            SUB, NR, LANES)
+def _zero_padded(x: torch.Tensor) -> torch.Tensor:
+    """x with one +0 appended, the element a -1 column reads."""
+    return torch.cat((x, x.new_zeros(1)))
+
+
+def _gather(xz: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """xz[col] (xz zero-padded; -1 reads its last element), in col's
+    shape."""
+    idx = torch.where(col < 0, xz.shape[0] - 1, col).view(-1)
+    return xz.index_select(0, idx).view(col.shape)
+
+
+def k3_plain(A, x: torch.Tensor) -> torch.Tensor:
+    """K3's twin (float32 / float64): the slab part of y [n_pad] from x
+    [n_cols], read through A.k3_col."""
+    xz = _zero_padded(x)
+    acc = x.new_zeros(A.k3_col.shape[1:])
+    for c in range(A.width // SUB):
+        acc = acc + A.k3_vals[c] * _gather(xz, A.k3_col[c])
     for h in (4, 2, 1):
         acc = acc[:h] + acc[h:2 * h]
     return acc[0].reshape(-1)
 
 
-def pack_df(x: DF) -> torch.Tensor:
-    """x's (hi, lo) pairs as one int64 [n] vector (the bits of each pair
-    side by side, hi first)."""
-    return torch.stack((x.hi, x.lo), dim=-1).view(torch.int64).view(-1)
-
-
-def unpack_df(z: torch.Tensor):
-    """The (hi, lo) float32 planes of packed pairs (strided views)."""
-    zf = z.view(torch.float32).view(-1, 2)
-    return zf[:, 0], zf[:, 1]
-
-
-def k3_df_plain(A, z: torch.Tensor) -> DF:
-    """K3's DF twin: the pair y [n_pad] from the routed packed pairs."""
-    zh, zl = unpack_df(z)
-    C, NR = A.width // SUB, A.n_pad // LANES
-    acc = df_zeros((SUB, NR, LANES), zh.device)
-    for c in range(C):
-        e = _k3_elem(A, c)
+def k3_df_plain(A, x: DF) -> DF:
+    """K3's DF twin: the slab part of the pair y [n_pad] from x [n_cols]."""
+    xh, xl = _zero_padded(x.hi), _zero_padded(x.lo)
+    acc = df_zeros(A.k3_col.shape[1:], x.hi.device)
+    for c in range(A.width // SUB):
+        col = A.k3_col[c]
         acc = df_fma(acc, A.k3_vals[c],
-                     DF(zh.index_select(0, e).view(SUB, NR, LANES),
-                        zl.index_select(0, e).view(SUB, NR, LANES)))
+                     DF(_gather(xh, col), _gather(xl, col)))
     p, lo = acc.hi, acc.lo
     for h in (4, 2, 1):
         s, err = two_sum(p[:h], p[h:2 * h])
@@ -154,11 +160,23 @@ def route(A, x: torch.Tensor) -> torch.Tensor:
     return transpose(A, k2(A, transpose(A, k1(A, x))))
 
 
+def column_table(A) -> torch.Tensor:
+    """k3_col, int32 [W//8, 8, NR, 128] on A's device: the column of x
+    each K3 slot reads, -1 where the routed z holds K1's zero (a column
+    >= n_cols). The iota 1..n_cols routed (K1 and K2 launched once each on
+    the card), less 1, gathered at each slot's z element."""
+    iota = torch.arange(1, A.n_cols + 1, dtype=torch.int32,
+                        device=A.device)
+    zcol = route(A, iota).sub_(1)
+    return torch.stack([zcol.index_select(0, k3_elem(A, c))
+                        for c in range(A.width // SUB)]).view(
+        A.k3_lane.shape)
+
+
 def butterfly_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A x [n_pad] for float32 / float64 values; x: [n_cols]."""
     x = x.to(A.k3_vals.dtype)
-    z = route(A, x)
-    y = cbf.butterfly_k3(A, z) if _cuda(z) else k3_plain(A, z)
+    y = cbf.butterfly_k3(A, x) if _cuda(x) else k3_plain(A, x)
     if A.tail_n:
         for lvl in range(A.tail_rows.shape[0]):
             y.index_add_(0, A.tail_rows[lvl],
@@ -168,8 +186,7 @@ def butterfly_spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 def butterfly_spmv_df(A, x: DF) -> DF:
     """Double-float y = A x [n_pad] (A.k3_vals and x DF pairs)."""
-    z = route(A, pack_df(x))
-    y = cbf.butterfly_k3_df(A, z) if _cuda(z) else k3_df_plain(A, z)
+    y = cbf.butterfly_k3_df(A, x) if _cuda(x.hi) else k3_df_plain(A, x)
     if A.tail_n:
         tv = A.tail_vals
         for lvl in range(A.tail_rows.shape[0]):

@@ -3,14 +3,15 @@ counterpart of the Pallas kernels of mpi_bicgstab_tpu/ops/
 pallas_butterfly.py).
 
 `butterfly_k1(A, x)` and `butterfly_k2(A, mid)` route a vector of 4- or
-8-byte elements (float32, float64, or int64: a DF vector's (hi, lo) pairs
-packed by ops/butterfly_spmv.pack_df, so both planes move in one launch);
-`butterfly_k3(A, z)` (float32, float64) and `butterfly_k3_df(A, z)` (DF
-values, z the packed pairs) multiply the routed vector by the slab
-values. Each `.launches`
-counts its launches. They take CUDA tensors only and raise on anything
-the kernel does not take: ops/butterfly_spmv.py routes CPU tensors to the
-plain twins and runs the transposes and the tail.
+8-byte elements (int32, float32, float64, or int64: any element's bits);
+the layout's column table is the int32 iota routed through them once
+(ops/butterfly_spmv.column_table). `butterfly_k3(A, x)` (float32,
+float64) and `butterfly_k3_df(A, x)` (DF values and x) multiply x,
+gathered through A.k3_col, by the slab values: one launch per SpMV
+(a thread owns 1 row in float32, 2 in float64 and DF: csrc/butterfly.cu).
+Each `.launches` counts its launches. They take CUDA tensors only and
+raise on anything the kernel does not take: ops/butterfly_spmv.py sends
+CPU tensors to the plain twins and runs the transposes and the tail.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ _P = ctypes.c_void_p
 _LL, _I = ctypes.c_longlong, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # K1 and K2 move bits: the element size picks the kernel
-_MOVE = {torch.float32: "b32", torch.float64: "b64", torch.int64: "b64"}
+_MOVE = {torch.int32: "b32", torch.float32: "b32", torch.float64: "b64",
+         torch.int64: "b64"}
 
 
 @functools.cache
@@ -37,9 +39,9 @@ def _lib() -> ctypes.CDLL:
                            ("k1_b64", [_LL, _LL] + [_P] * 6),
                            ("k2_b32", [_LL] + [_P] * 5),
                            ("k2_b64", [_LL] + [_P] * 5),
-                           ("k3_f32", [_LL, _I, _I] + [_P] * 6),
-                           ("k3_f64", [_LL, _I, _I] + [_P] * 6),
-                           ("k3_df", [_LL, _I, _I] + [_P] * 8)):
+                           ("k3_f32", [_LL, _I] + [_P] * 5),
+                           ("k3_f64", [_LL, _I] + [_P] * 5),
+                           ("k3_df", [_LL, _I] + [_P] * 7)):
         fn = getattr(lib, f"mbt_bfly_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -108,35 +110,31 @@ def butterfly_k2(A, mid: torch.Tensor) -> torch.Tensor:
 butterfly_k2.launches = 0
 
 
-def _k3_tables(what: str, A, vals_halves, z_halves) -> None:
-    """The slab tables [W//8, 8, NR, 128] and z [P * 1024] (covering every
-    row tile's stacked windows) as the kernel takes them."""
+def _k3_tables(what: str, A, x_halves, vals_halves) -> None:
+    """The column table and the values [W//8, 8, NR, 128], x [n_cols], as
+    the kernel takes them."""
     shape = (A.width // 8, 8, A.n_pad // 128, 128)
-    for name, t in (("k3_sub", A.k3_sub), ("k3_lane", A.k3_lane),
-                    *vals_halves):
+    for name, t in (("k3_col", A.k3_col), *vals_halves):
         _shape(what, name, t, shape)
-    for name, t in z_halves:
-        _shape(what, name, t, (A.P * 1024,))
-    if A.n_pad // A.rb > A.P:
-        raise ValueError(f"{what}: {A.n_pad // A.rb} destination windows "
-                         f"but P = {A.P}")
-    check_cuda(what, torch.int8, k3_sub=A.k3_sub, k3_lane=A.k3_lane)
+    for name, t in x_halves:
+        _shape(what, name, t, (A.n_cols,))
+    check_cuda(what, torch.int32, k3_col=A.k3_col)
 
 
-def butterfly_k3(A, z: torch.Tensor) -> torch.Tensor:
-    """y [n_pad] = the slab part of A x from the routed vector z (float32
-    or float64 values and z of the same dtype), on the card."""
+def butterfly_k3(A, x: torch.Tensor) -> torch.Tensor:
+    """y [n_pad] = the slab part of A x (float32 or float64 values and x
+    [n_cols] of the same dtype), on the card."""
     what = "butterfly_k3"
     if is_df(A.k3_vals):
         raise TypeError(f"{what}: DF values take butterfly_k3_df")
-    sfx = _kind(what, z, _SUFFIX)
-    _k3_tables(what, A, (("k3_vals", A.k3_vals),), (("z", z),))
-    check_cuda(what, z.dtype, k3_vals=A.k3_vals, z=z)
-    y = z.new_empty(A.n_pad)
+    sfx = _kind(what, x, _SUFFIX)
+    _k3_tables(what, A, (("x", x),), (("k3_vals", A.k3_vals),))
+    check_cuda(what, x.dtype, k3_vals=A.k3_vals, x=x)
+    y = x.new_empty(A.n_pad)
     lib = _lib()
     err = getattr(lib, f"mbt_bfly_k3_{sfx}")(
-        A.n_pad, A.width, A.rb, A.k3_sub.data_ptr(), A.k3_lane.data_ptr(),
-        A.k3_vals.data_ptr(), z.data_ptr(), y.data_ptr(), stream_arg())
+        A.n_pad, A.width, A.k3_col.data_ptr(), A.k3_vals.data_ptr(),
+        x.data_ptr(), y.data_ptr(), stream_arg())
     _build.check(lib, err, what)
     butterfly_k3.launches += 1
     return y
@@ -145,24 +143,27 @@ def butterfly_k3(A, z: torch.Tensor) -> torch.Tensor:
 butterfly_k3.launches = 0
 
 
-def butterfly_k3_df(A, z: torch.Tensor) -> DF:
-    """The DF slab part of A x [n_pad] from the routed pairs z (int64
-    [P * 1024], each a packed (hi, lo); A.k3_vals a DF pair), on the
-    card; bit-equal to its twin."""
+def butterfly_k3_df(A, x: DF) -> DF:
+    """The DF slab part of A x [n_pad] (A.k3_vals and x [n_cols] DF
+    pairs), on the card; x's pairs are packed side by side (one 8-byte
+    gather a slot) before the launch. Bit-equal to its twin."""
     what = "butterfly_k3_df"
     if not is_df(A.k3_vals):
         raise TypeError(f"{what}: A.k3_vals must be a DF pair")
+    if not is_df(x):
+        raise TypeError(f"{what}: x must be a DF pair")
     v = A.k3_vals
-    _k3_tables(what, A, (("k3_vals.hi", v.hi), ("k3_vals.lo", v.lo)),
-               (("z", z),))
-    check_cuda(what, torch.float32, vals_hi=v.hi, vals_lo=v.lo)
-    check_cuda(what, torch.int64, z=z)
+    _k3_tables(what, A, (("x.hi", x.hi), ("x.lo", x.lo)),
+               (("k3_vals.hi", v.hi), ("k3_vals.lo", v.lo)))
+    packed = torch.stack((x.hi, x.lo), dim=-1)
+    check_cuda(what, torch.float32, vals_hi=v.hi, vals_lo=v.lo,
+               x_packed=packed)
     y = DF(v.hi.new_empty(A.n_pad), v.hi.new_empty(A.n_pad))
     lib = _lib()
     err = lib.mbt_bfly_k3_df(
-        A.n_pad, A.width, A.rb, A.k3_sub.data_ptr(), A.k3_lane.data_ptr(),
-        v.hi.data_ptr(), v.lo.data_ptr(), z.data_ptr(), y.hi.data_ptr(),
-        y.lo.data_ptr(), stream_arg())
+        A.n_pad, A.width, A.k3_col.data_ptr(), v.hi.data_ptr(),
+        v.lo.data_ptr(), packed.data_ptr(), y.hi.data_ptr(), y.lo.data_ptr(),
+        stream_arg())
     _build.check(lib, err, what)
     butterfly_k3_df.launches += 1
     return y

@@ -55,6 +55,13 @@ def is_df32(dtype) -> bool:
     return isinstance(dtype, str) and dtype == "df32"
 
 
+class LayoutRefused(ValueError):
+    """A layout's builder cannot take this matrix (windowed-ELL: a row
+    with more tail entries than levels; butterfly: a row too wide, a row
+    block with too many columns, too much spill): build_operator's 'auto'
+    goes on to the next layout (ops/layout.FALL_THROUGH)."""
+
+
 def host_dtype(dtype, default) -> np.dtype:
     """NumPy dtype for host-side assembly: the torch/NumPy/str `dtype`,
     or `default` (the CSR's value dtype) when dtype is None; float64 for

@@ -23,8 +23,9 @@ from mpi_bicgstab_tpu_torch.ops.butterfly import (ButterflyMatrix,
 from mpi_bicgstab_tpu_torch.ops.butterfly_spmv import (butterfly_spmv,
                                                        butterfly_spmv_df)
 from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator, precond_spmv
-from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, analyze_diagonals,
-                                            csr_to_dia, dia_spmv)
+from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, LayoutRefused,
+                                            analyze_diagonals, csr_to_dia,
+                                            dia_spmv)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
 from mpi_bicgstab_tpu_torch.ops.precision import DF, df_add, is_df
 from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
@@ -64,7 +65,9 @@ class HybridMatrix:
 # 'auto''s fall-through when a build refuses the matrix (JAX
 # ops/layout.py:120-130): a windowed-ELL build whose hub rows overflow the
 # tail levels goes on to butterfly, a butterfly build that cannot route
-# the matrix (wide rows, dense blocks) to gather-ELL
+# the matrix (wide rows, dense blocks) to gather-ELL. Only the refusal
+# (LayoutRefused) falls through: any other error, such as a kernel's from
+# the column table's build on the card, is raised.
 FALL_THROUGH = {"window": "butterfly", "butterfly": "ell"}
 _BUILDERS = {"window": csr_to_window_ell, "butterfly": build_butterfly}
 
@@ -95,7 +98,7 @@ def build_operator(csr, format: str = "auto", dtype=None,
     while route in FALL_THROUGH:
         try:
             return _BUILDERS[route](csr, dtype=dtype, device=device)
-        except ValueError:
+        except LayoutRefused:
             if format != "auto":
                 raise
             route = FALL_THROUGH[route]

@@ -32,7 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpi_bicgstab_tpu_torch.ops.dia import host_dtype, is_df32
+from mpi_bicgstab_tpu_torch.ops.dia import (LayoutRefused, host_dtype,
+                                            is_df32)
 from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -155,8 +156,8 @@ def _edge_color(group, row_slot, lane_cls, eligible, max_width):
 
 def _tail_levels(rows, cols, vals, spill, n, vals_dtype):
     """The spilled entries as [L, cap] levels by duplicate rank within
-    their row, and each level's count. Raises ValueError when a row
-    spills more than MAX_TAIL_LEVELS entries."""
+    their row, and each level's count. Raises LayoutRefused (a
+    ValueError) when a row spills more than MAX_TAIL_LEVELS entries."""
     sp_rows = rows[spill]
     order = np.argsort(sp_rows, kind="stable")
     rs = sp_rows[order]
@@ -167,7 +168,7 @@ def _tail_levels(rows, cols, vals, spill, n, vals_dtype):
     rank = np.arange(rs.size) - starts[gid]
     n_levels = int(rank.max()) + 1 if rank.size else 0
     if n_levels > MAX_TAIL_LEVELS:
-        raise ValueError(
+        raise LayoutRefused(
             f"a row has {n_levels} tail entries (> {MAX_TAIL_LEVELS}): "
             "too little window locality for this layout (use gather-ELL, "
             "format='ell')")
@@ -286,8 +287,8 @@ def window_ell_with_values(A: WindowEllMatrix, dtype,
 
 def window_ell_stats(csr) -> dict:
     """The fraction of nonzeros inside their tile's window (the 'auto'
-    route's test; over-width spill is caught by the build's ValueError
-    in ops/layout.py)."""
+    route's test; over-width spill is caught by the build's
+    LayoutRefused in ops/layout.py)."""
     n = csr.nrows
     n_tiles = -(-n // ROWS_PER_TILE)
     bases = _choose_windows(csr, n_tiles)

@@ -23,6 +23,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -263,8 +264,8 @@ def test_k1_k2_twins_equal_jax_kernels(dtype, tables, monkeypatch):
     mid = np.random.default_rng(1).standard_normal(nw * 1024).astype(npd)
     z1j = jpb._k2(jnp.asarray(mid.reshape(nw, 8, 128)), sl["k2_sub"],
                   sl["k2_lane"], interpret=True)
-    sub = dataclasses.replace(A, P=nw, k2_sub=A.k2_sub[:nw],
-                              k2_lane=A.k2_lane[:nw])
+    sub = types.SimpleNamespace(P=nw, k2_sub=A.k2_sub[:nw],    # K2's reads
+                                k2_lane=A.k2_lane[:nw])
     np.testing.assert_array_equal(
         tbs.k2_plain(sub, torch.as_tensor(mid)).numpy(),
         np.asarray(z1j).reshape(-1))
@@ -273,11 +274,27 @@ def test_k1_k2_twins_equal_jax_kernels(dtype, tables, monkeypatch):
 K3_TILES = 3        # row tiles handed to JAX's K3 (from tile 5 on)
 
 
+def _xla_route(A, xp):
+    """JAX's z for the zero-padded x [nc_pad]: the routing lines of its
+    XLA form (mpi_bicgstab_tpu/ops/butterfly.py butterfly_spmv_xla), on
+    A's tables (equal to JAX's)."""
+    t = {k: jnp.asarray(getattr(A, k).numpy()) for k in
+         ("k1_src", "k1_sub", "k1_lane", "k2_sub", "k2_lane")}
+    win = jnp.asarray(xp).reshape(A.nc_pad // 1024, 8, 128)[t["k1_src"]]
+    t1 = jnp.take_along_axis(win, t["k1_sub"].astype(jnp.int32), axis=1)
+    u1 = jnp.take_along_axis(t1, t["k1_lane"].astype(jnp.int32), axis=2)
+    mid = u1.reshape(A.P, 1024).T.reshape(A.P, 8, 128)
+    t2 = jnp.take_along_axis(mid, t["k2_sub"].astype(jnp.int32), axis=1)
+    z1 = jnp.take_along_axis(t2, t["k2_lane"].astype(jnp.int32), axis=2)
+    return z1.reshape(A.P, 1024).T.reshape(-1)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64", "df32"])
 @pytest.mark.parametrize("case", ["4096", "20480_rb32"])
 def test_k3_twins_match_jax_kernels(case, dtype, monkeypatch):
-    """K3's twins against JAX's _k3 / _k3_df (interpret mode, one row tile
-    per grid step) on K3_TILES row tiles, z routed from a random x."""
+    """K3's twins on x (through the column table) against JAX's _k3 /
+    _k3_df (interpret mode, one row tile per grid step) on K3_TILES row
+    tiles of z routed from the same random x by JAX's XLA routing."""
     monkeypatch.setattr(jpb, "_tb_rows", lambda NR: 1)
     t, j = LAYOUT_CASES[case]()
     A, _ = _layout(t, j, dtype)
@@ -288,24 +305,25 @@ def test_k3_twins_match_jax_kernels(case, dtype, monkeypatch):
     tiles = (slice(None), slice(None), slice(r0, r0 + K3_TILES))
     sub, lane = (jnp.asarray(getattr(A, k)[tiles].numpy())
                  for k in ("k3_sub", "k3_lane"))
+
+    def z_tiles(v):
+        xp = np.zeros(A.nc_pad, v.dtype)
+        xp[: A.n_cols] = v
+        return _xla_route(A, xp)[zs].reshape(-1, 128)
     if dtype == "df32":
-        z = tbs.route(A, tbs.pack_df(df_from_f64(x)))
-        zh, zl = tbs.unpack_df(z)
-        yt = df_to_f64(tbs.k3_df_plain(A, z))[ys]
+        xt = df_from_f64(x)
+        yt = df_to_f64(tbs.k3_df_plain(A, xt))[ys]
         v = A.k3_vals
-        yj = jpb._k3_df(*(jnp.asarray(z[zs].numpy().reshape(-1, 128))
-                          for z in (zh, zl)), sub, lane,
-                        JDF(jnp.asarray(v.hi[tiles].numpy()),
-                            jnp.asarray(v.lo[tiles].numpy())),
+        yj = jpb._k3_df(z_tiles(xt.hi.numpy()), z_tiles(xt.lo.numpy()), sub,
+                        lane, JDF(jnp.asarray(v.hi[tiles].numpy()),
+                                  jnp.asarray(v.lo[tiles].numpy())),
                         F=F, interpret=True)
         yj = np.asarray(yj[0], np.float64) + np.asarray(yj[1], np.float64)
         tol = 1e-10
     else:
         xt = torch.as_tensor(x, dtype=getattr(torch, dtype))
-        z = tbs.route(A, xt)
-        yt = tbs.k3_plain(A, z).double().numpy()[ys]
-        yj = np.asarray(jpb._k3(jnp.asarray(z[zs].numpy().reshape(-1, 128)),
-                                sub, lane,
+        yt = tbs.k3_plain(A, xt).double().numpy()[ys]
+        yj = np.asarray(jpb._k3(z_tiles(xt.numpy()), sub, lane,
                                 jnp.asarray(A.k3_vals[tiles].numpy()), F=F,
                                 interpret=True), np.float64)
         tol = 1e-6 if dtype == "float32" else 1e-12
@@ -538,11 +556,14 @@ N_SMOKE = 4000      # padded to 4096 rows, as uniform:1602112 is
                                    "butterfly_df32", "butterfly_pipe_df32"])
 def test_chip_smoke_butterfly_phases_on_cpu(phase):
     """chip_smoke's butterfly phases at a small size on the CPU (the twins,
-    no launches): the whole float64 SpMV against the CSR product,
+    no launches): the column tables, K3 against the routed pipeline on x
+    with NaN and inf, the whole float64 SpMV against the CSR product,
     converged, within 2 iterations of gather-ELL."""
     smoke = _chip_smoke()
     csr = smoke.uniform_csr(N_SMOKE)
     inp = smoke.butterfly_inputs(csr, device="cpu")
+    smoke.check_column_tables(inp)
+    smoke.check_butterfly_staged(inp)
     assert smoke.check_butterfly_spmv(inp) <= 1e-12
     probs = smoke.butterfly_problems(inp, device="cpu")
     if phase == "butterfly":
@@ -554,25 +575,25 @@ def test_chip_smoke_butterfly_phases_on_cpu(phase):
 
 
 def test_chip_smoke_butterfly_work_counts_the_stage_bytes():
-    """butterfly_work at a small size: K1's tables, k1_src, x and u1; K2's
-    tables, mid and z1; K3's slab tables, the z windows its rows read and
-    y; the whole SpMV adds the two transposes and the tail."""
+    """butterfly_work at a small size: K1's tables, k1_src, x and u1 (4-
+    or 8-byte elements); K2's tables, mid and z1; K3's column table and
+    values, x and y; the whole SpMV adds the tail."""
     smoke = _chip_smoke()
     inp = smoke.butterfly_inputs(smoke.uniform_csr(N_SMOKE), device="cpu")
     B, held = inp["B32"], inp["b_csr"].nnz - inp["B32"].tail_n
-    S = B.P * 1024
-    k1, f1, _ = smoke.butterfly_work("butterfly_k1_f32", inp)
+    S, slots = B.P * 1024, B.width * B.n_pad
+    k1, f1, _ = smoke.butterfly_work("butterfly_k1", inp)
     assert (k1, f1) == (2 * S + 4 * B.P + 4 * B.n_cols + 4 * S, 0)
-    assert smoke.butterfly_work("butterfly_k2_df", inp)[:2] == (18 * S, 0)
+    assert smoke.butterfly_work("butterfly_k2_b64", inp)[:2] == (18 * S, 0)
     k3, f3, dt = smoke.butterfly_work("butterfly_k3_f64", inp)
     assert dt == "float64" and f3 == 2 * held
-    assert k3 == 10 * B.width * B.n_pad + 8 * (B.n_pad // B.rb) * 1024 \
-        + 8 * B.n_pad
+    assert k3 == 12 * slots + 8 * B.n_cols + 8 * B.n_pad
+    assert smoke.butterfly_work("butterfly_k3_f32", inp)[0] \
+        == 8 * slots + 4 * B.n_cols + 4 * B.n_pad
     assert smoke.butterfly_work("butterfly_k3_df", inp)[1] == 18 * held
     whole = smoke.butterfly_work("butterfly_spmv_f32", inp)[0]
-    parts = sum(smoke.butterfly_work(f"butterfly_k{i}_f32", inp)[0]
-                for i in (1, 2, 3))
-    assert whole == parts + 2 * 2 * 4 * S + B.tail_n * 24
+    parts = smoke.butterfly_work("butterfly_k3_f32", inp)[0]
+    assert whole == parts + B.tail_n * 24
 
 
 def test_chip_smoke_butterfly_launch_rule():
@@ -581,25 +602,32 @@ def test_chip_smoke_butterfly_launch_rule():
                           "butterfly_k3_df", "dia_spmv", "fused_body_a",
                           "fused_body_b"), 0)
     check = smoke.check_butterfly_counts
-    route = {"butterfly_k1": 22, "butterfly_k2": 22}
-    # classic, 10 iterations in one segment: 2 per iteration + r0 + true
-    check("rule", "bicgstab", "float32", 10,
-          {**zero, **route, "butterfly_k3": 22}, restarts=2)
-    check("rule", "bicgstab", "df32", 10,
-          {**zero, **route, "butterfly_k3_df": 22}, restarts=2)
-    check("rule", "pipe_bicgstab", "df32", 10,
-          {**zero, "butterfly_k1": 24, "butterfly_k2": 24,
-           "butterfly_k3_df": 24, "fused_body_a": 10, "fused_body_b": 10},
+    built = {"butterfly_k1": 1, "butterfly_k2": 1}
+    # classic, 10 iterations in one segment: 2 per iteration + r0 + true;
+    # the layout built before the count, then inside it (the CLI run)
+    check("rule", "bicgstab", "float32", 10, {**zero, "butterfly_k3": 22},
           restarts=2)
+    check("rule", "bicgstab", "float32", 10,
+          {**zero, **built, "butterfly_k3": 22}, restarts=2, layouts=1)
+    check("rule", "bicgstab", "df32", 10, {**zero, "butterfly_k3_df": 22},
+          restarts=2)
+    check("rule", "pipe_bicgstab", "df32", 10,
+          {**zero, "butterfly_k3_df": 24, "fused_body_a": 10,
+           "fused_body_b": 10}, restarts=2)
     check("rule", "bicgstab", "float32", 10, zero, restarts=2, device="cpu")
-    for bad in ({**zero, **route, "butterfly_k3": 22, "butterfly_k1": 21},
-                {**zero, **route, "butterfly_k3_df": 22},
-                {**zero, **route, "butterfly_k3": 22, "dia_spmv": 1},
-                {**zero, "butterfly_k1": 30, "butterfly_k2": 30,
-                 "butterfly_k3": 30}):
+    check("rule", "bicgstab", "float32", 10, zero, restarts=2, device="cpu",
+          layouts=1)
+    for bad, layouts in (
+            ({**zero, **built, "butterfly_k3": 22}, 0),   # K1, K2 per run
+            ({**zero, "butterfly_k3": 22}, 1),            # no table build
+            ({**zero, "butterfly_k1": 22, "butterfly_k2": 22,
+              "butterfly_k3": 22}, 1),                    # routed per SpMV
+            ({**zero, "butterfly_k3_df": 22}, 0),
+            ({**zero, "butterfly_k3": 22, "dia_spmv": 1}, 0),
+            ({**zero, "butterfly_k3": 30}, 0)):
         with pytest.raises(smoke.SmokeFailure):
-            check("rule", "bicgstab", "float32", 10, bad, restarts=2)
+            check("rule", "bicgstab", "float32", 10, bad, restarts=2,
+                  layouts=layouts)
     with pytest.raises(smoke.SmokeFailure):     # bodies missing
         check("rule", "pipe_bicgstab", "df32", 10,
-              {**zero, "butterfly_k1": 24, "butterfly_k2": 24,
-               "butterfly_k3_df": 24}, restarts=2)
+              {**zero, "butterfly_k3_df": 24}, restarts=2)

@@ -13,7 +13,8 @@ test_torch_fused_pipe.py, test_torch_fused_classic_df.py,
 test_torch_fused_ca_df.py, test_torch_fused_pipe_df.py,
 test_torch_layout.py, test_torch_shift_update.py, test_torch_cheby.py,
 test_torch_pipe_df_bodies.py, test_torch_window.py,
-test_torch_butterfly.py). The one host-side test here
+test_torch_butterfly.py, test_torch_butterfly_gather.py). The one
+host-side test here
 (test_df32_host_side_end_to_end) needs no card and runs anywhere.
 
 Tolerances: float32 vectors rtol 1e-5 / atol 1e-4 and dots rtol 1e-4
@@ -33,7 +34,7 @@ of the twin's largest entry (the JAX package's bar, tests/test_cheby.py);
 the DF chain and the DF pipelined bodies as the other DF kernels. The
 windowed-ELL and butterfly kernels: bit-equal to their twins (unfused
 products and sums in the twins' order; the butterfly's routing stages
-move bits).
+move bits, and its K3 equals the routed pipeline bit for bit).
 """
 import contextlib
 import io
@@ -1183,11 +1184,24 @@ def test_window_wrappers_raise_instead_of_falling_back():
 
 # --- butterfly SpMV (kernels 25-28) ------------------------------------------
 
+def _chip_smoke():
+    """chip_smoke.py as a module: its routed-pipeline reference
+    (staged_slabs), its packing of DF pairs and its bit comparison."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _butterfly(dtype, dev, case):
-    """A butterfly layout on the card: 'routed' uniform random (rb = 64),
+    """A butterfly layout on `dev`: 'routed' uniform random (rb = 64),
     'rb32' 12 nonzeros a row (rb = 32, four stacked windows), 'beyond'
     3000 columns with random K1/K2 tables whose first windows read the
-    last source window (slots past column 2999 must read 0)."""
+    last source window (slots past column 2999 read 0, the column table
+    -1), its column table routed anew."""
     from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
     from mpi_bicgstab_tpu_torch.ops.butterfly import build_butterfly
     if case == "rb32":
@@ -1205,46 +1219,58 @@ def _butterfly(dtype, dev, case):
                 np.int8), device=dev)
         src = g.integers(0, A.nc_pad // 1024, A.P).astype(np.int32)
         src[:4] = A.nc_pad // 1024 - 1
-        A = dataclasses.replace(A, k1_src=torch.as_tensor(src, device=dev),
-                                k1_sub=rand(8), k1_lane=rand(128),
-                                k2_sub=rand(8), k2_lane=rand(128))
+        A = dataclasses.replace(
+            A, k1_src=torch.as_tensor(src, device=dev), k1_sub=rand(8),
+            k1_lane=rand(128), k2_sub=rand(8), k2_lane=rand(128))
     return csr, A
 
 
 @pytest.mark.parametrize("case", ["routed", "rb32", "beyond"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
 def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
-    """Kernels 25-26 (K1, K2: a DF vector as packed pairs) and 27-28 (K3,
-    K3 DF) against their twins on the same inputs: equal bit for bit;
-    each launch counted once; the whole SpMV against the CSR (routed
-    tables only)."""
+    """Kernels 25-26 (K1, K2 on the column table's iota and on x's
+    elements, a DF vector as packed pairs) and 27-28 (K3, K3 DF) against
+    their twins on the same inputs: equal bit for bit, each
+    launch counted once; the column table routed on the card equals the
+    CPU twins'; K3 on x with a NaN and an inf planted equals its twin and
+    the routed pipeline; the whole SpMV against the CSR (routed tables
+    only)."""
     from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    smoke = _chip_smoke()
     dev = _card()
     csr, A = _butterfly(dtype, dev, case)
+    _, A_cpu = _butterfly(dtype, "cpu", case)
+    assert torch.equal(A.k3_col.cpu(), A_cpu.k3_col)
     x_host = np.random.default_rng(3).standard_normal(csr.shape[1])
     df = dtype == "df32"
-    x = df_from_f64(x_host, dev) if df else torch.as_tensor(
-        x_host, dtype=dtype, device=dev)
-    v = bs.pack_df(x) if df else x
-    before = {f: f.launches for f in (cbf.butterfly_k1, cbf.butterfly_k2,
-                                      cbf.butterfly_k3, cbf.butterfly_k3_df)}
-    u1 = cbf.butterfly_k1(A, v)
-    assert torch.equal(u1, bs.k1_plain(A, v))
-    mid = bs.transpose(A, u1)
-    z1 = cbf.butterfly_k2(A, mid)
-    assert torch.equal(z1, bs.k2_plain(A, mid))
-    z = bs.transpose(A, z1)
-    if df:
-        assert _same(cbf.butterfly_k3_df(A, z), bs.k3_df_plain(A, z))
-    else:
-        assert torch.equal(cbf.butterfly_k3(A, z), bs.k3_plain(A, z))
+
+    def put(v):
+        return df_from_f64(v, dev) if df else torch.as_tensor(
+            v, dtype=dtype, device=dev)
+    x = put(x_host)
+    counted = (cbf.butterfly_k1, cbf.butterfly_k2, cbf.butterfly_k3,
+               cbf.butterfly_k3_df)
+    before = {f: f.launches for f in counted}
+    iota = torch.arange(1, A.n_cols + 1, dtype=torch.int32, device=dev)
+    for v in (iota, smoke.pack_df(x) if df else x):
+        u1 = cbf.butterfly_k1(A, v)
+        assert torch.equal(u1, bs.k1_plain(A, v))
+        mid = bs.transpose(A, u1)
+        assert torch.equal(cbf.butterfly_k2(A, mid), bs.k2_plain(A, mid))
+    k3, twin = ((cbf.butterfly_k3_df, bs.k3_df_plain) if df
+                else (cbf.butterfly_k3, bs.k3_plain))
+    assert smoke.same_bits(k3(A, x), twin(A, x))
     torch.cuda.synchronize()
-    k3 = cbf.butterfly_k3_df if df else cbf.butterfly_k3
     assert {f: f.launches - n for f, n in before.items()} == {
-        **dict.fromkeys(before, 0), cbf.butterfly_k1: 1,
-        cbf.butterfly_k2: 1, k3: 1}
+        **dict.fromkeys(before, 0), cbf.butterfly_k1: 2,
+        cbf.butterfly_k2: 2, k3: 1}
+    xn = put(smoke.planted(x_host, 4))
+    got = k3(A, xn)
+    assert smoke.same_bits(got, twin(A, xn))
+    assert smoke.same_bits(got, smoke.staged_slabs(A, xn))
     if case == "beyond":
+        assert (A.k3_col < 0).any()
         return
     y = df_to_f64(spmv(A, x)) if df else spmv(A, x).double().cpu().numpy()
     ref = csr.matvec(x_host)
@@ -1257,9 +1283,10 @@ def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
                                           ("df32", "bicgstab"),
                                           ("df32", "pipe_bicgstab")])
 def test_butterfly_route_launches_its_kernels(dtype, method):
-    """A solve on the butterfly layout runs K1, K2 and K3 (K3 DF in df32)
-    once per SpMV, df32 pipe_bicgstab also its fused bodies once per
-    iteration, and no other kernel; it agrees with the CPU solve."""
+    """Building the layout on the card runs K1 and K2 once (its column
+    table); a solve on it runs K3 (K3 DF in df32) once per SpMV, df32
+    pipe_bicgstab also its fused bodies once per iteration, and no other
+    kernel; it agrees with the CPU solve."""
     from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
@@ -1275,8 +1302,11 @@ def test_butterfly_route_launches_its_kernels(dtype, method):
                 "dia_df": cuda_spmv.dia_spmv_df, "body_a": cpb.fused_body_a}
     cpu = build_problem(csr, dtype=dt, device="cpu")
     ref = solve(cpu.A, cpu.b, method=method, cfg=cfg)
+    before = {k: f.launches for k, f in counters.items()}
     prob = build_problem(csr, dtype=dt, device=dev)
     assert type(prob.A).__name__ == "ButterflyMatrix"
+    assert {k: f.launches - before[k] for k, f in counters.items()} == {
+        **dict.fromkeys(counters, 0), "k1": 1, "k2": 1}
     before = {k: f.launches for k, f in counters.items()}
     res = solve(prob.A, prob.b, method=method, cfg=cfg)
     assert bool(res.converged) and abs(res.n_iter - ref.n_iter) <= 2
@@ -1284,18 +1314,18 @@ def test_butterfly_route_launches_its_kernels(dtype, method):
     k3 = "k3_df" if dtype == "df32" else "k3"
     spmvs = used.pop(k3)
     assert spmvs >= 2 * res.n_iter
-    assert used.pop("k1") == used.pop("k2") == spmvs
     bodies = res.n_iter if method == "pipe_bicgstab" else 0
     assert used == {**dict.fromkeys(used, 0), "body_a": bodies}
 
 
 def test_butterfly_wrappers_raise_instead_of_falling_back():
+    import copy
+
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     dev = _card()
     _, A = _butterfly(torch.float32, dev, "routed")
     _, Adf = _butterfly("df32", dev, "routed")
     x = torch.ones(A.n_cols, device=dev)
-    z = torch.ones(A.P * 1024, device=dev)
     with pytest.raises(TypeError):         # a float16 vector
         cbf.butterfly_k1(A, x.half())
     with pytest.raises(ValueError):        # x on the CPU
@@ -1304,11 +1334,22 @@ def test_butterfly_wrappers_raise_instead_of_falling_back():
         cbf.butterfly_k1(A, x[:100])
     with pytest.raises(ValueError):        # mid of the wrong length
         cbf.butterfly_k2(A, x)
-    with pytest.raises(TypeError):         # float64 z, float32 values
-        cbf.butterfly_k3(A, z.double())
+    with pytest.raises(TypeError):         # float64 x, float32 values
+        cbf.butterfly_k3(A, x.double())
+    with pytest.raises(ValueError):        # x on the CPU
+        cbf.butterfly_k3(A, x.cpu())
+    with pytest.raises(ValueError):        # x of the wrong length
+        cbf.butterfly_k3(A, x[:100])
+    for table, err in ((A.k3_col.cpu(), ValueError),   # on the CPU
+                       (A.k3_col.long(), TypeError),   # not int32
+                       (A.k3_col[:1], ValueError)):    # of the wrong shape
+        bad = copy.copy(A)
+        object.__setattr__(bad, "k3_col", table)
+        with pytest.raises(err):
+            cbf.butterfly_k3(bad, x)
     with pytest.raises(TypeError):         # DF values take the DF kernel
-        cbf.butterfly_k3(Adf, z)
-    with pytest.raises(TypeError):         # float32 z, not packed pairs
-        cbf.butterfly_k3_df(Adf, z)
+        cbf.butterfly_k3(Adf, x)
+    with pytest.raises(TypeError):         # float32 x, not a DF pair
+        cbf.butterfly_k3_df(Adf, x)
     with pytest.raises(TypeError):         # float values, not a DF pair
-        cbf.butterfly_k3_df(A, z.double().view(torch.int64))
+        cbf.butterfly_k3_df(A, DF(x, x))
