@@ -21,11 +21,15 @@ numbers; any failure exits non-zero:
              within 1e-12 sum|u_i v_i| of the twin's, and the scalar each
              pass folds into its finishing stage must equal the twin's
              formula (ops/precision.py) applied to the kernel's own dots.
-             The windowed-ELL kernels (slab part of y = A x; float32,
-             float64, DF) on the layout of clustered_random(1602560)
-             (W = 24), built once on the host in float64 and cast, with x
-             from a seeded NumPy generator: bit-equal to their twins; the
-             whole float64 SpMV (kernel plus COO tail) within 1e-12 of
+             The windowed-ELL kernels (the whole y = A x over the
+             layout's row-compacted copy; float32, float64, DF) on the
+             layout of clustered_random(1602560) (W = 24), built once on
+             the host in float64 and cast, with x from a seeded NumPy
+             generator: bit-equal to their twins and to the padded slabs
+             plus the leveled COO tail (the JAX order, as plain torch on
+             the card); on x with a NaN and an inf planted bit-equal to
+             their twins, non-finite exactly in the rows that hold an
+             entry in those columns; the float64 SpMV within 1e-12 of
              torch's CSR product. The butterfly kernels on the layout of
              uniform:1602112 padded to 1,602,560 rows as the CLI pads it
              (P = 25,600, W = 16), routed once on the host in float64
@@ -308,9 +312,9 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "cheby_chain_df": ("cheby_df32", "cheby_chain_df"),
                  "fused_body_a": ("cheby_pipe_df32", "fused_body_a"),
                  "fused_body_b": ("cheby_pipe_df32", "fused_body_b"),
-                 "window_spmv_f32": ("window", "window_slabs"),
-                 "window_spmv_f64": ("window_f64", "window_slabs"),
-                 "window_spmv_df": ("window_df32", "window_slabs_df"),
+                 "window_spmv_f32": ("window", "window_rows"),
+                 "window_spmv_f64": ("window_f64", "window_rows"),
+                 "window_spmv_df": ("window_df32", "window_rows_df"),
                  "butterfly_k1": ("butterfly", "butterfly_k1"),
                  "butterfly_k2": ("butterfly", "butterfly_k2"),
                  "butterfly_k3_f32": ("butterfly", "butterfly_k3"),
@@ -403,8 +407,8 @@ def _counters():
             "fused_body_b": cpb.fused_body_b,
             "cheby_chain": cc.cheby_chain,
             "cheby_chain_df": cc.cheby_chain_df,
-            "window_slabs": cws.window_slabs,
-            "window_slabs_df": cws.window_slabs_df,
+            "window_rows": cws.window_rows,
+            "window_rows_df": cws.window_rows_df,
             "butterfly_k1": cbf.butterfly_k1,
             "butterfly_k2": cbf.butterfly_k2,
             "butterfly_k3": cbf.butterfly_k3,
@@ -1045,7 +1049,7 @@ def library_call(name: str, inp: dict, csr):
         X = inp["b_x"]
         return lambda: torch.sparse.mm(A, X.t())
     f32 = name.endswith("f32")
-    if name in ("window_spmv_f32", "window_spmv_f64"):
+    if name in ("window_spmv_f32", "window_spmv_f64"):   # the whole SpMV
         A = torch_csr(csr, torch.float32 if f32 else torch.float64,
                       inp["W32"].device)
         x = inp["wx32" if f32 else "wx64"]
@@ -1093,6 +1097,14 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
                      f"{band / HBM_BYTES_PER_S * 1e3:.4f}",
                      "band_reads_floor_share":
                      f"{band / HBM_BYTES_PER_S * 1e3 / row['ms']:.3f}"}
+        if name.startswith("window_spmv"):
+            # this design's floor (the compacted slots) and the padded
+            # slab kernel's, beside bound_ms, the nonzeros' bytes
+            b = window_bytes(name, inp)
+            row.update(slots_bound_ms=b["slots"] / HBM_BYTES_PER_S * 1e3,
+                       padded_bound_ms=b["padded"] / HBM_BYTES_PER_S * 1e3)
+            extra = {k: f"{row[k]:.4f}"
+                     for k in ("slots_bound_ms", "padded_bound_ms")}
         _say("times", kernel=name, ms=f"{row['ms']:.4f}",
              bound_ms=f"{row['bound_ms']:.4f}",
              bound_share=f"{row['bound_ms'] / row['ms']:.3f}",
@@ -1948,8 +1960,9 @@ def time_cheby(inp: dict, prec) -> None:
 def window_inputs(csr, device="cuda", seed=0) -> dict:
     """The window kernels' inputs at the path's shapes: the layout of csr
     built once on the host in float64 (its seconds in "w_build_s") and
-    cast to float32, float64 and DF pairs, and x from a NumPy generator
-    seeded `seed`."""
+    cast to float32, float64 and DF pairs, x from a NumPy generator
+    seeded `seed` ("wx" keys) and x with a NaN and an inf planted ("wn"
+    keys; on the host in "wn_host")."""
     import numpy as np
     import torch
 
@@ -1960,74 +1973,145 @@ def window_inputs(csr, device="cuda", seed=0) -> dict:
     host = csr_to_window_ell(csr, device="cpu")
     build_s = time.perf_counter() - t0
     x = np.random.default_rng(seed).standard_normal(csr.nrows)
-    return {"w_csr": csr, "w_build_s": build_s,
-            "W32": window_ell_with_values(host, torch.float32, device),
-            "W64": window_ell_with_values(host, torch.float64, device),
-            "Wdf": window_ell_with_values(host, "df32", device),
-            "wx32": torch.as_tensor(x, dtype=torch.float32, device=device),
-            "wx64": torch.as_tensor(x, device=device),
-            "wxdf": df_from_f64(x, device)}
+    xn = planted(x, seed + 1)
+    inp = {"w_csr": csr, "w_build_s": build_s, "wn_host": xn,
+           "W32": window_ell_with_values(host, torch.float32, device),
+           "W64": window_ell_with_values(host, torch.float64, device),
+           "Wdf": window_ell_with_values(host, "df32", device)}
+    for key, v in (("wx", x), ("wn", xn)):
+        inp[key + "32"] = torch.as_tensor(v, dtype=torch.float32,
+                                          device=device)
+        inp[key + "64"] = torch.as_tensor(v, device=device)
+        inp[key + "df"] = df_from_f64(v, device)
+    return inp
 
 
 def window_kernel_calls(inp: dict) -> dict:
-    """The window kernels (the slab part of y = A x) beside their twins,
-    as kernel_calls gives them; both must agree bit for bit."""
+    """The window kernels (the whole y = A x over the row-compacted copy)
+    beside their twins, as kernel_calls gives them; both must agree bit
+    for bit."""
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
     from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
     W32, W64, Wdf = inp["W32"], inp["W64"], inp["Wdf"]
     x32, x64, xdf = inp["wx32"], inp["wx64"], inp["wxdf"]
     return {
-        "window_spmv_f32": (lambda: (cws.window_slabs(W32, x32),),
-                            lambda: (wsp.window_slabs_plain(W32, x32),),
+        "window_spmv_f32": (lambda: (cws.window_rows(W32, x32),),
+                            lambda: (wsp.window_rows_plain(W32, x32),),
                             "bit_equal"),
-        "window_spmv_f64": (lambda: (cws.window_slabs(W64, x64),),
-                            lambda: (wsp.window_slabs_plain(W64, x64),),
+        "window_spmv_f64": (lambda: (cws.window_rows(W64, x64),),
+                            lambda: (wsp.window_rows_plain(W64, x64),),
                             "bit_equal"),
-        "window_spmv_df": (lambda: (cws.window_slabs_df(Wdf, xdf),),
-                           lambda: (wsp.window_slabs_df_plain(Wdf, xdf),),
+        "window_spmv_df": (lambda: (cws.window_rows_df(Wdf, xdf),),
+                           lambda: (wsp.window_rows_df_plain(Wdf, xdf),),
                            "bit_equal")}
 
 
+def _window_pairs(inp: dict, key: str):
+    """(dtype suffix, layout, x) per dtype, x from inp[key + suffix]."""
+    return [(sfx, inp["W" + sfx], inp[key + sfx])
+            for sfx in ("32", "64", "df")]
+
+
+def check_window_padded(inp: dict) -> None:
+    """The SpMV (the kernel on the card, its twin on the CPU) bit-equal
+    to the padded slabs plus the leveled tail (window_padded_plain, the
+    JAX kernel's order, as plain torch on the same device) on the path's
+    finite x, in float32, float64 and DF."""
+    from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    for sfx, A, x in _window_pairs(inp, "wx"):
+        if not same_bits(spmv(A, x), wsp.window_padded_plain(A, x)):
+            raise SmokeFailure(f"window {sfx}: the SpMV and the padded "
+                               f"slabs plus the leveled tail differ")
+    _say("check", window_spmv="f32,f64,df", x="finite",
+         bit_equal_padded_slabs_plus_leveled_tail=True)
+
+
+def check_window_nonfinite(inp: dict) -> None:
+    """On x with a NaN and an inf planted: the SpMV bit-equal to its twin
+    (window_rows_plain / window_rows_df_plain on the same device), and
+    non-finite in exactly the rows that hold an entry in one of those
+    columns (from the host CSR), every other row finite."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    csr = inp["w_csr"]
+    bad = np.flatnonzero(~np.isfinite(inp["wn_host"]))
+    rows = np.repeat(np.arange(csr.nrows), np.diff(csr.ptr))
+    want = np.zeros(csr.nrows, dtype=bool)
+    want[rows[np.isin(csr.col, bad) & (csr.val != 0)]] = True
+    for sfx, A, x in _window_pairs(inp, "wn"):
+        got = spmv(A, x)
+        twin = (wsp.window_rows_df_plain if sfx == "df"
+                else wsp.window_rows_plain)(A, x)
+        hi = got.hi if sfx == "df" else got
+        nonfinite = (~torch.isfinite(hi)).cpu().numpy()
+        if not same_bits(got, twin) or not np.array_equal(nonfinite, want):
+            raise SmokeFailure(
+                f"window {sfx} on x with NaN and inf: bit-equal to the twin "
+                f"{same_bits(got, twin)}, {int(nonfinite.sum())} non-finite "
+                f"rows where {int(want.sum())} read those columns")
+        _say("check", window_spmv=sfx, x="nan_and_inf_planted",
+             bit_equal_twin=True, nonfinite_rows=int(nonfinite.sum()),
+             rows_reading_them=int(want.sum()))
+
+
 def check_window_spmv(inp: dict) -> float:
-    """The whole float64 SpMV (kernel plus tail) against torch's CSR
-    product on the card: within 1e-12 of the product's largest entry.
-    Returns the relative error."""
+    """The whole float64 SpMV against torch's CSR product on the card:
+    within 1e-12 of the product's largest entry. Returns the relative
+    error."""
     from mpi_bicgstab_tpu_torch.ops.layout import spmv
     y = spmv(inp["W64"], inp["wx64"])
     ref = torch_csr(inp["w_csr"], inp["wx64"].dtype, y.device) @ inp["wx64"]
     rel = _err(y, ref) / float(ref.abs().max())
     if not rel <= 1e-12:
-        raise SmokeFailure(f"window SpMV with its tail: {rel:.3e} from the "
-                           f"CSR product, relative (> 1e-12)")
+        raise SmokeFailure(f"window SpMV: {rel:.3e} from the CSR product, "
+                           f"relative (> 1e-12)")
     return rel
 
 
-def window_work(name: str, inp: dict) -> tuple[float, float, str]:
-    """(bytes, flops, dtype) of the slab part of y = A x: every slot's
-    value, lane_idx and sub_sel, the window bases and x read once, y
-    written once; operations on the slots that hold an entry of this
-    matrix (the padding multiplies zeros)."""
+def window_bytes(name: str, inp: dict) -> dict:
+    """Bytes of one y = A x on the window layout, x read once and y
+    written once: "nnz" what the work needs (each held entry's value and
+    int32 column), "slots" what the kernel streams (every slot of the
+    row-compacted copy, a value and a column, and rc_off), "padded" what
+    a kernel over the padded slab arrays streams for the slab part alone
+    (every slab slot's value, lane_idx and sub_sel, and the window
+    bases): the JAX kernel's layout."""
     W = inp["W32"]
-    slots = W.width * W.n_rows
-    held = inp["w_csr"].nnz - sum(W.tail_counts)
     elem = 4 if name == "window_spmv_f32" else 8
-    nbytes = slots * (elem + 2) + 4 * W.n_tiles + (W.n_cols + W.n_rows) * elem
+    xy = (W.n_cols + W.n_rows) * elem
+    return {"nnz": int((W.rc_col >= 0).sum()) * (elem + 4) + xy,
+            "slots": W.rc_col.numel() * (elem + 4) + 8 * W.rc_off.numel()
+            + xy,
+            "padded": W.width * W.n_rows * (elem + 2) + 4 * W.n_tiles + xy}
+
+
+def window_work(name: str, inp: dict) -> tuple[float, float, str]:
+    """(bytes, flops, dtype) of y = A x: the nonzeros' bytes
+    (window_bytes "nnz"), 2 flops a held entry (DF: one df_mul and one
+    df_add)."""
+    held = int((inp["W32"].rc_col >= 0).sum())
+    nbytes = window_bytes(name, inp)["nnz"]
     if name == "window_spmv_df":
         return nbytes, (DF_MUL_FLOPS + DF_ADD_FLOPS) * held, "df32"
-    return nbytes, 2 * held, "float32" if elem == 4 else "float64"
+    return nbytes, 2 * held, ("float32" if name == "window_spmv_f32"
+                              else "float64")
 
 
 def check_window_counts(what: str, method: str, dtype: str, it: int,
                         counts: dict, restarts: int,
                         device: str = "cuda") -> None:
-    """The launches of a converged solve on the window layout: the window
-    SpMV kernel (its DF form in df32) twice per iteration and, per solver
-    segment, for r0 and the true residual (pipe_bicgstab also w0 and
-    t0); df32 pipe_bicgstab its two body kernels once per iteration;
-    nothing else. On the CPU nothing at all."""
+    """The launches of a converged solve on the window layout: one window
+    kernel launch per SpMV (its DF form in df32), twice per iteration
+    and, per solver segment, for r0 and the true residual (pipe_bicgstab
+    also w0 and t0); df32 pipe_bicgstab its two body kernels once per
+    iteration; nothing else. On the CPU nothing at all."""
     want = dict.fromkeys(counts, 0)
     if device != "cpu":
-        spmv = "window_slabs_df" if dtype == "df32" else "window_slabs"
+        spmv = "window_rows_df" if dtype == "df32" else "window_rows"
         if method == "pipe_bicgstab" and dtype == "df32":
             want.update(fused_body_a=it, fused_body_b=it)
         segs, rest = divmod(counts[spmv] - 2 * it,
@@ -2244,8 +2328,8 @@ def time_routing(csr) -> None:
 def time_window(inp: dict, probs: dict) -> None:
     """The f32 and df32 classic iteration on the window layout (tol=0
     chains through bench_iteration, eager and as replayed CUDA graphs)
-    beside 2 x the window SpMV's bytes, and the SpMV rate of
-    bench_spmv."""
+    beside 2 x the window SpMV's bytes (the nonzeros' and the padded
+    slabs', window_bytes), and the SpMV rate of bench_spmv."""
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
                                                           bench_spmv)
     sp = bench_spmv(probs["float32"][0])
@@ -2259,12 +2343,14 @@ def time_window(inp: dict, probs: dict) -> None:
         eager = bench_iteration(prob, iters=iters)
         dev = bench_iteration(prob, iters=iters, graph=True)
         ms, dev_ms = (t["time_per_iter_s"] * 1e3 for t in (eager, dev))
-        floor = 2 * window_work(name, inp)[0]
+        b = window_bytes(name, inp)
         _say("times", method="bicgstab", layout="WindowEllMatrix",
              dtype=dtype, eager_ms_per_iter=f"{ms:.4f}",
              device_ms_per_iter=f"{dev_ms:.4f}",
              device_busy_share=f"{dev_ms / ms:.3f}", chain=f"tol=0x{iters}",
-             two_spmv_bound_ms=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}")
+             two_spmv_bound_ms=f"{2 * b['nnz'] / HBM_BYTES_PER_S * 1e3:.4f}",
+             two_spmv_padded_bound_ms=(
+                 f"{2 * b['padded'] / HBM_BYTES_PER_S * 1e3:.4f}"))
 
 
 # --- the butterfly layout (slice 6c) ----------------------------------------
@@ -2728,12 +2814,16 @@ def main() -> int:
     W = winp["W32"]
     _say("check", matrix="clustered_random", n=csr_w.nrows, nnz=csr_w.nnz,
          W=W.width, tiles=W.n_tiles, tail_counts=list(W.tail_counts),
-         slots=W.width * W.n_rows,
+         slots=W.width * W.n_rows, compacted_slots=W.rc_col.numel(),
+         held=int((W.rc_col >= 0).sum()), widest_slice=W.rc_width,
+         compacted_mb_f32=round(W.rc_col.numel() * 8 / 1e6, 1),
          window_build_host_s=round(winp["w_build_s"], 3),
          host_setup_s=round(time.perf_counter() - t0, 3))
     wcalls = window_kernel_calls(winp)
     errs.update(check_kernels(wcalls, winp))
-    _say("check", window_spmv_f64_with_tail_vs_torch_csr_rel_err=(
+    check_window_padded(winp)
+    check_window_nonfinite(winp)
+    _say("check", window_spmv_f64_vs_torch_csr_rel_err=(
         f"{check_window_spmv(winp):.3e}"))
     # the butterfly layout: routed once on the host, in three dtypes
     t0 = time.perf_counter()
@@ -2908,7 +2998,9 @@ def main() -> int:
             "replaces": REPLACES[base], "launches": runs[phase][counter],
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{k: row[k] for k in ("slots_bound_ms", "padded_bound_ms")
+               if k in row}})
     kernels.append({
         "name": "shift_update_df", "route": "cuda",
         "source": SOURCES["shift_update_df"],

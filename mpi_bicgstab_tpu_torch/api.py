@@ -216,10 +216,10 @@ def _solve_batched_once(A, B, X0, method: str, cfg) -> SolveResult:
     on its TPU (module doc). The route is the same on the CPU and on the
     card; only each kernel wrapper's choice between kernel and plain twin
     follows the tensors' device. The JAX package falls back from its
-    fused batched passes to the SpMV-amortised loop when their VMEM
-    windows do not fit; on the card both take the same operators, so the
-    fused driver always runs and no route reaches the loop. A
-    ChebyOperator solves lane by lane."""
+    fused batched passes to an SpMV-amortised loop when their VMEM
+    windows do not fit; on the card nothing is staged, so the fused
+    driver takes every operator that loop would, and the port has no
+    such loop. A ChebyOperator solves lane by lane."""
     from mpi_bicgstab_tpu_torch.solvers.batched_fused import \
         bicgstab_batched_fully_fused
     k = B.shape[0]

@@ -17,13 +17,18 @@ and each lane class (column % 128) is used at most once; then
     lane = lane_idx[w, t, i, j]
 
 is well defined (the TPU kernel resolves it with a sublane gather and a
-lane gather, the only fast dynamic gathers Mosaic has; the CUDA kernel,
-csrc/window_spmv.cu, reads it directly). Over-width entries (more than
-max_width slabs) spill to the tail too.
+lane gather, the only fast dynamic gathers Mosaic has). Over-width
+entries (more than max_width slabs) spill to the tail too.
 
 The tail is leveled by duplicate rank: level d holds each tail row's
-d-th entry, so a row appears at most once per level and a level's
-scatter only places values (ops/window_spmv.py adds level by level).
+d-th entry, so a row appears at most once per level.
+
+The port adds a row-compacted copy of the same entries (SELL-32, derived
+from the arrays above whenever a layout is constructed): rows in slices
+of 32, each row's list its held slab entries in slab order, then its
+tail entries in level order. The SpMV reads only that copy
+(ops/window_spmv.py); the TPU's slab arrays stay for parity with the JAX
+package and for convert.
 """
 from __future__ import annotations
 
@@ -34,13 +39,14 @@ import torch
 
 from mpi_bicgstab_tpu_torch.ops.dia import (LayoutRefused, host_dtype,
                                             is_df32)
-from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+from mpi_bicgstab_tpu_torch.ops.precision import DF, df_from_f64, is_df
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 ROWS_PER_TILE = 1024          # 8 sublanes x 128 lanes
 WINDOW_COLS = 1024            # the window: 8 rows of 128 columns
 MAX_TAIL_LEVELS = 64
+SLICE_ROWS = 32               # rows per slice of the row-compacted copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +65,21 @@ class WindowEllMatrix:
     tail_counts: the real entries of each level (one per level)
     x_rows:   the [x_rows, 128] view of x that covers every window (the
               JAX kernel's static height; columns >= n_cols read as 0)
+
+    Derived (init=False; every construction, dataclasses.replace too,
+    derives them on the layout's device, _row_compacted):
+    rc_off:   int64 [n_rows / 32 + 1], each slice's first slot (rc_off[-1]
+              the slot count S)
+    rc_col:   int32 [S], the x column of each slot; -1 for an empty slot
+    rc_val:   [S] values in the layout's dtype (a DF pair for df32), 0 in
+              an empty slot
+    rc_width: the widest slice's width (a Python int)
+    Slot (slice s, position k, lane l) holds position k of row 32 s + l's
+    list at rc_off[s] + 32 k + l; each slice is as wide as its longest
+    row. A slab slot is held when its value is nonzero (DF: hi != 0) and
+    its column lies below n_cols; every counted tail entry is held. The
+    padded arrays above stay on the device for parity with the JAX
+    package and for convert: no SpMV on the card reads them.
     """
 
     sub_sel: torch.Tensor
@@ -73,6 +94,10 @@ class WindowEllMatrix:
     width: int
     x_rows: int
     tail_counts: tuple = ()
+    rc_off: torch.Tensor = dataclasses.field(init=False, repr=False)
+    rc_col: torch.Tensor = dataclasses.field(init=False, repr=False)
+    rc_val: torch.Tensor = dataclasses.field(init=False, repr=False)
+    rc_width: int = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         if len(self.tail_counts) != self.tail_rows.shape[0]:
@@ -80,6 +105,12 @@ class WindowEllMatrix:
                 f"tail_counts has {len(self.tail_counts)} entries for "
                 f"{self.tail_rows.shape[0]} tail levels (the SpMV adds "
                 f"each level's counted entries)")
+        if self.n_rows % SLICE_ROWS:
+            raise ValueError(f"n_rows {self.n_rows} is not a multiple of "
+                             f"{SLICE_ROWS}")
+        for k, v in zip(("rc_off", "rc_col", "rc_val", "rc_width"),
+                        _row_compacted(self), strict=True):
+            object.__setattr__(self, k, v)
 
     @property
     def n_tiles(self) -> int:
@@ -105,6 +136,56 @@ class WindowEllMatrix:
     @property
     def nnz_stored(self) -> int:
         return int(np.prod(tuple(self.vals.shape))) + self.tail_size
+
+
+def slab_columns(A: WindowEllMatrix, w: int) -> torch.Tensor:
+    """Slab w's x column per slot, [T, 8, 128] int64 (>= n_cols where a
+    slot's window runs past the last column)."""
+    lam = A.lane_idx[w].long()
+    s = torch.gather(A.sub_sel[w].long(), -1, lam)
+    return A.window_base.long()[:, None, None] * WINDOW_COLS + s * 128 + lam
+
+
+def _row_compacted(A: WindowEllMatrix):
+    """(rc_off, rc_col, rc_val, rc_width) of A (the class doc), with
+    vectorised torch ops on A's device: row r's list is its held slab
+    entries in slab order, then its tail entries in level order (level d
+    holds the row's d-th tail entry: position slab count + d)."""
+    n, W = A.n_rows, A.width
+    dev = A.window_base.device
+    df = is_df(A.vals)
+    hi = A.vals.hi if df else A.vals
+    cols = torch.stack([slab_columns(A, w).reshape(n) for w in range(W)])
+    held = (hi.reshape(W, n) != 0) & (cols < A.n_cols)
+    n_slab = held.sum(0)
+    w_i, r_i = held.nonzero(as_tuple=True)
+    k_slab = (held.cumsum(0) - 1)[w_i, r_i]
+    L, cap = A.tail_rows.shape
+    real = (torch.arange(cap, device=dev)[None, :] < torch.as_tensor(
+        A.tail_counts, dtype=torch.long, device=dev).reshape(L, 1))
+    t_rows = A.tail_rows[real].long()
+    k_tail = n_slab[t_rows] + torch.arange(L, device=dev)[:, None].expand(
+        L, cap)[real]
+    length = n_slab.scatter_reduce(0, t_rows, k_tail + 1, "amax")
+    width = length.view(-1, SLICE_ROWS).amax(1)
+    rc_off = torch.cat([width.new_zeros(1),
+                        torch.cumsum(width * SLICE_ROWS, 0)])
+    S = int(rc_off[-1])
+    rows = torch.cat([r_i, t_rows])
+    slot = (rc_off[rows // SLICE_ROWS] + SLICE_ROWS
+            * torch.cat([k_slab, k_tail]) + rows % SLICE_ROWS)
+    rc_col = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    rc_col[slot] = torch.cat([cols[held], A.tail_cols[real].long()]).int()
+
+    def place(slab, tail):
+        out = torch.zeros(S, dtype=slab.dtype, device=dev)
+        out[slot] = torch.cat([slab.reshape(W, n)[held], tail[real]])
+        return out
+
+    rc_val = (DF(place(A.vals.hi, A.tail_vals.hi),
+                 place(A.vals.lo, A.tail_vals.lo)) if df
+              else place(A.vals, A.tail_vals))
+    return rc_off, rc_col, rc_val, int(width.max())
 
 
 def _choose_windows(csr, n_tiles):

@@ -6,13 +6,11 @@ lanes (ops/cuda_fused_batched.py), the JAX
 `_bicgstab_batched_fully_fused`.
 
 api.solve_batched routes float32 bicgstab on a DiaMatrix with k <= 8
-lanes (ops/cuda_batched_spmv.format_ok) to it. _bicgstab_batched_spmv_loop,
-the JAX `bicgstab_batched_fused` (PyTorch vector updates around the
-batched SpMV of ops/cuda_batched_spmv.py), is reached by no entry point:
-the JAX package takes it where its fused passes' VMEM windows do not fit,
-and on the card nothing is staged, so the fused driver takes every
-operator the loop would. It is kept private, held against JAX by the
-tests only, and due for removal (ROADMAP queue 3).
+lanes (ops/cuda_batched_spmv.format_ok) to it. The JAX package's other
+batched loop (`bicgstab_batched_fused`: XLA updates around its batched
+SpMV kernel) serves operators whose fused passes' VMEM windows do not
+fit; on the card nothing is staged, so the fused driver takes every
+operator that loop would, and the port has no such loop.
 B and X0 are [k, n] float32; the result is a SolveResult with a leading
 batch axis on every field, n_iter a [k] int32 tensor on the host.
 
@@ -135,45 +133,5 @@ def bicgstab_batched_fully_fused(A, B, X0, cfg) -> SolveResult:
         rTr = torch.where(ab, rTr_new, rTr)
         dot_r = torch.where(ab, dot_new, dot_r)
         P, S = P2, S2
-        lanes.record(ab, dot_new)
-    return lanes.result(X, B, dot_r, dot_zero, tol2, spmv)
-
-
-def _bicgstab_batched_spmv_loop(A, B, X0, cfg) -> SolveResult:
-    """The SpMV-amortised batched loop: classic BiCGStab per lane with
-    PyTorch vector updates and the batched SpMV, which reads the band
-    once for all lanes (two per iteration). A stopped lane's vectors
-    freeze by a select, vmap's masked carry."""
-    vals, offsets = A.vals, A.offsets
-    tol2, exact, _ = start(B, cfg)
-
-    def spmv(Xs):
-        return batched_dia_spmv(vals, offsets, Xs)
-
-    R0 = B - spmv(X0)                                   # solver.c:74-75
-    R_hat = R0                                          # solver.c:76
-    rTr0 = _dot(R0, R0)                                 # solver.c:78-80
-    dot_zero = rTr0
-    lanes = _Lanes(dot_zero, tol2, exact, cfg.max_iter)
-    X, R, P = X0, R0, R0
-    rTr = dot_r = rTr0
-    while (a := lanes.active(dot_r)) is not None:
-        ab = a > 0.5
-        av = ab[:, None]
-        S = spmv(P)                                     # solver.c:88
-        alpha = (rTr / _dot(R_hat, S))[:, None]         # solver.c:89-93
-        Q = R - alpha * S                               # solver.c:94
-        Y = spmv(Q)                                     # solver.c:96
-        omega = (_dot(Q, Y) / _dot(Y, Y))[:, None]      # solver.c:97-104
-        X2 = X + alpha * P + omega * Q                  # solver.c:105-106
-        R2 = Q - omega * Y                              # solver.c:107
-        dot_new, rTr_new = _dot(R2, R2), _dot(R_hat, R2)  # :108-114
-        beta = (alpha / omega) * (rTr_new / rTr)[:, None]  # solver.c:116
-        P2 = R2 + beta * (P - omega * S)                # solver.c:117-119
-        X = torch.where(av, X2, X)
-        R = torch.where(av, R2, R)
-        P = torch.where(av, P2, P)
-        rTr = torch.where(ab, rTr_new, rTr)
-        dot_r = torch.where(ab, dot_new, dot_r)
         lanes.record(ab, dot_new)
     return lanes.result(X, B, dot_r, dot_zero, tol2, spmv)

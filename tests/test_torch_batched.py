@@ -97,31 +97,35 @@ def test_f32_fused_route_matches_jax(monkeypatch):
         assert np.isfinite(h[j, :k]).all() and np.isnan(h[j, k:]).all()
 
 
-def test_spmv_loop_matches_jax_spmv_loop(monkeypatch):
-    """The port's SpMV-amortised loop, called directly, against the JAX
-    package's (forced with MBT_BATCHED_SPMV=1, its batched SpMV kernel in
-    interpret mode)."""
-    csr, csr_j, B = _f32_fixture()
-    cfg = SolverConfig(tol=1e-5, max_iter=83, dtype="float32")
-    rt = _f32_port(B, csr, lambda A, Bt: batched_fused
-                   ._bicgstab_batched_spmv_loop(A, Bt, torch.zeros_like(Bt),
-                                                cfg))
-    monkeypatch.setenv("MBT_BATCHED_SPMV", "1")
-    monkeypatch.setenv("MBT_FUSED_BATCHED", "0")
-    rj = _f32_jax(B, csr_j, 83)          # a max_iter of its own: fresh trace
-    assert rt.converged.all()
-    _same_lanes(rt, rj, 1e-3)
+@pytest.mark.parametrize("k", [3, 8])
+def test_fused_route_lane_equals_its_solve_alone(k):
+    """vmap's contract on the fused batched driver: each of k lanes (the
+    fixture's three, repeated to format_ok's limit of 8) stops at the
+    iteration, with the history and the solution bit for bit, that the
+    same lane takes solved alone (k = 1, the same driver)."""
+    csr, _, B = _f32_fixture()
+    cfg = SolverConfig(tol=1e-5, max_iter=80, dtype="float32", restarts=0)
+    Bk = B[np.arange(k) % 3]
+    batch = _f32_port(Bk, csr, lambda A, Bt: tapi.solve_batched(A, Bt,
+                                                                cfg=cfg))
+    alone = [_f32_port(B[j:j + 1], csr, lambda A, Bt: tapi.solve_batched(
+        A, Bt, cfg=cfg)) for j in range(3)]
+    assert len(set(batch.n_iter.tolist())) > 1
+    for j in range(k):
+        one = alone[j % 3]
+        it = int(one.n_iter[0])
+        assert int(batch.n_iter[j]) == it
+        assert bool(batch.converged[j]) == bool(one.converged[0])
+        assert torch.equal(batch.x[j], one.x[0])
+        assert torch.equal(batch.history[j, :it], one.history[0, :it])
 
 
 def test_tol0_runs_exactly_max_iter_on_every_lane():
     csr, _, B = _f32_fixture()
-    for solve in (tapi.solve_batched,
-                  lambda A, Bt, cfg: batched_fused._bicgstab_batched_spmv_loop(
-                      A, Bt, torch.zeros_like(Bt), cfg)):
-        res = _f32_port(B, csr, lambda A, Bt: solve(
-            A, Bt, cfg=SolverConfig(tol=0.0, max_iter=30, dtype="float32")))
-        assert res.n_iter.tolist() == [30, 30, 30]
-        assert res.history.shape == (3, 30)
+    res = _f32_port(B, csr, lambda A, Bt: tapi.solve_batched(
+        A, Bt, cfg=SolverConfig(tol=0.0, max_iter=30, dtype="float32")))
+    assert res.n_iter.tolist() == [30, 30, 30]
+    assert res.history.shape == (3, 30)
 
 
 def test_route_follows_format_ok(monkeypatch):

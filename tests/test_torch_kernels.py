@@ -34,7 +34,8 @@ of the twin's largest entry (the JAX package's bar, tests/test_cheby.py);
 the DF chain and the DF pipelined bodies as the other DF kernels. The
 windowed-ELL and butterfly kernels: bit-equal to their twins (unfused
 products and sums in the twins' order; the butterfly's routing stages
-move bits, and its K3 equals the routed pipeline bit for bit).
+move bits, and its K3 equals the routed pipeline bit for bit; the window
+kernels equal the padded slabs plus the leveled tail on finite x).
 """
 import contextlib
 import io
@@ -1084,8 +1085,7 @@ def test_cheby_and_body_wrappers_raise_instead_of_falling_back():
 def _window(dtype, dev, case):
     """A windowed-ELL layout on the card: 'tail' a clustered matrix with a
     leveled tail, 'beyond' tile 0's window forced past the last column (its
-    padded slots point beyond n_cols and must read 0), 'wide' 8 nonzeros per
-    row (W = 24)."""
+    padded slots point beyond n_cols), 'wide' 8 nonzeros per row (W = 24)."""
     from mpi_bicgstab_tpu_torch.models.generators import clustered_random
     from mpi_bicgstab_tpu_torch.ops.window_ell import csr_to_window_ell
     kw = {}
@@ -1099,33 +1099,46 @@ def _window(dtype, dev, case):
     return csr, csr_to_window_ell(csr, dtype=dtype, device=dev, **kw)
 
 
+def _bits_equal(a, b):
+    """Tensors or DF pairs equal bit for bit, NaN included."""
+    if is_df(a):
+        return _bits_equal(a.hi, b.hi) and _bits_equal(a.lo, b.lo)
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
 @pytest.mark.parametrize("case", ["tail", "beyond", "wide"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
 def test_window_kernels_match_twins_bit_for_bit(dtype, case):
-    """Kernels 23 (float32, float64) and 24 (DF) against their twins on
-    the same inputs: equal bit for bit (no contraction, slab order); the
-    whole SpMV (kernel plus tail) against the CSR."""
+    """Kernels 23 (float32, float64) and 24 (DF), the whole y = A x over
+    the row-compacted copy, one launch a call: bit-equal to their twins
+    on x with zeros and on x with a NaN and an inf planted; on the finite
+    x bit-equal to the padded slabs plus the leveled tail and close to
+    the CSR's product."""
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
     from mpi_bicgstab_tpu_torch.ops import window_spmv as wsp
     dev = _card()
     csr, A = _window(dtype, dev, case)
     x_host = np.random.default_rng(3).standard_normal(csr.nrows)
-    if dtype == "df32":
-        x = df_from_f64(x_host, dev)
-        before = cws.window_slabs_df.launches
-        got = cws.window_slabs_df(A, x)
+    x_host[::7] = 0.0
+    x_bad = x_host.copy()
+    x_bad[[5, 1500]] = np.nan, np.inf
+    df = dtype == "df32"
+    kern = cws.window_rows_df if df else cws.window_rows
+    twin = wsp.window_rows_df_plain if df else wsp.window_rows_plain
+    for xh in (x_host, x_bad):
+        x = (df_from_f64(xh, dev) if df
+             else torch.as_tensor(xh, dtype=dtype, device=dev))
+        before = kern.launches
+        got = kern(A, x)
         torch.cuda.synchronize()
-        assert cws.window_slabs_df.launches == before + 1
-        assert _same(got, wsp.window_slabs_df_plain(A, x))
-        y = df_to_f64(spmv(A, x))
-    else:
-        x = torch.as_tensor(x_host, dtype=dtype, device=dev)
-        before = cws.window_slabs.launches
-        got = cws.window_slabs(A, x)
-        torch.cuda.synchronize()
-        assert cws.window_slabs.launches == before + 1
-        assert torch.equal(got, wsp.window_slabs_plain(A, x))
-        y = spmv(A, x).double().cpu().numpy()
+        assert kern.launches == before + 1
+        assert _bits_equal(got, twin(A, x))
+    x = (df_from_f64(x_host, dev) if df
+         else torch.as_tensor(x_host, dtype=dtype, device=dev))
+    y = spmv(A, x)
+    assert _bits_equal(y, wsp.window_padded_plain(A, x))
+    y = df_to_f64(y) if df else y.double().cpu().numpy()
     ref = csr.matvec(x_host)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
@@ -1136,9 +1149,9 @@ def test_window_kernels_match_twins_bit_for_bit(dtype, case):
                                           ("df32", "bicgstab"),
                                           ("df32", "pipe_bicgstab")])
 def test_window_route_launches_its_kernel(dtype, method):
-    """A solve on the window layout runs the window SpMV kernel (the DF one
-    for df32; df32 pipe_bicgstab also its fused bodies once per
-    iteration) and no DIA kernel, and agrees with the CPU solve."""
+    """A solve on the window layout runs the window kernel (the DF one for
+    df32) once per SpMV, df32 pipe_bicgstab also its fused bodies once
+    per iteration, and no other kernel; it agrees with the CPU solve."""
     from mpi_bicgstab_tpu_torch.models.generators import clustered_random
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
@@ -1147,39 +1160,51 @@ def test_window_route_launches_its_kernel(dtype, method):
     tol = 1e-6 if dtype == "float32" else 1e-10
     dt = dtype if dtype == "df32" else getattr(torch, dtype)
     cfg = SolverConfig(tol=tol, dtype=dtype)
-    counters = {"window": cws.window_slabs, "window_df": cws.window_slabs_df,
+    counters = {"window": cws.window_rows, "window_df": cws.window_rows_df,
                 "dia": cuda_spmv.dia_spmv, "dia_df": cuda_spmv.dia_spmv_df,
                 "body_a": cpb.fused_body_a}
     cpu = build_problem(csr, dtype=dt, device="cpu")
     ref = solve(cpu.A, cpu.b, method=method, cfg=cfg)
     prob = build_problem(csr, dtype=dt, device=dev)
     assert type(prob.A).__name__ == "WindowEllMatrix"
+    x = prob.b
+    before = {k: f.launches for k, f in counters.items()}
+    spmv(prob.A, x)
+    spmv_name = "window_df" if dtype == "df32" else "window"
+    assert {k: f.launches - before[k] for k, f in counters.items()} == {
+        **dict.fromkeys(counters, 0), spmv_name: 1}
     before = {k: f.launches for k, f in counters.items()}
     res = solve(prob.A, prob.b, method=method, cfg=cfg)
     assert bool(res.converged) and abs(res.n_iter - ref.n_iter) <= 2
     used = {k: f.launches - before[k] for k, f in counters.items()}
-    spmv_name = "window_df" if dtype == "df32" else "window"
     assert used.pop(spmv_name) >= 2 * res.n_iter
     bodies = res.n_iter if method == "pipe_bicgstab" else 0
     assert used == {**dict.fromkeys(used, 0), "body_a": bodies}
 
 
 def test_window_wrappers_raise_instead_of_falling_back():
+    import dataclasses
+
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
     dev = _card()
     _, A = _window(torch.float32, dev, "tail")
     _, Adf = _window("df32", dev, "tail")
     x = torch.ones(A.n_cols, device=dev)
     with pytest.raises(TypeError):         # float64 x, float32 values
-        cws.window_slabs(A, x.double())
+        cws.window_rows(A, x.double())
     with pytest.raises(ValueError):        # x on the CPU
-        cws.window_slabs(A, x.cpu())
+        cws.window_rows(A, x.cpu())
     with pytest.raises(ValueError):        # x of the wrong length
-        cws.window_slabs(A, x[:100])
+        cws.window_rows(A, x[:100])
     with pytest.raises(TypeError):         # float32 x, not a pair
-        cws.window_slabs_df(Adf, x)
+        cws.window_rows_df(Adf, x)
     with pytest.raises(TypeError):         # DF x, float32 values
-        cws.window_slabs_df(A, DF(x, x))
+        cws.window_rows_df(A, DF(x, x))
+    cpu_copy = dataclasses.replace(A, **{k: getattr(A, k).cpu() for k in (
+        "sub_sel", "lane_idx", "vals", "window_base", "tail_rows",
+        "tail_cols", "tail_vals")})
+    with pytest.raises(ValueError):        # the compacted copy on the CPU
+        cws.window_rows(cpu_copy, x)
 
 
 # --- butterfly SpMV (kernels 25-28) ------------------------------------------
@@ -1298,7 +1323,7 @@ def test_butterfly_route_launches_its_kernels(dtype, method):
     cfg = SolverConfig(tol=tol, dtype=dtype)
     counters = {"k1": cbf.butterfly_k1, "k2": cbf.butterfly_k2,
                 "k3": cbf.butterfly_k3, "k3_df": cbf.butterfly_k3_df,
-                "window": cws.window_slabs, "dia": cuda_spmv.dia_spmv,
+                "window": cws.window_rows, "dia": cuda_spmv.dia_spmv,
                 "dia_df": cuda_spmv.dia_spmv_df, "body_a": cpb.fused_body_a}
     cpu = build_problem(csr, dtype=dt, device="cpu")
     ref = solve(cpu.A, cpu.b, method=method, cfg=cfg)

@@ -1,6 +1,6 @@
 """Port vs JAX package: the windowed-ELL layout (ops/window_ell.py), its
-SpMV (ops/window_spmv.py: the kernels' plain twins plus the COO tail), the
-'auto' route to it, and solves on it.
+SpMV (ops/window_spmv.py: on the CPU the kernels' plain twins over the
+row-compacted copy), the 'auto' route to it, and solves on it.
 
 Layouts: every array and static field equal to JAX's (np.array_equal).
 SpMV: the port against JAX's Pallas kernels run as JAX's own tests run
@@ -14,7 +14,14 @@ arithmetic is the same at any grid blocking, and a 16-tile step makes the
 interpret-mode trace of each call take 8-40 s. Solves: n_iter within +-2
 of JAX's solve on the same layout, and at float64 the residual history
 within rtol 1e-6 over the common prefix.
+
+The row-compacted copy (port only): its structure against the CSR and
+the slab arrays, and its SpMV bit-equal (float32, float64, DF hi and lo)
+to the padded slabs plus the leveled tail, the JAX kernel's order, for
+finite x (zeros and -0 included); where x holds an inf at a column that
+only padded slots read, the compacted SpMV keeps the row finite.
 """
+import dataclasses
 import contextlib
 import io
 import json
@@ -38,6 +45,7 @@ import mpi_bicgstab_tpu_torch.models.problem as tprob
 import mpi_bicgstab_tpu_torch.ops.layout as tlayout
 import mpi_bicgstab_tpu_torch.ops.sparse as tsparse
 import mpi_bicgstab_tpu_torch.ops.window_ell as twin
+import mpi_bicgstab_tpu_torch.ops.window_spmv as twsp
 from mpi_bicgstab_tpu.io.mmio import write_matrix_market
 from mpi_bicgstab_tpu.ops.precision import df_from_f64 as jdf
 from mpi_bicgstab_tpu.ops.precision import df_to_f64 as jdf_to_f64
@@ -239,6 +247,195 @@ def test_window_spmv_matches_jax_kernel(dtype, tail):
     if dtype == "float64":
         np.testing.assert_allclose(yt, t.matvec(x), rtol=0,
                                    atol=1e-13 * scale)
+
+
+def _stored_zero():
+    """_small's matrix with every 97th value stored as 0 and every 101st
+    as -0 (kept in the CSR): zero slab entries are not held, zero tail
+    entries are."""
+    t, _ = _small(seed=3)
+    val = t.val.copy()
+    val[::97] = 0.0
+    val[50::101] = -0.0
+    return dataclasses.replace(t, val=val), {}
+
+
+COMPACT_CASES = {
+    "tail": lambda: (_small()[0], {}),
+    "empty_tail": lambda: (_small(seed=4, global_frac=0.0, n=1024)[0], {}),
+    "beyond_n_cols": lambda: (_small(seed=9, nnz_per_row=2)[0],
+                              dict(window_base=np.array([2, 1]),
+                                   force_x_rows=24)),
+    "deep_tail": lambda: (lambda t, _, kw: (t, kw))(*_spill_case()),
+    "stored_zero": _stored_zero,
+}
+
+
+def _compact_case(case, dtype):
+    t, kw = COMPACT_CASES[case]()
+    A = twin.csr_to_window_ell(t, dtype=getattr(torch, dtype, dtype),
+                               device="cpu", **kw)
+    return t, A
+
+
+def _x_with_zeros(n, seed=11):
+    x = np.random.default_rng(seed).standard_normal(n)
+    x[::7] = 0.0
+    x[3::11] = -0.0
+    return x
+
+
+def _put(x, dtype):
+    return (df_from_f64(x) if dtype == "df32"
+            else torch.as_tensor(x, dtype=getattr(torch, dtype)))
+
+
+def _bits(v):
+    """The bit patterns of a port value (hi and lo of a DF pair)."""
+    return [a.view(np.int32 if a.dtype == np.float32 else np.int64)
+            for a in _host(v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "df32"])
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_compacted_spmv_bit_equal_to_padded_slabs_and_tail(case, dtype):
+    """window_spmv (the twin over the compacted copy) against the padded
+    slabs plus the leveled tail, bit for bit on finite x."""
+    t, A = _compact_case(case, dtype)
+    if case == "deep_tail":
+        assert len(A.tail_counts) >= 8
+    assert (A.tail_size > 0) == (case != "empty_tail")
+    x = _put(_x_with_zeros(t.shape[1]), dtype)
+    got, want = tlayout.spmv(A, x), twsp.window_padded_plain(A, x)
+    for a, b in zip(_bits(got), _bits(want), strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def _row_lists(A):
+    """Each row's list in the compacted copy, [(col, val), ...] by
+    position, read slot by slot from rc_off / rc_col / rc_val (float64
+    values; a DF pair summed exactly), and each slice's width."""
+    off = A.rc_off.numpy()
+    col = A.rc_col.numpy()
+    val = (A.rc_val.hi.double() + A.rc_val.lo.double() if is_df(A.rc_val)
+           else A.rc_val.double()).numpy()
+    lists, widths = [], []
+    for s in range(A.n_rows // twin.SLICE_ROWS):
+        width, rem = divmod(int(off[s + 1] - off[s]), twin.SLICE_ROWS)
+        assert rem == 0
+        widths.append(width)
+        for lane in range(twin.SLICE_ROWS):
+            p = off[s] + lane + twin.SLICE_ROWS * np.arange(width)
+            lists.append(list(zip(col[p].tolist(), val[p].tolist())))
+    return lists, widths
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_compacted_copy_structure(case):
+    """Each row's list: its nonzero slab entries in slab order, then its
+    tail entries in level order, then -1 slots (value 0) to its slice's
+    width; each slice as wide as its longest row; the held entries are
+    the CSR's entries less the zero-valued slab entries."""
+    t, A = _compact_case(case, "float64")
+    lists, widths = _row_lists(A)
+    n, W = A.n_rows, A.width
+    slab_col = np.stack([twin.slab_columns(A, w).reshape(n).numpy()
+                         for w in range(W)])
+    slab_val = A.vals.reshape(W, n).numpy()
+    tail = {}
+    for d, c in enumerate(A.tail_counts):
+        for r, cc, v in zip(A.tail_rows[d, :c].tolist(),
+                            A.tail_cols[d, :c].tolist(),
+                            A.tail_vals[d, :c].tolist()):
+            tail.setdefault(r, []).append((cc, v))
+    held = []
+    for r in range(n):
+        want = [(int(slab_col[w, r]), float(slab_val[w, r]))
+                for w in range(W) if slab_val[w, r] != 0]
+        want += tail.get(r, [])
+        got = lists[r]
+        k = len(want)
+        assert got[:k] == want, r
+        assert all(cv == (-1, 0.0) for cv in got[k:]), r
+        held += [(r, cc, v) for cc, v in want]
+    for s, width in enumerate(widths):
+        rows = range(s * twin.SLICE_ROWS, (s + 1) * twin.SLICE_ROWS)
+        assert width == max(sum(c >= 0 for c, _ in lists[r]) for r in rows)
+    assert A.rc_width == max(widths)
+    rows = np.repeat(np.arange(t.nrows), np.diff(t.ptr))
+    csr = sorted(zip(rows.tolist(), t.col.tolist(), t.val.tolist()))
+    tail_zeros = sorted((r, cc, v) for r, lst in tail.items()
+                        for cc, v in lst if v == 0)
+    nonzero = [e for e in csr if e[2] != 0]
+    assert sorted(held) == sorted(nonzero + tail_zeros)
+    assert A.nnz_stored == W * n + A.tail_size
+
+
+def _same_copy(a, b):
+    for k in ("rc_off", "rc_col", "rc_val"):
+        for u, v in zip(_host(getattr(a, k)), _host(getattr(b, k)),
+                        strict=True):
+            assert u.dtype == v.dtype, k
+            np.testing.assert_array_equal(u, v, err_msg=k)
+    assert a.rc_width == b.rc_width
+
+
+def test_compacted_copy_survives_every_construction():
+    """window_ell_with_values, dataclasses.replace and convert (a
+    JAX-built layout) all carry the copy of the layout they build."""
+    t, j = _small(seed=6)
+    host = twin.csr_to_window_ell(t, device="cpu")
+    for dtype in (torch.float32, torch.float64, "df32"):
+        _same_copy(twin.window_ell_with_values(host, dtype, device="cpu"),
+                   twin.csr_to_window_ell(t, dtype=dtype, device="cpu"))
+    halved = dataclasses.replace(host, vals=host.vals / 2,
+                                 tail_vals=host.tail_vals / 2)
+    np.testing.assert_array_equal(halved.rc_val.numpy(),
+                                  host.rc_val.numpy() / 2)
+    np.testing.assert_array_equal(halved.rc_col.numpy(),
+                                  host.rc_col.numpy())
+    with pytest.raises(ValueError):
+        dataclasses.replace(host, rc_col=host.rc_col)
+    arrays, meta = _jax_arrays(jwin.csr_to_window_ell(j, dtype="df32"))
+    _same_copy(convert.operator_from_arrays("window", arrays, meta,
+                                            device="cpu"),
+               twin.csr_to_window_ell(t, dtype="df32", device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "df32"])
+def test_compacted_spmv_nonfinite_contract(dtype):
+    """An inf in x at a column that only padded slots of a row read: the
+    padded order gives that row NaN (0 * inf), the compacted SpMV keeps
+    it finite. An inf at a held entry's column still reaches its rows."""
+    t, A = _compact_case("tail", dtype)
+    n = A.n_rows
+    rows = np.repeat(np.arange(t.nrows), np.diff(t.ptr))
+    slab_col = np.stack([twin.slab_columns(A, w).reshape(n).numpy()
+                         for w in range(A.width)])
+    vals = A.vals.hi if is_df(A.vals) else A.vals
+    pad = (vals.reshape(A.width, n).numpy() == 0) & (slab_col < t.shape[1])
+    # a column that a padded slot of row r reads and no entry of r holds
+    holds = set(zip(rows.tolist(), t.col.tolist()))
+    w, r = next((w, r) for w, r in zip(*np.nonzero(pad))
+                if (r, slab_col[w, r]) not in holds)
+    c = int(slab_col[w, r])
+    x = np.random.default_rng(4).standard_normal(t.shape[1])
+    x[c] = np.inf
+    y = _host(tlayout.spmv(A, _put(x, dtype)))[0]
+    y_pad = _host(twsp.window_padded_plain(A, _put(x, dtype)))[0]
+    readers = np.zeros(n, dtype=bool)
+    readers[rows[t.col == c]] = True
+    assert np.isnan(y_pad[r]) and np.isfinite(y[r])
+    np.testing.assert_array_equal(~np.isfinite(y), readers)
+    # a held entry's inf: exactly the rows holding that column
+    c2 = int(t.col[rows == r][0])
+    x = np.random.default_rng(4).standard_normal(t.shape[1])
+    x[c2] = np.inf
+    y = _host(tlayout.spmv(A, _put(x, dtype)))[0]
+    readers = np.zeros(n, dtype=bool)
+    readers[rows[t.col == c2]] = True
+    assert readers[r] and readers.sum() >= 1
+    np.testing.assert_array_equal(~np.isfinite(y), readers)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "df32"])
@@ -490,6 +687,8 @@ def test_chip_smoke_window_and_reorder_phases_on_cpu(phase):
     csr = tgen.clustered_random(8192)
     inp = smoke.window_inputs(csr, device="cpu")
     assert smoke.check_window_spmv(inp) <= 1e-12
+    smoke.check_window_padded(inp)
+    smoke.check_window_nonfinite(inp)
     probs = smoke.window_problems(inp, device="cpu")
     if phase == "window":
         counts = smoke.run_window_cli(8192, probs["float32"][1], device="cpu")
@@ -500,28 +699,28 @@ def test_chip_smoke_window_and_reorder_phases_on_cpu(phase):
 
 def test_chip_smoke_window_launch_rule():
     smoke = _chip_smoke()
-    counts = dict.fromkeys(("window_slabs", "window_slabs_df", "dia_spmv",
+    counts = dict.fromkeys(("window_rows", "window_rows_df", "dia_spmv",
                             "fused_body_a", "fused_body_b"), 0)
     check = smoke.check_window_counts
     # classic, 10 iterations in one segment: 2 per iteration + r0 + true
     check("rule", "bicgstab", "float32", 10,
-          {**counts, "window_slabs": 22}, restarts=2)
+          {**counts, "window_rows": 22}, restarts=2)
     # the same over two segments (one restart)
     check("rule", "bicgstab", "float64", 10,
-          {**counts, "window_slabs": 24}, restarts=2)
+          {**counts, "window_rows": 24}, restarts=2)
     check("rule", "pipe_bicgstab", "df32", 10,
-          {**counts, "window_slabs_df": 24, "fused_body_a": 10,
+          {**counts, "window_rows_df": 24, "fused_body_a": 10,
            "fused_body_b": 10}, restarts=2)
     check("rule", "bicgstab", "df32", 10, counts, restarts=2, device="cpu")
-    for bad in ({**counts, "window_slabs": 23},
-                {**counts, "window_slabs": 22, "dia_spmv": 1},
-                {**counts, "window_slabs": 30},
-                {**counts, "window_slabs_df": 22}):
+    for bad in ({**counts, "window_rows": 23},
+                {**counts, "window_rows": 22, "dia_spmv": 1},
+                {**counts, "window_rows": 30},
+                {**counts, "window_rows_df": 22}):
         with pytest.raises(smoke.SmokeFailure):
             check("rule", "bicgstab", "float32", 10, bad, restarts=2)
     with pytest.raises(smoke.SmokeFailure):
         check("rule", "pipe_bicgstab", "df32", 10,
-              {**counts, "window_slabs_df": 24}, restarts=2)
+              {**counts, "window_rows_df": 24}, restarts=2)
 
 
 def test_chip_smoke_time_routing_on_cpu(capsys):
