@@ -12,7 +12,10 @@ numbers; any failure exits non-zero:
              with each kernel's registers, shared memory and spills
   3. check   each kernel against its plain PyTorch version on the same
              inputs at the main path's full width: transport_like(1602112),
-             15 diagonals (tolerances in TOL below); the batched kernels
+             15 diagonals (tolerances in TOL below); the Chebyshev chains
+             on transport_hard(1602112) at degree 8 (their plan, the
+             kernels' registers and blocks per SM printed; the float32
+             chain's max |kernel - twin| beside its bar); the batched kernels
              at k = 8 lanes, two of them frozen (their outputs must be
              their old values bit for bit). The double-float (DF)
              kernels take the band as DF pairs split from float64 and
@@ -138,8 +141,10 @@ numbers; any failure exits non-zero:
              per-iteration, float64) beside the shift update's byte floor;
              time per batched iteration at k = 8 (eager and device) beside
              8 single-lane classic f32 iterations and its byte floor; the
-             chain kernels beside the unfused chain (bench_cheby), the f32
-             chain at degrees 1, 2, 4 and 8, and the
+             chain kernels beside the unfused chain (bench_cheby) and
+             their design's floor (the band read once per degree), both
+             chains at degrees 1, 2, 4 and 8 (at 1 and 8 on
+             transport_hard(300763), whose band fits the L2), and the
              preconditioned f32 classic, df32 classic and df32 pipelined
              iterations (eager and device) beside 2 x (chain + DIA SpMV)
              bytes; the window kernels beside their bounds, twins and
@@ -153,6 +158,11 @@ numbers; any failure exits non-zero:
              beside two SpMVs' bytes
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
+
+    python3 chip_smoke.py --chain-times
+
+times the Chebyshev chain kernels alone (chain_times), to compare two
+trees in one call: copy this script into each tree and run it there.
 """
 from __future__ import annotations
 
@@ -340,6 +350,8 @@ N_HARD, CHEBY_DEGREE, CHEBY_MAX_ITER = 1_602_112, 8, 5000
 CHEBY_PATHS = {"cheby_df32": ("bicgstab", "df32", 1e-10),
                "cheby_pipe_df32": ("pipe_bicgstab", "df32", 1e-10),
                "cheby_f64": ("bicgstab", "float64", 1e-10)}
+# a transport_hard size whose float32 band (15.6 MB) fits the 50 MB L2
+N_HARD_L2 = 300_763
 AB_TOL, AB_MAX_ITER = 1e-5, 20000
 # windowed-ELL (slice 6b) on clustered_random(N_WINDOW): `[window]` is the
 # CLI in float32 at WINDOW_TOL, these through api.solve: phase -> (method,
@@ -622,6 +634,28 @@ def cheby_kernel_calls(inp: dict) -> dict:
     }
 
 
+def say_chain_info() -> None:
+    """Print the chain kernels' registers and resident blocks per SM (the
+    card has no ncu)."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    for name, df in (("cheby_chain", False), ("cheby_chain_df", True)):
+        _say("check", chain=name, degree=CHEBY_DEGREE, **cc.kernel_info(df))
+
+
+def say_chain_plan(inp: dict) -> None:
+    """Print the chains' schedule on inp's hard band (ops/cuda_cheby
+    .chain_plan for this card's resident grid): rows a task, tiles, the
+    reach in tiles."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    H = inp["H32"]
+    for name, df in (("cheby_chain", False), ("cheby_chain_df", True)):
+        grid = cc.resident_blocks(0, df)
+        p = cc.chain_plan(H.n_rows, tuple(H.offsets), grid)
+        _say("check", chain_plan=name, n=H.n_rows, grid=grid,
+             tile_rows=p.tile, tiles=p.n_tiles, reach_tiles=p.reach,
+             tasks=p.n_tiles * CHEBY_DEGREE)
+
+
 def batched_kernel_calls(inp: dict) -> dict:
     """The batched kernels' entries of kernel_calls (k = K_MAIN lanes;
     each returns its planes, then its [k] dots)."""
@@ -729,6 +763,8 @@ def df_outputs(name: str, out: tuple, inp: dict):
     own dots with the twin's formulas, ops/precision.py)."""
     from mpi_bicgstab_tpu_torch.ops.precision import df_div, df_mul
     from mpi_bicgstab_tpu_torch.solvers.base import fold_beta_alpha
+    if name in ("dia_spmv_df", "cheby_chain_df"):
+        return 1, [], []
     a, w, rtr, rh, s, z = (inp["df_" + k] for k in
                            ("alpha", "omega", "rTr", "r_hat", "s", "z"))
     if name in ("fused_ca_k1_df", "fused_phase_a_df"):
@@ -743,8 +779,6 @@ def df_outputs(name: str, out: tuple, inp: dict):
         r2, w2 = out[nv - 2], out[nv - 1]
         return nv, [(r2, r2), (rh, r2), (rh, w2), (rh, s), (rh, z)], list(
             fold_beta_alpha(a, w, rtr, *out[nv + 1:nv + 5]))
-    if name in ("dia_spmv_df", "cheby_chain_df"):
-        return 1, [], []
     if name == "fused_body_a":      # p2, s2, z2, q, y, (q, y), (y, y)
         q, y = out[3], out[4]
         return 5, [(q, y), (y, y)], []
@@ -837,7 +871,7 @@ def check_kernels(calls: dict, inp: dict) -> dict:
             errs[name] = err
             _say("check", kernel=name, ok=True, degree=CHEBY_DEGREE,
                  max_abs_err=f"{err:.3e}", scale=f"{scale:.3e}",
-                 bit_equal=torch.equal(g, w))
+                 bar=f"{TOL[dt] * scale:.3e}", bit_equal=torch.equal(g, w))
             continue
         for i, (g, w) in enumerate(zip(got, want)):
             what = f"{name} output {i}"
@@ -953,10 +987,6 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         return window_work(name, inp)
     if name.startswith("butterfly"):
         return butterfly_work(name, inp)
-    A = inp["A32"]
-    n, W = A.n_rows, A.n_diags
-    nz = _band_nnz(A)
-    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
     if name in ("cheby_chain", "cheby_chain_df"):
         # the band once, v in, x out; operations of this run's chain: the
         # band product at every step but the last, 2 flops per entry (one
@@ -965,7 +995,12 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
         n, W, nz, d = H.n_rows, H.n_diags, _band_nnz(H), CHEBY_DEGREE
         if name == "cheby_chain":
             return 4 * (W * n + 2 * n), 2 * nz * d + 5 * n * d, "float32"
-        return 8 * (W * n + 2 * n), fma * (nz * d + 4 * n * d), "df32"
+        return (8 * (W * n + 2 * n), DF_FMA_FLOPS * (nz * d + 4 * n * d),
+                "df32")
+    A = inp["A32"]
+    n, W = A.n_rows, A.n_diags
+    nz = _band_nnz(A)
+    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
     if name == "fused_body_a":   # 7 DF vectors in, 5 out, 3 scalars, 2 dots
         return 8 * (12 * n + 3 + 2), fma * 8 * n + dot * 2 * n, "df32"
     if name == "fused_body_b":   # 9 DF vectors in, 3 out, 2 scalars, 5 dots
@@ -1908,19 +1943,85 @@ def run_cheby_ab(probs: dict, prec) -> None:
                            f"did not converge: {rows['cheby']}")
 
 
+def time_chain_degrees(inp: dict, degrees) -> None:
+    """Both chain kernels on inp's hard band at each degree (replayed CUDA
+    graphs of 30 calls), beside one band's read time from HBM, and the
+    wrapper's workspace fill alone (at most as many ints as a 256-row
+    plan)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops.cuda_cheby import (cheby_chain,
+                                                       cheby_chain_df)
+    lo, hi = inp["h_lo"], inp["h_hi"]
+    for fn, A, v, elem in ((cheby_chain, inp["H32"], inp["h_v"], 4),
+                           (cheby_chain_df, inp["Hdf"], inp["h_vdf"], 8)):
+        band = elem * A.n_diags * A.n_rows
+        for d in degrees:
+            ms = time_call(lambda: fn(A.vals, v, A.offsets, d, lo, hi),
+                           iters=30, graph=True) * 1e3
+            _say("times", kernel=fn.__name__, n=A.n_rows, degree=d,
+                 ms=f"{ms:.4f}", ms_per_degree=f"{ms / d:.4f}",
+                 band_hbm_ms=f"{band / HBM_BYTES_PER_S * 1e3:.4f}")
+    # the wrapper's zeroed workspace (flags and ticket counter) alone
+    tiles = -(-inp["H32"].n_rows // 256)
+    ms = time_call(lambda: torch.zeros(tiles + 1, dtype=torch.int32,
+                                       device="cuda"),
+                   iters=30, graph=True) * 1e3
+    _say("times", chain_workspace_fill_ms=f"{ms:.4f}", ints=tiles + 1)
+
+
+def chain_times() -> int:
+    """`chip_smoke.py --chain-times`: the chain kernels alone, so that two
+    trees can be compared in one call (copy this script into each and run
+    it there): the card, the build, both chains held to their twins at
+    CHEBY_DEGREE on transport_hard(N_HARD), their plan, registers and
+    blocks per SM, and time_cheby. Prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.models.generators import transport_hard
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    print(probe())
+    build()
+    inp = cheby_inputs(build_problem(transport_hard(N_HARD),
+                                     dtype=torch.float64, multiple=1))
+    check_kernels(cheby_kernel_calls(inp), inp)
+    say_chain_plan(inp)
+    say_chain_info()
+    time_cheby(inp, ChebyPrecond(CHEBY_DEGREE, inp["h_lo"], inp["h_hi"]))
+    return 0
+
+
+def time_chains_l2() -> None:
+    """Both chain kernels held to their twins at CHEBY_DEGREE on
+    transport_hard(N_HARD_L2), whose band fits the L2, with their plan,
+    and timed at degrees 1 and CHEBY_DEGREE (time_chain_degrees)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.models.generators import transport_hard
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    inp = cheby_inputs(build_problem(transport_hard(N_HARD_L2),
+                                     dtype=torch.float64, multiple=1))
+    check_kernels(cheby_kernel_calls(inp), inp)
+    say_chain_plan(inp)
+    time_chain_degrees(inp, (1, CHEBY_DEGREE))
+
+
 def time_cheby(inp: dict, prec) -> None:
     """The chain kernels beside the unfused chain (bench_cheby, graph
-    replays); the float32 chain kernel at degrees 1, 2, 4 and 8 (it reads
-    the band once per degree, so the slope over the degree is one step's
-    cost and the intercept the launch's and the barriers' rest); and the
-    preconditioned float32 classic, df32 classic and df32 pipelined
-    iterations (tol=0 chains through bench_iteration), eager and as
-    replayed CUDA graphs, beside their floor 2 x (chain + DIA SpMV)
-    bytes."""
+    replays); both chain kernels at degrees 1, 2, 4 and 8 beside one
+    band's read time from HBM (the band is read once per degree, so the
+    slope over the degree is one step's cost and the intercept the
+    launch's and the schedule's rest), and on a band that fits the L2
+    (time_chains_l2); and the preconditioned float32
+    classic, df32 classic and df32 pipelined iterations (tol=0 chains
+    through bench_iteration), eager and as replayed CUDA graphs, beside
+    their floor 2 x (chain + DIA SpMV) bytes."""
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_cheby,
-                                                          bench_iteration,
-                                                          time_call)
-    from mpi_bicgstab_tpu_torch.ops.cuda_cheby import cheby_chain
+                                                          bench_iteration)
     lo, hi = inp["h_lo"], inp["h_hi"]
     for prob in (inp["h_prob32"], inp["h_probdf"]):
         r = bench_cheby(prob, lo, hi, degree=CHEBY_DEGREE)
@@ -1928,14 +2029,9 @@ def time_cheby(inp: dict, prec) -> None:
              chain_kernel_ms=f"{r['cheby_fused_apply_s'] * 1e3:.4f}",
              unfused_chain_ms=f"{r['cheby_unfused_apply_s'] * 1e3:.4f}",
              chain_speedup=f"{r['cheby_fused_speedup']:.3f}")
+    time_chain_degrees(inp, (1, 2, 4, CHEBY_DEGREE))
+    time_chains_l2()
     H = inp["H32"]
-    band_ms = 4 * H.n_diags * H.n_rows / HBM_BYTES_PER_S * 1e3
-    for d in (1, 2, 4, CHEBY_DEGREE):
-        ms = time_call(lambda: cheby_chain(H.vals, inp["h_v"], H.offsets, d,
-                                           lo, hi), iters=30, graph=True) * 1e3
-        _say("times", kernel="cheby_chain", degree=d, ms=f"{ms:.4f}",
-             ms_per_degree=f"{ms / d:.4f}",
-             band_read_floor_ms_per_degree=f"{band_ms:.4f}")
     spmv_bytes = 4 * (H.n_diags * H.n_rows + 2 * H.n_rows)
     nbytes = 2 * (work("cheby_chain", inp)[0] + spmv_bytes)
     for dtype, method, iters in (("float32", "bicgstab", 60),
@@ -2801,6 +2897,8 @@ def main() -> int:
          max_offset=max(abs(o) for o in inp["H32"].offsets),
          bounds=f"[{inp['h_lo']},{inp['h_hi']}]", degree=CHEBY_DEGREE,
          host_setup_s=round(time.perf_counter() - t0, 3))
+    say_chain_plan(inp)
+    say_chain_info()
     calls = kernel_calls(inp)
     errs = check_kernels(calls, inp)
     check_frozen_lanes(calls, inp)
@@ -3019,4 +3117,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(chain_times() if sys.argv[1:] == ["--chain-times"] else main())

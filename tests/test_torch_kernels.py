@@ -31,7 +31,9 @@ bit-equal to the twin's, frozen rows bit-unchanged. Shifted solves on the
 card against the CPU: n_iter within 2, the same final seed, solutions
 within 1e-8 (1e-3 in float32). The float32 Chebyshev chain: within 2e-6
 of the twin's largest entry (the JAX package's bar, tests/test_cheby.py);
-the DF chain and the DF pipelined bodies as the other DF kernels. The
+the DF chain and the DF pipelined bodies as the other DF kernels (the
+chains also at a reach of 9 tiles, degree 64, and in replays of one
+captured graph). The
 windowed-ELL and butterfly kernels: bit-equal to their twins (unfused
 products and sums in the twins' order; the butterfly's routing stages
 move bits, and its K3 equals the routed pipeline bit for bit; the window
@@ -920,28 +922,82 @@ def test_batched_wrappers_raise_instead_of_falling_back():
 
 # --- Chebyshev chains and the DF pipelined bodies (slices 7 and 3c) ---------
 
-@pytest.mark.parametrize("degree", [1, 2, 8])
-@pytest.mark.parametrize("n,offsets", CASES)
-def test_cheby_chain_kernels_match_plain(n, offsets, degree):
-    """The float32 chain within 2e-6 of the twin's largest entry (the JAX
-    package's bar for its chain kernel), the DF chain bit for bit."""
+# transport_hard(300763) (67^3 rows): offsets +-1, +-2, +-67, +-134,
+# +-4489 and +-8978, so a task's reach spans 9 tiles of 1,024 rows each
+# side
+HARD_CASE = (300763, "transport_hard")
+
+
+def _chain_inputs(n, offsets, dev):
+    """The chain's float32 and DF bands, v in each, and (lo, hi)."""
+    if offsets != "transport_hard":
+        return (_band(n, offsets, torch.float32, dev),
+                _band(n, offsets, "df32", dev), *_vecs(n, 1, dev),
+                *_df_vecs(n, 1, dev), 0.05, 9.0)
+    from mpi_bicgstab_tpu_torch.models.generators import transport_hard
+    from mpi_bicgstab_tpu_torch.ops.cheby import estimate_bounds
+    csr = transport_hard(n)
+    m = round(n ** (1 / 3))
+    offs = sorted({0} | {s * o for o in (1, 2, m, 2 * m, m * m, 2 * m * m)
+                         for s in (1, -1)})
+    A32, _ = csr_to_dia(csr, offs, dtype=torch.float32, device=dev)
+    Adf, _ = csr_to_dia(csr, offs, dtype="df32", device=dev)
+    return (A32, Adf, *_vecs(csr.nrows, 1, dev), *_df_vecs(csr.nrows, 1, dev),
+            *estimate_bounds(csr))
+
+
+def _chains(inp, degree):
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
-    dev = _card()
-    lo, hi = 0.05, 9.0
-    A32 = _band(n, offsets, torch.float32, dev)
-    Adf = _band(n, offsets, "df32", dev)
-    (v,) = _vecs(n, 1, dev)
-    (vdf,) = _df_vecs(n, 1, dev)
-    before = (cc.cheby_chain.launches, cc.cheby_chain_df.launches)
-    got = cc.cheby_chain(A32.vals, v, A32.offsets, degree, lo, hi)
-    got_df = cc.cheby_chain_df(Adf.vals, vdf, Adf.offsets, degree, lo, hi)
-    torch.cuda.synchronize()
-    assert (cc.cheby_chain.launches, cc.cheby_chain_df.launches) == (
-        before[0] + 1, before[1] + 1)
+    A32, Adf, v, vdf, lo, hi = inp
+    return (cc.cheby_chain(A32.vals, v, A32.offsets, degree, lo, hi),
+            cc.cheby_chain_df(Adf.vals, vdf, Adf.offsets, degree, lo, hi))
+
+
+def _assert_chains_match_twins(inp, degree, got, got_df):
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    A32, Adf, v, vdf, lo, hi = inp
     want = cc.cheby_chain_plain(A32.vals, v, A32.offsets, degree, lo, hi)
     assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
     assert _same(got_df, cc.cheby_chain_df_plain(Adf.vals, vdf, Adf.offsets,
                                                  degree, lo, hi))
+
+
+@pytest.mark.parametrize("degree", [1, 2, 8, 64])
+@pytest.mark.parametrize("n,offsets", CASES + [HARD_CASE])
+def test_cheby_chain_kernels_match_plain(n, offsets, degree):
+    """The float32 chain within 2e-6 of the twin's largest entry (the JAX
+    package's bar for its chain kernel), the DF chain bit for bit; one
+    launch an application."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    inp = _chain_inputs(n, offsets, _card())
+    before = (cc.cheby_chain.launches, cc.cheby_chain_df.launches)
+    got, got_df = _chains(inp, degree)
+    torch.cuda.synchronize()
+    assert (cc.cheby_chain.launches, cc.cheby_chain_df.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_chains_match_twins(inp, degree, got, got_df)
+
+
+def test_cheby_chain_graph_replays_start_from_a_zeroed_workspace():
+    """Three back-to-back applications of each chain captured in one CUDA
+    graph and replayed three times: every output equals its twin each
+    time, so each replay's captured fill zeroes the flags and the ticket
+    counter again."""
+    n, offsets = HARD_CASE
+    inp = _chain_inputs(n, offsets, _card())
+    _chains(inp, 8)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [_chains(inp, 8) for _ in range(3)]
+    for _ in range(3):
+        for got, got_df in outs:
+            for t in (got, got_df.hi, got_df.lo):
+                t.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for got, got_df in outs:
+            _assert_chains_match_twins(inp, 8, got, got_df)
 
 
 @pytest.mark.parametrize("n", [100, 5000, 16384])
