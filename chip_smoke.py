@@ -17,7 +17,8 @@ numbers; any failure exits non-zero:
              kernels' registers and blocks per SM printed; the float32
              chain's max |kernel - twin| beside its bar); the batched kernels
              at k = 8 lanes, two of them frozen (their outputs must be
-             their old values bit for bit). The double-float (DF)
+             their old values bit for bit; K1b again with their beta NaN
+             and omega inf, their dots NaN as the twin's). The double-float (DF)
              kernels take the band as DF pairs split from float64 and
              random DF vectors from a seeded NumPy generator; their output
              vectors must equal the twin's bit for bit, each dot must lie
@@ -136,7 +137,9 @@ numbers; any failure exits non-zero:
              a replayed CUDA graph (the device's own time; their ratio is
              the device's busy share), beside their byte floors; each
              kernel against its bound, its plain version and, for the
-             f32/f64 SpMV, torch's CSR product; time per shifted
+             f32/f64 SpMV, torch's CSR product (K1b and K2b also beside
+             their design's floor, with each kernel they launch timed by
+             torch.profiler); time per shifted
              iteration at 512 shifts (df32, float32 blocked and
              per-iteration, float64) beside the shift update's byte floor;
              time per batched iteration at k = 8 (eager and device) beside
@@ -163,10 +166,20 @@ numbers; any failure exits non-zero:
 
 times the Chebyshev chain kernels alone (chain_times), to compare two
 trees in one call: copy this script into each tree and run it there.
+
+    python3 chip_smoke.py --batched-times
+
+does the same for the batched kernels 19-22 at k = 8 (batched_times):
+held to their twins with two frozen lanes (finite, then NaN beta and inf
+omega), a sha256 digest of each kernel's outputs and dots on those
+seeded inputs, their times beside their bounds and K1b / K2b's design
+floor, the device time of each kernel a pass launches (torch.profiler),
+and the batched iteration, eager and device.
 """
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -700,6 +713,42 @@ def check_frozen_lanes(calls: dict, inp: dict) -> None:
          frozen="bit-unchanged")
 
 
+def nonfinite_frozen_inputs(inp: dict) -> dict:
+    """inp with the frozen lanes' beta NaN and omega inf: a frozen lane's
+    recurrences may be either (solvers/batched_fused.py)."""
+    out = dict(inp)
+    for key, val in (("b_beta", float("nan")), ("b_omega", float("inf"))):
+        out[key] = inp[key].clone()
+        out[key][list(FROZEN_LANES)] = val
+    return out
+
+
+def check_nonfinite_frozen(inp: dict) -> None:
+    """K1b on nonfinite_frozen_inputs: the frozen lanes' P2 and S2 bit
+    for bit p and s, their dots NaN as the twin's (the dots of the
+    unmasked p'), the active lanes within TOL of the twin."""
+    import torch
+    kern, plain, _ = batched_kernel_calls(inp)["fused_k1b"]
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    fz = list(FROZEN_LANES)
+    act = [j for j in range(K_MAIN) if j not in FROZEN_LANES]
+    for i, old in enumerate(("p", "s")):
+        if not torch.equal(got[i][fz], inp["b_" + old][fz]):
+            raise SmokeFailure(f"fused_k1b output {i}: a frozen lane with "
+                               f"NaN beta and inf omega changed")
+        _close(f"fused_k1b output {i}", got[i][act], want[i][act],
+               **TOL["float32"])
+    if not (got[2][fz].isnan().all() and want[2][fz].isnan().all()):
+        raise SmokeFailure(f"fused_k1b: frozen dots {got[2][fz].tolist()}, "
+                           f"twin {want[2][fz].tolist()}, both NaN wanted")
+    _close("fused_k1b output 2", got[2][act], want[2][act],
+           TOL["float32_dot"]["rtol"], 0.0)
+    _say("batched_kernels", k=K_MAIN, frozen_lanes=fz, frozen_beta="nan",
+         frozen_omega="inf", frozen="bit-unchanged", frozen_dots="nan")
+
+
 def df_kernel_calls(inp: dict) -> dict:
     """The DF kernels' entries of kernel_calls: each call returns a tuple
     of DF pairs, vectors first, then dots, then the folded scalar."""
@@ -1132,6 +1181,13 @@ def time_kernels(calls: dict, inp: dict, csr) -> dict:
                      f"{band / HBM_BYTES_PER_S * 1e3:.4f}",
                      "band_reads_floor_share":
                      f"{band / HBM_BYTES_PER_S * 1e3 / row['ms']:.3f}"}
+        if name in ("fused_k1b", "fused_k2b"):
+            # the floor of the staged design: the bound plus one re-read of
+            # the plane stage 0 stored (p' or q)
+            A = inp["A32"]
+            row["design_floor_ms"] = (nbytes + 4 * K_MAIN * A.n_rows) \
+                / HBM_BYTES_PER_S * 1e3
+            extra = {"design_floor_ms": f"{row['design_floor_ms']:.4f}"}
         if name.startswith("window_spmv"):
             # this design's floor (the compacted slots) and the padded
             # slab kernel's, beside bound_ms, the nonzeros' bytes
@@ -1992,6 +2048,82 @@ def chain_times() -> int:
     say_chain_plan(inp)
     say_chain_info()
     time_cheby(inp, ChebyPrecond(CHEBY_DEGREE, inp["h_lo"], inp["h_hi"]))
+    return 0
+
+
+def say_batched_digests(calls: dict, what: str) -> None:
+    """A sha256 digest of each batched kernel's outputs and dots, to be
+    held equal across two trees on the same seeded inputs."""
+    import torch
+    for name in BATCHED:
+        out = calls[name][0]()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        _say("digest", kernel=name, inputs=what, sha256=h.hexdigest())
+
+
+def say_pass_kernels(calls: dict, calls_each: int = 20) -> None:
+    """The device time of each kernel that K1b and K2b launch, per call
+    of the pass (torch.profiler over calls_each calls; "not measured"
+    where the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for name in ("fused_k1b", "fused_k2b"):
+        kern = calls[name][0]
+        kern()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls_each):
+                kern()
+            torch.cuda.synchronize()
+        seen = False
+        for e in prof.key_averages():
+            us = e.device_time_total
+            if us:
+                seen = True
+                _say("stages", of=name, kernel=repr(e.key[:70]),
+                     launches_per_call=e.count / calls_each,
+                     device_ms_per_call=f"{us / 1e3 / calls_each:.4f}")
+        if not seen:
+            _say("stages", of=name, device_ms_per_call="not measured")
+
+
+def batched_times() -> int:
+    """`chip_smoke.py --batched-times`: kernels 19-22 alone at K_MAIN
+    lanes on transport_like(N_MAIN), so that two trees can be compared in
+    one call (copy this script into each and run it there): the card, the
+    build, the kernels held to their twins with FROZEN_LANES frozen
+    (finite, then NaN beta and inf omega), their digests on both inputs,
+    their times (time_kernels, K1b / K2b beside their design floor), the
+    kernels each pass launches (say_pass_kernels), and the batched
+    iteration beside K_MAIN single-lane classic iterations
+    (time_batched). Prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import bench_iteration
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    print(probe())
+    build()
+    csr = transport_like(N_MAIN)
+    inp = kernel_inputs(csr)
+    calls = batched_kernel_calls(inp)
+    check_kernels(calls, inp)
+    check_frozen_lanes(calls, inp)
+    nf = nonfinite_frozen_inputs(inp)
+    check_nonfinite_frozen(nf)
+    say_batched_digests(calls, "finite")
+    say_batched_digests(batched_kernel_calls(nf), "nan_beta_inf_omega")
+    time_kernels(calls, inp, csr)
+    say_pass_kernels(calls)
+    prob32 = build_problem(csr, dtype=torch.float32, multiple=1)
+    single = bench_iteration(prob32, method="bicgstab", iters=200,
+                             graph=True)
+    time_batched(csr, prob32, inp, single["time_per_iter_s"] * 1e3)
     return 0
 
 
@@ -2902,6 +3034,7 @@ def main() -> int:
     calls = kernel_calls(inp)
     errs = check_kernels(calls, inp)
     check_frozen_lanes(calls, inp)
+    check_nonfinite_frozen(nonfinite_frozen_inputs(inp))
     errs["shift_update_df"], su_row = check_shift_update(csr.nrows)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3074,6 +3207,7 @@ def main() -> int:
     _say("times", spmv_f32_nnz_per_s=f"{sp['spmv_nnz_per_s']:.4e}",
          spmv_layout=sp["spmv_layout"])
     times = time_kernels(calls, inp, csr)
+    say_pass_kernels(calls)
     time_routing(csr)
     time_window(winp, wprobs)
     times.update(time_kernels(wcalls, winp, csr_w))
@@ -3097,8 +3231,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("slots_bound_ms", "padded_bound_ms")
-               if k in row}})
+            **{k: row[k] for k in ("slots_bound_ms", "padded_bound_ms",
+                                   "design_floor_ms") if k in row}})
     kernels.append({
         "name": "shift_update_df", "route": "cuda",
         "source": SOURCES["shift_update_df"],
@@ -3117,4 +3251,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(chain_times() if sys.argv[1:] == ["--chain-times"] else main())
+    modes = {"--chain-times": chain_times, "--batched-times": batched_times}
+    args = sys.argv[1:]
+    sys.exit(modes[args[0]]() if len(args) == 1 and args[0] in modes
+             else main())

@@ -104,22 +104,21 @@ __device__ __forceinline__ void block_sum(float (&v)[K],
   }
 }
 
-// Second stage of every dot: one block sums the [G, K] per-block
-// partials in a fixed order (thread t takes rows t, t + blockDim, ...),
-// then block_sum. Counterpart of the XLA sum of the Pallas partial rows
+// Second stage of every dot: block k sums column k of the [G, K]
+// per-block partials in a fixed order (thread t takes rows t,
+// t + blockDim, ...), then block_sum. The K dots run side by side, one
+// block each; a dot's order of additions depends only on G and the
+// block size. Counterpart of the XLA sum of the Pallas partial rows
 // (pallas_fused_classic.py:319).
 template <int K>
 __global__ void __launch_bounds__(MBT_FIN_BLOCK)
     sum_partials(const float* __restrict__ partials, long long G,
                  float* __restrict__ out) {
-  float v[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = 0.0f;
-  for (long long g = threadIdx.x; g < G; g += blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] += partials[g * K + k];
-  }
-  block_sum<K>(v, out);
+  const int k = blockIdx.x;
+  float v[1] = {0.0f};
+  for (long long g = threadIdx.x; g < G; g += blockDim.x)
+    v[0] += partials[g * K + k];
+  block_sum<1>(v, out + k);
 }
 
 static inline long long mbt_grid(long long n) {
@@ -133,7 +132,7 @@ static cudaError_t mbt_finish(const float* partials, long long G,
                               float* dots, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_partials<K><<<1, MBT_FIN_BLOCK, 0, stream>>>(partials, G, dots);
+  sum_partials<K><<<K, MBT_FIN_BLOCK, 0, stream>>>(partials, G, dots);
   return cudaGetLastError();
 }
 

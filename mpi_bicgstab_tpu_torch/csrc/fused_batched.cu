@@ -3,11 +3,11 @@
 // lane by lane; reference solver.c:86-119 per lane, the end-of-loop p
 // update deferred into the next iteration's K1):
 //
-//   K1b: p'_l = r_l + beta_l (p_l - omega_l s_l)   recomputed at every
-//        s'_l = A p'_l                              neighbour
+//   K1b: p'_l = r_l + beta_l (p_l - omega_l s_l)   stage 0: once a row
+//        s'_l = A p'_l                              stage 1: from stored p'
 //        partial (r^_l, s'_l)
-//   K2b: q_l  = r_l - alpha_l s'_l                  recomputed at every
-//        y_l  = A q_l                               neighbour
+//   K2b: q_l  = r_l - alpha_l s'_l                  stage 0: once a row
+//        y_l  = A q_l                               stage 1: from stored q
 //        partials (q_l, y_l), (y_l, y_l)
 //   K3b: x'_l = x_l + alpha_l p'_l + omega_l q_l    pointwise
 //        r'_l = q_l - omega_l y_l
@@ -15,141 +15,235 @@
 //
 // Replaces: mpi_bicgstab_tpu/ops/pallas_fused_batched.py::_k1_kernel,
 // ::_k2_kernel and ::_k3_kernel (wrappers fused_k1b / fused_k2b /
-// fused_k3b). Those run on a padded carry with zero halo margins, DMA
-// chunk windows of every lane into VMEM and, in K1, write p' and s' over
-// p and s in place with a VMEM stash for the rows the next chunk's window
-// still needs. None of that is ported: here each thread owns one row of
-// every lane (batched_core.cuh), recomputes p' or q at each of its W
-// neighbours straight from the source planes, skips out-of-range columns
-// and writes fresh outputs. In place would be a race on the card: the
-// blocks run concurrently, and a block's neighbours read p and s at its
-// rows while it runs.
+// fused_k3b). Those DMA a chunk window of every lane into VMEM, form p'
+// (or q) once on the window and multiply from it, with a stash for the
+// rows the next chunk still needs.
 //
-// Frozen lanes (active_l == 0) get their old values written back with a
-// select: p' = p and s' = s in K1, x' = x and r' = q in K3 (the JAX kernels
-// mask arithmetically, a new + (1 - a) old, which gives the same bits for
-// finite values). K2 takes no flag: the solver loop runs frozen lanes with
-// alpha = 0, so q = r exactly. The dot partials are those of the
-// unmasked values, as in JAX; the solver loop discards a frozen lane's dots.
+// Design: K1b and K2b run as two launches a pass. Stage 0 is pointwise:
+// it forms p' (or q) once per row and lane and stores it in the pass's
+// output plane P2 (or Q), which the pass must write anyway. Stage 1 is
+// the lanes SpMV of batched_core.cuh over the stored plane: each thread
+// owns one row of every lane and reads its W neighbours' values, never
+// recomputing them. The launch boundary orders the stages, so stage 1
+// reads the plane through the read-only path. No shared-memory halo:
+// on transport_like(1602112) a row reaches 13,807 rows each side, and
+// one plane's halo (27,614 rows x 8 lanes x 4 B, 884 KB) is four times
+// an SM's 228 KB.
+//
+// Frozen lanes (active_l == 0) keep their old values bit for bit: P2 = p
+// and S2 = s in K1b, x' = x and r' = q in K3b. Their dots are those of
+// the unmasked values, as in JAX (the solver loop discards them), so
+// K1b still needs a frozen lane's unmasked p', whose beta and omega may
+// be NaN or inf: stage 0 writes it to the scratch plane u and p to P2,
+// and stage 1 takes a frozen lane's neighbours from u. Writing p over a
+// p' that other rows still read would be a race. K2b takes no flag: the
+// solver loop runs frozen lanes with alpha = 0, so q = r exactly.
 //
 // Bound on the H100: memory. At n = 1,602,112, W = 15, k = 8 one [8, n]
 // plane is 51.3 MB and the band 96.1 MB; each input once and each output
-// once: K1b 403.7 MB (120.5 us at 3.35 TB/s), K2b 301.2 MB (89.9 us), K3b
-// 358.9 MB (107.1 us). The band is read once for all k lanes. The
-// neighbour reads (3 k loads per diagonal in K1b, 2 k in K2b) are the
-// cost the design accepts, as in fused_classic.cu: they fall on rows
-// that the blocks in flight and the band halo share, which stay in L2.
+// once: K1b 403.7 MB (120.5 us at 3.35 TB/s), K2b 301.2 MB (89.9 us),
+// K3b 358.9 MB (107.1 us). This design reads the stored plane once more
+// (its floor: K1b 135.8 us, K2b 105.2 us). Stage 1's neighbour reads
+// come from L1 and L2, not HBM.
 //
 // Dots: each block writes one [D, k] row of per-lane partials (lane l's
-// d-th partial at d * k + l) and sum_partials adds the rows in a fixed
+// d-th partial at d * k + l), and mbt_finish adds the rows in a fixed
 // order: no float atomics. The per-lane scalars are [k] device arrays
-// read through pointers. The recomputed p' and q use explicit
-// single-rounding FMAs, so the value a row stores is bit-identical to the
-// value its neighbours recompute for it.
+// read through pointers. Stage 0 forms p' and q with explicit
+// single-rounding FMAs, so the stored values do not depend on the
+// compiler's contraction choices.
 //
 // Each launcher runs its pass and the partial-sum stage on `stream` and
 // returns cudaGetLastError().
 #include "batched_core.cuh"
 
+// The stored planes stage 1 multiplies from (written by stage 0's
+// launch, read-only in this one).
 template <int K>
-struct K1bSrc {  // p'_l(j) = r_l[j] + beta_l (p_l[j] - omega_l s_l[j])
-  const float* __restrict__ r;
-  const float* __restrict__ p;
-  const float* __restrict__ s;
+struct StoredLanes {
+  const float* base[K];   // lane l's plane, row 0
+  __device__ __forceinline__ float operator()(int l, long long j) const {
+    return __ldg(base[l] + j);
+  }
+};
+
+struct K1bArgs {
   long long n;
+  const float* vals;
+  const float* r;
+  const float* p;
+  const float* s;
+  const float* r_hat;
+  const float* beta;
+  const float* omega;
+  const float* active;
+  float* p2;
+  float* s2;
+  float* u;          // [k, n] scratch: a frozen lane's unmasked p'
+  float* partials;
+};
+
+struct K2bArgs {
+  long long n;
+  const float* vals;
+  const float* r;
+  const float* s2;
+  const float* alpha;
+  float* q;
+  float* y;
+  float* partials;
+};
+
+template <int K>
+struct K1bLanes {
   float beta[K], omega[K];
-  __device__ __forceinline__ float operator()(int l, long long j) const {
-    const long long o = (long long)l * n + j;
-    return __fmaf_rn(beta[l], __fmaf_rn(-omega[l], __ldg(s + o),
-                                        __ldg(p + o)),
-                     __ldg(r + o));
-  }
-};
-
-template <int K>
-struct K2bSrc {  // q_l(j) = r_l[j] - alpha_l s'_l[j]
-  const float* __restrict__ r;
-  const float* __restrict__ s2;
-  long long n;
-  float alpha[K];
-  __device__ __forceinline__ float operator()(int l, long long j) const {
-    const long long o = (long long)l * n + j;
-    return __fmaf_rn(-alpha[l], __ldg(s2 + o), __ldg(r + o));
-  }
-};
-
-template <int K>
-__global__ void __launch_bounds__(MBT_BLOCK)
-    k1b_kernel(const __grid_constant__ DiaOffsets offs, long long n,
-               const float* __restrict__ vals, const float* __restrict__ r,
-               const float* __restrict__ p, const float* __restrict__ s,
-               const float* __restrict__ r_hat,
-               const float* __restrict__ beta,
-               const float* __restrict__ omega,
-               const float* __restrict__ active, float* __restrict__ p2,
-               float* __restrict__ s2, float* __restrict__ partials) {
-  K1bSrc<K> src;
-  src.r = r;
-  src.p = p;
-  src.s = s;
-  src.n = n;
   bool act[K];
+  __device__ __forceinline__ explicit K1bLanes(const K1bArgs& a) {
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      beta[l] = a.beta[l];
+      omega[l] = a.omega[l];
+      act[l] = a.active[l] != 0.0f;
+    }
+  }
+};
+
+// K1b stage 0 on row i: p' = r + beta (p - omega s) in one nested FMA
+// chain; P2 gets p' on an active lane, p on a frozen one, whose unmasked
+// p' goes to the scratch plane u (stage 1 still needs it for the dot).
+template <int K>
+__device__ __forceinline__ void k1b_form(const K1bArgs& a,
+                                         const K1bLanes<K>& c, long long i) {
+  if (i >= a.n) return;
 #pragma unroll
   for (int l = 0; l < K; ++l) {
-    src.beta[l] = beta[l];
-    src.omega[l] = omega[l];
-    act[l] = active[l] != 0.0f;
+    const long long o = (long long)l * a.n + i;
+    const float p_o = __ldg(a.p + o);
+    const float pp = __fmaf_rn(
+        c.beta[l], __fmaf_rn(-c.omega[l], __ldg(a.s + o), p_o),
+        __ldg(a.r + o));
+    if (c.act[l]) {
+      a.p2[o] = pp;
+    } else {
+      a.p2[o] = p_o;
+      a.u[o] = pp;
+    }
   }
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+// K1b stage 1 on the 256-row block starting at row0: s' = A p' from the
+// stored planes (a frozen lane's from u), S2 (s on a frozen lane), and
+// the block's partial row.
+template <int K>
+__device__ __forceinline__ void k1b_spmv(const DiaOffsets& offs,
+                                         const K1bArgs& a,
+                                         const K1bLanes<K>& c,
+                                         long long row0, float* out) {
+  const long long n = a.n;
+  const long long i = row0 + threadIdx.x;
+  StoredLanes<K> src;
+#pragma unroll
+  for (int l = 0; l < K; ++l)
+    src.base[l] = (c.act[l] ? a.p2 : a.u) + (long long)l * n;
   float part[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) part[l] = 0.0f;
   if (i < n) {
     float acc[K];
-    dia_row_lanes<K>(offs, vals, n, i, src, acc);
+    dia_row_lanes<K>(offs, a.vals, n, i, src, acc);
 #pragma unroll
     for (int l = 0; l < K; ++l) {
       const long long o = (long long)l * n + i;
-      p2[o] = act[l] ? src(l, i) : p[o];
-      s2[o] = act[l] ? acc[l] : s[o];
-      part[l] = r_hat[o] * acc[l];
+      if (c.act[l])
+        a.s2[o] = acc[l];
+      else
+        a.s2[o] = a.s[o];
+      part[l] = a.r_hat[o] * acc[l];
     }
   }
-  block_sum<K>(part, partials + (long long)K * blockIdx.x);
+  block_sum<K>(part, out);
 }
 
+// K2b stage 0 on row i: q = r - alpha s' (no mask: a frozen lane runs with
+// alpha = 0, so q = r).
 template <int K>
-__global__ void __launch_bounds__(MBT_BLOCK)
-    k2b_kernel(const __grid_constant__ DiaOffsets offs, long long n,
-               const float* __restrict__ vals, const float* __restrict__ r,
-               const float* __restrict__ s2,
-               const float* __restrict__ alpha, float* __restrict__ q,
-               float* __restrict__ y, float* __restrict__ partials) {
-  K2bSrc<K> src;
-  src.r = r;
-  src.s2 = s2;
-  src.n = n;
+__device__ __forceinline__ void k2b_form(const K2bArgs& a,
+                                         const float (&alpha)[K],
+                                         long long i) {
+  if (i >= a.n) return;
 #pragma unroll
-  for (int l = 0; l < K; ++l) src.alpha[l] = alpha[l];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int l = 0; l < K; ++l) {
+    const long long o = (long long)l * a.n + i;
+    a.q[o] = __fmaf_rn(-alpha[l], __ldg(a.s2 + o), __ldg(a.r + o));
+  }
+}
+
+// K2b stage 1 on the 256-row block starting at row0: y = A q from the
+// stored Q, and the block's partial rows (q, y), (y, y).
+template <int K>
+__device__ __forceinline__ void k2b_spmv(const DiaOffsets& offs,
+                                         const K2bArgs& a, long long row0,
+                                         float* out) {
+  const long long n = a.n;
+  const long long i = row0 + threadIdx.x;
+  StoredLanes<K> src;
+#pragma unroll
+  for (int l = 0; l < K; ++l) src.base[l] = a.q + (long long)l * n;
   float part[2 * K];
 #pragma unroll
   for (int d = 0; d < 2 * K; ++d) part[d] = 0.0f;
   if (i < n) {
     float acc[K];
-    dia_row_lanes<K>(offs, vals, n, i, src, acc);
+    dia_row_lanes<K>(offs, a.vals, n, i, src, acc);
 #pragma unroll
     for (int l = 0; l < K; ++l) {
       const long long o = (long long)l * n + i;
-      const float q_i = src(l, i);
-      q[o] = q_i;
-      y[o] = acc[l];
+      const float q_i = __ldg(a.q + o);
+      a.y[o] = acc[l];
       part[l] = q_i * acc[l];
       part[K + l] = acc[l] * acc[l];
     }
   }
-  block_sum<2 * K>(part, partials + 2LL * K * blockIdx.x);
+  block_sum<2 * K>(part, out);
 }
+
+// The four kernels. On an H100 stage 1 ran 3-6% faster at the 40
+// registers a thread this code takes (6 blocks an SM) than at 32 (8
+// blocks): the loads a thread keeps in flight count, not occupancy.
+template <int K>
+__global__ void __launch_bounds__(MBT_BLOCK) k1b_form_kernel(
+    const __grid_constant__ K1bArgs a) {
+  const K1bLanes<K> c(a);
+  k1b_form<K>(a, c, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <int K>
+__global__ void __launch_bounds__(MBT_BLOCK) k1b_spmv_kernel(
+    const __grid_constant__ DiaOffsets offs,
+    const __grid_constant__ K1bArgs a) {
+  const K1bLanes<K> c(a);
+  k1b_spmv<K>(offs, a, c, (long long)blockIdx.x * MBT_BLOCK,
+              a.partials + (long long)K * blockIdx.x);
+}
+
+template <int K>
+__global__ void __launch_bounds__(MBT_BLOCK) k2b_form_kernel(
+    const __grid_constant__ K2bArgs a) {
+  float alpha[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) alpha[l] = a.alpha[l];
+  k2b_form<K>(a, alpha, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <int K>
+__global__ void __launch_bounds__(MBT_BLOCK) k2b_spmv_kernel(
+    const __grid_constant__ DiaOffsets offs,
+    const __grid_constant__ K2bArgs a) {
+  k2b_spmv<K>(offs, a, (long long)blockIdx.x * MBT_BLOCK,
+              a.partials + 2LL * K * blockIdx.x);
+}
+
+// --- K3b ---------------------------------------------------------------------
 
 template <int K>
 __global__ void __launch_bounds__(MBT_BLOCK)
@@ -189,31 +283,28 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   block_sum<2 * K>(part, partials + 2LL * K * blockIdx.x);
 }
 
+// --- launchers ---------------------------------------------------------------
+
 template <int K>
-static cudaError_t launch_k1b(const DiaOffsets& o, long long n,
-                              const float* vals, const float* r,
-                              const float* p, const float* s,
-                              const float* r_hat, const float* beta,
-                              const float* omega, const float* active,
-                              float* p2, float* s2, float* partials,
+static cudaError_t launch_k1b(const DiaOffsets& o, const K1bArgs& a,
                               float* dots, cudaStream_t stream) {
-  const long long G = mbt_grid(n);
-  k1b_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, p, s, r_hat,
-                                             beta, omega, active, p2, s2,
-                                             partials);
-  return mbt_finish<K>(partials, G, dots, stream);
+  const long long G = mbt_grid(a.n);
+  k1b_form_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k1b_spmv_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, a);
+  return mbt_finish<K>(a.partials, G, dots, stream);
 }
 
 template <int K>
-static cudaError_t launch_k2b(const DiaOffsets& o, long long n,
-                              const float* vals, const float* r,
-                              const float* s2, const float* alpha, float* q,
-                              float* y, float* partials, float* dots,
-                              cudaStream_t stream) {
-  const long long G = mbt_grid(n);
-  k2b_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, s2, alpha, q, y,
-                                             partials);
-  return mbt_finish<2 * K>(partials, G, dots, stream);
+static cudaError_t launch_k2b(const DiaOffsets& o, const K2bArgs& a,
+                              float* dots, cudaStream_t stream) {
+  const long long G = mbt_grid(a.n);
+  k2b_form_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2b_spmv_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, a);
+  return mbt_finish<2 * K>(a.partials, G, dots, stream);
 }
 
 template <int K>
@@ -232,20 +323,22 @@ static cudaError_t launch_k3b(long long n, const float* x, const float* p2,
 
 extern "C" {
 
-// Planes [k, n]; beta, omega, active [k]; partials [mbt_grid(n), k]
-// scratch; dots [k] = (r^_l, s'_l).
+// Planes [k, n]; beta, omega, active [k]; u [k, n] scratch; partials
+// [mbt_grid(n), k] scratch; dots [k] = (r^_l, s'_l).
 cudaError_t mbt_fused_k1b_f32(const int* offsets, int n_diags, long long n,
                               int k, const float* vals, const float* r,
                               const float* p, const float* s,
                               const float* r_hat, const float* beta,
                               const float* omega, const float* active,
-                              float* p2, float* s2, float* partials,
-                              float* dots, cudaStream_t stream) {
+                              float* p2, float* s2, float* u,
+                              float* partials, float* dots,
+                              cudaStream_t stream) {
   DiaOffsets o;
   if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  MBT_BY_LANES(k, launch_k1b<K>(o, n, vals, r, p, s, r_hat, beta, omega,
-                                active, p2, s2, partials, dots, stream));
+  const K1bArgs a{n,     vals,   r,  p,  s, r_hat, beta,
+                  omega, active, p2, s2, u, partials};
+  MBT_BY_LANES(k, launch_k1b<K>(o, a, dots, stream));
 }
 
 // alpha [k]; partials [mbt_grid(n), 2 k] scratch; dots [2, k] = (q_l, y_l),
@@ -258,8 +351,8 @@ cudaError_t mbt_fused_k2b_f32(const int* offsets, int n_diags, long long n,
   DiaOffsets o;
   if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  MBT_BY_LANES(k, launch_k2b<K>(o, n, vals, r, s2, alpha, q, y, partials,
-                                dots, stream));
+  const K2bArgs a{n, vals, r, s2, alpha, q, y, partials};
+  MBT_BY_LANES(k, launch_k2b<K>(o, a, dots, stream));
 }
 
 // alpha, omega, active [k]; partials [mbt_grid(n), 2 k] scratch; dots

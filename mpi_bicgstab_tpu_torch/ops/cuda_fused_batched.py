@@ -20,12 +20,23 @@ r' = q in K3b). K2b takes none: the solver loop runs a frozen lane with
 alpha = 0, so that q = r exactly. The dots are those of the unmasked
 values, as in the JAX kernels.
 
+On the card K1b and K2b each run in two stages: stage 0 forms p' (or q)
+once per row and lane and stores it in P2 (or Q); stage 1 multiplies
+from the stored plane, so no row recomputes a neighbour's value. A
+frozen lane's unmasked p' (its beta and omega may be NaN or inf) goes to
+a scratch plane, from which stage 1 takes that lane's neighbours and
+forms its dot, while P2 gets p. No shared-memory halo: on
+transport_like(1602112) a row reaches 13,807 rows each side, and one
+plane's halo (884 KB) outgrows an SM's 228 KB. The design floor is the
+pass's bytes plus one re-read of the stored plane.
+
 Each of fused_k1b / fused_k2b / fused_k3b runs its plain PyTorch twin for
-CPU tensors and launches the kernel for CUDA tensors, or raises; its
-`.launches` counts kernel launches. They take the operators and lane
-counts of cuda_batched_spmv.format_ok. The JAX package's padded carry,
-VMEM chunking and in-place outputs are TPU devices with no counterpart
-here: the kernels skip out-of-range neighbours and write fresh outputs.
+CPU tensors and launches its kernels for CUDA tensors, or raises; its
+`.launches` counts calls that launched (one per pass). They take the
+operators and lane counts of cuda_batched_spmv.format_ok. The JAX
+package's padded carry, VMEM chunking and in-place outputs are TPU
+devices with no counterpart here: the kernels skip out-of-range
+neighbours and write fresh outputs.
 """
 from __future__ import annotations
 
@@ -45,7 +56,7 @@ _P = ctypes.c_void_p
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_batched")
     band = [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-    sigs = {"mbt_fused_k1b_f32": band + [_P] * 13,
+    sigs = {"mbt_fused_k1b_f32": band + [_P] * 14,
             "mbt_fused_k2b_f32": band + [_P] * 9,
             "mbt_fused_k3b_f32": [ctypes.c_longlong, ctypes.c_int]
             + [_P] * 13}
@@ -81,14 +92,16 @@ def fused_k1b_plain(vals, R, P, S, R_hat, scalars, offsets):
 def fused_k1b(vals, R, P, S, R_hat, scalars, offsets: tuple):
     """scalars = (beta, omega, active), each [k]. Returns (P2, S2, rhTs):
     P2 = R + beta (P - omega S) and S2 = A P2 on the active lanes, P and S
-    on the frozen ones; rhTs [k] = (r^_l, A p'_l)."""
+    on the frozen ones; rhTs [k] = (r^_l, A p'_l) of the unmasked p'.
+    On the card a third [k, n] plane is scratch for the frozen lanes'
+    unmasked p'."""
     if R.device.type == "cpu":
         return fused_k1b_plain(vals, R, P, S, R_hat, scalars, offsets)
     what = "fused_k1b"
-    (P2, S2), (rhTs,) = lanes_pass(
+    (P2, S2, _), (rhTs,) = lanes_pass(
         _lib(), "mbt_fused_k1b_f32", what, vals, offsets,
         dict(r=R, p=P, s=S, r_hat=R_hat),
-        _named(what, ("beta", "omega", "active"), scalars), 2, 1)
+        _named(what, ("beta", "omega", "active"), scalars), 3, 1)
     fused_k1b.launches += 1
     return P2, S2, rhTs
 

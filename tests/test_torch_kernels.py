@@ -818,6 +818,54 @@ def test_fused_batched_kernels_match_plain(n, offsets, k, frozen):
                 assert torch.equal(out[fz], old[fz])
 
 
+# transport_like(1602112)'s offsets (w = 117), reaching 13,807 rows each
+# side: at n = 30001 (not a multiple of the 256-row block) every diagonal
+# is in range; at n = 1000 the far ones are diagonals of zeros
+TRANSPORT_OFFSETS = [1, -1, 2, -2, 117, -117, 118, -118, 13689, -13689,
+                     13806, -13806, 13807, -13807]
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("n", [30001, 1000])
+def test_staged_batched_passes_match_plain(n, k):
+    """K1b and K2b form p' and q once per row and multiply from the
+    stored plane: against their twins at the main path's reach, with
+    lane 0 and the last lane frozen (every lane at k = 1) and their beta
+    NaN and omega inf in K1b. A frozen lane's P2 and S2 (and K2b's Q = r
+    at alpha = 0) are its old values bit for bit, its K1b dot NaN as the
+    twin's (the dot of the unmasked p')."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fb
+    dev = _card()
+    A = _band(n, TRANSPORT_OFFSETS, torch.float32, dev)
+    R, P, S, Rh = _planes(n, k, 4, dev)
+    fz = sorted({0, k - 1})
+    a, b, w, act = _lane_scalars(k, dev, fz)
+    b[fz], w[fz], a[fz] = float("nan"), float("inf"), 0.0
+    live = [j for j in range(k) if j not in fz]
+    v, o = A.vals, A.offsets
+    for kern, plain, args, keep in (
+            (fb.fused_k1b, fb.fused_k1b_plain,
+             (v, R, P, S, Rh, (b, w, act), o), (P, S)),
+            (fb.fused_k2b, fb.fused_k2b_plain, (v, R, S, (a,), o), (R,))):
+        before = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = plain(*args)
+        for out, old in zip(got, keep):
+            assert torch.equal(out[fz], old[fz])
+        _close([g[live] for g in got[:2]], [w_[live] for w_ in want[:2]])
+        for g_, w_ in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g_[live], w_[live], rtol=1e-4,
+                                       atol=1e-3)
+        if kern is fb.fused_k1b:
+            assert bool(got[2][fz].isnan().all())
+            assert bool(want[2][fz].isnan().all())
+        else:
+            torch.testing.assert_close(got[2][fz], want[2][fz], rtol=1e-4,
+                                       atol=1e-3)
+
+
 def test_batched_limits_match_the_libraries():
     from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
     _card()
