@@ -39,14 +39,16 @@ numbers; any failure exits non-zero:
              (P = 25,600, W = 16), routed once on the host in float64
              (the C++ router, built by g++), its column table built by
              the CPU twins, then cast to each dtype on the card, where
-             K1 and K2 route the table anew: that table equal to the
-             CPU's; K1 and K2 on 4-byte (the table's iota) and 8-byte
-             elements (a float64 x) and K3 in float32, float64 and DF on
-             a seeded x, bit-equal to their twins; K3 on x with a NaN
-             and an inf planted bit-equal to its twin and to the routed
-             pipeline (x through K1, T1, K2, T2 and the z-form
-             arithmetic, staged_slabs); the whole float64 SpMV (K3 and
-             the tail) within 1e-12 of torch's CSR product
+             K1, K2 and the decode build the table anew: that table
+             equal to the CPU's; K1 and K2 (each writing its output
+             transposed) on 4-byte (the table's iota) and 8-byte
+             elements (a float64 x), the decode on the routed iota, and
+             K3 in float32, float64 and DF on a seeded x, bit-equal to
+             their twins; K3 on x with a NaN and an inf planted
+             bit-equal to its twin and to the routed pipeline (x through
+             K1, K2 and the z-form arithmetic, staged_slabs); the whole
+             float64 SpMV (K3 and the tail) within 1e-12 of torch's CSR
+             product
   4. solves  each path as `python -m mpi_bicgstab_tpu_torch solve --matrix
              transport-like:1602112 --method M --dtype D --tol T`, every
              launch counter set to 0 just before and read just after
@@ -121,15 +123,15 @@ numbers; any failure exits non-zero:
              within 1e-6 of ones. The butterfly (ROADMAP slice 6c):
              `[butterfly]` is `solve --matrix uniform:1602112 --dtype
              float32 --tol 1e-6` with the CLI defaults: the
-             ButterflyMatrix route, one K1 and one K2 launch for the
-             layout it builds and one K3 launch per SpMV, x held to a
-             residual taken with torch's float64 CSR product (<= 10 tol)
-             and to the error bound it gives;
+             ButterflyMatrix route, one K1, one K2 and one decode
+             launch for the layout it builds and one K3 launch per
+             SpMV, x held to a residual taken with torch's float64 CSR
+             product (<= 10 tol) and to the error bound it gives;
              `[butterfly_f64]`, `[butterfly_df32]` (K3 DF) and
              `[butterfly_pipe_df32]` (and the two DF body kernels once per
              iteration) through api.solve at 1e-10 on layouts built
-             before the count (no K1, K2), max|x-1| < 1e-6; each within 2
-             iterations of gather-ELL, launches in
+             before the count (no K1, K2, decode), max|x-1| < 1e-6;
+             each within 2 iterations of gather-ELL, launches in
              `check_butterfly_counts`
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
@@ -156,7 +158,8 @@ numbers; any failure exits non-zero:
              (eager and device) beside two window SpMVs' bytes; the
              butterfly kernels and the whole butterfly SpMV (f32, f64,
              DF) beside their bounds, the twins and torch's CSR product,
-             the column table's build, the route's host seconds, and the
+             the column table's build (K1, K2 and the decode, each
+             beside its bound), the route's host seconds, and the
              f32 and df32 classic iterations on the butterfly layout
              beside two SpMVs' bytes
   6. report  the kernels JSON line, the card's name and power limit,
@@ -175,6 +178,15 @@ omega), a sha256 digest of each kernel's outputs and dots on those
 seeded inputs, their times beside their bounds and K1b / K2b's design
 floor, the device time of each kernel a pass launches (torch.profiler),
 and the batched iteration, eager and device.
+
+    python3 chip_smoke.py --route-times
+
+does the same for the butterfly column table's build on uniform:1602112
+(route_times): a sha256 digest of k3_col for the float32, float64 and DF
+layouts routed on the card, the whole build's time beside its bound, the
+device time of each kernel the build launches (torch.profiler), and,
+where the tree has the decode kernel, K1, K2 (4- and 8-byte elements)
+and the decode timed alone, each held to its twin.
 """
 from __future__ import annotations
 
@@ -246,6 +258,9 @@ REPLACES = {
     "butterfly_k2": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:133",
     "butterfly_k3": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:163",
     "butterfly_k3_df": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:327",
+    # the decode is no Pallas kernel: the part of _k3_kernel's gather (its
+    # 'lane' form) that the port moved into the column table
+    "butterfly_decode": "mpi_bicgstab_tpu/ops/pallas_butterfly.py:199",
 }
 _CSRC = "mpi_bicgstab_tpu_torch/csrc/"
 SOURCES = {
@@ -280,6 +295,7 @@ SOURCES = {
     "butterfly_k2": _CSRC + "butterfly.cu",
     "butterfly_k3": _CSRC + "butterfly.cu",
     "butterfly_k3_df": _CSRC + "butterfly.cu",
+    "butterfly_decode": _CSRC + "butterfly.cu",
 }
 KRR, NRR = 3, 2      # small enough that replacements fire in a short solve
 # SpMV launches per solver segment: r0 (and w0 = A r0 for CA, w0, t0 for
@@ -340,6 +356,7 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "window_spmv_df": ("window_df32", "window_rows_df"),
                  "butterfly_k1": ("butterfly", "butterfly_k1"),
                  "butterfly_k2": ("butterfly", "butterfly_k2"),
+                 "butterfly_decode": ("butterfly", "butterfly_decode"),
                  "butterfly_k3_f32": ("butterfly", "butterfly_k3"),
                  "butterfly_k3_f64": ("butterfly_f64", "butterfly_k3"),
                  "butterfly_k3_df": ("butterfly_df32", "butterfly_k3_df")}
@@ -436,6 +453,7 @@ def _counters():
             "window_rows_df": cws.window_rows_df,
             "butterfly_k1": cbf.butterfly_k1,
             "butterfly_k2": cbf.butterfly_k2,
+            "butterfly_decode": cbf.butterfly_decode,
             "butterfly_k3": cbf.butterfly_k3,
             "butterfly_k3_df": cbf.butterfly_k3_df}
 
@@ -2064,30 +2082,35 @@ def say_batched_digests(calls: dict, what: str) -> None:
         _say("digest", kernel=name, inputs=what, sha256=h.hexdigest())
 
 
-def say_pass_kernels(calls: dict, calls_each: int = 20) -> None:
-    """The device time of each kernel that K1b and K2b launch, per call
-    of the pass (torch.profiler over calls_each calls; "not measured"
-    where the trace holds no device time)."""
+def say_kernels_of(of: str, fn, calls_each: int = 20) -> None:
+    """The device time of each kernel fn() launches, per call
+    (torch.profiler over calls_each calls; "not measured" where the trace
+    holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for name in ("fused_k1b", "fused_k2b"):
-        kern = calls[name][0]
-        kern()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls_each):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls_each):
-                kern()
-            torch.cuda.synchronize()
-        seen = False
-        for e in prof.key_averages():
-            us = e.device_time_total
-            if us:
-                seen = True
-                _say("stages", of=name, kernel=repr(e.key[:70]),
-                     launches_per_call=e.count / calls_each,
-                     device_ms_per_call=f"{us / 1e3 / calls_each:.4f}")
-        if not seen:
-            _say("stages", of=name, device_ms_per_call="not measured")
+    seen = False
+    for e in prof.key_averages():
+        us = e.device_time_total
+        if us:
+            seen = True
+            _say("stages", of=of, kernel=repr(e.key[:70]),
+                 launches_per_call=e.count / calls_each,
+                 device_ms_per_call=f"{us / 1e3 / calls_each:.4f}")
+    if not seen:
+        _say("stages", of=of, device_ms_per_call="not measured")
+
+
+def say_pass_kernels(calls: dict, calls_each: int = 20) -> None:
+    """The device time of each kernel that K1b and K2b launch, per call
+    of the pass (say_kernels_of)."""
+    for name in ("fused_k1b", "fused_k2b"):
+        say_kernels_of(name, calls[name][0], calls_each)
 
 
 def batched_times() -> int:
@@ -2124,6 +2147,83 @@ def batched_times() -> int:
     single = bench_iteration(prob32, method="bicgstab", iters=200,
                              graph=True)
     time_batched(csr, prob32, inp, single["time_per_iter_s"] * 1e3)
+    return 0
+
+
+def time_route_stages(B, x64) -> None:
+    """K1 and K2 on B's tables, 4-byte elements on the int32 iota and
+    8-byte ones on x64, then the decode on the routed iota: each held
+    bit-equal to its twin and timed alone (replayed CUDA graphs)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    iota = torch.arange(1, B.n_cols + 1, dtype=torch.int32, device=B.device)
+    for x in (iota, x64):
+        mid = cbf.butterfly_k1(B, x)
+        z = cbf.butterfly_k2(B, mid)
+        if not (torch.equal(mid, bs.k1_plain(B, x))
+                and torch.equal(z, bs.k2_plain(B, mid))):
+            raise SmokeFailure(f"K1 / K2 on {x.dtype} differ from their "
+                               f"twins")
+        k1 = time_call(lambda: cbf.butterfly_k1(B, x), graph=True) * 1e3
+        k2 = time_call(lambda: cbf.butterfly_k2(B, mid), graph=True) * 1e3
+        _say("stages", element_bytes=x.element_size(), k1_ms=f"{k1:.4f}",
+             k2_ms=f"{k2:.4f}", bit_equal_twins=True)
+    z = bs.route(B, iota)
+    if not torch.equal(cbf.butterfly_decode(B, z), bs.decode_plain(B, z)):
+        raise SmokeFailure("the decode differs from its twin")
+    ms = time_call(lambda: cbf.butterfly_decode(B, z), graph=True) * 1e3
+    _say("stages", kernel="butterfly_decode", ms=f"{ms:.4f}",
+         bit_equal_twin=True)
+
+
+def route_times() -> int:
+    """`chip_smoke.py --route-times`: the butterfly column table's build
+    alone on uniform:N_UNIFORM, so that two trees can be compared in one
+    call (copy this script into each and run it there): the card, the
+    build, the host layout routed once (its table built by the CPU
+    twins), the float32, float64 and DF layouts cast to the card, each
+    building its table there, with a sha256 digest of each k3_col (held
+    equal to the host's); the whole build's time beside its bound; the
+    device time of each kernel a build launches (say_kernels_of); and,
+    where the tree has the decode kernel, K1, K2 and the decode each timed
+    alone (time_route_stages). Prints no result line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    from mpi_bicgstab_tpu_torch.ops.butterfly import (build_butterfly,
+                                                      butterfly_with_values)
+    print(probe())
+    build()
+    host = build_butterfly(uniform_csr(N_UNIFORM), device="cpu")
+    for key, dt in (("B32", torch.float32), ("B64", torch.float64),
+                    ("Bdf", "df32")):
+        col = butterfly_with_values(host, dt, "cuda").k3_col.cpu()
+        if not same_bits(col, host.k3_col):
+            raise SmokeFailure(f"butterfly {key}: the column table built "
+                               f"on the card differs from the CPU twins'")
+        _say("digest", layout=key, k3_col_sha256=hashlib.sha256(
+            col.numpy().tobytes()).hexdigest())
+    B = butterfly_with_values(host, torch.float32, "cuda")
+    inp = {"B32": B, "b_zread": z_elements_read(B)}
+    ms = time_call(lambda: bs.column_table(B), iters=12, reps=3,
+                   graph=True) * 1e3
+    bound = build_bound_ms(inp)
+    _say("times", column_table_build_ms=f"{ms:.4f}",
+         build_bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}",
+         z_elements_read=inp["b_zread"])
+    say_kernels_of("column_table", lambda: bs.column_table(B), 10)
+    if hasattr(cbf, "butterfly_decode"):
+        x64 = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            B.n_cols), device="cuda")
+        time_route_stages(B, x64)
     return 0
 
 
@@ -2607,8 +2707,10 @@ def butterfly_inputs(csr, device="cuda", seed=0) -> dict:
     its column table built by the CPU twins, and the layout cast to
     float32, float64 and DF pairs on `device` (each table routed anew
     there); x from a NumPy generator seeded `seed`, and x with a NaN and
-    an inf planted ("bn" keys); the table build's input (the int32 iota)
-    and K2's input for it and for the float64 x, routed by the twins."""
+    an inf planted ("bn" keys); the table build's input (the int32 iota),
+    K2's input for it and for the float64 x and the decode's (the routed
+    iota), routed by the twins; "b_zread": the elements of z the decode
+    reads."""
     import numpy as np
     import torch
 
@@ -2638,8 +2740,22 @@ def butterfly_inputs(csr, device="cuda", seed=0) -> dict:
     inp["biota"] = torch.arange(1, B.n_cols + 1, dtype=torch.int32,
                                 device=device)
     for key, v in (("iota", inp["biota"]), ("64", inp["bx64"])):
-        inp["bmid" + key] = bs.transpose(B, bs.k1_plain(B, v))
+        inp["bmid" + key] = bs.k1_plain(B, v)
+    inp["bziota"] = bs.k2_plain(B, inp["bmidiota"])
+    inp["b_zread"] = z_elements_read(B)
     return inp
+
+
+def z_elements_read(B) -> int:
+    """The distinct elements of z that B's K3 slots name (the decode's
+    reads of z; a slab's padded slots in one row tile share one)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    seen = torch.zeros(B.P * 1024, dtype=torch.bool, device=B.device)
+    for c in range(B.width // 8):
+        seen[bs.k3_elem(B, c)] = True
+    return int(seen.sum())
 
 
 def pack_df(x):
@@ -2652,8 +2768,9 @@ def pack_df(x):
 def staged_slabs(A, x):
     """The slab part of A x as the routed pipeline computes it (the port's
     SpMV before its column table, and JAX's 'lane' form): x routed to z
-    through K1, T1, K2 and T2 (ops/butterfly_spmv.route: the kernels on
-    the card, a DF vector as packed pairs) and K3's arithmetic on z, each
+    through K1 and K2, which write their outputs transposed as JAX's T1
+    and T2 do (ops/butterfly_spmv.route: the kernels on the card, a DF
+    vector as packed pairs) and K3's arithmetic on z, each
     slot reading z element ops/butterfly_spmv.k3_elem. The reference the
     column-table kernels and twins must equal bit for bit."""
     import torch
@@ -2701,10 +2818,11 @@ def same_bits(a, b) -> bool:
 
 
 def butterfly_kernel_calls(inp: dict) -> dict:
-    """Kernels 25-28 beside their twins on the path's inputs, each to equal
-    its twin bit for bit: K1 and K2 moving 4-byte elements (the table
-    build's iota) and 8-byte elements (the float64 x, routed as the JAX
-    pipeline routes it); K3 in float32 and float64 and K3 DF, on x."""
+    """Kernels 25-28 and the decode beside their twins on the path's
+    inputs, each to equal its twin bit for bit: K1 and K2 moving 4-byte
+    elements (the table build's iota) and 8-byte elements (the float64 x,
+    routed as the JAX pipeline routes it); the decode on the routed iota;
+    K3 in float32 and float64 and K3 DF, on x."""
     from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     B = inp["B32"]
@@ -2717,6 +2835,10 @@ def butterfly_kernel_calls(inp: dict) -> dict:
         calls["butterfly_k2" + name] = (
             lambda m=mid: (cbf.butterfly_k2(B, m),),
             lambda m=mid: (bs.k2_plain(B, m),), "bit_equal")
+    z = inp["bziota"]
+    calls["butterfly_decode"] = (lambda: (cbf.butterfly_decode(B, z),),
+                                 lambda: (bs.decode_plain(B, z),),
+                                 "bit_equal")
     for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
         A, x = inp["B" + key], inp["bx" + key]
         k3, k3_plain = ((cbf.butterfly_k3_df, bs.k3_df_plain) if sfx == "df"
@@ -2728,14 +2850,16 @@ def butterfly_kernel_calls(inp: dict) -> dict:
 
 
 # the kernels line's butterfly entries: the forms the path launches (K1
-# and K2 on 4-byte elements, once per layout; K3 per SpMV)
-BUTTERFLY_TIMED = ("butterfly_k1", "butterfly_k2", "butterfly_k3_f32",
-                   "butterfly_k3_f64", "butterfly_k3_df")
+# and K2 on 4-byte elements and the decode, once per layout; K3 per SpMV)
+BUTTERFLY_TIMED = ("butterfly_k1", "butterfly_k2", "butterfly_decode",
+                   "butterfly_k3_f32", "butterfly_k3_f64", "butterfly_k3_df")
+# the column table's build: its stages, each once per layout
+BUILD_STAGES = ("butterfly_k1", "butterfly_k2", "butterfly_decode")
 
 
 def check_column_tables(inp: dict) -> None:
-    """The column table each card layout routed with K1 and K2 equals the
-    one the CPU twins routed for the host layout."""
+    """The column table each card layout built with K1, K2 and the
+    decode equals the one the CPU twins built for the host layout."""
     host = inp["b_host"].k3_col
     for key in ("B32", "B64", "Bdf"):
         if not same_bits(inp[key].k3_col.cpu(), host):
@@ -2746,7 +2870,7 @@ def check_column_tables(inp: dict) -> None:
 def check_butterfly_staged(inp: dict) -> None:
     """K3 (f32, f64) and K3 DF on x with a NaN and an inf planted, bit for
     bit against their twins and against the routed pipeline on the same
-    x (staged_slabs: K1, T1, K2, T2 and the z-form arithmetic)."""
+    x (staged_slabs: K1, K2 and the z-form arithmetic)."""
     from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     for sfx, key in (("f32", "32"), ("f64", "64"), ("df", "df")):
@@ -2784,12 +2908,14 @@ def check_butterfly_spmv(inp: dict) -> float:
 def butterfly_work(name: str, inp: dict) -> tuple[float, float, str]:
     """(bytes, flops, dtype) of one stage, each input read once and each
     output written once. K1 (4-byte elements; "_b64" 8): its two int8
-    tables, k1_src, x and u1; K2: the tables, mid and z1; K1 and K2 only
-    move data. K3: the column table (4 bytes a slot), the values (4 bytes
-    in float32, 8 in float64 and DF), x and y (8 bytes an element in
-    float64 and DF); operations: the nonzeros the slabs hold, 2 each (a
-    df_fma in DF). "butterfly_spmv_*" is the whole SpMV: K3 and the tail
-    (values, rows, columns, the x it reads, y's rows read and written)."""
+    tables, k1_src, x and mid; K2: the tables, mid and z; K1 and K2 only
+    move data. The decode: K3's two int8 tables, the elements of z its
+    slots name (inp["b_zread"], int32) and k3_col. K3: the column table
+    (4 bytes a slot), the values (4 bytes in float32, 8 in float64 and
+    DF), x and y (8 bytes an element in float64 and DF); operations: the
+    nonzeros the slabs hold, 2 each (a df_fma in DF). "butterfly_spmv_*"
+    is the whole SpMV: K3 and the tail (values, rows, columns, the x it
+    reads, y's rows read and written)."""
     B = inp["B32"]
     slots = B.P * 1024
     if name.startswith(("butterfly_k1", "butterfly_k2")):
@@ -2798,6 +2924,8 @@ def butterfly_work(name: str, inp: dict) -> tuple[float, float, str]:
         if name.startswith("butterfly_k1"):
             return 2 * slots + 4 * B.P + e * B.n_cols + e * slots, 0, dt
         return 2 * slots + 2 * e * slots, 0, dt
+    if name == "butterfly_decode":
+        return (6 * B.width * B.n_pad + 4 * inp["b_zread"], 0, "float32")
     sfx = name.rsplit("_", 1)[1]
     e = 4 if sfx == "f32" else 8
     dt = {"f32": "float32", "f64": "float64", "df": "df32"}[sfx]
@@ -2809,11 +2937,41 @@ def butterfly_work(name: str, inp: dict) -> tuple[float, float, str]:
     return k3 + B.tail_n * (e + 8 + 3 * e), flops, dt
 
 
+def build_bound_ms(inp: dict) -> float:
+    """The column table's build at 3.35 TB/s: its stages' bytes."""
+    return sum(butterfly_work(k, inp)[0] for k in BUILD_STAGES) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def say_build_split(inp: dict, calls: dict) -> None:
+    """The column table's build on the card (B32's, on the int32 iota;
+    replayed CUDA graphs): each stage alone (K1, K2, the decode) and the
+    whole build (ops/butterfly_spmv.column_table), each beside its bound
+    and its share of it."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    B = inp["B32"]
+    for name in BUILD_STAGES:
+        ms = time_call(calls[name][0], graph=True) * 1e3
+        bound = butterfly_work(name, inp)[0] / HBM_BYTES_PER_S * 1e3
+        _say("times", build_stage=name, ms=f"{ms:.4f}",
+             bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}")
+    ms = time_call(lambda: bs.column_table(B), iters=12, reps=3,
+                   graph=True) * 1e3
+    bound = build_bound_ms(inp)
+    _say("times", column_table_build_ms=f"{ms:.4f}",
+         build_bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}",
+         z_elements_read=inp["b_zread"],
+         table_mb=round(B.k3_col.numel() * 4 / 1e6, 1),
+         input=f"iota {B.n_cols}")
+
+
 def check_butterfly_counts(what: str, method: str, dtype: str, it: int,
                            counts: dict, restarts: int,
                            device: str = "cuda", layouts: int = 0) -> None:
-    """The launches of a converged solve on the butterfly layout: one K1
-    and one K2 per layout built inside the counted window (`layouts`: 1
+    """The launches of a converged solve on the butterfly layout: one K1,
+    one K2 and one decode per layout built inside the counted window
+    (`layouts`: 1
     when the run builds its layout, 0 when it was built before the
     counters were reset), and per SpMV one K3 (its DF form in df32), twice
     per iteration and, per solver segment, for r0 and the true residual
@@ -2825,7 +2983,8 @@ def check_butterfly_counts(what: str, method: str, dtype: str, it: int,
         k3 = "butterfly_k3_df" if dtype == "df32" else "butterfly_k3"
         if method == "pipe_bicgstab" and dtype == "df32":
             want.update(fused_body_a=it, fused_body_b=it)
-        want.update(butterfly_k1=layouts, butterfly_k2=layouts)
+        want.update(butterfly_k1=layouts, butterfly_k2=layouts,
+                    butterfly_decode=layouts)
         spmvs = counts[k3]
         segs, rest = divmod(spmvs - 2 * it,
                             4 if method == "pipe_bicgstab" else 2)
@@ -2863,8 +3022,8 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
     1e-6` through the CLI's own code with its defaults (--format auto,
     --reorder auto), counted as run_main_path: the ButterflyMatrix route,
     converged, the launches of check_butterfly_counts (the run builds its
-    layout: one K1 and one K2), and n_iter within 2 of the same solve on
-    gather-ELL. The solution is held to its
+    layout: one K1, one K2 and one decode), and n_iter within 2 of the
+    same solve on gather-ELL. The solution is held to its
     residual, computed apart from the butterfly kernels with torch's
     float64 CSR product on ell_prob's CSR (the same padded matrix): the
     relative residual within 10 tol, and max|x - 1| within the bound that
@@ -2934,8 +3093,8 @@ def time_butterfly(inp: dict, probs: dict) -> None:
     """The butterfly SpMV on the card (K3 alone is timed in the kernels
     line): the whole SpMV (float32, float64 and DF; replayed CUDA
     graphs) beside its bound and torch's CSR product; the column table's
-    build (K1, T1, K2, T2 and the gather; once per layout) and the route's
-    host seconds; the f32 and df32 classic iterations on the butterfly
+    build (say_build_split; once per layout) and the route's host
+    seconds; the f32 and df32 classic iterations on the butterfly
     layout (tol=0 chains, eager and as replayed CUDA graphs) beside two
     SpMVs' bytes."""
     from mpi_bicgstab_tpu_torch.benchmarks.runner import (bench_iteration,
@@ -2963,19 +3122,7 @@ def time_butterfly(inp: dict, probs: dict) -> None:
              bound_ms=f"{bound:.4f}", bound_share=f"{bound / ms:.3f}",
              torch_csr_ms=None if lib is None else f"{lib:.4f}",
              butterfly_over_csr=None if lib is None else f"{ms / lib:.3f}")
-    B = inp["B32"]
-    iota, mid = inp["biota"], inp["bmidiota"]
-    build = time_call(lambda: bs.column_table(B), iters=12, reps=3,
-                      graph=True) * 1e3
-    t_ms = time_call(lambda: bs.transpose(B, mid), graph=True) * 1e3
-    stage_bytes = sum(butterfly_work(k, inp)[0]
-                      for k in ("butterfly_k1", "butterfly_k2")) \
-        + 2 * 2 * 4 * B.P * 1024
-    _say("times", column_table_build_ms=f"{build:.4f}",
-         k1_k2_transposes_bound_ms=(
-             f"{stage_bytes / HBM_BYTES_PER_S * 1e3:.4f}"),
-         transpose_b32_ms=f"{t_ms:.4f}", table_mb=round(
-             B.k3_col.numel() * 4 / 1e6, 1), input=f"iota {iota.numel()}")
+    say_build_split(inp, butterfly_kernel_calls(inp))
     for dtype, sfx, iters in (("float32", "f32", 60), ("df32", "df", 30)):
         prob = probs[dtype][0]
         eager = bench_iteration(prob, iters=iters)
@@ -3251,7 +3398,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--chain-times": chain_times, "--batched-times": batched_times}
+    modes = {"--chain-times": chain_times, "--batched-times": batched_times,
+             "--route-times": route_times}
     args = sys.argv[1:]
     sys.exit(modes[args[0]]() if len(args) == 1 and args[0] in modes
              else main())

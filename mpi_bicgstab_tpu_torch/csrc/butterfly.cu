@@ -1,16 +1,17 @@
 // Butterfly-routed SpMV (ops/butterfly.py, ops/butterfly_spmv.py): K1 and
-// K2 (routed copies of 4- and 8-byte elements), which build the layout's
+// K2 (routed copies of 4- and 8-byte elements, each writing its output in
+// the transposed order) and the slot decode, which build the layout's
 // column table once, and K3 (the SpMV over x through that table: float32,
 // float64 and double-float pairs).
 //
 // Replaces: mpi_bicgstab_tpu/ops/pallas_butterfly.py::_k1_kernel (driver
-// _k1), ::_k2_kernel (_k2), ::_k3_kernel (_k3, its 'lane' variant) and
-// ::_k3_df_kernel (_k3_df). K1's and K2's tables are the JAX package's:
-// [P, 8, 128] int8 pairs (sublane, lane) in which slot (i, j) of a window
-// reads window element sub[i, lam] * 128 + lam with lam = lane[i, j] (the
-// sublane table indexed by the SOURCE lane). K3's tables are
-// [W//8, 8, NR, 128], which is [W, n_pad] byte for byte, so slab w of
-// row r sits at w * n_pad + r.
+// _k1) with the transpose T1 after it, ::_k2_kernel (_k2) with T2,
+// ::_k3_kernel (_k3, its 'lane' variant) and ::_k3_df_kernel (_k3_df).
+// K1's and K2's tables are the JAX package's: [P, 8, 128] int8 pairs
+// (sublane, lane) in which slot (i, j) of a window reads window element
+// sub[i, lam] * 128 + lam with lam = lane[i, j] (the sublane table indexed
+// by the SOURCE lane). K3's tables are [W//8, 8, NR, 128], which is [W,
+// n_pad] byte for byte, so slab w of row r sits at w * n_pad + r.
 //
 // What the TPU kernels do and why these do not: Mosaic gathers only
 // inside one [8, 128] register window, so JAX factors the random gather
@@ -20,13 +21,39 @@
 // Hopper thread reads any address, and x (6.4 MB in float32, 12.8 MB in
 // float64 or DF at the main path's shapes) sits in the 50 MB L2, so the
 // port routes once per layout: K1 and K2 move the int32 iota 1..n_cols
-// (b32), the transposes and one gather in PyTorch finish the column table
-// k3_col (ops/butterfly_spmv.column_table), and each SpMV is one K3 pass
-// that streams k3_col and the values and gathers x by column. K1 and K2
-// keep one thread per output slot, reading lam, then the sublane byte in
-// the same 128-byte table row (an L1 hit), then its element of the
-// window; K1 reads 0 for a column >= n_cols (JAX zero-pads x to nc_pad,
-// the port passes x unpadded).
+// (b32) to z, and the decode turns z into the column table k3_col
+// (ops/butterfly_spmv.column_table); each SpMV is one K3 pass that streams
+// k3_col and the values and gathers x by column.
+//
+// K1 and K2 (one kernel, bfly_route_kernel): a block owns G consecutive
+// windows a0 .. a0 + G - 1 and stages, for all of them at once, the source
+// window (K1: x's window k1_src[a], 0 past the last column, as JAX
+// zero-pads x; K2: window a of its input), the sublane and the lane table
+// rows in shared memory by one-dimensional bulk copies (cp.async.bulk,
+// the TMA's copy engine) that complete on one mbarrier: G x 6 KB (b32) in
+// flight a block, two blocks an SM. The transposed tile out[e * P + a0 +
+// g] is then formed in registers: a thread takes slot e of V = 16 /
+// sizeof(T) consecutive windows, gathers each one's element from shared
+// memory and stores the V elements as one 16-byte vector, evict-first
+// (the 105 MB written do not stay in L2 for the next kernel anyway), so
+// a warp writes whole runs of G elements (64 bytes) and no transpose
+// follows. The partial last block (P not a multiple of G) stores element
+// by element. Measured on the H100 (PERF.md): evict-first stores are
+// 1.13-1.23x faster than plain ones; G = 4 V (MBT_ROUTE_VECS) because
+// runs of 32 bytes (G = 2 V) cost 1.7x those of 64; 16-byte loads in
+// place of the bulk copies, G = 8 V (one block an SM), two buffers walked
+// by resident blocks, 512 threads, a warp-transposed store and tables
+// read through L1 were all slower.
+//
+// The decode (bfly_decode_kernel; no TPU kernel: the part of _k3_kernel's
+// gather that the port moved into the table): slot (w, r), r = R * 128 +
+// j, reads lam = k3_lane[w, r], s = k3_sub[w, R * 128 + lam] and writes
+// k3_col[w, r] = z[((R * stack + j / rb) * 8 + (s & 7)) * 128 + lam] - 1
+// (z holds the routed iota 1..n_cols, 0 for K1's zero). A block owns one
+// 128-row tile and every slab of it: its stack windows of z arrive by
+// one bulk copy, and the 8 threads of a slab load and store 128
+// contiguous bytes an instruction (stores of 16 bytes 64 bytes apart were
+// 1.2x slower).
 //
 // K3: a thread owns R consecutive rows (R = 1 in float32, 2 in float64
 // and DF: MBT_K3_ROWS_*, chosen by measurement on the H100, PERF.md); per
@@ -57,9 +84,12 @@
 // 218 MB (65.1 us at 3.35 TB/s) in float32, 333.5 MB (99.6 us) in
 // float64 and DF, and gathers x for the 12.8M slots that hold a
 // nonzero (a slab's padded slots in one row tile all name one column).
-// K1 moves its two
-// int8 tables, k1_src, x and u1 (163.8 MB in b32, 48.9 us), K2 the tables,
-// mid and z1 (262.1 MB, 78.3 us): once per layout.
+// Once per layout, K1 moves its two int8 tables, k1_src, x and mid
+// (163.8 MB in b32, 48.9 us), K2 the tables, mid and z (262.1 MB, 78.3
+// us), the decode K3's two int8 tables (51.3 MB), the elements of z its
+// slots name (51.5 MB: a slab's padded slots in a row tile share one)
+// and k3_col (102.6 MB): 61.3 us; this design stages the whole of z
+// (104.9 MB).
 #include <cstdint>
 #include <cstring>
 
@@ -69,44 +99,210 @@
 #define MBT_BFLY_SUB 8     // K3 accumulators: slabs per chunk
 #define MBT_K3_ROWS_F32 1  // K3's rows a thread: float32
 #define MBT_K3_ROWS_F64 2  // float64 and DF
+#define MBT_ROUTE_THREADS 256
+#define MBT_ROUTE_VECS 4     // 16-byte vectors in a slot's run: G = 4 V
+#define MBT_ROUTE_HEAD 128   // shared memory before the windows: the
+                             // mbarrier and the G source window numbers
+#define MBT_DECODE_THREADS 128
 
-// lam = lane[i], then the window element sub[row of i, lam] * 128 + lam
-// of the slot's window (an offset within the window).
-__device__ __forceinline__ int slot_elem(const signed char* __restrict__ sub,
-                                         const signed char* __restrict__ lane,
-                                         long long i) {
-  const int lam = __ldcs(lane + i);
-  return __ldg(sub + (i & ~127LL) + lam) * 128 + lam;
+// --- the bulk-copy path: an mbarrier in shared memory and cp.async.bulk
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// K1: u1[i] = x[k1_src[a] * 1024 + slot_elem(i)], a = i / 1024; 0 (the
-// bits of +0.0) past the last column. T: a 4- or 8-byte unsigned integer.
-template <typename T>
-__global__ void __launch_bounds__(MBT_BLOCK)
-    bfly_k1_kernel(long long n_slots, long long n_cols,
-                   const int* __restrict__ src,
-                   const signed char* __restrict__ sub,
-                   const signed char* __restrict__ lane,
-                   const T* __restrict__ x, T* __restrict__ u1) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_slots) return;
-  const long long col =
-      (long long)__ldg(src + i / MBT_BFLY_WIN) * MBT_BFLY_WIN +
-      slot_elem(sub, lane, i);
-  u1[i] = col < n_cols ? __ldg(x + col) : T(0);
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// K2: z1[i] = mid[(i / 1024) * 1024 + slot_elem(i)], a permutation inside
-// each window. T as for K1.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the barrier's phase of parity `phase` to complete (all its
+// expected bytes arrived).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned phase) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(phase)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The elements of window w that lie below limit, in whole 16-byte
+// vectors: what its bulk copy moves.
 template <typename T>
-__global__ void __launch_bounds__(MBT_BLOCK)
-    bfly_k2_kernel(long long n_slots, const signed char* __restrict__ sub,
-                   const signed char* __restrict__ lane,
-                   const T* __restrict__ mid, T* __restrict__ z1) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_slots) return;
-  z1[i] = __ldg(mid + (i & ~(long long)(MBT_BFLY_WIN - 1)) +
-                slot_elem(sub, lane, i));
+__device__ __forceinline__ int route_copied(long long limit, int w) {
+  const long long left = limit - (long long)w * MBT_BFLY_WIN;
+  const int valid = left <= 0 ? 0 : left >= MBT_BFLY_WIN ? MBT_BFLY_WIN
+                                                         : (int)left;
+  return valid & ~(16 / (int)sizeof(T) - 1);
+}
+
+// K1 (src = k1_src: window a reads x's window src[a]) and K2 (src =
+// nullptr: window a reads window a of its input): out[e * P + a] =
+// in[base(a) + sub[a, i, lam] * 128 + lam] for slot e = 128 i + j of
+// window a, lam = lane[a, i, j]; 0 (all bits clear) where base(a) + that
+// element >= limit. T: a 4- or 8-byte unsigned integer. Block b stages
+// the G windows a0 = b G .. a0 + G - 1 (G a multiple of V) and their
+// table rows by bulk copies; then item (e, c) gathers slot e of windows
+// c V .. c V + V - 1 and stores them as one 16-byte run at e P + a0 + c V,
+// so that a warp writes 32 / C whole rows of G elements an instruction.
+template <typename T, int G>
+__global__ void __launch_bounds__(MBT_ROUTE_THREADS)
+    bfly_route_kernel(long long P, long long limit,
+                      const int* __restrict__ src,
+                      const signed char* __restrict__ sub,
+                      const signed char* __restrict__ lane,
+                      const T* __restrict__ in, T* __restrict__ out) {
+  constexpr int WIN = MBT_BFLY_WIN, V = 16 / (int)sizeof(T), C = G / V;
+  static_assert(G % V == 0 && G * 4 <= MBT_ROUTE_HEAD - 16, "G");
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  int* win = reinterpret_cast<int*>(smem + 16);
+  T* xs = reinterpret_cast<T*>(smem + MBT_ROUTE_HEAD);
+  signed char* subs = reinterpret_cast<signed char*>(xs + G * WIN);
+  signed char* lanes = subs + G * WIN;
+  const int tid = threadIdx.x;
+  const long long a0 = (long long)blockIdx.x * G;
+  const int gw = (int)(P - a0 < G ? P - a0 : G);   // windows of this block
+  if (tid < gw) win[tid] = src ? __ldg(src + a0 + tid) : (int)(a0 + tid);
+  if (tid == 0) mbar_init(bar);
+  __syncthreads();
+  if (tid == 0) {
+    unsigned bytes = 2u * gw * WIN;
+    for (int g = 0; g < gw; ++g)
+      bytes += route_copied<T>(limit, win[g]) * (unsigned)sizeof(T);
+    mbar_expect(bar, bytes);
+    bulk_load(subs, sub + a0 * WIN, gw * WIN, bar);
+    bulk_load(lanes, lane + a0 * WIN, gw * WIN, bar);
+    for (int g = 0; g < gw; ++g) {
+      const int n = route_copied<T>(limit, win[g]);
+      if (n) bulk_load(xs + g * WIN, in + (long long)win[g] * WIN,
+                       n * (unsigned)sizeof(T), bar);
+    }
+  }
+  // a window that crosses limit: the rest element by element, 0 past it
+  for (int g = 0; g < gw; ++g) {
+    const long long b = (long long)win[g] * WIN;
+    for (int k = route_copied<T>(limit, win[g]) + tid; k < WIN;
+         k += MBT_ROUTE_THREADS)
+      xs[g * WIN + k] = b + k < limit ? in[b + k] : T(0);
+  }
+  mbar_wait(bar, 0);
+  __syncthreads();
+  const bool whole = gw == G && P % V == 0;
+  for (int it = tid; it < WIN * C; it += MBT_ROUTE_THREADS) {
+    const int e = it / C, g0 = (it % C) * V;
+    T v[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int g = g0 + q;
+      if (g < gw) {
+        const int lam = lanes[g * WIN + e];
+        const int s = subs[g * WIN + (e & ~127) + lam];
+        v[q] = xs[g * WIN + s * 128 + lam];
+      }
+    }
+    T* d = out + (long long)e * P + a0 + g0;
+    if (whole) {
+      int4 w;
+      memcpy(&w, v, 16);
+      __stcs(reinterpret_cast<int4*>(d), w);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q)
+        if (g0 + q < gw) d[q] = v[q];
+    }
+  }
+}
+
+// The decode: k3_col[w, R * 128 + j] for the 16 slots j = 32 q + 4 k + i
+// (q, i < 4) of each of a thread's slabs, k = threadIdx.x % 8, so that the
+// 8 threads of a slab load and store 128 contiguous bytes an instruction;
+// block R is one 128-row tile. Its stack windows of z arrive by one bulk
+// copy while the threads load their lane and sublane bytes; the 8 threads
+// of a slab share its sublane row through shared memory.
+__global__ void __launch_bounds__(MBT_DECODE_THREADS)
+    bfly_decode_kernel(long long n_pad, int width, int stack, int rb,
+                       const signed char* __restrict__ sub,
+                       const signed char* __restrict__ lane,
+                       const int* __restrict__ z, int* __restrict__ col) {
+  constexpr int SLABS = MBT_DECODE_THREADS / 8;   // slabs a pass
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  signed char* subs = reinterpret_cast<signed char*>(smem + 16);
+  int* zs = reinterpret_cast<int*>(smem + 16 + SLABS * 128);
+  const int tid = threadIdx.x, k4 = (tid % 8) * 4;
+  const long long R = blockIdx.x;
+  if (tid == 0) mbar_init(bar);
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned bytes = stack * MBT_BFLY_WIN * 4u;
+    mbar_expect(bar, bytes);
+    bulk_load(zs, z + R * stack * MBT_BFLY_WIN, bytes, bar);
+  }
+  signed char* srow = subs + (tid / 8) * 128;
+  bool staged = false;
+  // every thread of a warp makes the same passes (width % 8 == 0)
+  for (int w = tid / 8; w < width; w += SLABS) {
+    const long long row = (long long)w * n_pad + R * 128;
+    int l4[4], s4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      l4[q] = __ldcs(reinterpret_cast<const int*>(lane + row + 32 * q + k4));
+      s4[q] = __ldcs(reinterpret_cast<const int*>(sub + row + 32 * q + k4));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<int*>(srow + 32 * q + k4) = s4[q];
+    __syncwarp();
+    if (!staged) {
+      mbar_wait(bar, 0);
+      staged = true;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      signed char lam[4];
+      memcpy(lam, &l4[q], 4);
+      int c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int l = lam[i], s = srow[l], j = 32 * q + k4 + i;
+        c[i] = zs[((j / rb) * MBT_BFLY_SUB + (s & 7)) * 128 + l] - 1;
+      }
+      *reinterpret_cast<int4*>(col + row + 32 * q + k4) =
+          make_int4(c[0], c[1], c[2], c[3]);
+    }
+  }
 }
 
 // R consecutive elements from p (R * sizeof(T) bytes, aligned to that
@@ -258,25 +454,29 @@ static inline bool k3_args_ok(long long n_pad, int width, const void* col,
          ((uintptr_t)col | (uintptr_t)vals) % 16 == 0;
 }
 
-template <typename T>
-static cudaError_t launch_k1(long long P, long long n_cols, const int* src,
-                             const signed char* sub, const signed char* lane,
-                             const T* x, T* u1, cudaStream_t stream) {
-  if (P < 1 || n_cols < 1) return cudaErrorInvalidValue;
-  const long long n_slots = P * MBT_BFLY_WIN;
-  bfly_k1_kernel<T><<<mbt_grid(n_slots), MBT_BLOCK, 0, stream>>>(
-      n_slots, n_cols, src, sub, lane, x, u1);
-  return cudaGetLastError();
+static inline bool aligned16(const void* p) {
+  return (uintptr_t)p % 16 == 0;
 }
 
 template <typename T>
-static cudaError_t launch_k2(long long P, const signed char* sub,
-                             const signed char* lane, const T* mid, T* z1,
-                             cudaStream_t stream) {
-  if (P < 1) return cudaErrorInvalidValue;
-  const long long n_slots = P * MBT_BFLY_WIN;
-  bfly_k2_kernel<T><<<mbt_grid(n_slots), MBT_BLOCK, 0, stream>>>(
-      n_slots, sub, lane, mid, z1);
+static cudaError_t launch_route(long long P, long long limit, const int* src,
+                                const signed char* sub,
+                                const signed char* lane, const T* in, T* out,
+                                cudaStream_t stream) {
+  constexpr int G = MBT_ROUTE_VECS * 16 / (int)sizeof(T);
+  // the windows and their two table rows
+  constexpr int smem =
+      MBT_ROUTE_HEAD + G * MBT_BFLY_WIN * ((int)sizeof(T) + 2);
+  if (P < 1 || limit < 1 || !aligned16(sub) || !aligned16(lane) ||
+      !aligned16(in) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory only by opting in, once
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      bfly_route_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  bfly_route_kernel<T, G><<<(P + G - 1) / G, MBT_ROUTE_THREADS, smem,
+                            stream>>>(P, limit, src, sub, lane, in, out);
   return cudaGetLastError();
 }
 
@@ -293,33 +493,53 @@ static cudaError_t launch_k3(long long n_pad, int width, const int* col,
 extern "C" {
 
 // K1: k1_src [P] int32; k1_sub, k1_lane [P, 8, 128] int8; x [n_cols];
-// u1 [P * 1024]; elements of 4 bytes (b32) or 8 bytes (b64).
+// mid [P * 1024], written transposed (mid[e * P + a]: slot e of window
+// a); elements of 4 bytes (b32) or 8 bytes (b64).
 cudaError_t mbt_bfly_k1_b32(long long P, long long n_cols, const int* src,
                             const signed char* sub, const signed char* lane,
-                            const unsigned int* x, unsigned int* u1,
+                            const unsigned int* x, unsigned int* mid,
                             cudaStream_t stream) {
-  return launch_k1(P, n_cols, src, sub, lane, x, u1, stream);
+  return launch_route(P, n_cols, src, sub, lane, x, mid, stream);
 }
 
 cudaError_t mbt_bfly_k1_b64(long long P, long long n_cols, const int* src,
                             const signed char* sub, const signed char* lane,
                             const unsigned long long* x,
-                            unsigned long long* u1, cudaStream_t stream) {
-  return launch_k1(P, n_cols, src, sub, lane, x, u1, stream);
+                            unsigned long long* mid, cudaStream_t stream) {
+  return launch_route(P, n_cols, src, sub, lane, x, mid, stream);
 }
 
-// K2: k2_sub, k2_lane [P, 8, 128] int8; mid, z1 [P * 1024].
+// K2: k2_sub, k2_lane [P, 8, 128] int8; mid, z [P * 1024], z written
+// transposed (z[e * P + m]: slot e of window m).
 cudaError_t mbt_bfly_k2_b32(long long P, const signed char* sub,
                             const signed char* lane, const unsigned int* mid,
-                            unsigned int* z1, cudaStream_t stream) {
-  return launch_k2(P, sub, lane, mid, z1, stream);
+                            unsigned int* z, cudaStream_t stream) {
+  return launch_route(P, P * MBT_BFLY_WIN, (const int*)nullptr, sub, lane,
+                      mid, z, stream);
 }
 
 cudaError_t mbt_bfly_k2_b64(long long P, const signed char* sub,
                             const signed char* lane,
                             const unsigned long long* mid,
-                            unsigned long long* z1, cudaStream_t stream) {
-  return launch_k2(P, sub, lane, mid, z1, stream);
+                            unsigned long long* z, cudaStream_t stream) {
+  return launch_route(P, P * MBT_BFLY_WIN, (const int*)nullptr, sub, lane,
+                      mid, z, stream);
+}
+
+// The decode: k3_sub, k3_lane [width, n_pad] int8 (the [W//8, 8, NR, 128]
+// tables); z [P * 1024] int32, the routed iota; k3_col [width, n_pad].
+cudaError_t mbt_bfly_decode(long long n_pad, int width, int stack, int rb,
+                            const signed char* sub, const signed char* lane,
+                            const int* z, int* col, cudaStream_t stream) {
+  if (n_pad < 128 || n_pad % 128 != 0 || width < 8 || width % 8 != 0 ||
+      stack < 1 || stack > 8 || rb * stack != 128 || !aligned16(sub) ||
+      !aligned16(lane) || !aligned16(z) || !aligned16(col))
+    return cudaErrorInvalidValue;
+  const int smem =
+      16 + MBT_DECODE_THREADS / 8 * 128 + stack * MBT_BFLY_WIN * 4;
+  bfly_decode_kernel<<<n_pad / 128, MBT_DECODE_THREADS, smem, stream>>>(
+      n_pad, width, stack, rb, sub, lane, z, col);
+  return cudaGetLastError();
 }
 
 // K3: k3_col (int32) and vals [width, n_pad] (the [W//8, 8, NR, 128]

@@ -81,8 +81,8 @@ class ButterflyMatrix:
     k3_col:  int32 [W//8, 8, NR, 128]: the column of x the slot reads
              through K1, T1, K2, T2 (-1: K1's zero past the last column);
              derived: every construction (dataclasses.replace too) routes
-             it from the tables above, on their device (on the card one K1
-             and one K2 launch)
+             it from the tables above, on their device (on the card one K1,
+             one K2 and one decode launch)
     tail_rows, tail_cols: int32 [L, cap]; tail_vals [L, cap]: the spill
     rb: output rows per destination window (64, 32 or 16)
     n_pad: rows padded to a multiple of 2048; nc_pad: columns to 1024

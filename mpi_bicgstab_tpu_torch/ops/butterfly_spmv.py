@@ -8,24 +8,26 @@ The JAX pipeline routes x on every SpMV:
 
 Every element of z is one column of x (or K1's zero past the last
 column), whatever x holds, so the port routes once per layout, not once
-per SpMV: column_table sends the int32 iota 1..n_cols through K1, T1,
-K2 and T2 (the b32 kernels on the card, the twins below on the CPU; T1
-and T2 are PyTorch transposes), subtracts 1 and gathers each K3 slot's
-element, giving ButterflyMatrix.k3_col, the column of x each slot reads
-(-1 for K1's zero). An SpMV is then one K3 launch over x (ops/
-cuda_butterfly.py, csrc/butterfly.cu) and the leveled tail: the same
-bits as the routed pipeline, since routing only copies them.
+per SpMV: column_table sends the int32 iota 1..n_cols through K1 and K2,
+each of which writes its output transposed (T1 and T2 folded into its
+stores), and decodes z into ButterflyMatrix.k3_col, the column of x each
+K3 slot reads (-1 for K1's zero): the b32 kernels and the decode kernel
+on the card, the twins below on the CPU. An SpMV is then one K3 launch
+over x (ops/cuda_butterfly.py, csrc/butterfly.cu) and the leveled tail:
+the same bits as the routed pipeline, since routing only copies them.
 
 The twins compute what the kernels compute, operation for operation:
 
 - K1: u1[a, i, j] = x[k1_src[a] * 1024 + k1_sub[a, i, lam] * 128 + lam],
   lam = k1_lane[a, i, j], 0 for a column >= n_cols (the JAX pipeline's
-  zero-padded x).
-- K2: z1[m, i, j] = mid[m, k2_sub[m, i, lam], lam], lam = k2_lane[m, i, j].
-- K3's slot (w, r): output row r = R * 128 + j read, in slab w, the z
-  element ((R * F + j // rb) * 8 + (s & 7)) * 128 + lam of its row tile's
-  stacked windows, lam = k3_lane[w, r], s = k3_sub[w, R, lam] (the Pallas
-  'lane' form): k3_col[w, r] is that element's column.
+  zero-padded x); it returns mid, u1 [P, 1024] transposed, read flat.
+- K2: z1[m, i, j] = mid[m, k2_sub[m, i, lam], lam], lam = k2_lane[m, i, j];
+  it returns z, z1 [P, 1024] transposed, read flat.
+- The decode, K3's slot (w, r): output row r = R * 128 + j reads, in slab
+  w, the z element ((R * F + j // rb) * 8 + (s & 7)) * 128 + lam of its
+  row tile's stacked windows, lam = k3_lane[w, r], s = k3_sub[w, R, lam]
+  (the Pallas 'lane' form): k3_col[w, r] is that element of the routed
+  iota, less 1.
 - K3: xg = x[k3_col[w, r]] (+0 for -1); accumulator w % 8 adds v * xg
   chunk by chunk (rounded product, rounded sum, the product formed for
   every slot, padding included, so that NaN, inf and the sign of zero
@@ -73,22 +75,25 @@ def _slot_elem(sub: torch.Tensor, lane: torch.Tensor,
     return e.add_(base.int().mul(WIN)[:, None]).view(-1)
 
 
+def _transposed(A, u: torch.Tensor) -> torch.Tensor:
+    """[P, 1024] -> [1024, P], read flat (JAX's T1 and T2)."""
+    return u.view(A.P, WIN).t().contiguous().view(-1)
+
+
 def k1_plain(A, x: torch.Tensor) -> torch.Tensor:
-    """K1's twin: u1 [P * 1024] from x [n_cols]."""
+    """K1's twin: mid [P * 1024] (u1 transposed) from x [n_cols]."""
     xp = x.new_zeros(A.nc_pad)
     xp[: A.n_cols] = x
-    return xp.index_select(0, _slot_elem(A.k1_sub, A.k1_lane, A.k1_src))
+    return _transposed(A, xp.index_select(
+        0, _slot_elem(A.k1_sub, A.k1_lane, A.k1_src)))
 
 
 def k2_plain(A, mid: torch.Tensor) -> torch.Tensor:
-    """K2's twin: z1 [P * 1024], mid permuted inside each window."""
+    """K2's twin: z [P * 1024], mid permuted inside each window and
+    transposed."""
     base = torch.arange(A.P, device=mid.device)
-    return mid.index_select(0, _slot_elem(A.k2_sub, A.k2_lane, base))
-
-
-def transpose(A, u: torch.Tensor) -> torch.Tensor:
-    """T1 and T2: [P, 1024] -> [1024, P], read flat."""
-    return u.view(A.P, WIN).t().contiguous().view(-1)
+    return _transposed(A, mid.index_select(
+        0, _slot_elem(A.k2_sub, A.k2_lane, base)))
 
 
 def k3_elem(A, c: int) -> torch.Tensor:
@@ -155,22 +160,32 @@ def k2(A, mid):
     return cbf.butterfly_k2(A, mid) if _cuda(mid) else k2_plain(A, mid)
 
 
+def decode_plain(A, z: torch.Tensor) -> torch.Tensor:
+    """The decode's twin: k3_col [W//8, 8, NR, 128] from the routed iota
+    z [P * 1024], each slot's z element less 1."""
+    zcol = z - 1
+    return torch.stack([zcol.index_select(0, k3_elem(A, c))
+                        for c in range(A.width // SUB)]).view(
+        A.k3_lane.shape)
+
+
+def decode(A, z):
+    return cbf.butterfly_decode(A, z) if _cuda(z) else decode_plain(A, z)
+
+
 def route(A, x: torch.Tensor) -> torch.Tensor:
-    """z [P * 1024]: x through K1, T1, K2, T2."""
-    return transpose(A, k2(A, transpose(A, k1(A, x))))
+    """z [P * 1024]: x through K1 and K2 (JAX's K1, T1, K2, T2)."""
+    return k2(A, k1(A, x))
 
 
 def column_table(A) -> torch.Tensor:
     """k3_col, int32 [W//8, 8, NR, 128] on A's device: the column of x
     each K3 slot reads, -1 where the routed z holds K1's zero (a column
-    >= n_cols). The iota 1..n_cols routed (K1 and K2 launched once each on
-    the card), less 1, gathered at each slot's z element."""
+    >= n_cols). The iota 1..n_cols routed and decoded (K1, K2 and the
+    decode launched once each on the card)."""
     iota = torch.arange(1, A.n_cols + 1, dtype=torch.int32,
                         device=A.device)
-    zcol = route(A, iota).sub_(1)
-    return torch.stack([zcol.index_select(0, k3_elem(A, c))
-                        for c in range(A.width // SUB)]).view(
-        A.k3_lane.shape)
+    return decode(A, route(A, iota))
 
 
 def butterfly_spmv(A, x: torch.Tensor) -> torch.Tensor:

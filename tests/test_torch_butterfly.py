@@ -240,9 +240,11 @@ def _random_tables(A, seed):
 @pytest.mark.parametrize("tables", ["routed", "random"])
 def test_k1_k2_twins_equal_jax_kernels(dtype, tables, monkeypatch):
     """K1 and K2's twins against JAX's _k1 / _k2 (interpret mode) on 4
-    windows, two per grid step: equal. 3000 columns (nc_pad 3072): the
-    random tables' first windows read the last source window, where K1
-    reads 0 past column 2999 as JAX's zero-padded x does."""
+    windows, two per grid step, each followed by JAX's transpose (T1, T2
+    as pallas_butterfly.py:274,276 write them; the twins write their
+    output transposed): equal. 3000 columns (nc_pad 3072): the random
+    tables' first windows read the last source window, where K1 reads 0
+    past column 2999 as JAX's zero-padded x does."""
     monkeypatch.setattr(jpb, "_tb_windows", lambda P: 2)
     t, j = _both("random_diag_dominant", 3000, seed=3)
     A = tbf.build_butterfly(t, dtype=dtype, device="cpu")
@@ -254,21 +256,21 @@ def test_k1_k2_twins_equal_jax_kernels(dtype, tables, monkeypatch):
     x = np.random.default_rng(0).standard_normal(A.n_cols).astype(npd)
     xp = np.zeros(A.nc_pad, npd)
     xp[: A.n_cols] = x
-    sl = {k: jnp.asarray(getattr(A, k)[:nw].numpy())
-          for k in ("k1_src", "k1_sub", "k1_lane", "k2_sub", "k2_lane")}
+    names = ("k1_src", "k1_sub", "k1_lane", "k2_sub", "k2_lane")
+    sl = {k: jnp.asarray(getattr(A, k)[:nw].numpy()) for k in names}
+    sub = types.SimpleNamespace(P=nw, n_cols=A.n_cols, nc_pad=A.nc_pad,
+                                **{k: getattr(A, k)[:nw] for k in names})
     u1j = jpb._k1(sl["k1_src"], sl["k1_sub"], sl["k1_lane"],
                   jnp.asarray(xp.reshape(-1, 128)), interpret=True)
-    u1t = tbs.k1_plain(A, torch.as_tensor(x))
-    np.testing.assert_array_equal(u1t.numpy()[: nw * 1024],
-                                  np.asarray(u1j).reshape(-1))
+    np.testing.assert_array_equal(
+        tbs.k1_plain(sub, torch.as_tensor(x)).numpy(),
+        np.asarray(u1j).reshape(nw, 1024).T.reshape(-1))
     mid = np.random.default_rng(1).standard_normal(nw * 1024).astype(npd)
     z1j = jpb._k2(jnp.asarray(mid.reshape(nw, 8, 128)), sl["k2_sub"],
                   sl["k2_lane"], interpret=True)
-    sub = types.SimpleNamespace(P=nw, k2_sub=A.k2_sub[:nw],    # K2's reads
-                                k2_lane=A.k2_lane[:nw])
     np.testing.assert_array_equal(
         tbs.k2_plain(sub, torch.as_tensor(mid)).numpy(),
-        np.asarray(z1j).reshape(-1))
+        np.asarray(z1j).reshape(nw, 1024).T.reshape(-1))
 
 
 K3_TILES = 3        # row tiles handed to JAX's K3 (from tile 5 on)
@@ -598,11 +600,11 @@ def test_chip_smoke_butterfly_work_counts_the_stage_bytes():
 
 def test_chip_smoke_butterfly_launch_rule():
     smoke = _chip_smoke()
-    zero = dict.fromkeys(("butterfly_k1", "butterfly_k2", "butterfly_k3",
-                          "butterfly_k3_df", "dia_spmv", "fused_body_a",
-                          "fused_body_b"), 0)
+    zero = dict.fromkeys(("butterfly_k1", "butterfly_k2", "butterfly_decode",
+                          "butterfly_k3", "butterfly_k3_df", "dia_spmv",
+                          "fused_body_a", "fused_body_b"), 0)
     check = smoke.check_butterfly_counts
-    built = {"butterfly_k1": 1, "butterfly_k2": 1}
+    built = {"butterfly_k1": 1, "butterfly_k2": 1, "butterfly_decode": 1}
     # classic, 10 iterations in one segment: 2 per iteration + r0 + true;
     # the layout built before the count, then inside it (the CLI run)
     check("rule", "bicgstab", "float32", 10, {**zero, "butterfly_k3": 22},
@@ -620,8 +622,10 @@ def test_chip_smoke_butterfly_launch_rule():
     for bad, layouts in (
             ({**zero, **built, "butterfly_k3": 22}, 0),   # K1, K2 per run
             ({**zero, "butterfly_k3": 22}, 1),            # no table build
+            ({**zero, **built, "butterfly_decode": 0,
+              "butterfly_k3": 22}, 1),                    # no decode
             ({**zero, "butterfly_k1": 22, "butterfly_k2": 22,
-              "butterfly_k3": 22}, 1),                    # routed per SpMV
+              "butterfly_decode": 22, "butterfly_k3": 22}, 1),  # per SpMV
             ({**zero, "butterfly_k3_df": 22}, 0),
             ({**zero, "butterfly_k3": 22, "dia_spmv": 1}, 0),
             ({**zero, "butterfly_k3": 30}, 0)):

@@ -220,14 +220,14 @@ def test_convert_routes_the_column_table(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64", "df32"])
 def test_spmv_routes_nothing(dtype, monkeypatch):
-    """An SpMV reads x through the table: K1, K2 and the transposes are
-    not called (they build the table once per layout), and the result is
-    the CSR product."""
+    """An SpMV reads x through the table: K1, K2 and the decode are not
+    called (they build the table once per layout), and the result is the
+    CSR product."""
     csr, A = _port_layout("4096", dtype)
 
     def refuse(*args):
         raise AssertionError("routed per SpMV")
-    for name in ("k1_plain", "k2_plain", "transpose", "route"):
+    for name in ("k1_plain", "k2_plain", "decode_plain", "route"):
         monkeypatch.setattr(tbs, name, refuse)
     x = np.random.default_rng(3).standard_normal(csr.shape[1])
     xt = df_from_f64(x) if dtype == "df32" else torch.as_tensor(

@@ -1357,11 +1357,12 @@ def _butterfly(dtype, dev, case):
 @pytest.mark.parametrize("case", ["routed", "rb32", "beyond"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
 def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
-    """Kernels 25-26 (K1, K2 on the column table's iota and on x's
-    elements, a DF vector as packed pairs) and 27-28 (K3, K3 DF) against
-    their twins on the same inputs: equal bit for bit, each
-    launch counted once; the column table routed on the card equals the
-    CPU twins'; K3 on x with a NaN and an inf planted equals its twin and
+    """Kernels 25-26 (K1, K2, each writing its output transposed, on the
+    column table's iota and on x's elements, a DF vector as packed pairs),
+    the decode (on the routed iota) and 27-28 (K3, K3 DF) against their
+    twins on the same inputs: equal bit for bit, each launch counted
+    once; the column table routed on the card equals the CPU twins'; K3
+    on x with a NaN and an inf planted equals its twin and
     the routed pipeline; the whole SpMV against the CSR (routed tables
     only)."""
     from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
@@ -1378,22 +1379,23 @@ def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
         return df_from_f64(v, dev) if df else torch.as_tensor(
             v, dtype=dtype, device=dev)
     x = put(x_host)
-    counted = (cbf.butterfly_k1, cbf.butterfly_k2, cbf.butterfly_k3,
-               cbf.butterfly_k3_df)
+    counted = (cbf.butterfly_k1, cbf.butterfly_k2, cbf.butterfly_decode,
+               cbf.butterfly_k3, cbf.butterfly_k3_df)
     before = {f: f.launches for f in counted}
     iota = torch.arange(1, A.n_cols + 1, dtype=torch.int32, device=dev)
     for v in (iota, smoke.pack_df(x) if df else x):
-        u1 = cbf.butterfly_k1(A, v)
-        assert torch.equal(u1, bs.k1_plain(A, v))
-        mid = bs.transpose(A, u1)
+        mid = cbf.butterfly_k1(A, v)
+        assert torch.equal(mid, bs.k1_plain(A, v))
         assert torch.equal(cbf.butterfly_k2(A, mid), bs.k2_plain(A, mid))
+    z = bs.k2_plain(A, bs.k1_plain(A, iota))
+    assert torch.equal(cbf.butterfly_decode(A, z), bs.decode_plain(A, z))
     k3, twin = ((cbf.butterfly_k3_df, bs.k3_df_plain) if df
                 else (cbf.butterfly_k3, bs.k3_plain))
     assert smoke.same_bits(k3(A, x), twin(A, x))
     torch.cuda.synchronize()
     assert {f: f.launches - n for f, n in before.items()} == {
         **dict.fromkeys(before, 0), cbf.butterfly_k1: 2,
-        cbf.butterfly_k2: 2, k3: 1}
+        cbf.butterfly_k2: 2, cbf.butterfly_decode: 1, k3: 1}
     xn = put(smoke.planted(x_host, 4))
     got = k3(A, xn)
     assert smoke.same_bits(got, twin(A, xn))
@@ -1407,15 +1409,59 @@ def test_butterfly_kernels_match_twins_bit_for_bit(dtype, case):
     assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
 
 
+class _Windows:
+    """K1's and K2's tables for P windows on the card from a NumPy seed,
+    over 2999 columns (3 source windows, the last partial; the first and
+    last blocks read it), as the wrappers take a layout's."""
+
+    def __init__(self, P, dev, seed=11):
+        g = np.random.default_rng(seed)
+        src = g.integers(0, 3, P).astype(np.int32)
+        src[:3] = src[-3:] = 2
+
+        def rand(hi):
+            return torch.as_tensor(g.integers(0, hi, (P, 8, 128)).astype(
+                np.int8), device=dev)
+        self.P, self.n_cols, self.nc_pad = P, 2999, 3072
+        self.k1_src = torch.as_tensor(src, device=dev)
+        self.k1_sub, self.k1_lane = rand(8), rand(128)
+        self.k2_sub, self.k2_lane = rand(8), rand(128)
+
+
+@pytest.mark.parametrize("P", [37, 42, 44, 1024, 25600])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_butterfly_route_blocks_match_twins(dtype, P):
+    """K1 and K2 (G = 4 V windows a block) on P windows (element stores,
+    vector stores with a partial last block, whole blocks, the main path's
+    P), x of 2999 elements with a NaN and an inf: bit-equal to the
+    twins."""
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    dev = _card()
+    T = _Windows(P, dev)
+    if dtype == torch.int32:
+        x = torch.arange(1, 3000, dtype=dtype, device=dev)
+    else:
+        xh = np.random.default_rng(P).standard_normal(2999)
+        xh[[7, 2990]] = np.nan, np.inf
+        x = torch.as_tensor(xh, device=dev)
+    mid = cbf.butterfly_k1(T, x)
+    assert torch.equal(mid.view(torch.int8), bs.k1_plain(T, x).view(
+        torch.int8))
+    z = cbf.butterfly_k2(T, mid)
+    assert torch.equal(z.view(torch.int8), bs.k2_plain(T, mid).view(
+        torch.int8))
+
+
 @pytest.mark.parametrize("dtype,method", [("float32", "bicgstab"),
                                           ("float64", "bicgstab"),
                                           ("df32", "bicgstab"),
                                           ("df32", "pipe_bicgstab")])
 def test_butterfly_route_launches_its_kernels(dtype, method):
-    """Building the layout on the card runs K1 and K2 once (its column
-    table); a solve on it runs K3 (K3 DF in df32) once per SpMV, df32
-    pipe_bicgstab also its fused bodies once per iteration, and no other
-    kernel; it agrees with the CPU solve."""
+    """Building the layout on the card runs K1, K2 and the decode once
+    (its column table); a solve on it runs K3 (K3 DF in df32) once per
+    SpMV, df32 pipe_bicgstab also its fused bodies once per iteration,
+    and no other kernel; it agrees with the CPU solve."""
     from mpi_bicgstab_tpu_torch.models.generators import random_diag_dominant
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
@@ -1426,6 +1472,7 @@ def test_butterfly_route_launches_its_kernels(dtype, method):
     dt = dtype if dtype == "df32" else getattr(torch, dtype)
     cfg = SolverConfig(tol=tol, dtype=dtype)
     counters = {"k1": cbf.butterfly_k1, "k2": cbf.butterfly_k2,
+                "decode": cbf.butterfly_decode,
                 "k3": cbf.butterfly_k3, "k3_df": cbf.butterfly_k3_df,
                 "window": cws.window_rows, "dia": cuda_spmv.dia_spmv,
                 "dia_df": cuda_spmv.dia_spmv_df, "body_a": cpb.fused_body_a}
@@ -1435,7 +1482,7 @@ def test_butterfly_route_launches_its_kernels(dtype, method):
     prob = build_problem(csr, dtype=dt, device=dev)
     assert type(prob.A).__name__ == "ButterflyMatrix"
     assert {k: f.launches - before[k] for k, f in counters.items()} == {
-        **dict.fromkeys(counters, 0), "k1": 1, "k2": 1}
+        **dict.fromkeys(counters, 0), "k1": 1, "k2": 1, "decode": 1}
     before = {k: f.launches for k, f in counters.items()}
     res = solve(prob.A, prob.b, method=method, cfg=cfg)
     assert bool(res.converged) and abs(res.n_iter - ref.n_iter) <= 2
@@ -1463,6 +1510,15 @@ def test_butterfly_wrappers_raise_instead_of_falling_back():
         cbf.butterfly_k1(A, x[:100])
     with pytest.raises(ValueError):        # mid of the wrong length
         cbf.butterfly_k2(A, x)
+    with pytest.raises(ValueError):        # x not 16-byte aligned
+        cbf.butterfly_k1(A, torch.ones(A.n_cols + 1, device=dev)[1:])
+    z = torch.ones(A.P * 1024, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):         # a float z, not the iota
+        cbf.butterfly_decode(A, z.float())
+    with pytest.raises(ValueError):        # z on the CPU
+        cbf.butterfly_decode(A, z.cpu())
+    with pytest.raises(ValueError):        # z of the wrong length
+        cbf.butterfly_decode(A, z[:100])
     with pytest.raises(TypeError):         # float64 x, float32 values
         cbf.butterfly_k3(A, x.double())
     with pytest.raises(ValueError):        # x on the CPU
