@@ -132,7 +132,27 @@ numbers; any failure exits non-zero:
              iteration) through api.solve at 1e-10 on layouts built
              before the count (no K1, K2, decode), max|x-1| < 1e-6;
              each within 2 iterations of gather-ELL, launches in
-             `check_butterfly_counts`
+             `check_butterfly_counts`.
+             Every CLI solve runs once untimed, then --repeat times (as
+             the JAX CLI does): its launch counts are checked per run
+             (per_run). The single-device tooling (ROADMAP slice 9a):
+             `[mtx]` writes transport_like(1602112) as a .mtx (write_mtx,
+             the reader's bytes, 8 spawned formatters), parses it with the
+             native reader bit-equal to the generator's CSR, then runs
+             `solve --matrix X.mtx --dtype float32 --tol 1e-6 --json
+             --repeat 2` through cli.main: the JAX package's JSON keys, the
+             fused f32 launches in each of 3 runs, `[f32]`'s n_iter.
+             `[layout_cache]` saves the float32 butterfly layout of
+             uniform:1602112 and the window layout of clustered:1602560
+             to the layout cache and loads each back on the card (the
+             derived k3_col and rc_* rebuilt there): every field
+             bit-equal, and a float32 solve from each the same n_iter and
+             x bit for bit. `[tools]` prints `info`'s census, runs
+             `selftest` on the card (every check PASS, exit 0) and `bench
+             --matrix transport-like:1602112 --what
+             spmv,iter,batched,cheby,shifted` (its times finite and
+             positive, every byte rate it allows reckoning at most 3.35
+             TB/s, check_bench_line)
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -187,6 +207,14 @@ layouts routed on the card, the whole build's time beside its bound, the
 device time of each kernel the build launches (torch.profiler), and,
 where the tree has the decode kernel, K1, K2 (4- and 8-byte elements)
 and the decode timed alone, each held to its twin.
+
+    python3 chip_smoke.py --io-times
+
+times the reader and the layout cache at full width (io_times): the
+native parse against the NumPy parse of the .mtx of
+transport_like(1602112), and the CLI's setup_s cold against warm
+(--layout-cache) on uniform:1602112 (butterfly) and clustered:1602560
+(window), the warm report equal to the cold one apart from its times.
 """
 from __future__ import annotations
 
@@ -402,6 +430,12 @@ N_UNIFORM, UNIFORM_TOL = 1_602_112, 1e-6
 BUTTERFLY_PATHS = {"butterfly_f64": ("bicgstab", "float64", 1e-10),
                    "butterfly_df32": ("bicgstab", "df32", 1e-10),
                    "butterfly_pipe_df32": ("pipe_bicgstab", "df32", 1e-10)}
+
+
+# a CLI solve runs once untimed, then --repeat (default 1) times
+CLI_RUNS = 2
+# kernels of a butterfly layout's build: once per command, not per run
+BUILD_ONCE = ("butterfly_k1", "butterfly_k2", "butterfly_decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -964,6 +998,25 @@ def _fits(total: int, per_segment: int, restarts: int) -> bool:
     return any(total == per_segment * k for k in range(1, restarts + 2))
 
 
+def per_run(counts: dict, what: str, runs: int = CLI_RUNS,
+            once=()) -> dict:
+    """The launches of one of `runs` identical runs of a solve (the CLI
+    solves once untimed, then --repeat times, as the JAX CLI does; every
+    run launches the same kernels): each count divided by runs, but those
+    in `once` (the layout's build, once per command); SmokeFailure where
+    a count does not divide."""
+    out = {}
+    for k, v in counts.items():
+        if k in once:
+            out[k] = v
+        elif v % runs:
+            raise SmokeFailure(f"{what}: {k} launched {v} times, not the "
+                               f"same in each of {runs} runs")
+        else:
+            out[k] = v // runs
+    return out
+
+
 def check_counts(method: str, dtype: str, it: int, counts: dict,
                  restarts: int, device: str = "cuda") -> None:
     """The launch counts that a converged run of `method` on its route
@@ -1037,7 +1090,8 @@ def run_main_path(n: int, dtype: str, tol: float, device: str = "cuda",
     if dtype == "df32" and not report["true_relres"] <= 1e-8:
         raise SmokeFailure(f"{method} {dtype}: true_relres "
                            f"{report['true_relres']:.3e} > 1e-8")
-    check_counts(method, dtype, report["total_iter"], counts, args.restarts,
+    check_counts(method, dtype, report["total_iter"],
+                 per_run(counts, f"{method} {dtype}"), args.restarts,
                  device)
     return report, counts, err
 
@@ -1446,7 +1500,7 @@ def run_shifted_path(phase: str, A64, b64):
     if dtype == "df32" and not row["seed_true_relres"] <= 1e-8:
         raise SmokeFailure(f"{phase}: seed_true_relres "
                            f"{row['seed_true_relres']:.3e} > 1e-8")
-    check_shifted_counts(phase, dtype, it, counts)
+    check_shifted_counts(phase, dtype, it, per_run(counts, phase))
     _say(phase, dtype=dtype, tol=tol, sigma_len=S_MAIN, n_iter=it,
          seed=row["seed"], final_seed=row["final_seed"],
          all_converged=row["all_converged"],
@@ -1878,7 +1932,8 @@ def run_cheby_cli(n: int, device: str = "cuda"):
     if not (report["converged"] and report["true_relres"] <= 100 * tol):
         raise SmokeFailure(f"cheby: {report}")
     check_cheby_counts("cheby", "bicgstab", "float32", report["total_iter"],
-                       counts, args.restarts, device=device)
+                       per_run(counts, "cheby"), args.restarts,
+                       device=device)
     _say("cheby", method="bicgstab", dtype="float32", tol=tol,
          precond=report["precond"], n=report["n"],
          n_iter=report["total_iter"], converged=report["converged"],
@@ -2518,8 +2573,8 @@ def run_window_cli(n: int, ell_prob, device: str = "cuda") -> dict:
             and err < 1e-3 and abs(it - ell_it) <= 2):
         raise SmokeFailure(f"window: {report}, max|x-1| {err:.3e}, "
                            f"gather-ELL n_iter {ell_it}")
-    check_window_counts("window", "bicgstab", "float32", it, counts,
-                        args.restarts, device)
+    check_window_counts("window", "bicgstab", "float32", it,
+                        per_run(counts, "window"), args.restarts, device)
     _say("window", method="bicgstab", dtype="float32", tol=WINDOW_TOL,
          layout=report["layout"], n=report["n"], nnz=report["nnz"],
          reordered=report["reordered"], n_iter=it, ell_n_iter=ell_it,
@@ -3065,7 +3120,8 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
         raise SmokeFailure(f"butterfly: {report}, max|x-1| {err:.3e} "
                            f"(bound {bound:.3e}), CSR relres {relres:.3e}, "
                            f"gather-ELL n_iter {ell_it}")
-    check_butterfly_counts("butterfly", "bicgstab", "float32", it, counts,
+    check_butterfly_counts("butterfly", "bicgstab", "float32", it,
+                           per_run(counts, "butterfly", once=BUILD_ONCE),
                            args.restarts, device, layouts=1)
     _say("butterfly", method="bicgstab", dtype="float32", tol=UNIFORM_TOL,
          layout=report["layout"], n=report["n"], nnz=report["nnz"],
@@ -3134,6 +3190,349 @@ def time_butterfly(inp: dict, probs: dict) -> None:
              device_ms_per_iter=f"{dev_ms:.4f}",
              device_busy_share=f"{dev_ms / ms:.3f}", chain=f"tol=0x{iters}",
              two_spmv_bound_ms=f"{floor / HBM_BYTES_PER_S * 1e3:.4f}")
+
+
+# --- the single-device tooling (slice 9a) ------------------------------------
+
+def _write_mtx_lines(path, rows, cols, vals) -> None:
+    with open(path, "wb") as f:
+        f.write("".join([f"{r + 1} {c + 1} {v:.17g}\n" for r, c, v in
+                         zip(rows.tolist(), cols.tolist(),
+                             vals.tolist())]).encode())
+
+
+def write_mtx(path, csr, procs: int = 8) -> float:
+    """csr as a general real coordinate .mtx, the bytes
+    io/mmio.write_matrix_market writes (`r c v` a line, 1-based, v as
+    %.17g, which round-trips float64), its lines formatted by `procs`
+    spawned processes into part files (one process formats ~1M lines a
+    second), joined after. Returns the seconds."""
+    import multiprocessing
+    import shutil
+
+    import numpy as np
+    t0 = time.perf_counter()
+    rows = np.repeat(np.arange(csr.nrows), np.diff(csr.ptr))
+    edges = np.linspace(0, csr.nnz, procs + 1).astype(np.int64)
+    parts = [Path(f"{path}.part{i}") for i in range(procs)]
+    ctx = multiprocessing.get_context("spawn")
+    workers = [ctx.Process(target=_write_mtx_lines,
+                           args=(part, rows[lo:hi], csr.col[lo:hi],
+                                 csr.val[lo:hi]))
+               for part, lo, hi in zip(parts, edges[:-1], edges[1:])]
+    try:
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        if any(w.exitcode != 0 for w in workers):
+            raise SmokeFailure(f"write_mtx: a formatter failed: "
+                               f"{[w.exitcode for w in workers]}")
+        with open(path, "wb") as f:
+            f.write(b"%%MatrixMarket matrix coordinate real general\n")
+            f.write(f"{csr.shape[0]} {csr.shape[1]} {csr.nnz}\n".encode())
+            for part in parts:
+                with open(part, "rb") as g:
+                    shutil.copyfileobj(g, f, 1 << 24)
+    finally:
+        for w in workers:
+            if w.is_alive():
+                w.kill()
+                w.join()
+        for part in parts:
+            part.unlink(missing_ok=True)
+    return time.perf_counter() - t0
+
+
+def same_csr(a, b) -> bool:
+    import numpy as np
+    return (a.shape == b.shape and a.ptr.dtype == b.ptr.dtype
+            and a.val.dtype == b.val.dtype
+            and np.array_equal(a.ptr, b.ptr) and np.array_equal(a.col, b.col)
+            and np.array_equal(a.val, b.val))
+
+
+def parse_mtx(path, csr, use_native: bool = True) -> tuple[float, float]:
+    """(parse seconds, COO-to-CSR seconds) of `path` through the reader
+    (io/mmio.read_matrix_market, the native parser unless use_native is
+    False); the CSR must equal csr bit for bit."""
+    from mpi_bicgstab_tpu_torch.io.mmio import read_matrix_market
+    from mpi_bicgstab_tpu_torch.ops.sparse import COOMatrix, coo_to_csr
+    t0 = time.perf_counter()
+    rows, cols, vals, shape = read_matrix_market(str(path),
+                                                 use_native=use_native)
+    t1 = time.perf_counter()
+    got = coo_to_csr(COOMatrix(rows, cols, vals, shape))
+    t2 = time.perf_counter()
+    if not same_csr(got, csr):
+        raise SmokeFailure(f"{path}: the parsed CSR differs from the "
+                           f"generator's (use_native={use_native})")
+    return t1 - t0, t2 - t1
+
+
+def _main_json(argv) -> tuple[int, str]:
+    """(exit code, standard output) of cli.main(argv)."""
+    import contextlib
+    import io
+
+    from mpi_bicgstab_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    return code, out.getvalue()
+
+
+def run_mtx_path(csr, it_f32: int, workdir, device: str = "cuda") -> dict:
+    """`[mtx]`: csr (transport_like(N_MAIN), the reference's Transport
+    shape) written as a .mtx (write_mtx), parsed by the native reader bit
+    for bit back into csr, then `solve --matrix X.mtx --dtype float32
+    --tol 1e-6 --json --repeat 2` through cli.main, every launch counter
+    set to 0 just before and read just after: the JSON line's keys, the
+    fused f32 route's launches in each of its 3 runs, and total_iter
+    equal to the `[f32]` phase's it_f32. Returns the counts."""
+    from mpi_bicgstab_tpu_torch.io import native
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    path = workdir / "transport_like.mtx"
+    write_s = write_mtx(path, csr)
+    size = path.stat().st_size
+    parse_s, csr_s = parse_mtx(path, csr)
+    if native.library.cache_info().currsize != 1:
+        raise SmokeFailure("mtx: the reader did not load the native parser")
+    reset_counts()
+    code, out = _main_json(["solve", "--matrix", str(path), "--dtype",
+                            "float32", "--tol", "1e-6", "--json", "--repeat",
+                            "2", "--device", device])
+    counts = read_counts()
+    path.unlink()
+    rep = json.loads(out.strip().splitlines()[-1])
+    from mpi_bicgstab_tpu_torch.cli import SOLVE_JSON_KEYS
+    if not (code == 0 and tuple(rep) == SOLVE_JSON_KEYS
+            and rep["total_iter"] == it_f32 and rep["converged"]
+            and rep["n"] == csr.nrows and rep["nnz"] == csr.nnz):
+        raise SmokeFailure(f"mtx: exit {code}, {rep}; [f32] took {it_f32} "
+                           f"iterations")
+    check_counts("bicgstab", "float32", rep["total_iter"],
+                 per_run(counts, "mtx", runs=3), 2, device)
+    _say("mtx", n=csr.nrows, nnz=csr.nnz, file_bytes=size,
+         write_s=round(write_s, 3), parse_native_s=round(parse_s, 3),
+         parse_mb_per_s=round(size / parse_s / 1e6, 1),
+         parse_entries_per_s=f"{csr.nnz / parse_s:.4e}",
+         coo_to_csr_s=round(csr_s, 3), bit_equal=True,
+         cli_io_time_s=rep["io_time_s"], n_iter=rep["total_iter"],
+         f32_n_iter=it_f32, solve_s=rep["total_time_s"],
+         launches=_launches(counts),
+         seconds=round(time.perf_counter() - t_phase, 3))
+    return counts
+
+
+def _fields_equal(a, b, path: str = "op") -> None:
+    """Every field of two layouts (derived ones too) equal bit for bit,
+    on the same device; SmokeFailure naming the first that differs."""
+    import dataclasses
+
+    import torch
+    if dataclasses.is_dataclass(a):
+        if type(a) is not type(b):
+            raise SmokeFailure(f"{path}: {type(a).__name__} against "
+                               f"{type(b).__name__}")
+        for f in dataclasses.fields(a):
+            _fields_equal(getattr(a, f.name), getattr(b, f.name),
+                          f"{path}.{f.name}")
+    elif torch.is_tensor(a):
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device
+                and (same_bits(a, b) if a.is_floating_point()
+                     else torch.equal(a, b))):
+            raise SmokeFailure(f"{path}: the loaded tensor differs")
+    elif a != b:
+        raise SmokeFailure(f"{path}: {a!r} against {b!r}")
+
+
+def run_layout_cache_path(name: str, A, csr, build_s: float, tol: float,
+                          workdir, device: str = "cuda") -> None:
+    """`[layout_cache]`: the float32 layout A of csr (built on the card)
+    saved to the layout cache and loaded back on the card
+    (utils/opcache.py; the load rebuilds the derived fields there: a
+    butterfly's k3_col by K1, K2 and the decode, a window's rc_*): every
+    field, derived ones included, bit-equal to A's, and a float32 solve
+    at `tol` from each: the same n_iter, x bit-equal."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.utils import opcache
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    t_phase = time.perf_counter()
+    cache = workdir / "layout_cache"
+    key = opcache.operator_key(csr, format=name, dtype="float32")
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    path = opcache.save_operator(str(cache), key, A)
+    save_s = time.perf_counter() - t0
+    if path is None:
+        raise SmokeFailure(f"layout_cache: {name}: the save failed")
+    size = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    L = opcache.load_operator(str(cache), key, device)
+    sync()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(cache)
+    if L is None:
+        raise SmokeFailure(f"layout_cache: {name}: the load failed")
+    _fields_equal(A, L)
+    b = torch.as_tensor(csr.matvec(np.ones(csr.nrows)), dtype=torch.float32,
+                        device=device)
+    cfg = SolverConfig(tol=tol, dtype=torch.float32)
+    r0, r1 = (solve(op, b, method="bicgstab", cfg=cfg) for op in (A, L))
+    if not (r0.n_iter == r1.n_iter and bool(r1.converged)
+            and same_bits(r0.x, r1.x)):
+        raise SmokeFailure(f"layout_cache: {name}: the solve from the "
+                           f"loaded layout differs (n_iter {r1.n_iter} "
+                           f"against {r0.n_iter})")
+    _say("layout_cache", layout=type(A).__name__, matrix=name, n=csr.nrows,
+         file_mb=round(size / 1e6, 1), save_s=round(save_s, 3),
+         load_s=round(load_s, 3), host_build_s=round(build_s, 3),
+         fields="bit-equal", n_iter=r1.n_iter, x="bit-equal",
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
+BENCH_TIMES = ("spmv_s", "time_per_iter_s", "cheby_xla_apply_s",
+               "cheby_fused_apply_s", "batched8_single_time_per_iter_s",
+               "batched8_time_per_iter_s")
+
+
+def check_bench_line(line: dict, inp: dict) -> dict:
+    """The bench line's times finite and positive, and each rate of bytes
+    the line lets us reckon at most the HBM peak: the DIA SpMV's (the
+    band, x and y once), the batched iteration's (K1b, K2b and K3b), the
+    shift update's (the [S, n] state read and written once per
+    iteration, 4 S n elem bytes (shift_update_GBps); the blocked path
+    (shift_block L > 0) passes over it once per L iterations, so 1 / L of
+    that). (The JAX package's line keeps one time_per_iter_s: the shifted
+    section's overwrites the iter section's.) Returns those rates,
+    bytes/s."""
+    import math
+    bad = {k: line.get(k) for k in BENCH_TIMES
+           if not (isinstance(line.get(k), float)
+                   and math.isfinite(line[k]) and line[k] > 0)}
+    if bad:
+        raise SmokeFailure(f"bench: times not finite and positive: {bad}")
+    A = inp["A32"]
+    n, W = A.n_rows, A.n_diags
+    L = line["shift_block"]
+    rates = {"spmv": 4 * (W * n + 2 * n) / line["spmv_s"],
+             "batched8": sum(work(k, inp)[0] for k in (
+                 "fused_k1b", "fused_k2b", "fused_k3b"))
+             / line["batched8_time_per_iter_s"],
+             "shift_update": line["shift_update_GBps"] * 1e9
+             / (L if L > 0 else 1)}
+    over = {k: v for k, v in rates.items() if not v <= HBM_BYTES_PER_S}
+    if over:
+        raise SmokeFailure(f"bench: rates above the HBM peak: {over}")
+    return rates
+
+
+def run_tools(inp: dict) -> None:
+    """`[tools]`: `info` (its JSON census on one line), `selftest` on the
+    card (every check PASS, exit 0) and `bench --matrix
+    transport-like:N_MAIN --dtype float32 --what
+    spmv,iter,batched,cheby,shifted --json` through cli.main, the line as
+    it comes, held by check_bench_line."""
+    import torch
+    t0 = time.perf_counter()
+    code, out = _main_json(["info"])
+    info = json.loads(out)
+    if code != 0 or info["devices"][:1] != [torch.cuda.get_device_name(0)]:
+        raise SmokeFailure(f"info: exit {code}: {info}")
+    _say("tools", info=json.dumps(info, separators=(",", ":")),
+         seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    code, out = _main_json(["selftest"])
+    lines = out.strip().splitlines()
+    for line in lines:
+        if line.strip():
+            print(f"[tools] selftest: {line}")
+    from mpi_bicgstab_tpu_torch.cli import SELFTEST
+    passed = [ln for ln in lines if ln.startswith("PASS")]
+    if code != 0 or len(passed) != len(SELFTEST):
+        raise SmokeFailure(f"selftest: exit {code}, {len(passed)} of "
+                           f"{len(SELFTEST)} checks passed")
+    _say("tools", selftest="every check PASS", exit=code,
+         seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    code, out = _main_json(["bench", "--matrix", f"transport-like:{N_MAIN}",
+                            "--dtype", "float32", "--what",
+                            "spmv,iter,batched,cheby,shifted", "--json"])
+    print(f"[tools] bench: {out.strip()}", flush=True)
+    line = json.loads(out.strip().splitlines()[-1])
+    if code != 0:
+        raise SmokeFailure(f"bench: exit {code}")
+    rates = check_bench_line(line, inp)
+    _say("tools", bench_rates_tb_per_s=json.dumps(
+        {k: round(v / 1e12, 4) for k, v in rates.items()},
+        separators=(",", ":")), hbm_peak_tb_per_s=HBM_BYTES_PER_S / 1e12,
+        seconds=round(time.perf_counter() - t0, 3))
+
+
+def io_times() -> int:
+    """`chip_smoke.py --io-times`: the reader and the layout cache at the
+    main path's width. The native parse against the NumPy parse of the
+    .mtx of transport_like(N_MAIN) (both bit-equal to the generator's
+    CSR), and the CLI's setup_s cold against warm (--layout-cache) for
+    `solve --dtype float32 --tol 1e-6` on uniform:N_UNIFORM (butterfly)
+    and clustered:N_WINDOW (window), whose two reports must be equal
+    apart from their times. Prints no result line."""
+    import tempfile
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch import cli
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    print(probe())
+    build()
+    csr = transport_like(N_MAIN)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "transport_like.mtx"
+        write_s = write_mtx(path, csr)
+        size = path.stat().st_size
+        native_s, csr_s = parse_mtx(path, csr)
+        numpy_s, _ = parse_mtx(path, csr, use_native=False)
+        _say("io_times", n=csr.nrows, nnz=csr.nnz, file_bytes=size,
+             write_s=round(write_s, 3), parse_native_s=round(native_s, 3),
+             parse_numpy_s=round(numpy_s, 3),
+             native_speedup=round(numpy_s / native_s, 2),
+             coo_to_csr_s=round(csr_s, 3))
+        del csr
+        timing = ("io_time_s", "setup_s", "total_time_s",
+                  "avg_time_per_iter_s")
+        for spec in (f"uniform:{N_UNIFORM}", f"clustered:{N_WINDOW}"):
+            cache = Path(tmp) / "cache"
+            args = cli.build_parser().parse_args(
+                ["solve", "--matrix", spec, "--dtype", "float32", "--tol",
+                 "1e-6", "--layout-cache", str(cache)])
+            cold, _ = cli.run_solve(args)
+            warm, _ = cli.run_solve(args)
+            if {k: v for k, v in cold.items() if k not in timing} != \
+                    {k: v for k, v in warm.items() if k not in timing}:
+                raise SmokeFailure(f"io_times: {spec}: the warm report "
+                                   f"differs: {cold} against {warm}")
+            entries = list(cache.glob("*.npz"))
+            _say("io_times", matrix=spec, layout=cold["layout"],
+                 setup_cold_s=cold["setup_s"], setup_warm_s=warm["setup_s"],
+                 setup_saved_s=round(cold["setup_s"] - warm["setup_s"], 3),
+                 cache_entries=len(entries),
+                 cache_mb=round(sum(e.stat().st_size for e in entries)
+                                / 1e6, 1),
+                 n_iter=warm["total_iter"], converged=warm["converged"])
+            for e in entries:
+                e.unlink()
+    return 0
 
 
 def main() -> int:
@@ -3247,6 +3646,8 @@ def main() -> int:
                                f"{iters[phase]} iterations, the unfused DF "
                                f"solver {k}: more than 2 apart")
     run_pipe_df32_ell(csr, probdf.b, iters["pipe_df32"])
+    # the reader: the main matrix through a .mtx file and the CLI
+    runs["mtx"] = run_mtx_path(csr, iters["f32"], _workdir())
 
     # batched right-hand sides: the fused batched route, then lane by lane
     runs["batched"] = run_batched_path(N_MAIN, A32=inp["A32"])
@@ -3282,6 +3683,11 @@ def main() -> int:
     runs["butterfly"] = run_butterfly_cli(N_UNIFORM, bprobs["float32"][1])
     for phase in BUTTERFLY_PATHS:
         runs[phase] = run_butterfly_api(phase, bprobs)
+    # the layout cache: both unstructured layouts saved and loaded back
+    run_layout_cache_path("uniform", binp["B32"], binp["b_csr"],
+                          binp["b_build_s"], UNIFORM_TOL, _workdir())
+    run_layout_cache_path("clustered", winp["W32"], winp["w_csr"],
+                          winp["w_build_s"], WINDOW_TOL, _workdir())
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3361,6 +3767,9 @@ def main() -> int:
     time_butterfly(binp, bprobs)
     times.update(time_kernels({k: bcalls[k] for k in BUTTERFLY_TIMED},
                               binp, csr_u))
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_tools(inp)
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 
@@ -3399,7 +3808,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--chain-times": chain_times, "--batched-times": batched_times,
-             "--route-times": route_times}
+             "--route-times": route_times, "--io-times": io_times}
     args = sys.argv[1:]
     sys.exit(modes[args[0]]() if len(args) == 1 and args[0] in modes
              else main())

@@ -1,7 +1,8 @@
 """SpMV and solver-iteration timing on the card (counterpart of
 mpi_bicgstab_tpu/benchmarks/runner.py: `_slope_time`, `bench_spmv`,
 `bench_iteration`, `bench_batched_iteration`, `bench_shifted_iteration`,
-and `bench_cheby`, the `--what cheby` section of its run_bench).
+`bench_cheby` (the `--what cheby` section of its run_bench), and
+`run_bench`, the CLI's `bench` command).
 
 Every time is a slope: the timed operation runs as a chain of K1 and of
 K2 back-to-back calls on the current stream, each chain timed with CUDA
@@ -16,8 +17,20 @@ is no CPU path: without a card these functions raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import subprocess
+
 import numpy as np
 import torch
+
+# vs_baseline anchors the SpMV rate to an estimated 4.0e9 nnz/s per
+# A64FX process domain, the reference's device (one CMG: ~256 GB/s HBM2
+# feeding a ~12.7 B/nnz f64 CSR kernel at the ~20% efficiency typical of
+# unstructured SpMV there), the per-device unit of its strong-scaling
+# plots; the reference publishes plots, not numbers
+REF_SPMV_NNZ_PER_S = 4.0e9
 
 
 def _require_cuda():
@@ -86,8 +99,10 @@ def bench_spmv(prob, iters=60, seed=0) -> dict:
     butterfly layouts add their padded widths (and the butterfly its
     window count P)."""
     from mpi_bicgstab_tpu_torch.ops.layout import spmv
-    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(prob.n),
-                        dtype=prob.b.dtype, device=prob.b.device)
+    from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, is_df
+    x_host = np.random.default_rng(seed).standard_normal(prob.n)
+    x = df_from_f64(x_host, prob.A.device) if is_df(prob.b) else \
+        torch.as_tensor(x_host, dtype=prob.b.dtype, device=prob.b.device)
     sec = time_call(lambda: spmv(prob.A, x), iters=iters)
     out = {"spmv_s": sec, "spmv_nnz_per_s": prob.csr.nnz / sec,
            "spmv_layout": type(prob.A).__name__}
@@ -220,11 +235,12 @@ def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
 
 
 def bench_cheby(prob, lo: float, hi: float, degree: int = 8) -> dict:
-    """Chebyshev application time p(A) v on prob's float32 or df32 DIA
-    operator (JAX run_bench --what cheby, runner.py:504-570): the chain
-    kernel (ops/cuda_cheby) against the unfused chain, ops/cheby.cheby_apply
-    over the DIA SpMV kernel, each as replayed CUDA graphs of 30
-    back-to-back applications on one standard-normal v (NumPy, seed 0)."""
+    """Chebyshev application time p(A) v on prob's operator (JAX run_bench
+    --what cheby, runner.py:504-570): the unfused chain,
+    ops/cheby.cheby_apply over layout.spmv, and, where a chain kernel
+    takes the operator (a float32 or df32 DIA one, ops/cuda_cheby), the
+    kernel; each as replayed CUDA graphs of 30 back-to-back applications
+    on one standard-normal v (NumPy, seed 0)."""
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby
     from mpi_bicgstab_tpu_torch.ops.cheby import cheby_apply
     from mpi_bicgstab_tpu_torch.ops.layout import spmv
@@ -233,15 +249,150 @@ def bench_cheby(prob, lo: float, hi: float, degree: int = 8) -> dict:
     _require_cuda()
     A = prob.A
     v_host = np.random.default_rng(0).standard_normal(prob.n)
-    df = is_df(A.vals)
+    df = is_df(prob.b)
     v = df_from_f64(v_host, A.device) if df else torch.as_tensor(
-        v_host, dtype=A.vals.dtype, device=A.device)
-    chain = cuda_cheby.cheby_chain_df if df else cuda_cheby.cheby_chain
-    fused = time_call(lambda: chain(A.vals, v, A.offsets, degree, lo, hi),
-                      iters=30, graph=True)
+        v_host, dtype=prob.b.dtype, device=A.device)
     unfused = time_call(lambda: cheby_apply(lambda u: spmv(A, u), v, degree,
                                             lo, hi),
                         iters=30, graph=True)
-    return {"cheby_degree": degree, "dtype": "df32" if df else "float32",
-            "cheby_fused_apply_s": fused, "cheby_unfused_apply_s": unfused,
-            "cheby_fused_speedup": unfused / fused}
+    out = {"cheby_degree": degree,
+           "dtype": "df32" if df else str(prob.b.dtype).removeprefix(
+               "torch."),
+           "cheby_unfused_apply_s": unfused,
+           "cheby_fused_available": cuda_cheby.format_ok(A, v.dtype,
+                                                         degree)}
+    if out["cheby_fused_available"]:
+        chain = cuda_cheby.cheby_chain_df if df else cuda_cheby.cheby_chain
+        fused = time_call(lambda: chain(A.vals, v, A.offsets, degree, lo,
+                                        hi), iters=30, graph=True)
+        out.update(cheby_fused_apply_s=fused,
+                   cheby_fused_speedup=unfused / fused)
+    return out
+
+
+def card_census() -> dict:
+    """The card's name and power limit as nvidia-smi reports them
+    (`--query-gpu=name,power.limit`), and the count of cards; None where
+    there is no card or no nvidia-smi."""
+    out = {"device_count": torch.cuda.device_count()
+           if torch.cuda.is_available() else 0,
+           "device_name": None, "power_limit": None}
+    if out["device_count"]:
+        out["device_name"] = torch.cuda.get_device_name(0)
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        out["power_limit"] = line.split(",")[-1].strip()
+    except (OSError, IndexError, subprocess.SubprocessError):
+        pass
+    return out
+
+
+def _keep(d: dict, keys) -> dict:
+    return {k: d[k] for k in keys if k in d}
+
+
+# each section's keys in the JAX package's bench line (runner.py:453-592)
+SPMV_KEYS = ("spmv_s", "spmv_nnz_per_s", "spmv_layout",
+             "spmv_window_width")
+ITER_KEYS = ("iter_method", "time_per_iter_s", "nnz",
+             "spmv_equiv_nnz_per_s")
+SHIFTED_KEYS = ("iter_method", "sigma_len", "time_per_iter_s", "n",
+                "shift_block", "shift_update_GBps")
+SECTIONS = ("spmv", "iter", "shifted", "cheby", "batched")
+
+
+def _shifted_problem(prob, sigma_seed: float):
+    """prob with b = (A + sigma_seed I) ones over its logical rows (the
+    shifted solvers' right-hand side), its operator shared."""
+    from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64, is_df,
+                                                      vzeros_like)
+    ones = np.zeros(prob.n)
+    ones[: prob.n_logical] = 1.0
+    b_host = prob.csr.matvec(ones) + sigma_seed * ones
+    b_host[prob.n_logical:] = 0.0
+    dev = prob.A.device
+    b = df_from_f64(b_host, dev) if is_df(prob.b) else torch.as_tensor(
+        b_host, dtype=prob.b.dtype, device=dev)
+    return dataclasses.replace(prob, b=b, x0=vzeros_like(b))
+
+
+def run_bench(args, device="cuda") -> int:
+    """The CLI's `bench`: one JSON line with the JAX package's keys for
+    each section of args.what (spmv, iter, shifted, cheby, batched) on
+    the problem the `solve` command builds for args.matrix, beside the
+    card's name and power limit. On the card only; --what overlap and
+    scaling need the distributed layer."""
+    from mpi_bicgstab_tpu_torch.cli import _build_problem, _load_matrix
+    from mpi_bicgstab_tpu_torch.ops.cheby import estimate_bounds
+    from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+
+    what = args.what.split(",")
+    for w in what:
+        if w in ("overlap", "scaling"):
+            raise SystemExit(f"--what {w} measures the distributed layer "
+                             f"(ROADMAP slice 8), which is not ported yet")
+        if w not in SECTIONS:
+            raise SystemExit(f"--what: unknown section {w!r}; choose from "
+                             f"{', '.join(SECTIONS)}")
+    _require_cuda()
+    dev = resolve_device(device)
+    if args.layout_cache:
+        # the helpers build operators themselves: the environment's
+        # default reaches them all (ops/layout.build_operator)
+        os.environ["MBT_LAYOUT_CACHE"] = args.layout_cache
+    dtype = args.dtype if args.dtype == "df32" else getattr(torch,
+                                                            args.dtype)
+    csr, io_time = _load_matrix(args.matrix)
+    card = card_census()
+    out = {"matrix": args.matrix, "n": csr.nrows, "nnz": csr.nnz,
+           "dtype": args.dtype, "devices": 1, "backend": dev.type,
+           "io_time_s": round(io_time, 4),
+           "device_name": card["device_name"],
+           "power_limit": card["power_limit"]}
+    prob = _build_problem(csr, dtype, dev, layout_cache=args.layout_cache)
+    if "spmv" in what:
+        out.update(_keep(bench_spmv(prob, iters=args.iters), SPMV_KEYS))
+        out["vs_baseline"] = out["spmv_nnz_per_s"] / REF_SPMV_NNZ_PER_S
+    if "iter" in what:
+        out.update(_keep(bench_iteration(
+            prob, method=args.method or "pipe_bicgstab", iters=args.iters),
+            ITER_KEYS))
+    if "shifted" in what:
+        sigma = (np.arange(args.sigma_len) + 1) * (0.01 / args.sigma_len)
+        seed = min(args.seed, args.sigma_len - 1)
+        kw = {"method": args.method} if args.method else {}
+        out.update(_keep(bench_shifted_iteration(
+            csr, dtype, sigma_len=args.sigma_len, seed=seed,
+            iters=args.iters, shift_block=args.shift_block,
+            prob=_shifted_problem(prob, float(sigma[seed])), **kw),
+            SHIFTED_KEYS))
+    if "cheby" in what:
+        lo, hi = estimate_bounds(csr)
+        r = bench_cheby(prob, lo, hi, degree=8)
+        out.update(cheby_degree=r["cheby_degree"],
+                   # the JAX key's name; here the unfused chain over the
+                   # SpMV, the counterpart of its XLA chain
+                   cheby_xla_apply_s=r["cheby_unfused_apply_s"],
+                   cheby_fused_available=r["cheby_fused_available"])
+        if r["cheby_fused_available"]:
+            out["cheby_fused_apply_s"] = r["cheby_fused_apply_s"]
+            out["cheby_fused_speedup"] = round(r["cheby_fused_speedup"], 2)
+    if "batched" in what:
+        # like with like: the single-RHS iteration of the same method
+        m = args.method or "bicgstab"
+        if out.get("iter_method") == m:
+            t1 = out["time_per_iter_s"]
+        else:
+            t1 = bench_iteration(prob, method=m,
+                                 iters=args.iters)["time_per_iter_s"]
+        t8 = bench_batched_iteration(csr, dtype, k=8, method=m,
+                                     iters=args.iters,
+                                     prob=prob)["time_per_iter_s"]
+        out.update(batched8_method=m, batched8_single_time_per_iter_s=t1,
+                   batched8_time_per_iter_s=t8,
+                   batched8_per_rhs_speedup=round(8 * t1 / t8, 2))
+    print(json.dumps(out), flush=True)
+    return 0

@@ -21,6 +21,12 @@ reference's main.c).
     python -m mpi_bicgstab_tpu_torch solve --matrix uniform:8192 \\
         --device cpu
 
+    python -m mpi_bicgstab_tpu_torch info
+    python -m mpi_bicgstab_tpu_torch selftest --dtype float32
+    python -m mpi_bicgstab_tpu_torch convert A.mtx A.npz
+    python -m mpi_bicgstab_tpu_torch bench --matrix transport-like:1602112 \\
+        --what spmv,iter,batched,cheby,shifted
+
 `solve` methods: bicgstab, ca_bicgstab, pipe_bicgstab, pipe_bicgstab_rr (with
 --krr/--nrr), bicgstab_l2, bicgstab_l4. Matrices: a .mtx / .mtx.gz /
 .npz path, or a generator spec 'poisson2d:N', 'poisson3d:N',
@@ -32,23 +38,33 @@ the original row order and scale. --format picks the device layout
 (ops/layout.build_operator: 'auto' routes by structure analysis on the
 matrix padded to a multiple of 1024, as the JAX CLI pads it; a
 windowed-ELL or butterfly route is built on that padded matrix, a DIA or
-hybrid one on the unpadded matrix; 'ell' takes any matrix); --precond cheby[:D[:LO:HI]]
-solves right-preconditioned with a degree-D Chebyshev polynomial, its
-bounds estimated from the matrix unless given (ops/cheby.py). The solve
-runs on the card unless --device cpu asks for the CPU. It prints the
-fields the JAX package's `solve` prints and exits 0 when the solve
-converged, 2 when it did not. `solve --rhs-batch B.npy` solves every
-row of a [k, n] array as a right-hand side in one batched solve
+hybrid one on the unpadded matrix; 'ell' takes any matrix); --layout-cache
+DIR keeps built layouts for repeat solves (utils/opcache.py); --precond
+cheby[:D[:LO:HI]] solves right-preconditioned with a degree-D Chebyshev
+polynomial, its bounds estimated from the matrix unless given
+(ops/cheby.py). The solve runs on the card unless --device cpu asks for
+the CPU. It runs once untimed, then --repeat N times timed, as the JAX
+CLI does, and prints the fields the JAX package's `solve` prints (one
+JSON line of the JAX package's keys with --json) and exits 0 when the
+solve converged, 2 when it did not. --checkpoint FILE saves the iterate
+every --checkpoint-every iterations and resumes from it
+(utils/checkpoint.py). `solve --rhs-batch B.npy` solves every row of a
+[k, n] array as a right-hand side in one batched solve
 (api.solve_batched), prints the JAX package's batched fields and exits 0
 only when every lane converged. `solve-shifted` (reference
 main_shifted.c) solves a ladder of shifted systems with the
 seed-switching solver or another shifted method, prints the JAX
 package's solve-shifted fields, and exits 0 when every shift converged,
-2 otherwise.
+2 otherwise. `info` prints what runs here, `selftest` checks every
+solver family, layout and precision on a small system against ground
+truth (exit 2 on any failure), `convert` writes a matrix as the binary
+.npz container, and `bench` prints one JSON line of SpMV and iteration
+times on the card (benchmarks/runner.run_bench).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -117,12 +133,24 @@ def _load_rhs(spec: str, n: int, flag: str = "--rhs") -> np.ndarray:
 _SEED = 255         # main_shifted.c:14
 
 
-def _report(payload: dict) -> None:
+# the JAX package's `solve` payload (JAX cli.py:453-478): --json prints
+# these keys; the text report adds the port's device, layout and setup_s
+SOLVE_JSON_KEYS = ("method", "matrix", "n", "nnz", "devices", "reordered",
+                   "scaled", "precond", "io_time_s", "total_iter",
+                   "final_relres", "true_relres", "converged",
+                   "total_time_s", "avg_time_per_iter_s")
+
+
+def _report(payload: dict, as_json: bool = False) -> None:
+    if as_json:
+        print(json.dumps(payload), flush=True)
+        return
     for k, v in payload.items():
         print(f"{k:>16s}: {v}")
 
 
-def _build_problem(args, csr, dtype, dev, **kw):
+def _build_problem(csr, dtype, dev, fmt: str = "auto",
+                   layout_cache: str | None = None, **kw):
     """build_problem in the layout --format asks for, padded as the JAX
     CLI would need it: the JAX CLI pads every problem to a multiple of
     1024 and routes 'auto' on that, so 'auto' is decided on the padded
@@ -132,22 +160,25 @@ def _build_problem(args, csr, dtype, dev, **kw):
     through to when that build refuses the matrix (layout.FALL_THROUGH:
     butterfly, then gather-ELL, as in the JAX package); a DIA or hybrid
     route, and the other formats, on the unpadded one (the port's DIA and
-    ELL kernels need no padding)."""
+    ELL kernels need no padding). The layout cache keys the CSR the route
+    builds from (padded and reordered) with the route and the build
+    options (ops/layout.build_operator)."""
     from mpi_bicgstab_tpu_torch.models.problem import (build_problem,
                                                        pad_csr_identity)
     from mpi_bicgstab_tpu_torch.ops.layout import FALL_THROUGH, auto_route
-    fmt = args.format
-    if fmt == "auto":
-        fmt, _ = auto_route(pad_csr_identity(csr, 1024))
-    multiple = 1024 if fmt in FALL_THROUGH else 1
+    route = fmt
+    if route == "auto":
+        route, _ = auto_route(pad_csr_identity(csr, 1024))
+    multiple = 1024 if route in FALL_THROUGH else 1
     while True:
         try:
             return build_problem(csr, dtype=dtype, multiple=multiple,
-                                 device=dev, format=fmt, **kw)
+                                 device=dev, format=route,
+                                 layout_cache=layout_cache, **kw)
         except ValueError:
-            if args.format != "auto" or fmt not in FALL_THROUGH:
+            if fmt != "auto" or route not in FALL_THROUGH:
                 raise
-            fmt = FALL_THROUGH[fmt]
+            route = FALL_THROUGH[route]
 
 
 def _device_vector(v: np.ndarray, n: int, df: bool, dtype, dev):
@@ -189,13 +220,83 @@ def _ready(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _dump_history(path, res) -> None:
+    """--dump-history: the per-iteration relative residuals
+    history[:n_iter] (the data behind the reference's
+    doc/residual_result.png) as .npy, or as .csv with an iteration
+    column."""
+    if not path:
+        return
+    hist = res.history[: int(res.n_iter)].double().cpu().numpy()
+    if path.endswith(".csv"):
+        np.savetxt(path, np.c_[np.arange(1, hist.size + 1), hist],
+                   header="iter,relres", delimiter=",", comments="")
+    else:
+        np.save(path, hist)
+
+
+def _check_solve_args(args) -> None:
+    """The JAX CLI's refusals of flag combinations (JAX cli.py:210-219,
+    313-316,327,390-401), before any work."""
+    if args.repeat < 1:
+        raise SystemExit("--repeat must be >= 1")
+    if args.rhs_batch:
+        if args.checkpoint or args.x0 or args.repeat != 1:
+            raise SystemExit("--rhs-batch cannot be combined with "
+                             "--checkpoint/--x0/--repeat")
+        if args.rhs or args.dump_history:
+            raise SystemExit("--rhs-batch cannot be combined with --rhs "
+                             "or --dump-history (one batch IS the set of "
+                             "right-hand sides; per-system histories are "
+                             "available via the library API)")
+    if args.precond != "none" and (args.x0 or args.checkpoint):
+        raise SystemExit("--precond cannot be combined with "
+                         "--x0/--checkpoint: the preconditioned solver "
+                         "iterates in the transformed space y (x = p(A) "
+                         "y), so an x-space warm start does not map")
+    if args.checkpoint:
+        if args.x0:
+            raise SystemExit("--x0 cannot be combined with --checkpoint "
+                             "(the checkpoint IS the warm start)")
+        if args.repeat != 1:
+            raise SystemExit("--repeat cannot be combined with "
+                             "--checkpoint (segmented timing is not "
+                             "comparable); drop one of them")
+        if args.dump_history:
+            raise SystemExit("--dump-history under --checkpoint would "
+                             "cover only the final segment (scaled to its "
+                             "own r0, not ||b||); run without --checkpoint "
+                             "to record the full curve")
+        if args.checkpoint_every < 1:
+            raise SystemExit("--checkpoint-every must be >= 1")
+
+
+def _checkpoint_meta(args, n_state: int, csr, b_user) -> dict:
+    """The checkpoint's resume guard, as the JAX CLI writes it: rhs,
+    scale and reorder change the linear system, so a checkpoint written
+    under other settings refuses to resume rather than reuse a foreign
+    cum_rel."""
+    import hashlib
+    b_hash = (hashlib.sha256(np.ascontiguousarray(b_user)).hexdigest()[:16]
+              if b_user is not None else "A*ones")
+    return {"n": int(n_state), "nnz": int(csr.nnz), "matrix": args.matrix,
+            "dtype": args.dtype, "rhs": b_hash, "scale": args.scale,
+            "reorder": args.reorder, "method": args.method}
+
+
 def run_solve(args):
     """The `solve` command without its printing: returns (report, result)
     where report holds the fields the JAX package's `solve` prints, the
     device layout's name and setup_s (the host seconds from the loaded
     matrix to the device problem: reorder, scaling, the route and the
-    layout's build); with --rhs-batch the fields of the JAX package's
-    batched solve, and the batched result."""
+    layout's build or its load from --layout-cache); with --rhs-batch the
+    fields of the JAX package's batched solve, and the batched result.
+    The solve runs once untimed, then --repeat times timed
+    (total_time_s is their mean), as in the JAX CLI. With --checkpoint
+    it runs in segments (utils/checkpoint.solve_with_checkpoints) and
+    final_relres is the residual relative to the original ||b||; when
+    the checkpoint alone satisfies the run, the report is the JAX CLI's
+    short one and the result None."""
     import torch
 
     from mpi_bicgstab_tpu_torch.api import solve
@@ -205,14 +306,8 @@ def run_solve(args):
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
+    _check_solve_args(args)
     dev = resolve_device(args.device)
-    if args.rhs_batch and args.rhs:
-        raise SystemExit("--rhs-batch cannot be combined with --rhs "
-                         "or --dump-history (one batch IS the set of "
-                         "right-hand sides; per-system histories are "
-                         "available via the library API)")
-    if args.rhs_batch and args.x0:
-        raise SystemExit("--rhs-batch cannot be combined with --x0")
     df = args.dtype == "df32"
     # "df32" builds DF pairs; its config dtype is float32 (canon_dtype)
     dtype = args.dtype if df else getattr(torch, args.dtype)
@@ -220,7 +315,8 @@ def run_solve(args):
     t_set = time.perf_counter()
     csr, perm = maybe_reorder(csr, args.reorder)
     cfg = SolverConfig(tol=args.tol, max_iter=args.max_iter, krr=args.krr,
-                       nrr=args.nrr, dtype=dtype, restarts=args.restarts)
+                       nrr=args.nrr, dtype=dtype, restarts=args.restarts,
+                       out_iter=args.verbose_every)
     # a user b in the original row order, permuted with the matrix:
     # (P A P^T)(P x) = P b
     b_user = _load_rhs(args.rhs, csr.nrows) if args.rhs else None
@@ -232,11 +328,6 @@ def run_solve(args):
         if b_user is not None:
             b_user = scale_rhs(b_user, d_invsqrt)
     prec = _precond(args.precond, csr)   # bounds of the final operator
-    if prec is not None and args.x0:
-        raise SystemExit("--precond cannot be combined with --x0: the "
-                         "preconditioned solver iterates in the "
-                         "transformed space y (x = p(A) y), so an x-space "
-                         "warm start does not map")
     x0_host = None
     if args.x0:
         x0_host = _load_rhs(args.x0, csr.nrows, flag="--x0")
@@ -244,7 +335,7 @@ def run_solve(args):
             x0_host = permute_vector(x0_host, perm)
         if d_invsqrt is not None:
             x0_host = x0_host / d_invsqrt    # y = D^1/2 x
-    prob = _build_problem(args, csr, dtype, dev)
+    prob = _build_problem(csr, dtype, dev, args.format, args.layout_cache)
     if args.rhs_batch:
         return _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
                                 d_invsqrt)
@@ -254,12 +345,41 @@ def run_solve(args):
                                                      dtype, dev)
     setup = time.perf_counter() - t_set
     _ready(dev)
-    t0 = time.perf_counter()
-    res = solve(prob.A, b, x0=x0, method=args.method, cfg=cfg,
-                precond=prec)
-    converged = bool(res.converged)      # waits for the device
-    total = time.perf_counter() - t0
-    done = res.n_iter
+    cum_rel = None
+    if args.checkpoint:
+        from mpi_bicgstab_tpu_torch.utils.checkpoint import \
+            solve_with_checkpoints
+
+        def run_once(x0_seg, budget, tol_seg):
+            x0_dev = None if x0_seg is None else _device_vector(
+                x0_seg, prob.n, df, dtype, dev)
+            return solve(prob.A, b, x0=x0_dev, method=args.method,
+                         cfg=cfg.replace(max_iter=budget, tol=tol_seg))
+
+        t0 = time.perf_counter()
+        res, done, cum_rel = solve_with_checkpoints(
+            run_once, args.checkpoint, segment_iters=args.checkpoint_every,
+            max_iter=args.max_iter,
+            meta=_checkpoint_meta(args, prob.n, csr, b_user), tol=args.tol)
+        total = time.perf_counter() - t0
+        if res is None:
+            return {"checkpoint": args.checkpoint, "total_iter": done,
+                    "final_relres": cum_rel, "converged": cum_rel <= args.tol,
+                    "note": "run already complete in checkpoint"}, None
+    else:
+        def run_once():
+            r = solve(prob.A, b, x0=x0, method=args.method, cfg=cfg,
+                      precond=prec)
+            bool(r.converged)                  # waits for the device
+            return r
+
+        res = run_once()                       # the untimed first run
+        t0 = time.perf_counter()
+        for _ in range(args.repeat):
+            res = run_once()
+        total = (time.perf_counter() - t0) / args.repeat
+        done = res.n_iter
+    _dump_history(args.dump_history, res)
     if args.write_solution:
         np.save(args.write_solution,
                 _host_solution(res.x, csr.nrows, perm, d_invsqrt))
@@ -283,11 +403,12 @@ def run_solve(args):
         "io_time_s": round(io_time, 6),
         "setup_s": round(setup, 6),
         "total_iter": done,
-        "final_relres": float(res.final_relres),
+        "final_relres": (cum_rel if cum_rel is not None
+                         else float(res.final_relres)),
         # recursive vs TRUE residual at exit: `converged` is gated on the
         # latter (solvers/base.SolveResult)
         "true_relres": float(res.true_relres),
-        "converged": converged,
+        "converged": bool(res.converged),
         "total_time_s": round(total, 6),
         "avg_time_per_iter_s": round(total / max(done, 1), 9),
     }
@@ -356,7 +477,11 @@ def _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
 
 def cmd_solve(args) -> int:
     report, _ = run_solve(args)
-    _report(report)
+    if args.json and "setup_s" in report:
+        # one solve's report: the JAX package's keys (the batched and the
+        # checkpoint-complete reports have the JAX keys already)
+        report = {k: report[k] for k in SOLVE_JSON_KEYS}
+    _report(report, args.json)
     conv = report["converged"]
     return 0 if (all(conv) if isinstance(conv, list) else conv) else 2
 
@@ -442,7 +567,8 @@ def run_solve_shifted(args, report=None):
         # default rhs: b = (A + sigma_seed I) ones (main_shifted.c:109-114)
         b_host = b_user if b_user is not None else \
             csr.matvec(np.ones(n)) + sigma[seed] * np.ones(n)
-        prob = _build_problem(args, csr, dtype, dev,
+        prob = _build_problem(csr, dtype, dev, args.format,
+                              args.layout_cache,
                               sigma_seed=float(sigma[seed]))
         b = prob.b if b_user is None else _device_vector(b_user, prob.n, df,
                                                          dtype, dev)
@@ -462,11 +588,16 @@ def run_solve_shifted(args, report=None):
             float(res.final_relres)             # waits for the device
             total = time.perf_counter() - t0
         else:
+            def run_once():
+                r = solve_shifted(prob.A, b, sigma, seed=seed,
+                                  method=args.method, cfg=cfg)
+                float(r.final_relres)           # waits for the device
+                return r
+
+            res = run_once()                    # the untimed first run
             t0 = time.perf_counter()
             for _ in range(args.repeat):
-                res = solve_shifted(prob.A, b, sigma, seed=seed,
-                                    method=args.method, cfg=cfg)
-                float(res.final_relres)         # waits for the device
+                res = run_once()
             total = (time.perf_counter() - t0) / args.repeat
         iters = max(res.n_iter, 1)
         refine_info = {}
@@ -500,6 +631,7 @@ def run_solve_shifted(args, report=None):
             "avg_time_per_iter_s": round(total / iters, 9),
             **refine_info,
         }
+        _dump_history(args.dump_history, res)
         if args.write_solution:
             np.save(args.write_solution,
                     _host_solution(res.x_set, n, perm, None))
@@ -518,8 +650,234 @@ def run_solve_shifted(args, report=None):
 
 
 def cmd_solve_shifted(args) -> int:
-    rows, _ = run_solve_shifted(args, report=_report)
+    rows, _ = run_solve_shifted(
+        args, report=lambda payload: _report(payload, args.json))
     return 0 if all(r["all_converged"] for r in rows) else 2
+
+
+def run_info(device="cuda") -> dict:
+    """The `info` census (JAX cli.py:694-755): what runs HERE. The card
+    (name, count, power limit), the torch and CUDA versions and nvcc;
+    which CUDA kernels the routes take per method, dtype and layout (the
+    port has no opt-outs: every route below engages wherever its layout
+    and dtype hold); the layouts and the preconditioners. With --device
+    cpu every kernel's plain PyTorch twin runs in its place."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch import api
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import card_census
+    from mpi_bicgstab_tpu_torch.ops import _build
+    from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    card = card_census()
+    try:
+        nvcc = _build.nvcc_path()
+    except RuntimeError:
+        nvcc = None
+    fused = {m: ["f32"] * (m in api.FUSED) + ["df32"] * (m in api.FUSED_DF)
+             for m in api.METHODS}
+    return {
+        "process_count": 1,
+        "device": str(dev),
+        "device_count": card["device_count"],
+        "devices": [torch.cuda.get_device_name(i)
+                    for i in range(card["device_count"])],
+        "power_limit": card["power_limit"],
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "nvcc": nvcc,
+        "kernels": ("CUDA kernels (csrc/*.cu, built into build/kernels/)"
+                    if dev.type == "cuda" else
+                    "plain PyTorch twins of the CUDA kernels (CPU)"),
+        # fused iteration routes on a square DIA operator (api.FUSED,
+        # api.FUSED_DF); every other case runs the unfused solver over
+        # the layout's SpMV
+        "fused_kernels": {
+            **fused,
+            "pipe_bicgstab (df32, other layouts or cheby)":
+                ["df32 fused bodies"],
+            "shifted_lopbicg_switching":
+                (["f32 blocked"] if dev.type == "cuda" else [])
+                + ["df32 fused shift update"],
+            "cheby_chain": ["f32", "df32"],
+            "batched bicgstab (k <= 8)": ["f32"],
+        },
+        "spmv_kernels": {"dia": ["f32", "f64", "df32"],
+                         "window": ["f32", "f64", "df32"],
+                         "butterfly": ["f32", "f64", "df32"],
+                         "ell": []},
+        "layouts": ["dia", "hybrid", "ell", "window_ell", "butterfly"],
+        "preconditioners": ["cheby (chain kernel on DIA, f32 + df32)",
+                            "jacobi scaling (--scale)"],
+    }
+
+
+def cmd_info(args) -> int:
+    print(json.dumps(run_info(args.device), indent=2))
+    return 0
+
+
+def _host_x(x) -> np.ndarray:
+    from mpi_bicgstab_tpu_torch.ops.precision import df_to_f64, is_df
+    return df_to_f64(x) if is_df(x) else x.double().cpu().numpy()
+
+
+def _selftest_solve(method: str, gen: str = "banded"):
+    def check(dtype, tol, dev):
+        from mpi_bicgstab_tpu_torch.api import solve
+        from mpi_bicgstab_tpu_torch.models import generators as G
+        from mpi_bicgstab_tpu_torch.models.problem import build_problem
+        from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+        csr = (G.skew_banded(2048) if gen == "skew" else
+               G.banded_random(2048, [1, -1, 13, -13], seed=0))
+        prob = build_problem(csr, dtype=dtype, multiple=1024, device=dev)
+        r = solve(prob.A, prob.b, method=method,
+                  cfg=SolverConfig(tol=tol, max_iter=4000, dtype=dtype))
+        err = float(np.abs(prob.unpermute(_host_x(r.x))[: csr.nrows]
+                           - 1.0).max())
+        return bool(r.converged), (f"true={float(r.true_relres):.1e} "
+                                   f"|x-1|={err:.1e}")
+    return check
+
+
+def _selftest_cheby(dtype, tol, dev):
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.models import generators as G
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond, estimate_bounds
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    csr = G.transport_hard(4096)
+    prob = build_problem(csr, dtype=dtype, multiple=1024, device=dev)
+    lo, hi = estimate_bounds(csr)
+    r = solve(prob.A, prob.b, method="bicgstab",
+              cfg=SolverConfig(tol=max(tol, 1e-5), max_iter=4000,
+                               dtype=dtype),
+              precond=ChebyPrecond(degree=4, lo=lo, hi=hi))
+    return bool(r.converged), f"iters={r.n_iter}"
+
+
+def _selftest_df32(dtype, tol, dev):
+    """df32 at a tolerance float32 cannot reach, whatever --dtype says."""
+    return _selftest_solve("bicgstab")("df32", 1e-11, dev)
+
+
+def _selftest_layout(fmt: str, gen):
+    def check(dtype, tol, dev):
+        import torch
+
+        from mpi_bicgstab_tpu_torch.ops.layout import build_operator, spmv
+        from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
+        csr = gen()
+        op = build_operator(csr, format=fmt, dtype=dtype, device=dev)
+        x_h = np.random.default_rng(0).standard_normal(csr.nrows)
+        x = df_from_f64(x_h, dev) if dtype == "df32" else torch.as_tensor(
+            x_h, dtype=dtype, device=dev)
+        y = _host_x(spmv(op, x))
+        ref = csr.matvec(x_h)
+        rel = float(np.abs(y[: csr.nrows] - ref).max() / np.abs(ref).max())
+        return rel < 1e-4, f"layout={type(op).__name__} rel={rel:.1e}"
+    return check
+
+
+def _selftest_shifted(dtype, tol, dev):
+    from mpi_bicgstab_tpu_torch.api import solve_shifted
+    from mpi_bicgstab_tpu_torch.models import generators as G
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+    csr = G.banded_random(2048, [1, -1, 13, -13], seed=0)
+    sigma = np.array([0.0, 0.01, 0.05, 0.2])
+    prob = build_problem(csr, dtype=dtype, multiple=1024, device=dev,
+                         sigma_seed=float(sigma[2]))
+    r = solve_shifted(prob.A, prob.b, sigma, seed=2,
+                      method="shifted_lopbicg_switching",
+                      cfg=ShiftedConfig(tol=tol, max_iter=4000, dtype=dtype))
+    return bool(r.stop_flags.all()), (f"iters={r.n_iter} seed_true="
+                                      f"{float(r.true_relres):.1e}")
+
+
+def _gen(name: str, *a, **kw):
+    def make():
+        from mpi_bicgstab_tpu_torch.models import generators as G
+        return getattr(G, name)(*a, **kw)
+    return make
+
+
+# the selftest's checks (JAX cli.py:757-947): name -> check(dtype, tol,
+# device) returning (ok, detail); each solves or multiplies through the
+# normal entry points, so on the card through the kernels
+SELFTEST = {
+    **{f"solve/{m}": _selftest_solve(m)
+       for m in ("bicgstab", "ca_bicgstab", "pipe_bicgstab",
+                 "pipe_bicgstab_rr")},
+    "solve/bicgstab_l2 (skew spectrum)": _selftest_solve("bicgstab_l2",
+                                                         gen="skew"),
+    "solve/bicgstab+cheby4": _selftest_cheby,
+    "precision/df32 tight tolerance": _selftest_df32,
+    "layout/dia": _selftest_layout(
+        "dia", _gen("banded_random", 2048, [1, -1, 9, -9], seed=0)),
+    "layout/window": _selftest_layout("window",
+                                      _gen("clustered_random", 2048)),
+    "layout/butterfly": _selftest_layout(
+        "butterfly", _gen("random_diag_dominant", 2048, nnz_per_row=6,
+                          seed=0)),
+    "layout/ell": _selftest_layout(
+        "ell", _gen("random_diag_dominant", 1024, nnz_per_row=6, seed=1)),
+    "shifted/switching (4 shifts)": _selftest_shifted,
+}
+
+
+def selftest_tol(dtype: str) -> float:
+    """The checks' tolerance: one the float32 true-residual floor meets
+    for float32, 1e-10 otherwise (as in the JAX CLI off the TPU)."""
+    return 1e-5 if dtype == "float32" else 1e-10
+
+
+def run_selftest_check(name: str, dtype: str, device) -> tuple:
+    """(ok, detail, seconds) of one SELFTEST check; an exception is a
+    failure whose detail is the error."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    dt = dtype if dtype == "df32" else getattr(torch, dtype)
+    t0 = time.perf_counter()
+    try:
+        ok, detail = SELFTEST[name](dt, selftest_tol(dtype), dev)
+    except Exception as e:  # noqa: BLE001 — report it, test the rest
+        ok, detail = False, f"{type(e).__name__}: {e}"
+    return ok, detail, time.perf_counter() - t0
+
+
+def cmd_selftest(args) -> int:
+    """Every SELFTEST check in --dtype on --device, each printed PASS or
+    FAIL with its seconds; exit 2 on any failure. The reference's
+    analogue is test_shifted.c built with DISPLAY_ERROR
+    (test_shifted.c:10,129-154)."""
+    n_fail = 0
+    for name in SELFTEST:
+        ok, detail, sec = run_selftest_check(name, args.dtype, args.device)
+        n_fail += not ok
+        print(f"{'PASS' if ok else 'FAIL':4} {name:42} {sec:6.1f}s  "
+              f"{detail}", flush=True)
+    print(f"\n{len(SELFTEST) - n_fail}/{len(SELFTEST)} passed "
+          f"(device={args.device}, dtype={args.dtype})")
+    return 2 if n_fail else 0
+
+
+def cmd_convert(args) -> int:
+    from mpi_bicgstab_tpu_torch.ops.sparse import save_csr
+    csr, io_time = _load_matrix(args.src)
+    t0 = time.perf_counter()
+    save_csr(args.dst, csr)
+    print(f"{args.src} ({csr.nrows} rows, {csr.nnz} nnz, parsed in "
+          f"{io_time:.2f}s) -> {args.dst} "
+          f"(written in {time.perf_counter() - t0:.2f}s)")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import run_bench
+    return run_bench(args)
 
 
 def _add_layout(p) -> None:
@@ -539,6 +897,31 @@ def _add_layout(p) -> None:
                    help="bandwidth-reducing RCM permutation; 'auto' "
                         "reorders only when it moves the matrix onto "
                         "diagonals (ops/reorder.py)")
+    p.add_argument("--layout-cache", default=None, metavar="DIR",
+                   help="persistent layout cache (utils/opcache.py): a "
+                        "repeat solve of the same matrix loads the built "
+                        "layout instead of building it on the host (the "
+                        "butterfly route, the window build); keyed by the "
+                        "matrix's content and every build option; default "
+                        "$MBT_LAYOUT_CACHE, '0' or 'off' disables")
+
+
+def _add_output(p) -> None:
+    p.add_argument("--repeat", type=int, default=1,
+                   help="after one untimed run, time N runs and report "
+                        "their mean (main_repeat.c:109-132)")
+    p.add_argument("--json", action="store_true",
+                   help="print one JSON line of the JAX package's keys")
+    p.add_argument("--dump-history", default=None, metavar="FILE",
+                   help="write the per-iteration relative residuals (the "
+                        "data behind the reference's "
+                        "doc/residual_result.png) as .npy or .csv")
+
+
+def _add_device(p) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to run (default: the card; raises without "
+                        "one)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -602,10 +985,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale", choices=["none", "jacobi"], default="none",
                    help="symmetric Jacobi scaling D^-1/2 A D^-1/2 "
                         "(ops/scale.py); the solution is unscaled")
+    p.add_argument("--verbose-every", type=int, default=0, metavar="N",
+                   help="print the relative residual every N iterations "
+                        "(DISPLAY_RESIDUAL, solver.c:8-9; takes the "
+                        "unfused solver); 0 = silent")
+    p.add_argument("--checkpoint", default=None, metavar="FILE",
+                   help="save the iterate to FILE every --checkpoint-every "
+                        "iterations and resume from it when present "
+                        "(utils/checkpoint.py; a classic-family restart "
+                        "from the iterate is exact)")
+    p.add_argument("--checkpoint-every", type=int, default=200)
+    _add_output(p)
     _add_layout(p)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where to solve (default: the card; raises "
-                        "without one)")
+    _add_device(p)
     p.set_defaults(fn=cmd_solve)
 
     from mpi_bicgstab_tpu_torch.api import _all_shifted_solvers
@@ -656,17 +1048,66 @@ def build_parser() -> argparse.ArgumentParser:
                         "original row order) as .npy")
     p.add_argument("--x0", default=None, metavar="FILE",
                    help="refused: the shifted family starts from x0 = 0")
-    p.add_argument("--repeat", type=int, default=1,
-                   help="repeat the solve N times for timing stability "
-                        "(main_repeat.c:109-132)")
+    _add_output(p)
     p.add_argument("--verbose-every", type=int, default=0, metavar="N",
                    help="print the seed relative residual every N "
                         "iterations, and each seed switch; 0 = silent")
     _add_layout(p)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where to solve (default: the card; raises "
-                        "without one)")
+    _add_device(p)
     p.set_defaults(fn=cmd_solve_shifted)
+
+    p = sub.add_parser("info", help="census of what runs here: the card, "
+                                    "the kernel routes, the layouts "
+                                    "(main.c:22-60)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "selftest",
+        help="check every solver family, layout and precision on a small "
+             "system against ground truth; exit 0 = all pass (on the card "
+             "through the CUDA kernels)")
+    p.add_argument("--dtype", choices=["float32", "float64", "df32"],
+                   default="float32")
+    _add_device(p)
+    p.set_defaults(fn=cmd_selftest)
+
+    p = sub.add_parser(
+        "convert",
+        help="write a Matrix Market file (or a generator spec) as the "
+             "binary CSR container (.npz) for near-instant loads")
+    p.add_argument("src", help=".mtx/.mtx.gz path or generator spec")
+    p.add_argument("dst", help="output .npz path")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("bench", help="SpMV and solver-iteration times on "
+                                     "the card, one JSON line")
+    p.add_argument("--matrix", default="transport-like:1602112")
+    p.add_argument("--dtype", choices=["float32", "float64", "df32"],
+                   default="float32")
+    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--what", default="spmv,iter",
+                   help="comma list: spmv, iter, shifted, batched (k = 8 "
+                        "right-hand sides against one), cheby (the chain "
+                        "kernel against the unfused chain); overlap and "
+                        "scaling need the distributed layer (slice 8)")
+    p.add_argument("--method", default=None,
+                   help="solver of the iter, shifted and batched sections")
+    p.add_argument("--sigma-len", type=int, default=512,
+                   help="ladder width of --what shifted "
+                        "(main_shifted.c:13)")
+    p.add_argument("--seed", type=int, default=_SEED)
+    p.add_argument("--shift-block", type=int, default=-1,
+                   help="blocked shift-update depth of --what shifted: -1 "
+                        "auto, 0 the per-iteration path, > 0 explicit L")
+    p.add_argument("--layout-cache", default=None, metavar="DIR",
+                   help="persistent layout cache of the benched operators "
+                        "(sets MBT_LAYOUT_CACHE; no layout is built inside "
+                        "a timed chain)")
+    p.add_argument("--json", action="store_true",
+                   help="accepted for the JAX CLI's sake: the line is JSON "
+                        "always")
+    p.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -1,13 +1,14 @@
 """Matrix Market (.mtx) reader / writer (counterpart of
-mpi_bicgstab_tpu/io/mmio.py, NumPy path only).
+mpi_bicgstab_tpu/io/mmio.py).
 
 The reference's NIST mmio layer (mm_read_banner mmio.c:96,
 mm_read_mtx_crd_size mmio.c:189) plus the COO load fixups of
 matrix.c:26-94: 1-based -> 0-based indices, val = 1.0 for `pattern`
 files, and symmetric / skew-symmetric storage expanded to general COO
-(or refused with expand_symmetric=False). The body is parsed in one
-shot with NumPy. The JAX package's optional native parser is not
-ported yet (ROADMAP slice 9).
+(or refused with expand_symmetric=False). A coordinate body read as
+bytes is parsed by the C++ parser (io/native.py) on all host threads;
+a body it cannot count, a text body, or use_native=False takes the
+NumPy path, which parses it in one shot.
 """
 from __future__ import annotations
 
@@ -124,15 +125,16 @@ def _parse_numbers(body: str) -> np.ndarray:
 
 
 def read_matrix_market(path_or_file, expand_symmetric: bool = True,
-                       dtype=np.float64):
+                       dtype=np.float64, use_native: bool = True):
     """Read a .mtx file into COO arrays (rows, cols, vals, (nrows, ncols))
     — coo_load_matrix (matrix.c:26-94) with the fixups in the module
     docstring. Complex matrices are rejected (the reference is
-    real-only)."""
+    real-only). use_native=False takes the NumPy path; a missing g++ or
+    a failed build of the native parser raises (io/native.py)."""
     f, close = _open(path_or_file)
     try:
         hdr = read_banner(f)   # leaves the cursor at the body
-        body = _text(f.read())
+        body = f.read()
     finally:
         if close:
             f.close()
@@ -141,8 +143,36 @@ def read_matrix_market(path_or_file, expand_symmetric: bool = True,
         raise ValueError("complex Matrix Market files are not supported "
                          "(reference is real-only, matrix.c:26)")
     if hdr.format != "coordinate":
-        return _read_array_body(hdr, body, dtype)
+        return _read_array_body(hdr, _text(body), dtype)
 
+    out = None
+    if use_native and isinstance(body, bytes):
+        from mpi_bicgstab_tpu_torch.io.native import parse_body_native
+        try:
+            out = parse_body_native(body, hdr.nnz, hdr.is_pattern)
+        except ValueError:
+            out = None   # a body the native scan cannot count: NumPy path
+    if out is not None:
+        rows, cols, vals = out
+        vals = vals.astype(dtype, copy=False)
+    else:
+        rows, cols, vals = _parse_body(hdr, _text(body), dtype)
+
+    if (rows < 0).any() or (rows >= hdr.nrows).any() \
+            or (cols < 0).any() or (cols >= hdr.ncols).any():
+        raise ValueError("MM entry index out of range")
+
+    if hdr.is_symmetric:
+        if not expand_symmetric:
+            raise ValueError(
+                "symmetric .mtx storage requires expand_symmetric=True "
+                "(the reference silently dropped the upper triangle)")
+        rows, cols, vals = _expand_symmetry(hdr, rows, cols, vals)
+    return rows, cols, vals, (hdr.nrows, hdr.ncols)
+
+
+def _parse_body(hdr: MMHeader, body: str, dtype):
+    """(rows, cols, vals) of a coordinate body by NumPy."""
     # comment lines may legally appear mid-body
     if "%" in body:
         body = "\n".join(ln for ln in body.splitlines()
@@ -160,18 +190,7 @@ def read_matrix_market(path_or_file, expand_symmetric: bool = True,
         vals = np.ones(hdr.nnz, dtype=dtype)  # matrix.c:68-73
     else:
         vals = flat[:, 2].astype(dtype)
-
-    if (rows < 0).any() or (rows >= hdr.nrows).any() \
-            or (cols < 0).any() or (cols >= hdr.ncols).any():
-        raise ValueError("MM entry index out of range")
-
-    if hdr.is_symmetric:
-        if not expand_symmetric:
-            raise ValueError(
-                "symmetric .mtx storage requires expand_symmetric=True "
-                "(the reference silently dropped the upper triangle)")
-        rows, cols, vals = _expand_symmetry(hdr, rows, cols, vals)
-    return rows, cols, vals, (hdr.nrows, hdr.ncols)
+    return rows, cols, vals
 
 
 def _expand_symmetry(hdr: MMHeader, rows, cols, vals):

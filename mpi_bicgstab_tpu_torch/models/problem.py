@@ -83,7 +83,8 @@ class Problem:
 def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
                   device="cuda", format: str = "auto",
                   ell_width: int | None = None,
-                  sigma_seed: float = 0.0, reorder: str = "none") -> Problem:
+                  sigma_seed: float = 0.0, reorder: str = "none",
+                  layout_cache: str | None = None) -> Problem:
     """b = (A + sigma_seed I) * ones (ones over the logical rows only; the
     shifted drivers' right-hand side, main_shifted.c:109-114), computed on
     the host in float64 and cast to dtype; the operator and vectors go to `device`
@@ -93,7 +94,10 @@ def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
     (ops/precision.DF), split from the float64 host values. reorder:
     'none' | 'rcm' | 'auto', the RCM permutation applied before the
     layout analysis (ops/reorder.maybe_reorder); the Problem carries it
-    for unpermute()."""
+    for unpermute(). layout_cache: the persistent layout cache's
+    directory (utils/opcache.py; None takes MBT_LAYOUT_CACHE): a repeat
+    build of the same matrix and options loads the layout instead of
+    building it on the host."""
     from mpi_bicgstab_tpu_torch.ops.layout import build_operator
 
     df = is_df32(dtype)          # before canon_dtype, which maps it to f32
@@ -107,7 +111,8 @@ def build_problem(csr: CSRMatrix, dtype=torch.float64, multiple: int = 8,
     b_host = csr_p.matvec(ones) + sigma_seed * ones
     b_host[n_logical:] = 0.0  # identity-row RHS: padded solution is 0
     A = build_operator(csr_p, format=format, dtype="df32" if df else dt,
-                       ell_width=ell_width, device=dev)
+                       ell_width=ell_width, device=dev,
+                       cache_dir=layout_cache)
     if df:
         b = df_from_f64(b_host, dev)
     else:

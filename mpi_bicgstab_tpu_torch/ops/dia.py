@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import cuda_spmv
-from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, is_df
+from mpi_bicgstab_tpu_torch.ops.precision import (df_from_f64, df_to_f64,
+                                                  is_df)
 from mpi_bicgstab_tpu_torch.utils.config import canon_dtype
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
@@ -139,3 +140,19 @@ def dia_spmv_df(A: DiaMatrix, x):
     """Double-float y = A @ x in plain PyTorch on either device (the JAX
     package's dia_spmv_df): the twin of the DF SpMV kernel."""
     return cuda_spmv.dia_spmv_df_plain(A.vals, A.offsets, x)
+
+
+def host_values(v) -> np.ndarray:
+    """A tensor's values on the host, or a DF pair's as float64 (exact)."""
+    return df_to_f64(v) if is_df(v) else v.detach().cpu().numpy()
+
+
+def dia_to_dense(A: DiaMatrix) -> np.ndarray:
+    """The dense matrix A holds (for tests; DF values as float64)."""
+    vals = host_values(A.vals)
+    d = np.zeros((A.n_rows, A.n_cols), vals.dtype)
+    i = np.arange(A.n_rows)
+    for w, o in enumerate(A.offsets):
+        m = (i + o >= 0) & (i + o < A.n_cols)
+        d[i[m], i[m] + o] = vals[w, m]
+    return d

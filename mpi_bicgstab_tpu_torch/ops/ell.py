@@ -13,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpi_bicgstab_tpu_torch.ops.dia import host_dtype, is_df32
+from mpi_bicgstab_tpu_torch.ops.dia import (host_dtype, host_values,
+                                            is_df32)
 from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
@@ -95,3 +96,16 @@ def csr_to_ell(csr, width: int | None = None, tail_pad: int = 0,
     put_vals = (lambda a: df_from_f64(a, dev)) if is_df32(dtype) else put
     return EllMatrix(put(cols), put_vals(vals), put(t_rows), put(t_cols),
                      put_vals(t_vals), n_rows, n_cols)
+
+
+def ell_to_dense(A: EllMatrix) -> np.ndarray:
+    """The dense matrix A holds, slabs and tail added up (for tests; DF
+    values as float64)."""
+    cols = A.cols.cpu().numpy()
+    vals = host_values(A.vals)
+    d = np.zeros((A.n_rows, A.n_cols), dtype=vals.dtype)
+    rows = np.broadcast_to(np.arange(A.n_rows), cols.shape)
+    np.add.at(d, (rows.ravel(), cols.ravel()), vals.ravel())
+    np.add.at(d, (A.tail_rows.cpu().numpy(), A.tail_cols.cpu().numpy()),
+              host_values(A.tail_vals))
+    return d

@@ -17,6 +17,7 @@ right-preconditioned product A p(A) x.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from mpi_bicgstab_tpu_torch.ops.butterfly import (ButterflyMatrix,
                                                  build_butterfly)
@@ -25,7 +26,7 @@ from mpi_bicgstab_tpu_torch.ops.butterfly_spmv import (butterfly_spmv,
 from mpi_bicgstab_tpu_torch.ops.cheby import ChebyOperator, precond_spmv
 from mpi_bicgstab_tpu_torch.ops.dia import (DiaMatrix, LayoutRefused,
                                             analyze_diagonals, csr_to_dia,
-                                            dia_spmv)
+                                            dia_spmv, host_dtype, is_df32)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
 from mpi_bicgstab_tpu_torch.ops.precision import DF, df_add, is_df
 from mpi_bicgstab_tpu_torch.ops.spmv import ell_spmv, ell_spmv_df
@@ -33,6 +34,7 @@ from mpi_bicgstab_tpu_torch.ops.window_ell import (WindowEllMatrix,
                                                    csr_to_window_ell,
                                                    window_ell_stats)
 from mpi_bicgstab_tpu_torch.ops.window_spmv import window_spmv, window_spmv_df
+from mpi_bicgstab_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +76,15 @@ _BUILDERS = {"window": csr_to_window_ell, "butterfly": build_butterfly}
 
 def build_operator(csr, format: str = "auto", dtype=None,
                    max_diags: int = 64, dia_min_fill: float = 0.02,
-                   ell_width: int | None = None, device="cuda"):
+                   ell_width: int | None = None, device="cuda",
+                   cache_dir: str | None = None):
     """Pick and build the device layout for a square CSR matrix.
+
+    cache_dir: the persistent layout cache (utils/opcache.py): the
+    operator is loaded from there when this CSR and these options were
+    built before, else built and saved. None takes MBT_LAYOUT_CACHE from
+    the environment (as in the JAX package); '0' or 'off' (and no
+    variable) builds without the cache.
 
     format:
       'auto'   — DIA if the top diagonals cover everything, hybrid if
@@ -93,6 +102,25 @@ def build_operator(csr, format: str = "auto", dtype=None,
     if format not in ("auto", "dia", "ell", "hybrid", "window",
                       "butterfly"):
         raise ValueError(f"unknown format {format!r}")
+    if cache_dir is None:
+        cache_dir = os.environ.get("MBT_LAYOUT_CACHE") or "off"
+    if cache_dir.lower() not in ("0", "off"):
+        from mpi_bicgstab_tpu_torch.utils import opcache
+        tag = "df32" if is_df32(dtype) else str(host_dtype(dtype,
+                                                           csr.val.dtype))
+        key = opcache.operator_key(csr, format=format, dtype=tag,
+                                   max_diags=max_diags,
+                                   dia_min_fill=dia_min_fill,
+                                   ell_width=ell_width)
+        op = opcache.load_operator(cache_dir, key, resolve_device(device))
+        if op is None:
+            op = build_operator(csr, format=format, dtype=dtype,
+                                max_diags=max_diags,
+                                dia_min_fill=dia_min_fill,
+                                ell_width=ell_width, device=device,
+                                cache_dir="off")
+            opcache.save_operator(cache_dir, key, op)
+        return op
     route, offsets = (auto_route(csr, max_diags, dia_min_fill)
                       if format == "auto" else (format, None))
     while route in FALL_THROUGH:

@@ -1,80 +1,33 @@
 """ctypes binding to the butterfly route assigner (counterpart of
 mpi_bicgstab_tpu/ops/native_route.py; source csrc/butterfly_route.cpp).
 
-The source is host C++, built at first use with
-
-    g++ -O3 -march=native -shared -fPIC -o libbutterfly_route.so
-        csrc/butterfly_route.cpp
-
-into build/host/<hash>/ at the repository root, keyed by a hash of the
-source, the flags and the host CPU (a library built for one CPU's
-instruction set is not loaded on another). The build writes a temporary
-file and renames it into place, so processes that build at once each
-see a whole library or none. A missing g++ or a failed build raises:
-the port has no NumPy router to fall back on.
+The source is host C++, built at first use by utils/host_build.py into
+build/host/<hash>/ at the repository root. A missing g++ or a failed
+build raises: the port has no NumPy router to fall back on.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent.parent / "csrc" / "butterfly_route.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "host"
-FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+from mpi_bicgstab_tpu_torch.utils import host_build
+
+SRC = host_build.CSRC / "butterfly_route.cpp"
 TRIES = 64          # random options an element tries before it spills
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
 
-def gxx_path() -> str:
-    found = shutil.which("g++")
-    if found is None:
-        raise RuntimeError("g++ not found on PATH: the butterfly route "
-                           "assigner (csrc/butterfly_route.cpp) cannot be "
-                           "built")
-    return found
-
-
-def _cpu_signature() -> bytes:
-    """The host CPU's model and feature flags (what -march=native
-    compiles for)."""
-    try:
-        lines = Path("/proc/cpuinfo").read_text().splitlines()
-    except OSError:
-        return platform.processor().encode()
-    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))]
-    return "\n".join(sorted(set(keep))).encode()
-
-
-def lib_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SRC.read_bytes())
-    h.update(_cpu_signature())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libbutterfly_route.so"
+def lib_path():
+    return host_build.lib_path(SRC)
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The assigner's library, built first if it is not on disk."""
-    path = lib_path()
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([gxx_path(), *FLAGS, "-o", str(tmp), str(SRC)],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SRC.name} (exit "
-                               f"{proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(host_build.build(SRC)))
     lib.bfly_assign.restype = ctypes.c_int64
     lib.bfly_assign.argtypes = ([ctypes.c_int64] + [_I64P] * 7
                                 + [ctypes.c_int64] * 5

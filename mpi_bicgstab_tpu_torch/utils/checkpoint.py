@@ -1,23 +1,34 @@
-"""Full-carry checkpoint and resume of the seed-switching shifted solver
-(counterpart of save_carry / load_carry / solve_switching_with_checkpoints
-in mpi_bicgstab_tpu/utils/checkpoint.py).
+"""Checkpoint and resume of long solves (counterpart of
+mpi_bicgstab_tpu/utils/checkpoint.py). The reference has none: a failure
+aborts the whole job. Two mechanisms:
 
-The solver's whole loop state (solvers/switching.init_switching_carry:
-x_set, p_set, r, the scalar archives, the stop flags, the seed, the
-iteration index) is written to one .npz every segment; resuming from it
-reproduces the uninterrupted solve BIT-EXACTLY. The file holds the
-carry's leaves in the JAX package's order (`leaf_0`, `leaf_1`, ...: the
-16 slots in turn, a double-float slot as its hi then its lo array, the
-iteration index and the seed as int32 scalars) and a JSON header with
-the metadata, so a carry saved by either package has the same leaves
-(convert.switching_carry_from_arrays turns the JAX package's into the
-port's). The JAX package also records its pytree's treedef; here a
-structure tag (the kind of each slot) takes its place. A file the JAX
-package wrote has no tag: its slot kinds follow from its leaf count, so
-load_carry resumes it too.
+* The classic family's ITERATE checkpoint (save_checkpoint,
+  load_checkpoint, solve_with_checkpoints; `solve --checkpoint`): a
+  BiCGStab restart from x0 = the saved iterate (r recomputed as b - A x0)
+  is exact mathematically; the Krylov space is rebuilt, costing a few
+  iterations, for a checkpoint of one vector, valid across methods,
+  dtypes and versions. The file is one .npz with the iterate (a DF
+  iterate as its float64 value, so a df32 run resumes losslessly, as DF
+  pairs again) and a JSON header, in the JAX package's format: each
+  package resumes the other's file. Not for the shifted family, whose
+  recurrences need x0 = 0 for every shift.
 
-The iterate checkpoint of the classic family (`solve --checkpoint`) is
-ROADMAP slice 9.
+* The seed-switching shifted solver's FULL-CARRY checkpoint (save_carry,
+  load_carry, solve_switching_with_checkpoints; `solve-shifted
+  --checkpoint`): the solver's whole loop state
+  (solvers/switching.init_switching_carry: x_set, p_set, r, the scalar
+  archives, the stop flags, the seed, the iteration index) is written to
+  one .npz every segment; resuming from it reproduces the uninterrupted
+  solve BIT-EXACTLY. The file holds the carry's leaves in the JAX
+  package's order (`leaf_0`, `leaf_1`, ...: the 16 slots in turn, a
+  double-float slot as its hi then its lo array, the iteration index and
+  the seed as int32 scalars) and a JSON header with the metadata, so a
+  carry saved by either package has the same leaves
+  (convert.switching_carry_from_arrays turns the JAX package's into the
+  port's). The JAX package also records its pytree's treedef; here a
+  structure tag (the kind of each slot) takes its place. A file the JAX
+  package wrote has no tag: its slot kinds follow from its leaf count,
+  so load_carry resumes it too.
 """
 from __future__ import annotations
 
@@ -28,8 +39,9 @@ import tempfile
 import numpy as np
 import torch
 
-from mpi_bicgstab_tpu_torch.ops.precision import DF, is_df
+from mpi_bicgstab_tpu_torch.ops.precision import DF, df_to_f64, is_df
 
+_ITERATE_FORMAT = 1
 _FORMAT = 2
 _STRUCTURE = "mpi_bicgstab_tpu_torch.switching_carry/"
 # the seed-switching carry's 16 slots (solvers/switching.init_switching_carry):
@@ -194,3 +206,85 @@ def solve_switching_with_checkpoints(segment_runner, init_carry, path: str,
         res, carry = segment_runner(carry, k + segment_iters)
         save_carry(path, carry, meta)
     return res, carry_k(carry) - 1
+
+
+# --- the classic family's iterate checkpoint --------------------------------
+
+def _host_iterate(x) -> tuple[str, np.ndarray]:
+    """(kind, host array): a DF iterate as its float64 value ("df"), a
+    tensor as it is ("arr")."""
+    if is_df(x):
+        return "df", df_to_f64(x)
+    return "arr", x.detach().cpu().numpy()
+
+
+def save_checkpoint(path: str, x, n_iter_done: int, meta: dict):
+    """Atomically write the solver iterate x ([n], a tensor or a DF pair)
+    and its metadata."""
+    kind, data = _host_iterate(x)
+    header = dict(format=_ITERATE_FORMAT, kind=kind,
+                  n_iter_done=int(n_iter_done), **meta)
+    _atomic_savez(path, x=data, header=json.dumps(header))
+
+
+def load_checkpoint(path: str, expect: dict | None = None):
+    """(x as a host array, n_iter_done, header), or None when the file is
+    absent. expect: metadata that must match (the matrix, the method...);
+    a mismatch raises rather than resume a different run."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(str(z["header"]))
+        x = z["x"]
+    if header.get("format") != _ITERATE_FORMAT:
+        raise ValueError(f"unknown checkpoint format in {path}")
+    for k, v in (expect or {}).items():
+        if header.get(k) != v:
+            raise ValueError(
+                f"checkpoint {path} was written for {k}={header.get(k)!r}, "
+                f"refusing to resume a run with {k}={v!r}")
+    return x, int(header["n_iter_done"]), header
+
+
+def solve_with_checkpoints(runner, path: str, segment_iters: int,
+                           max_iter: int, meta: dict, tol: float,
+                           x_key: str = "x"):
+    """Run runner(x0_host or None, iters_budget, tol_segment) in segments,
+    saving the iterate after each; resumes from `path` when it exists.
+
+    Each restarted segment measures its residual against ITS OWN r0 =
+    b - A x0, so the original stopping rule (relative to ||b||, from x0 =
+    0) holds through scaling: tol_segment = tol / the product of the
+    earlier segments' final relres (cum_rel). The product is stored in
+    the checkpoint, so a resumed process keeps the original rule.
+
+    runner returns a result with n_iter, converged, final_relres and the
+    iterate under x_key. Returns (the last result or None, total
+    iterations, cum_rel): cum_rel is the residual relative to the
+    original ||b||, what the solve without checkpoints reports; the
+    result is None when the checkpoint alone satisfies the run
+    (converged, or out of budget)."""
+    if segment_iters < 1:
+        raise ValueError("segment_iters must be >= 1")
+    resumed = load_checkpoint(path, expect=meta)
+    x0 = None
+    done = 0
+    cum_rel = 1.0
+    if resumed is not None:
+        x0, done, header = resumed
+        cum_rel = float(header.get("cum_rel", 1.0))
+    res = None
+    while done < max_iter and cum_rel > tol:
+        budget = min(segment_iters, max_iter - done)
+        tol_seg = min(tol / max(cum_rel, 1e-300), 0.5)
+        res = runner(x0, budget, tol_seg)
+        done += int(res.n_iter)
+        # a breakdown's NaN and an exact solve's 0.0 both belong in the
+        # cumulative residual
+        cum_rel *= float(res.final_relres)
+        x = getattr(res, x_key)
+        save_checkpoint(path, x, done, dict(meta, cum_rel=cum_rel))
+        if bool(res.converged) or int(res.n_iter) < budget:
+            break
+        x0 = _host_iterate(x)[1]
+    return res, done, cum_rel

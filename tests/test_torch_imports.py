@@ -66,7 +66,15 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/ops/native_route.py",
                  "mpi_bicgstab_tpu_torch/ops/reorder.py",
                  "mpi_bicgstab_tpu_torch/ops/scale.py",
-                 "mpi_bicgstab_tpu_torch/ops/precision.py"):
+                 "mpi_bicgstab_tpu_torch/ops/precision.py",
+                 "mpi_bicgstab_tpu_torch/io/native.py",
+                 "mpi_bicgstab_tpu_torch/io/mmio.py",
+                 "mpi_bicgstab_tpu_torch/utils/opcache.py",
+                 "mpi_bicgstab_tpu_torch/utils/timing.py",
+                 "mpi_bicgstab_tpu_torch/utils/host_build.py",
+                 "mpi_bicgstab_tpu_torch/utils/checkpoint.py",
+                 "mpi_bicgstab_tpu_torch/benchmarks/runner.py",
+                 "mpi_bicgstab_tpu_torch/cli.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
                    "from mpi_bicgstab_tpu_torch.ops import dia\n")

@@ -1538,3 +1538,53 @@ def test_butterfly_wrappers_raise_instead_of_falling_back():
         cbf.butterfly_k3_df(Adf, x)
     with pytest.raises(TypeError):         # float values, not a DF pair
         cbf.butterfly_k3_df(A, DF(x, x))
+
+
+@pytest.mark.parametrize("fmt", ["butterfly", "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, "df32"])
+def test_layout_cache_loads_on_the_card_equal_to_a_fresh_build(
+        tmp_path, fmt, dtype):
+    """A layout loaded from the cache (utils/opcache.py) onto the card
+    rebuilds its derived fields there (the butterfly's k3_col by K1, K2
+    and the decode; the window's rc_*), bit-equal to a fresh build on the
+    card, and a solve from it gives the same n_iter and the same x bit
+    for bit."""
+    import dataclasses
+
+    from mpi_bicgstab_tpu_torch.models.generators import (
+        clustered_random, random_diag_dominant)
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    dev = _card()
+    csr = (random_diag_dominant(8192, seed=4) if fmt == "butterfly"
+           else clustered_random(8192))
+    fresh = build_operator(csr, format=fmt, dtype=dtype, device=dev,
+                           cache_dir="off")
+    build_operator(csr, format=fmt, dtype=dtype, device=dev,
+                   cache_dir=str(tmp_path))               # build + save
+    before = cbf.butterfly_decode.launches
+    loaded = build_operator(csr, format=fmt, dtype=dtype, device=dev,
+                            cache_dir=str(tmp_path))      # load
+    assert cbf.butterfly_decode.launches - before == (fmt == "butterfly")
+    derived = ("k3_col",) if fmt == "butterfly" else (
+        "rc_off", "rc_col", "rc_val", "rc_width")
+    for f in dataclasses.fields(fresh):
+        a, b = getattr(fresh, f.name), getattr(loaded, f.name)
+        if is_df(a):
+            assert torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)
+        elif torch.is_tensor(a):
+            assert b.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    assert {f.name for f in dataclasses.fields(fresh) if not f.init} \
+        == set(derived)
+    b_host = csr.matvec(np.ones(csr.nrows))
+    b = df_from_f64(b_host, dev) if dtype == "df32" else torch.as_tensor(
+        b_host, dtype=dtype, device=dev)
+    cfg = SolverConfig(tol=1e-6 if dtype == torch.float32 else 1e-10,
+                       dtype=dtype)
+    r0, r1 = (solve(A, b, method="bicgstab", cfg=cfg) for A in (fresh,
+                                                                loaded))
+    assert r0.n_iter == r1.n_iter and bool(r1.converged)
+    xs = [(r.x.hi, r.x.lo) if is_df(r.x) else (r.x,) for r in (r0, r1)]
+    assert all(torch.equal(u, v) for u, v in zip(*xs))
