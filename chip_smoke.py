@@ -152,7 +152,40 @@ numbers; any failure exits non-zero:
              --matrix transport-like:1602112 --what
              spmv,iter,batched,cheby,shifted` (its times finite and
              positive, every byte rate it allows reckoning at most 3.35
-             TB/s, check_bench_line)
+             TB/s, check_bench_line). The distributed layer (ROADMAP
+             slice 8a) on one rank of a real NCCL process group met in
+             this process (init_world; the card machine has one GPU):
+             first `[halo_kernels]`: the halo forms of the DIA SpMV, the
+             DF SpMV and the ten fused passes (solvers/fused_dist.py) at
+             the main path's n on a rank in the middle of a partition
+             (inp's vectors with random neighbour rows around them),
+             the rank's rows of each output against the twin's.
+             `[dist]`, `[dist_ca]`, `[dist_pipe]`, `[dist_f64]`,
+             `[dist_df32]`, `[dist_ring]` (DIST_PATHS) solve
+             transport_like(1602112) partitioned for one rank (DIA halo
+             mode) with solve_distributed, each converged with its true
+             residual (float64, host CSR) <= 10 tol and n_iter within 2
+             of the single-device unfused solve; the float32 and df32
+             phases on the halo-fused route (DIST_ROUTES: each pass once
+             per iteration, the SpMV kernel only at set-up and exit, and
+             on one rank the single-device fused route's n_iter and
+             history bit for bit), float64 on the unfused one (the DIA
+             SpMV kernel, halo form, twice per iteration and per
+             segment), nothing else; `[dist_window]`
+             (clustered_random(1602560): kernel 23 once per SpMV) and
+             `[dist_butterfly]` (uniform:1602112 padded: K3 once per
+             SpMV, the column table built once on the shard);
+             `[dist_shifted]` (512 shifts, seed 255, switching, df32:
+             kernel 18 once per iteration, every shift's true residual
+             <= 100 tol); `[dist_batched]` (8 f32 lanes);
+             `[dist_cheby]` (cheby:8, f32, transport_hard(1602112), the
+             residual <= 100 tol as `[cheby]`'s); each under
+             no_twin_on_card (a plain twin given a CUDA tensor fails
+             the phase), launches in check_dist_counts. `[dist_cli]`:
+             `solve --devices 1 --json` converges, `--devices 2` exits
+             naming the single CUDA device. `[profile]`: `profile --json`
+             in f32 on transport-like:1602112, with --sigma-len 64, and
+             --trace (the Chrome trace must name dia_spmv_kernel)
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -181,7 +214,11 @@ numbers; any failure exits non-zero:
              the column table's build (K1, K2 and the decode, each
              beside its bound), the route's host seconds, and the
              f32 and df32 classic iterations on the butterfly layout
-             beside two SpMVs' bytes
+             beside two SpMVs' bytes; the one-rank distributed f32
+             classic iteration (eager, and its kernels' device time by
+             torch.profiler) beside the single-device unfused and fused
+             routes, and one global dot over the group against one on
+             the device
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 
@@ -208,6 +245,13 @@ device time of each kernel the build launches (torch.profiler), and,
 where the tree has the decode kernel, K1, K2 (4- and 8-byte elements)
 and the decode timed alone, each held to its twin.
 
+    python3 chip_smoke.py --band-times
+
+does the same for the DIA SpMV and the fused classic, CA, pipelined and
+DF classic passes (band_times): each held to its twin on the main path's
+inputs, then its device ms per call, three replayed-graph timings each,
+as one JSON line ("band_times": name -> [ms, ms, ms]).
+
     python3 chip_smoke.py --io-times
 
 times the reader and the layout cache at full width (io_times): the
@@ -218,6 +262,7 @@ transport_like(1602112), and the CLI's setup_s cold against warm
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -929,6 +974,165 @@ def check_df_kernel(name, got, want, inp) -> list:
             raise SmokeFailure(f"{name} folded scalar {j} differs from "
                                f"the twin's formula on the kernel's dots")
     return [_err(_f64(g), _f64(w)) for g, w in zip(got, want)]
+
+
+def halo_inputs(inp: dict, seed: int = 7) -> dict:
+    """The halo forms' inputs (solvers/fused_dist.py): the band of inp,
+    a Halo of a rank with both neighbours (h the partition's halo for the
+    band's reach), and each of inp's vectors with h random rows of each
+    neighbour around it ("h_" keys, "h_df_" for the DF ones)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.cuda_spmv import Halo
+    from mpi_bicgstab_tpu_torch.ops.precision import DF, df_from_f64
+    reach = max(abs(o) for o in inp["A32"].offsets)
+    h = -(-reach // 128) * 128
+    rng = np.random.default_rng(seed)
+
+    def ext(v):
+        if hasattr(v, "hi"):
+            lo, hi = (df_from_f64(rng.standard_normal(h), v.hi.device)
+                      for _ in range(2))
+            return DF(torch.cat([lo.hi, v.hi, hi.hi]),
+                      torch.cat([lo.lo, v.lo, hi.lo]))
+        lo, hi = (torch.as_tensor(rng.standard_normal(h), dtype=v.dtype,
+                                  device=v.device) for _ in range(2))
+        return torch.cat([lo, v, hi])
+
+    out = {"halo": Halo(h, True, True)}
+    for k in ("r", "p", "s", "r_hat", "x", "q", "y", "w", "z"):
+        out["h_" + k] = ext(inp[k])
+        out["h_df_" + k] = ext(inp["df_" + k])
+    return out
+
+
+def halo_kernel_calls(inp: dict, hinp: dict) -> dict:
+    """name -> (kernel call, plain call, DF?, dot pairs) of the halo
+    forms: the DIA SpMV's (float32 and DF, the row-partitioned SpMV's band
+    multiply) and the ten passes of the halo-fused route, on halo_inputs.
+    A DF pass's dot pairs name the vectors of each dot, for its bar."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_ca as fca
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic as fcl
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_pipe as fpipe
+    from mpi_bicgstab_tpu_torch.ops import cuda_spmv
+    H = hinp["halo"]
+    v, o, vdf = inp["A32"].vals, inp["A32"].offsets, inp["Adf"].vals
+    r, p, s, rh, x, q, y, wv, z = (
+        hinp["h_" + k] for k in ("r", "p", "s", "r_hat", "x", "q", "y",
+                                 "w", "z"))
+    dr, dp, ds, drh, dx, dq, dy = (
+        hinp["h_df_" + k] for k in ("r", "p", "s", "r_hat", "x", "q", "y"))
+    a, b, w = inp["alpha"], inp["beta"], inp["omega"]
+    da, db, dw, rtr = (inp["df_" + k] for k in
+                       ("alpha", "beta", "omega", "rTr"))
+
+    def pair(kern, plain, *args, df=False, dots=None):
+        return (lambda: kern(*args, halo=H), lambda: plain(*args, halo=H),
+                df, dots)
+
+    return {
+        "dia_spmv_f32": (
+            lambda: (cuda_spmv.dia_spmv(v, o, x, halo=H.h),),
+            lambda: (cuda_spmv.dia_spmv_plain(v, o, x, halo=H.h),),
+            False, None),
+        "dia_spmv_df": (
+            lambda: (cuda_spmv.dia_spmv_df(vdf, o, dx, halo=H.h),),
+            lambda: (cuda_spmv.dia_spmv_df_plain(vdf, o, dx, halo=H.h),),
+            True, lambda out: []),
+        "fused_k1": pair(fcl.fused_k1, fcl.fused_k1_plain, v, r, p, s, rh,
+                         (b, w), o),
+        "fused_k2": pair(fcl.fused_k2, fcl.fused_k2_plain, v, r, s, (a,),
+                         o),
+        "fused_k3": pair(fcl.fused_k3, fcl.fused_k3_plain, x, p, q, y, rh,
+                         (a, w)),
+        "fused_ca_k1": pair(fca.fused_ca_k1, fca.fused_ca_k1_plain, v, r,
+                            p, s, wv, z, (a, b, w), o),
+        "fused_ca_k2": pair(fca.fused_ca_k2, fca.fused_ca_k2_plain, v, q,
+                            y, x, p, rh, s, z, (a, w), o),
+        "fused_phase_a": pair(fpipe.fused_phase_a,
+                              fpipe.fused_phase_a_plain, v, z, r, p, s, wv,
+                              x, (a, b, w), o),
+        "fused_phase_b": pair(fpipe.fused_phase_b,
+                              fpipe.fused_phase_b_plain, v, wv, x, p, q, y,
+                              rh, s, z, (a, w), o),
+        "fused_k1_df": pair(fcldf.fused_k1_df, fcldf.fused_k1_df_plain,
+                            vdf, dr, dp, ds, drh, (db, dw, rtr), o,
+                            df=True, dots=lambda out: [(drh, out[1])]),
+        "fused_k2_df": pair(fcldf.fused_k2_df, fcldf.fused_k2_df_plain,
+                            vdf, dr, ds, (da,), o, df=True,
+                            dots=lambda out: [(out[0], out[1]),
+                                              (out[1], out[1])]),
+        "fused_k3_df": pair(fcldf.fused_k3_df, fcldf.fused_k3_df_plain,
+                            dx, dp, dq, dy, drh, (da, dw, rtr), df=True,
+                            dots=lambda out: [(out[1], out[1]),
+                                              (drh, out[1])]),
+    }
+
+
+def check_halo_kernels(inp: dict) -> None:
+    """`[halo_kernels]`: each halo form against its twin on the same
+    halo-form inputs, the rank's rows of every output vector compared:
+    float32 with the kernels' tolerances (TOL), DF bit-equal, each DF dot
+    within TOL["df32_dot"] x sum |u_i v_i| over the rank's rows, a folded
+    scalar within the same bar relative to its value; then its device ms
+    per call (a replayed graph, as time_kernels times the plain form)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops.cuda_spmv import center
+    hinp = halo_inputs(inp)
+    H = hinp["halo"]
+    n = inp["A32"].vals.shape[1]
+
+    def rows(t):
+        """The rank's rows of a halo-form vector (an SpMV's [n] result
+        as it is, a dot too)."""
+        h = t.hi if hasattr(t, "hi") else t
+        return center(t, H) if h.dim() and h.shape[0] == n + 2 * H.h \
+            else t
+
+    for name, (kern, plain, df, dots) in halo_kernel_calls(inp,
+                                                           hinp).items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        vecs = [i for i, t in enumerate(want)
+                if (t.hi if hasattr(t, "hi") else t).dim()]
+        errs = [_err(_f64(rows(g)), _f64(rows(w)))
+                for g, w in zip(got, want)]
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = f"{name} (halo form) output {i}"
+            if i in vecs:
+                if df and not _same(rows(g), rows(w)):
+                    raise SmokeFailure(f"{what}: kernel and twin rows "
+                                       f"differ, {errs[i]:.3e}")
+                if not df:
+                    _close(what, rows(g), rows(w), **TOL["float32"])
+            elif not df:
+                _close(what, g, w, TOL["float32_dot"]["rtol"], 0.0)
+        if df:
+            pairs = dots(got)
+            for j, (u, v) in enumerate(pairs):
+                k = len(vecs) + j
+                bar = TOL["df32_dot"] * float(
+                    (_f64(rows(u)) * _f64(rows(v))).abs().sum())
+                if not errs[k] <= bar:
+                    raise SmokeFailure(f"{name} (halo form) dot {j}: "
+                                       f"{errs[k]:.3e} > {bar:.3e}")
+            for k in range(len(vecs) + len(pairs), len(want)):
+                bar = 1e-9 * float(_f64(want[k]).abs())
+                if not errs[k] <= bar:
+                    raise SmokeFailure(f"{name} (halo form) folded scalar: "
+                                       f"{errs[k]:.3e} > {bar:.3e}")
+        _say("halo_kernels", kernel=name, ok=True, halo=H.h,
+             neighbours="both", rows=rows(got[0]).shape[0] if not df
+             else rows(got[0]).hi.shape[0],
+             ms=f"{time_call(kern, graph=True) * 1e3:.4f}",
+             max_abs_err_per_output="[" + ",".join(
+                 f"{e:.3e}" for e in errs) + "]")
 
 
 def check_kernels(calls: dict, inp: dict) -> dict:
@@ -2121,6 +2325,36 @@ def chain_times() -> int:
     say_chain_plan(inp)
     say_chain_info()
     time_cheby(inp, ChebyPrecond(CHEBY_DEGREE, inp["h_lo"], inp["h_hi"]))
+    return 0
+
+
+BAND_KERNELS = ("dia_spmv_f32", "fused_k1", "fused_k2", "fused_k3",
+                "fused_ca_k1", "fused_ca_k2", "fused_phase_a",
+                "fused_phase_b", "dia_spmv_df", "fused_k1_df",
+                "fused_k2_df", "fused_k3_df")
+
+
+def band_times() -> int:
+    """`chip_smoke.py --band-times`: the DIA SpMV and the fused band
+    passes alone on transport_like(N_MAIN), so that two trees can be
+    compared in one call (copy this script into each and run it there):
+    each held to its twin (check_kernels), then three replayed-graph
+    timings of each (time_call). Prints one JSON line, no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.models.generators import transport_like
+    print(probe())
+    build()
+    inp = kernel_inputs(transport_like(N_MAIN))
+    calls = {k: v for k, v in kernel_calls(inp).items()
+             if k in BAND_KERNELS}
+    check_kernels(calls, inp)
+    print(json.dumps({"band_times": {
+        k: [round(time_call(calls[k][0], graph=True) * 1e3, 5)
+            for _ in range(3)] for k in BAND_KERNELS}}))
     return 0
 
 
@@ -3478,6 +3712,624 @@ def run_tools(inp: dict) -> None:
         seconds=round(time.perf_counter() - t0, 3))
 
 
+# --- the distributed layer (slice 8a): one rank of a real process group ------
+
+# phase: (method, dtype, tol, halo) through parallel/driver.solve_distributed
+# on transport_like(N_MAIN) partitioned as the CLI's --devices path does
+# (DIA halo mode); each beside the port's single-device unfused solve
+DIST_PATHS = {"dist": ("bicgstab", "float32", 1e-6, "allgather"),
+              "dist_ca": ("ca_bicgstab", "float32", 1e-6, "allgather"),
+              "dist_pipe": ("pipe_bicgstab", "float32", 1e-6, "allgather"),
+              "dist_f64": ("bicgstab", "float64", 1e-10, "allgather"),
+              "dist_df32": ("bicgstab", "df32", 1e-10, "allgather"),
+              "dist_ring": ("bicgstab", "float32", 1e-6, "ring")}
+# (method, dtype) -> the halo-fused route's launches (solvers/fused_dist.py):
+# its SpMV kernel, that kernel's launches a segment (the set-up SpMVs and
+# the exit true residual), and the passes launched once an iteration
+DIST_ROUTES = {
+    ("bicgstab", "float32"): ("dia_spmv", 2,
+                              ("fused_k1", "fused_k2", "fused_k3")),
+    ("ca_bicgstab", "float32"): ("dia_spmv", 3,
+                                 ("fused_ca_k1", "fused_ca_k2")),
+    ("pipe_bicgstab", "float32"): ("dia_spmv", 4,
+                                   ("fused_phase_a", "fused_phase_b")),
+    ("bicgstab", "df32"): ("dia_spmv_df", 2,
+                           ("fused_k1_df", "fused_k2_df", "fused_k3_df"))}
+DIST_LANES, DIST_SHIFT_TOL, PROFILE_SIGMA_LEN = 8, 1e-10, 64
+DIST_CHAINS = (8, 48)    # tol=0 chain lengths of the one-rank split
+# the plain twins a distributed path could reach: (module, names)
+TWINS = (("mpi_bicgstab_tpu_torch.ops.cuda_spmv",
+          ("dia_spmv_plain", "dia_spmv_df_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_fused_classic",
+          ("fused_k1_plain", "fused_k2_plain", "fused_k3_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_fused_ca",
+          ("fused_ca_k1_plain", "fused_ca_k2_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_fused_pipe",
+          ("fused_phase_a_plain", "fused_phase_b_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_fused_classic_df",
+          ("fused_k1_df_plain", "fused_k2_df_plain", "fused_k3_df_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.window_spmv",
+          ("window_rows_plain", "window_rows_df_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.butterfly_spmv",
+          ("k1_plain", "k2_plain", "decode_plain", "k3_plain",
+           "k3_df_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_shift_update",
+          ("fused_shift_update_df_plain",)))
+
+
+def init_world(device: str) -> None:
+    """A process group of one rank in this process unless one is up:
+    NCCL on the card, gloo on the CPU, met through a file:// store in the
+    work directory (no port)."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    store = _workdir() / f"dist_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+
+
+def end_world() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _on_card(x) -> bool:
+    dev = getattr(x, "device", None)
+    return getattr(dev, "type", None) == "cuda"
+
+
+@contextlib.contextmanager
+def no_twin_on_card():
+    """Within: any plain twin of TWINS given a CUDA tensor (or a layout
+    on the card) raises SmokeFailure, so a phase shows that its path ran
+    the kernels and no plain version on the card."""
+    import importlib
+    saved = []
+
+    def guarded(name, fn):
+        def twin(*args, **kw):
+            if any(_on_card(a) for a in (*args, *kw.values())):
+                raise SmokeFailure(f"{name}, a plain twin, ran on the card")
+            return fn(*args, **kw)
+        return twin
+
+    for mod_name, names in TWINS:
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, guarded(name, getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_dist_counts(what: str, kernel: str, it: int, counts: dict,
+                      restarts: int, lanes: int = 1, per_op: int = 1,
+                      exit_launches: int = 0, device: str = "cuda",
+                      also=None, per_iter: int = 2, per_seg: int = 2,
+                      passes=()) -> None:
+    """The launches of converged distributed classic solves (`lanes`
+    right-hand sides, `it` iterations over every lane and restart
+    segment): `kernel` per_op times per operator application, per_iter
+    applications per iteration and per_seg per segment (r0, the true
+    residual and any other set-up SpMV), 1 to 1 + restarts segments a
+    lane, and exit_launches more; each of `passes` (a fused route's,
+    per_iter 0) once per iteration; `also` the other kernels' exact
+    counts; nothing else. On the CPU nothing at all."""
+    if device == "cpu":
+        if any(counts.values()):
+            raise SmokeFailure(f"{what}: launches {counts} on the CPU")
+        return
+    want = dict.fromkeys(counts, 0)
+    want.update(also or {})
+    want.update(dict.fromkeys(passes, it))
+    applied, rest = divmod(counts[kernel] - exit_launches, per_op)
+    segs, rest2 = divmod(applied - per_iter * it, per_seg)
+    ok = not rest and not rest2 and lanes <= segs <= lanes * (restarts + 1)
+    bad = {k: (v, want[k]) for k, v in counts.items()
+           if k != kernel and v != want[k]}
+    if bad or not ok:
+        raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
+                           f"iterations over {lanes} lane(s) ({bad})")
+
+
+def _true_relres(csr, b, x) -> float:
+    """||b - A x|| / ||b|| with A the host CSR and x in float64."""
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch.parallel.launch import result_array
+    x = result_array(_host(x))[: csr.nrows]
+    return float(np.linalg.norm(b - csr.matvec(x)) / np.linalg.norm(b))
+
+
+def _host(x):
+    from mpi_bicgstab_tpu_torch.parallel.launch import to_host
+    return to_host(x)
+
+
+def _dist_solve(part, b, n_devices, device, **kw):
+    """solve_distributed on this rank, counted from the shard's placement
+    (a window shard derives its copy and a butterfly shard routes its
+    table there) to the result, under no_twin_on_card. Returns (result,
+    counts, its per-iteration times, solve_times)."""
+    from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
+                                                        solve_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    mesh = make_row_mesh(n_devices, device)
+    reset_counts()
+    with no_twin_on_card():
+        shard = put_partitioned(part, mesh)
+        res = solve_distributed(shard, b, mesh=mesh, **kw)
+        bool(res.converged)
+    counts = read_counts()
+
+    def run():
+        bool(solve_distributed(shard, b, mesh=mesh, **kw).converged)
+    return res, counts, solve_times(run, res.n_iter, device)
+
+
+def solve_times(run, it, device: str) -> dict:
+    """Eager and device ms per iteration of a solve run() (set-up and
+    exit included, over its `it` iterations, summed over lanes): one more
+    run's wall time, and on the card its kernels' device time by
+    torch.profiler (NCCL's included) in a run after that."""
+    t0 = time.perf_counter()
+    run()
+    eager = (time.perf_counter() - t0) * 1e3 / max(it, 1)
+    dev = "not measured"
+    if device == "cuda":
+        dev = f"{_kernel_ms(run) / max(it, 1):.4f}"
+    return {"eager_ms_per_iter": f"{eager:.4f}", "device_ms_per_iter": dev}
+
+
+def _unfused_iters(A, b, method: str, cfg) -> int:
+    """n_iter of the port's single-device unfused solve A x = b (the
+    classic solver over layout.spmv, with api's restarts), A a device
+    layout, b its right-hand side there."""
+    from mpi_bicgstab_tpu_torch.api import _restarted
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    from mpi_bicgstab_tpu_torch.ops.precision import vzeros_like
+    from mpi_bicgstab_tpu_torch.parallel.comm import Comm
+    from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
+
+    def once(x0, c):
+        return CLASSIC_SOLVERS[method](lambda v: spmv(A, v), Comm(), b, x0,
+                                       c)
+
+    return _restarted(once, cfg, once(vzeros_like(b), cfg)).n_iter
+
+
+def _dtype(name: str):
+    import torch
+    return name if name == "df32" else getattr(torch, name)
+
+
+def _say0(phase: str, **fields) -> None:
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _say(phase, **fields)
+
+
+def run_dist_path(phase: str, csr, n_devices: int = 1,
+                  device: str = "cuda") -> dict:
+    """A DIST_PATHS phase on every rank of the world: converged, the true
+    residual (float64, host CSR) within 10 tol, n_iter within 2 of the
+    single-device unfused solve, the launches of check_dist_counts (the
+    DIA SpMV kernel, halo form, or the DF SpMV, and a DIST_ROUTES
+    route's passes). On a halo-fused route with one rank, n_iter and the
+    history equal the single-device fused route's (api.solve): the same
+    passes over the columns [0, n), reductions over one rank. Returns a
+    summary."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    method, dtype, tol, halo = DIST_PATHS[phase]
+    dt = _dtype(dtype)
+    cfg = SolverConfig(tol=tol, max_iter=1000, dtype=dt)
+    part = partition_csr(csr, n_devices, dtype=dt)
+    if part.dia_mode != "halo":
+        raise SmokeFailure(f"{phase}: partition in {part.dia_mode} mode")
+    b = csr.matvec(np.ones(csr.nrows))
+    res, counts, times = _dist_solve(part, b, n_devices, device,
+                                     method=method, cfg=cfg, halo=halo)
+    it = res.n_iter
+    route = DIST_ROUTES.get((method, dtype))
+    if route is None:
+        check_dist_counts(phase, "dia_spmv", it, counts, cfg.restarts,
+                          device=device)
+    else:
+        check_dist_counts(phase, route[0], it, counts, cfg.restarts,
+                          device=device, per_iter=0, per_seg=route[1],
+                          passes=route[2])
+    true = _true_relres(csr, b, res.x)
+    prob = build_problem(csr, dtype=dt, multiple=1, device=device)
+    single = _unfused_iters(prob.A, prob.b, method, cfg)
+    fused = {}
+    if route is not None and n_devices == 1:
+        ref = solve(prob.A, prob.b, method=method, cfg=cfg)
+        same = ref.n_iter == it and torch.equal(ref.history[:it].cpu(),
+                                                res.history[:it].cpu())
+        fused = {"single_device_fused_n_iter": ref.n_iter,
+                 "history_equals_single_device_fused": same}
+        if not same:
+            raise SmokeFailure(f"{phase}: one rank took {it} iterations, "
+                               f"the single-device fused route "
+                               f"{ref.n_iter}, or their histories differ")
+    if not bool(res.converged) or true > 10 * tol or abs(it - single) > 2:
+        raise SmokeFailure(f"{phase}: converged {bool(res.converged)}, "
+                           f"true relres {true:.3e} (tol {tol}), n_iter "
+                           f"{it} against {single} single-device")
+    out = dict(method=method, dtype=dtype, tol=tol, halo=halo,
+               ranks=n_devices, halo_width=part.halo,
+               route="halo-fused" if route else "unfused", n_iter=it,
+               single_device_unfused_n_iter=single, **fused, **times,
+               true_relres_f64=f"{true:.3e}", launches=_launches(counts))
+    _say0(phase, **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_layout(phase: str, csr, n_devices: int = 1,
+                    device: str = "cuda", tol: float = 1e-6,
+                    layout=None) -> dict:
+    """`[dist_window]` (fmt window: kernel 23 once per SpMV) or
+    `[dist_butterfly]` (K3 once per SpMV over the gathered iterate; the
+    column table built once, inside the count): f32 classic, converged,
+    the true residual within 10 tol, n_iter within 2 of the single-
+    device unfused solve on the same layout (`layout`, the float32
+    layout of csr already on the device, or built here)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    fmt = phase.removeprefix("dist_")
+    cfg = SolverConfig(tol=tol, max_iter=1000, dtype=torch.float32)
+    t0 = time.perf_counter()
+    part = partition_csr(csr, n_devices, dtype=torch.float32, format=fmt)
+    host_s = time.perf_counter() - t0
+    b = csr.matvec(np.ones(csr.nrows))
+    res, counts, times = _dist_solve(part, b, n_devices, device, cfg=cfg)
+    it = res.n_iter
+    if fmt == "window":
+        kernel, also = "window_rows", {}
+    else:
+        kernel = "butterfly_k3"
+        also = dict.fromkeys(BUILD_ONCE, 1)
+    check_dist_counts(phase, kernel, it, counts, cfg.restarts,
+                      device=device, also=also)
+    true = _true_relres(csr, b, res.x)
+    if layout is None:
+        layout = build_problem(csr, dtype=torch.float32, multiple=1,
+                               device=device, format=fmt).A
+    single = _unfused_iters(layout, torch.as_tensor(
+        b, dtype=torch.float32, device=device), "bicgstab", cfg)
+    if not bool(res.converged) or true > 10 * tol or abs(it - single) > 2:
+        raise SmokeFailure(f"{phase}: converged {bool(res.converged)}, "
+                           f"true relres {true:.3e}, n_iter {it} against "
+                           f"{single} single-device")
+    out = dict(layout=fmt, ranks=n_devices, n=csr.nrows, n_iter=it,
+               single_device_unfused_n_iter=single, **times,
+               true_relres_f64=f"{true:.3e}",
+               partition_host_s=round(host_s, 3), launches=_launches(counts))
+    _say0(phase, **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_shifted(csr, n_devices: int = 1, device: str = "cuda",
+                     S: int = S_MAIN, seed: int = SEED_MAIN) -> dict:
+    """`[dist_shifted]`: solve_shifted_distributed with the flagship
+    ladder (S shifts, switching, df32 at DIST_SHIFT_TOL): every shift
+    converged, every shift's true residual (float64, on the device)
+    within 100 tol, the launches of check_shifted_counts (the DF shift
+    update, kernel 18, once per iteration)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.parallel.driver import \
+        solve_shifted_distributed
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+    sigma = flagship_ladder(S)
+    b = csr.matvec(np.ones(csr.nrows)) + sigma[seed]
+    part = partition_csr(csr, n_devices, dtype="df32")
+    mesh = make_row_mesh(n_devices, device)
+    cfg = ShiftedConfig(tol=DIST_SHIFT_TOL, max_iter=1000, dtype="df32")
+    reset_counts()
+    t0 = time.perf_counter()
+    with no_twin_on_card():
+        res = solve_shifted_distributed(part, b, sigma, seed=seed, cfg=cfg,
+                                        mesh=mesh)
+        float(res.final_relres)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    it = res.n_iter
+    worst = shifted_residuals(res.x_set, sigma, build_problem(
+        csr, dtype=torch.float64, multiple=1, device=device).A,
+        torch.as_tensor(b, device=device))
+    all_stop, final_seed = bool(res.stop_flags.all()), res.final_seed
+    del res
+    times = solve_times(lambda: float(solve_shifted_distributed(
+        part, b, sigma, seed=seed, cfg=cfg, mesh=mesh).final_relres), it,
+        device)
+    if device == "cpu":
+        check_dist_counts("dist_shifted", "shift_update_df", it, counts, 0,
+                          device=device)
+    else:
+        check_shifted_counts("dist_shifted", "df32", it, counts)
+    if not all_stop or worst > 100 * DIST_SHIFT_TOL:
+        raise SmokeFailure(f"dist_shifted: all converged {all_stop}, "
+                           f"worst shift's true residual {worst:.3e}")
+    out = dict(shifts=S, seed=seed, dtype="df32", ranks=n_devices,
+               n_iter=it, final_seed=final_seed, **times,
+               worst_shift_true_relres=f"{worst:.3e}",
+               solve_s=round(secs, 3), launches=_launches(counts))
+    _say0("dist_shifted", **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_batched(csr, n_devices: int = 1, device: str = "cuda",
+                     k: int = DIST_LANES, tol: float = 1e-6) -> dict:
+    """`[dist_batched]`: solve_batched_distributed with k float32 lanes
+    (batched_rhs): every lane converged with its true residual within 10
+    tol, the launches of check_dist_counts over k lanes."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.parallel.driver import \
+        solve_batched_distributed
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    B, _ = batched_rhs(csr, k)
+    part = partition_csr(csr, n_devices, dtype=torch.float32)
+    mesh = make_row_mesh(n_devices, device)
+    cfg = SolverConfig(tol=tol, max_iter=1000, dtype=torch.float32)
+    reset_counts()
+    with no_twin_on_card():
+        res = solve_batched_distributed(part, B, cfg=cfg, mesh=mesh)
+        conv = res.converged.cpu().numpy()
+    counts = read_counts()
+    its = [int(v) for v in res.n_iter]
+    check_dist_counts("dist_batched", "dia_spmv", sum(its), counts,
+                      cfg.restarts, lanes=k, device=device)
+    times = solve_times(lambda: solve_batched_distributed(
+        part, B, cfg=cfg, mesh=mesh).converged.cpu(), sum(its), device)
+    trues = [_true_relres(csr, B[j], res.x[j]) for j in range(k)]
+    if not conv.all() or max(trues) > 10 * tol:
+        raise SmokeFailure(f"dist_batched: converged {conv.tolist()}, "
+                           f"true residuals {trues}")
+    out = dict(lanes=k, ranks=n_devices, n_iter=its, **times,
+               max_true_relres_f64=f"{max(trues):.3e}",
+               launches=_launches(counts))
+    _say0("dist_batched", **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_cheby(csr, lo: float, hi: float, n_devices: int = 1,
+                   device: str = "cuda", tol: float = 1e-5) -> dict:
+    """`[dist_cheby]`: solve_distributed with cheby:CHEBY_DEGREE in
+    float32: converged, the true residual (float64, host CSR) within 100
+    tol, the bar of `[cheby]` (float32's floor on transport_hard); the
+    DIA SpMV kernel degree + 1 times per application of A p(A) and
+    degree times for the exit transform."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    d = CHEBY_DEGREE
+    cfg = SolverConfig(tol=tol, max_iter=CHEBY_MAX_ITER,
+                       dtype=torch.float32)
+    part = partition_csr(csr, n_devices, dtype=torch.float32)
+    b = csr.matvec(np.ones(csr.nrows))
+    res, counts, times = _dist_solve(part, b, n_devices, device, cfg=cfg,
+                                     precond=ChebyPrecond(d, lo, hi))
+    it = res.n_iter
+    check_dist_counts("dist_cheby", "dia_spmv", it, counts, cfg.restarts,
+                      per_op=d + 1, exit_launches=d, device=device)
+    true = _true_relres(csr, b, res.x)
+    if not bool(res.converged) or true > 100 * tol:
+        raise SmokeFailure(f"dist_cheby: converged {bool(res.converged)}, "
+                           f"true relres {true:.3e}")
+    out = dict(degree=d, ranks=n_devices, n_iter=it, **times,
+               true_relres_f64=f"{true:.3e}", launches=_launches(counts))
+    _say0("dist_cheby", **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_cli(n: int, device: str = "cuda") -> dict:
+    """`[dist_cli]`: `solve --devices 1 --json` through cli.main (the
+    single-device path, as in the JAX CLI) converges and reports devices
+    1; `--devices 2` on the card exits naming the one CUDA device (on the
+    CPU it starts two gloo ranks and converges)."""
+    from mpi_bicgstab_tpu_torch import cli
+    base = ["solve", "--matrix", f"transport-like:{n}", "--dtype",
+            "float32", "--tol", "1e-6", "--json", "--device", device]
+    rc, out = _main_json(base + ["--devices", "1"])
+    one = json.loads(out.strip().splitlines()[-1])
+    if rc or one["devices"] != 1 or not one["converged"]:
+        raise SmokeFailure(f"dist_cli: --devices 1 exit {rc}: {out}")
+    if device == "cuda":
+        try:
+            cli.main(base + ["--devices", "2"])
+        except SystemExit as e:
+            refusal = str(e.code)
+        else:
+            raise SmokeFailure("dist_cli: --devices 2 ran on one card")
+        if "only 1 CUDA device" not in refusal:
+            raise SmokeFailure(f"dist_cli: --devices 2 said {refusal!r}")
+        two = {"refused": refusal}
+    else:
+        # the ranks print themselves: rank 0's exit code comes back
+        rc2 = cli.main(base + ["--devices", "2"])
+        if rc2:
+            raise SmokeFailure(f"dist_cli: --devices 2 exit {rc2}")
+        two = {"exit": rc2}
+    out = dict(devices_1_n_iter=one["total_iter"],
+               devices_2=repr(two.get("refused", two.get("exit"))))
+    _say("dist_cli", **out)
+    return out
+
+
+def run_profile_path(n: int, device: str = "cuda", workdir=None) -> dict:
+    """`[profile]`: `profile --matrix transport-like:n --json` in float32
+    through cli.main, then with --sigma-len PROFILE_SIGMA_LEN, then
+    --trace: every phase time positive, and the trace file there, naming
+    the DIA SpMV kernel's symbol on the card."""
+    workdir = Path(workdir or _workdir())
+    base = ["profile", "--matrix", f"transport-like:{n}", "--json",
+            "--device", device]
+    rc, line = _main_json(base)
+    plain = json.loads(line.strip().splitlines()[-1])
+    rc2, line2 = _main_json(base + ["--sigma-len", str(PROFILE_SIGMA_LEN)])
+    shifted = json.loads(line2.strip().splitlines()[-1])
+    trace_dir = workdir / "profile_trace"
+    rc3, _ = _main_json(base + ["--iters", "4", "--trace", str(trace_dir)])
+    trace = trace_dir / "trace.json"
+    names_kernel = trace.exists() and "dia_spmv_kernel" in trace.read_text()
+    phases = {k: v for d in (plain, shifted) for k, v in d.items()
+              if k.endswith("_s")}
+    if rc or rc2 or rc3 or not all(v > 0 for k, v in phases.items()
+                                   if k != "shift_update_s") \
+            or not trace.exists() or (device == "cuda" and not names_kernel):
+        raise SmokeFailure(f"profile: exits {rc, rc2, rc3}, phases "
+                           f"{phases}, trace {trace.exists()}, names the "
+                           f"DIA SpMV kernel {names_kernel}")
+    out = {**{k: f"{v:.4e}" for k, v in phases.items()},
+           "trace_mb": round(trace.stat().st_size / 1e6, 2),
+           "trace_names_dia_spmv_kernel": names_kernel}
+    _say("profile", **out)
+    return out
+
+
+def _kernel_ms(fn) -> float:
+    """The device time of every kernel fn() launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def time_dist_iteration(csr, prob32) -> None:
+    """The one-rank distributed f32 classic iteration (the halo-fused
+    route) beside the single-device routes, ms per iteration from tol=0
+    chains of DIST_CHAINS iterations: the distributed solve eager (CUDA
+    events) and its device time (the kernels' sum by torch.profiler:
+    NCCL's cannot be captured in a graph with the solve's host-to-device
+    copies); the single-device unfused solver eager and as a replayed
+    graph; the single-device fused route, the same passes, eager and as a
+    replayed graph; and one global dot alone, over the one-rank group and
+    on the single device, eager."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import (_graph,
+                                                          _slope_time,
+                                                          bench_iteration)
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    from mpi_bicgstab_tpu_torch.ops.precision import vzeros_like
+    from mpi_bicgstab_tpu_torch.parallel.comm import Comm
+    from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
+                                                        row_comm,
+                                                        solve_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.solvers.bicgstab import bicgstab
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    K1, K2 = DIST_CHAINS
+    mesh = make_row_mesh(1, "cuda")
+    shard = put_partitioned(partition_csr(csr, 1, dtype=torch.float32),
+                            mesh)
+    b = csr.matvec(np.ones(csr.nrows))
+
+    def cfg(K):
+        return SolverConfig(tol=0.0, max_iter=K, dtype=torch.float32)
+
+    def dist_chain(K):
+        return lambda: solve_distributed(shard, b, cfg=cfg(K), mesh=mesh)
+
+    def unfused_chain(K, graph=False):
+        def run():
+            bicgstab(lambda v: spmv(prob32.A, v), Comm(), prob32.b,
+                     vzeros_like(prob32.b), cfg(K))
+        return _graph(run) if graph else run
+
+    dist_eager = _slope_time(dist_chain, K1, K2) * 1e3
+    k1, k2 = (_kernel_ms(dist_chain(K)) for K in (K1, K2))
+    dist_dev = (k2 - k1) / (K2 - K1)
+    unf_eager = _slope_time(unfused_chain, K1, K2) * 1e3
+    unf_dev = _slope_time(lambda K: unfused_chain(K, True), K1, K2) * 1e3
+    fused = {g: bench_iteration(prob32, "bicgstab", iters=K2,
+                                graph=g)["time_per_iter_s"] * 1e3
+             for g in (False, True)}
+    dots = {}
+    for name, comm in (("dist", row_comm(mesh)), ("single", Comm())):
+        def dot_chain(K, comm=comm):
+            return lambda: [comm.dot(prob32.b, prob32.b) for _ in range(K)]
+        dots[name] = _slope_time(dot_chain, K1, K2) * 1e3
+    _say("times", dist_one_rank_f32_eager_ms_per_iter=f"{dist_eager:.4f}",
+         dist_one_rank_f32_device_kernels_ms_per_iter=f"{dist_dev:.4f}",
+         single_unfused_f32_eager_ms_per_iter=f"{unf_eager:.4f}",
+         single_unfused_f32_device_ms_per_iter=f"{unf_dev:.4f}",
+         single_fused_f32_eager_ms_per_iter=f"{fused[False]:.4f}",
+         single_fused_f32_device_ms_per_iter=f"{fused[True]:.4f}",
+         one_rank_overhead_eager_ms=f"{dist_eager - fused[False]:.4f}",
+         dist_dot_eager_ms=f"{dots['dist']:.4f}",
+         single_dot_eager_ms=f"{dots['single']:.4f}",
+         chains=f"tol=0x{K1},{K2}")
+
+
+def run_dist_phases(csr, csr_h, lo: float, hi: float, winp: dict,
+                    binp: dict, device="cuda"):
+    """Every distributed phase on a one-rank process group of this
+    process (init_world), on the matrices and layouts the run has built:
+    transport_like (csr), transport_hard (csr_h, Chebyshev bounds lo /
+    hi), the window and butterfly inputs. Returns {phase: counts}."""
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    import torch
+    init_world(device)
+    runs = {}
+    try:
+        for phase in DIST_PATHS:
+            runs[phase] = run_dist_path(phase, csr, device=device)["counts"]
+        time_dist_iteration(csr, build_problem(csr, dtype=torch.float32,
+                                               multiple=1, device=device))
+        runs["dist_window"] = run_dist_layout(
+            "dist_window", winp["w_csr"], device=device,
+            layout=winp["W32"])["counts"]
+        runs["dist_butterfly"] = run_dist_layout(
+            "dist_butterfly", binp["b_csr"], device=device,
+            layout=binp["B32"])["counts"]
+        runs["dist_shifted"] = run_dist_shifted(csr, device=device)["counts"]
+        runs["dist_batched"] = run_dist_batched(csr, device=device)["counts"]
+        runs["dist_cheby"] = run_dist_cheby(csr_h, lo, hi,
+                                            device=device)["counts"]
+        run_dist_cli(N_MAIN, device=device)
+    finally:
+        end_world()
+    run_profile_path(N_MAIN, device=device)
+    return runs
+
+
 def io_times() -> int:
     """`chip_smoke.py --io-times`: the reader and the layout cache at the
     main path's width. The native parse against the NumPy parse of the
@@ -3582,6 +4434,7 @@ def main() -> int:
     check_frozen_lanes(calls, inp)
     check_nonfinite_frozen(nonfinite_frozen_inputs(inp))
     errs["shift_update_df"], su_row = check_shift_update(csr.nrows)
+    check_halo_kernels(inp)
     gc.collect()
     torch.cuda.empty_cache()
     # windowed-ELL: the layout built once on the host, in three dtypes
@@ -3770,6 +4623,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_tools(inp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the distributed layer on a one-rank NCCL group, and `profile`
+    runs.update(run_dist_phases(csr, csr_h, inp["h_lo"], inp["h_hi"], winp,
+                                binp))
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 
@@ -3808,7 +4666,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--chain-times": chain_times, "--batched-times": batched_times,
-             "--route-times": route_times, "--io-times": io_times}
+             "--route-times": route_times, "--io-times": io_times,
+             "--band-times": band_times}
     args = sys.argv[1:]
     sys.exit(modes[args[0]]() if len(args) == 1 and args[0] in modes
              else main())

@@ -12,8 +12,11 @@ launch's latency) cancels. The result is the median of several slopes.
 The events measure stream time, which includes any gap the host leaves
 between launches: a host-bound loop shows as such. time_call(graph=True)
 captures each chain in a CUDA graph first, so that the replay measures
-the device's own time for the launches with no host in between. There
-is no CPU path: without a card these functions raise.
+the device's own time for the launches with no host in between. The
+bench itself runs on the card only; `_slope_time` and
+`bench_shifted_iteration` also take device="cpu", where the chains are
+timed on the host's clock (the `profile` command's CPU path,
+benchmarks/sections.py).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -38,7 +42,11 @@ def _require_cuda():
         raise RuntimeError("timing needs a CUDA device; there is none")
 
 
-def _chain_seconds(chain) -> float:
+def _chain_seconds(chain, device: str = "cuda") -> float:
+    if device == "cpu":
+        t0 = time.perf_counter()
+        chain()
+        return time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -48,19 +56,23 @@ def _chain_seconds(chain) -> float:
     return start.elapsed_time(end) / 1e3
 
 
-def _slope_time(make_chain, K1=10, K2=60, reps=5) -> float:
+def _slope_time(make_chain, K1=10, K2=60, reps=5,
+                device: str = "cuda") -> float:
     """Seconds per operation: median over `reps` of the slope between a
     K1-long and a K2-long chain (make_chain(K) returns a callable that
-    runs K operations)."""
-    _require_cuda()
+    runs K operations); CUDA events on the card, the host's clock for
+    device="cpu"."""
+    if device != "cpu":
+        _require_cuda()
     c1, c2 = make_chain(K1), make_chain(K2)
     c1()
     c2()
-    torch.cuda.synchronize()
+    if device != "cpu":
+        torch.cuda.synchronize()
     slopes = []
     for _ in range(reps):
-        t1 = _chain_seconds(c1)
-        t2 = _chain_seconds(c2)
+        t1 = _chain_seconds(c1, device)
+        t2 = _chain_seconds(c2, device)
         slopes.append((t2 - t1) / (K2 - K1))
     return float(np.median(slopes))
 
@@ -179,7 +191,8 @@ def bench_batched_iteration(csr, dtype, k=8, method="bicgstab", iters=60,
 
 def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
                             method="shifted_lopbicg_switching", iters=40,
-                            shift_block=-1, graph=False, prob=None) -> dict:
+                            shift_block=-1, graph=False, prob=None,
+                            device: str = "cuda") -> dict:
     """Time per iteration of the SHIFTED family, the reference's flagship
     workload (its hot phase is the sigma_len x n shift-update traffic,
     shifted_switching_solver.c:429-445). The slope method of
@@ -193,18 +206,19 @@ def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
     shift_update_GBps divides the shift update's byte floor, two reads
     and two writes of the [S, n] x_set / p_set state (4 S n elem bytes,
     elem 8 for float64 and df32, 4 for float32), by the time per
-    iteration."""
+    iteration. device="cpu" builds and times on the CPU (host clock)."""
     from mpi_bicgstab_tpu_torch.api import _ladder, solve_shifted
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
     from mpi_bicgstab_tpu_torch.solvers.switching_blocked import \
         resolve_block
     from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
 
-    _require_cuda()
+    if device != "cpu":
+        _require_cuda()
     sigma = (np.arange(sigma_len, dtype=np.float64) + 1) * (0.01 / sigma_len)
     seed = min(seed, sigma_len - 1)
     if prob is None:
-        prob = build_problem(csr, dtype=dtype, multiple=1,
+        prob = build_problem(csr, dtype=dtype, multiple=1, device=device,
                              sigma_seed=float(sigma[seed]))
     sig = _ladder(prob.b, sigma)     # on the card before any capture
     # the blocked path flushes every L iterations: both chains then run
@@ -223,7 +237,7 @@ def bench_shifted_iteration(csr, dtype, sigma_len=512, seed=255,
                                       seed=seed, method=method, cfg=cfg)
         return _graph(chain) if graph else chain
 
-    sec = _slope_time(make_chain, K1=K1, K2=K2, reps=3)
+    sec = _slope_time(make_chain, K1=K1, K2=K2, reps=3, device=device)
     elem = 4 if dtype in ("float32", torch.float32) else 8
     bytes_iter = 4 * sigma_len * csr.nrows * elem
     return {"iter_method": method, "sigma_len": sigma_len,
@@ -324,7 +338,7 @@ def run_bench(args, device="cuda") -> int:
     each section of args.what (spmv, iter, shifted, cheby, batched) on
     the problem the `solve` command builds for args.matrix, beside the
     card's name and power limit. On the card only; --what overlap and
-    scaling need the distributed layer."""
+    scaling wait for slice 8b of the distributed layer."""
     from mpi_bicgstab_tpu_torch.cli import _build_problem, _load_matrix
     from mpi_bicgstab_tpu_torch.ops.cheby import estimate_bounds
     from mpi_bicgstab_tpu_torch.utils.device import resolve_device
@@ -332,8 +346,9 @@ def run_bench(args, device="cuda") -> int:
     what = args.what.split(",")
     for w in what:
         if w in ("overlap", "scaling"):
-            raise SystemExit(f"--what {w} measures the distributed layer "
-                             f"(ROADMAP slice 8), which is not ported yet")
+            raise SystemExit(f"--what {w} measures the overlap and "
+                             f"scaling of the distributed layer (ROADMAP "
+                             f"slice 8b), which is not ported yet")
         if w not in SECTIONS:
             raise SystemExit(f"--what: unknown section {w!r}; choose from "
                              f"{', '.join(SECTIONS)}")

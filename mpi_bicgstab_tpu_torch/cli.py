@@ -335,6 +335,9 @@ def run_solve(args):
             x0_host = permute_vector(x0_host, perm)
         if d_invsqrt is not None:
             x0_host = x0_host / d_invsqrt    # y = D^1/2 x
+    if args.devices > 1:
+        return _run_solve_dist(args, csr, dtype, cfg, b_user, x0_host, prec,
+                               perm, d_invsqrt, io_time, t_set)
     prob = _build_problem(csr, dtype, dev, args.format, args.layout_cache)
     if args.rhs_batch:
         return _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
@@ -367,18 +370,32 @@ def run_solve(args):
                     "final_relres": cum_rel, "converged": cum_rel <= args.tol,
                     "note": "run already complete in checkpoint"}, None
     else:
-        def run_once():
-            r = solve(prob.A, b, x0=x0, method=args.method, cfg=cfg,
-                      precond=prec)
-            bool(r.converged)                  # waits for the device
-            return r
-
-        res = run_once()                       # the untimed first run
-        t0 = time.perf_counter()
-        for _ in range(args.repeat):
-            res = run_once()
-        total = (time.perf_counter() - t0) / args.repeat
+        res, total = _timed(args.repeat, lambda: solve(
+            prob.A, b, x0=x0, method=args.method, cfg=cfg, precond=prec))
         done = res.n_iter
+    return _solve_report(args, res, done, total, cum_rel, csr, perm,
+                         d_invsqrt, prec, io_time, setup, dev,
+                         type(prob.A).__name__), res
+
+
+def _timed(repeat: int, run):
+    """(result, mean seconds): run() once untimed, then `repeat` times
+    timed, each waiting for the device (the JAX CLI's --repeat)."""
+    def once():
+        r = run()
+        bool(r.converged)                       # waits for the device
+        return r
+
+    res = once()                                # the untimed first run
+    t0 = time.perf_counter()
+    for _ in range(repeat):
+        res = once()
+    return res, (time.perf_counter() - t0) / repeat
+
+
+def _solve_report(args, res, done, total, cum_rel, csr, perm, d_invsqrt,
+                  prec, io_time, setup, dev, layout) -> dict:
+    """Write --dump-history / --write-solution and return the report."""
     _dump_history(args.dump_history, res)
     if args.write_solution:
         np.save(args.write_solution,
@@ -388,14 +405,14 @@ def run_solve(args):
               f"preconditioning (--precond cheby:8) typically cuts "
               f"slow-converging systems ~8-10x for the same SpMV work "
               f"(ops/cheby.py)", file=sys.stderr)
-    report = {
+    return {
         "method": args.method,
         "matrix": args.matrix,
         "n": csr.nrows,
         "nnz": csr.nnz,
-        "devices": 1,
+        "devices": args.devices,
         "device": str(dev),
-        "layout": type(prob.A).__name__,
+        "layout": layout,
         "reordered": perm is not None,
         "scaled": d_invsqrt is not None,
         "precond": (f"cheby:{prec.degree}:{prec.lo}:{prec.hi}"
@@ -412,7 +429,39 @@ def run_solve(args):
         "total_time_s": round(total, 6),
         "avg_time_per_iter_s": round(total / max(done, 1), 9),
     }
-    return report, res
+
+
+def _part_layout(part) -> str:
+    """A partition's layouts, e.g. PartitionedMatrix(dia-halo+ell)."""
+    kinds = ([f"dia-{part.dia_mode}"] if part.has_dia else []) \
+        + (["window"] if part.has_window else []) \
+        + (["butterfly"] if part.has_bfly else []) \
+        + (["ell"] if part.has_ell else [])
+    return f"PartitionedMatrix({'+'.join(kinds)})"
+
+
+def _run_solve_dist(args, csr, dtype, cfg, b_user, x0_host, prec, perm,
+                    d_invsqrt, io_time, t_set):
+    """run_solve on this rank of a --devices world: the partition, this
+    rank's shard on its device, and solve_distributed (JAX cli.py:337-
+    354); the global x on every rank."""
+    from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
+                                                        solve_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    part = partition_csr(csr, args.devices, dtype=dtype, format=args.format,
+                         cache_dir=args.layout_cache)
+    mesh = make_row_mesh(args.devices)
+    shard = put_partitioned(part, mesh)
+    b = b_user if b_user is not None else csr.matvec(np.ones(csr.nrows))
+    setup = time.perf_counter() - t_set
+    _ready(mesh.device)
+    res, total = _timed(args.repeat, lambda: solve_distributed(
+        shard, b, x0=x0_host, method=args.method, cfg=cfg, mesh=mesh,
+        halo=args.halo, precond=prec))
+    return _solve_report(args, res, res.n_iter, total, None, csr, perm,
+                         d_invsqrt, prec, io_time, setup, mesh.device,
+                         _part_layout(part)), res
 
 
 def _precond(spec: str, csr):
@@ -475,8 +524,7 @@ def _solve_rhs_batch(args, csr, prob, cfg, io_time, prec, perm,
     return report, res
 
 
-def cmd_solve(args) -> int:
-    report, _ = run_solve(args)
+def _print_solve(args, report: dict) -> int:
     if args.json and "setup_s" in report:
         # one solve's report: the JAX package's keys (the batched and the
         # checkpoint-complete reports have the JAX keys already)
@@ -484,6 +532,66 @@ def cmd_solve(args) -> int:
     _report(report, args.json)
     conv = report["converged"]
     return 0 if (all(conv) if isinstance(conv, list) else conv) else 2
+
+
+def _spawn(fn, args, ranks: int) -> int:
+    """fn(args) on `ranks` ranks of a fresh world (parallel/launch.py:
+    gloo for --device cpu, NCCL on the card, one card per rank); rank 0
+    prints. Returns rank 0's exit code."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.parallel import launch
+    from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and ranks > torch.cuda.device_count():
+        raise SystemExit(f"--devices: requested {ranks} devices, only "
+                         f"{torch.cuda.device_count()} CUDA device(s) "
+                         f"present")
+    return launch.run(fn, ranks, args, device=dev.type)
+
+
+def _rank_args(args):
+    """(args, context) of this rank: rank 0 prints and writes the files;
+    the others compute with their output discarded."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        return args, contextlib.nullcontext()
+    quiet = argparse.Namespace(**vars(args))
+    quiet.write_solution = quiet.dump_history = None
+    return quiet, contextlib.redirect_stdout(io.StringIO())
+
+
+def solve_rank(args) -> int:
+    """`solve --devices N` on one rank (parallel/launch.run's task)."""
+    args, ctx = _rank_args(args)
+    with ctx:
+        code = _print_solve(args, run_solve(args)[0])
+        sys.stdout.flush()
+    return code
+
+
+def _check_devices_args(args) -> None:
+    if args.devices < 1:
+        raise SystemExit("--devices must be >= 1")
+    if args.devices > 1 and getattr(args, "rhs_batch", None):
+        raise SystemExit("--rhs-batch is single-device (use separate runs "
+                         "or shard the batch across processes)")
+    if args.devices > 1 and args.checkpoint:
+        raise SystemExit("--checkpoint is single-device here: the "
+                         "distributed iterate checkpoint is not ported "
+                         "yet (ROADMAP queue 1 item 8b)")
+
+
+def cmd_solve(args) -> int:
+    _check_devices_args(args)
+    if args.devices > 1:
+        _check_solve_args(args)
+        return _spawn(solve_rank, args, args.devices)
+    report, _ = run_solve(args)
+    return _print_solve(args, report)
 
 
 def _ladder(args, S: int):
@@ -520,6 +628,56 @@ def _check_shifted_args(args) -> None:
             raise SystemExit("--checkpoint-every must be >= 1")
     if args.repeat < 1:
         raise SystemExit("--repeat must be >= 1")
+    if args.devices < 1:
+        raise SystemExit("--devices must be >= 1")
+    if args.checkpoint and args.devices > 1:
+        raise SystemExit("--checkpoint is single-device for the shifted "
+                         "family (the carry is saved unsharded)")
+    if args.sigma_devices < 1:
+        raise SystemExit("--sigma-devices must be >= 1")
+    if args.sigma_devices > 1 and args.devices < 2:
+        raise SystemExit("--sigma-devices shards the ladder over a 2-D "
+                         "(rows x sigma) grid; it requires the distributed "
+                         "path (--devices > 1)")
+    for S in _sweep(args):
+        if S % args.sigma_devices:
+            raise SystemExit(f"--sigma-len {S} not divisible by "
+                             f"--sigma-devices {args.sigma_devices}")
+
+
+def _sweep(args) -> list:
+    return ([int(v) for v in args.sigma_len_sweep.split(",")]
+            if args.sigma_len_sweep else [args.sigma_len])
+
+
+def _shifted_dist(args, csr, dtype):
+    """(runner, refine) of this rank of a --devices [x --sigma-devices]
+    world (JAX cli.py:563-573,627-631): the partition once, this rank's
+    shard on its device; runner(b, sigma, seed, cfg) solves over the
+    grid, refine(b, sigma, x_set, cfg) over the rows (None on a rank
+    beyond them)."""
+    from mpi_bicgstab_tpu_torch.parallel.driver import (
+        put_partitioned, refine_shifted_distributed,
+        solve_shifted_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import (make_grid_mesh,
+                                                      make_row_mesh)
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    part = partition_csr(csr, args.devices, dtype=dtype, format=args.format,
+                         cache_dir=args.layout_cache)
+    G = args.sigma_devices
+    mesh = make_grid_mesh(args.devices, G) if G > 1 \
+        else make_row_mesh(args.devices)
+    shard = put_partitioned(part, mesh)
+
+    def runner(b, sigma, seed, cfg):
+        return solve_shifted_distributed(
+            shard, b, sigma, seed=seed, method=args.method, cfg=cfg,
+            mesh=mesh, halo=args.halo, sigma_devices=G)
+
+    def refine(b, sigma, x_set, cfg):
+        return refine_shifted_distributed(part, b, sigma, x_set, cfg,
+                                          halo=args.halo)
+    return runner, refine, mesh.device
 
 
 def run_solve_shifted(args, report=None):
@@ -556,10 +714,9 @@ def run_solve_shifted(args, report=None):
     if dev.type == "cuda":
         from mpi_bicgstab_tpu_torch.ops import _build
         _build.build_all()    # the kernel build is set-up, not solve time
-    sweep = ([int(v) for v in args.sigma_len_sweep.split(",")]
-             if args.sigma_len_sweep else [args.sigma_len])
+    dist = _shifted_dist(args, csr, dtype) if args.devices > 1 else None
     rows, res = [], None
-    for S in sweep:
+    for S in _sweep(args):
         sigma, seed = _ladder(args, S)
         cfg = ShiftedConfig(tol=tol, max_iter=args.max_iter, dtype=dtype,
                             out_iter=args.verbose_every,
@@ -567,11 +724,14 @@ def run_solve_shifted(args, report=None):
         # default rhs: b = (A + sigma_seed I) ones (main_shifted.c:109-114)
         b_host = b_user if b_user is not None else \
             csr.matvec(np.ones(n)) + sigma[seed] * np.ones(n)
-        prob = _build_problem(csr, dtype, dev, args.format,
-                              args.layout_cache,
-                              sigma_seed=float(sigma[seed]))
-        b = prob.b if b_user is None else _device_vector(b_user, prob.n, df,
-                                                         dtype, dev)
+        if dist is not None:
+            run_dist, refine_dist, dev = dist
+        else:
+            prob = _build_problem(csr, dtype, dev, args.format,
+                                  args.layout_cache,
+                                  sigma_seed=float(sigma[seed]))
+            b = prob.b if b_user is None else _device_vector(
+                b_user, prob.n, df, dtype, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if args.checkpoint:
@@ -589,8 +749,11 @@ def run_solve_shifted(args, report=None):
             total = time.perf_counter() - t0
         else:
             def run_once():
-                r = solve_shifted(prob.A, b, sigma, seed=seed,
-                                  method=args.method, cfg=cfg)
+                if dist is not None:
+                    r = run_dist(b_host, sigma, seed, cfg)
+                else:
+                    r = solve_shifted(prob.A, b, sigma, seed=seed,
+                                      method=args.method, cfg=cfg)
                 float(r.final_relres)           # waits for the device
                 return r
 
@@ -604,12 +767,15 @@ def run_solve_shifted(args, report=None):
         if args.refine:
             rcfg = SolverConfig(tol=tol, max_iter=args.max_iter,
                                 dtype=dtype)
-            x2, rk, rres = refine_shifted_solutions(prob.A, b, sigma,
-                                                    res.x_set, rcfg)
-            res = dataclasses.replace(res, x_set=x2)
-            refine_info = {"refine_iters": int(rk),
-                           "max_true_relres_after_refine":
-                               float(rres.max())}
+            out = refine_dist(b_host, sigma, res.x_set, rcfg) \
+                if dist is not None else refine_shifted_solutions(
+                    prob.A, b, sigma, res.x_set, rcfg)
+            if out is not None:     # None: a rank beyond the rows
+                x2, rk, rres = out
+                res = dataclasses.replace(res, x_set=x2)
+                refine_info = {"refine_iters": int(rk),
+                               "max_true_relres_after_refine":
+                                   float(rres.max())}
         payload = {
             "method": args.method,
             "matrix": args.matrix,
@@ -617,8 +783,8 @@ def run_solve_shifted(args, report=None):
             "sigma_len": S,
             "seed": int(seed),
             "final_seed": int(res.final_seed),
-            "devices": 1,
-            "sigma_devices": 1,
+            "devices": args.devices,
+            "sigma_devices": args.sigma_devices,
             "io_time_s": round(io_time, 6),
             "total_iter": int(res.n_iter),
             "final_relres": float(res.final_relres),
@@ -650,8 +816,23 @@ def run_solve_shifted(args, report=None):
 
 
 def cmd_solve_shifted(args) -> int:
+    if args.devices > 1:
+        _check_shifted_args(args)
+        return _spawn(solve_shifted_rank, args,
+                      args.devices * args.sigma_devices)
     rows, _ = run_solve_shifted(
         args, report=lambda payload: _report(payload, args.json))
+    return 0 if all(r["all_converged"] for r in rows) else 2
+
+
+def solve_shifted_rank(args) -> int:
+    """`solve-shifted --devices N` on one rank (parallel/launch.run's
+    task)."""
+    args, ctx = _rank_args(args)
+    with ctx:
+        rows, _ = run_solve_shifted(
+            args, report=lambda payload: _report(payload, args.json))
+        sys.stdout.flush()
     return 0 if all(r["all_converged"] for r in rows) else 2
 
 
@@ -848,18 +1029,84 @@ def run_selftest_check(name: str, dtype: str, device) -> tuple:
     return ok, detail, time.perf_counter() - t0
 
 
+def _selftest_dist(pool, n: int, dtype, tol):
+    """The distributed checks (JAX cli.py:864-905) on a pool of n ranks:
+    name -> check() returning (ok, detail)."""
+    from mpi_bicgstab_tpu_torch.models import generators as G
+    from mpi_bicgstab_tpu_torch.parallel import driver
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    from mpi_bicgstab_tpu_torch.utils.config import (ShiftedConfig,
+                                                     SolverConfig)
+
+    def dist():
+        csr = G.banded_random(2048, [1, -1, 13, -13], seed=0)
+        r = pool.run(driver.solve_distributed,
+                     partition_csr(csr, n, dtype=dtype),
+                     csr.matvec(np.ones(csr.nrows)),
+                     cfg=SolverConfig(tol=tol, max_iter=4000, dtype=dtype))
+        return bool(r.converged), f"devices={n} iters={r.n_iter}"
+
+    def sigma_grid():
+        """The rows x sigma grid must reproduce the rows-only trajectory
+        bit for bit (parallel/sigma.py)."""
+        csr = G.banded_random(1024, [1, -1, 9, -9], seed=0)
+        sigma = np.array([0.0, 0.01, 0.05, 0.2])
+        b = csr.matvec(np.ones(csr.nrows)) + sigma[2]
+        part = partition_csr(csr, n // 2, dtype=dtype)
+        kw = dict(seed=2, method="shifted_lopbicg_switching",
+                  cfg=ShiftedConfig(tol=tol, max_iter=2000, dtype=dtype))
+        r1 = pool.run(driver.solve_shifted_distributed, part, b, sigma, **kw)
+        r2 = pool.run(driver.solve_shifted_distributed, part, b, sigma,
+                      sigma_devices=2, **kw)
+        same = (int(r1.n_iter) == int(r2.n_iter)
+                and float(r1.final_relres) == float(r2.final_relres))
+        return same, (f"iters {int(r1.n_iter)}=={int(r2.n_iter)}, "
+                      f"relres equal={same}")
+
+    checks = {f"distributed/bicgstab x{n}": dist}
+    if n >= 4 and n % 2 == 0:
+        checks[f"distributed/sigma-grid {n // 2}x2"] = sigma_grid
+    return checks
+
+
 def cmd_selftest(args) -> int:
     """Every SELFTEST check in --dtype on --device, each printed PASS or
-    FAIL with its seconds; exit 2 on any failure. The reference's
-    analogue is test_shifted.c built with DISPLAY_ERROR
-    (test_shifted.c:10,129-154)."""
-    n_fail = 0
-    for name in SELFTEST:
-        ok, detail, sec = run_selftest_check(name, args.dtype, args.device)
+    FAIL with its seconds, then with --devices N the distributed checks
+    over N ranks; exit 2 on any failure. The reference's analogue is
+    test_shifted.c built with DISPLAY_ERROR (test_shifted.c:10,129-154)."""
+    import torch
+
+    n_fail = n_run = 0
+
+    def say(name, ok, detail, sec):
+        nonlocal n_fail, n_run
         n_fail += not ok
+        n_run += 1
         print(f"{'PASS' if ok else 'FAIL':4} {name:42} {sec:6.1f}s  "
               f"{detail}", flush=True)
-    print(f"\n{len(SELFTEST) - n_fail}/{len(SELFTEST)} passed "
+
+    for name in SELFTEST:
+        say(name, *run_selftest_check(name, args.dtype, args.device))
+    if args.devices > 1:
+        from mpi_bicgstab_tpu_torch.parallel import launch
+        from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+        dev = resolve_device(args.device)
+        if dev.type == "cuda" and args.devices > torch.cuda.device_count():
+            raise SystemExit(f"--devices: requested {args.devices} "
+                             f"devices, only {torch.cuda.device_count()} "
+                             f"CUDA device(s) present")
+        dt = args.dtype if args.dtype == "df32" else getattr(torch,
+                                                             args.dtype)
+        with launch.Pool(args.devices, dev.type) as pool:
+            for name, check in _selftest_dist(
+                    pool, args.devices, dt, selftest_tol(args.dtype)).items():
+                t0 = time.perf_counter()
+                try:
+                    ok, detail = check()
+                except Exception as e:  # noqa: BLE001 — report it
+                    ok, detail = False, f"{type(e).__name__}: {e}"
+                say(name, ok, detail, time.perf_counter() - t0)
+    print(f"\n{n_run - n_fail}/{n_run} passed "
           f"(device={args.device}, dtype={args.dtype})")
     return 2 if n_fail else 0
 
@@ -878,6 +1125,11 @@ def cmd_convert(args) -> int:
 def cmd_bench(args) -> int:
     from mpi_bicgstab_tpu_torch.benchmarks.runner import run_bench
     return run_bench(args)
+
+
+def cmd_profile(args) -> int:
+    from mpi_bicgstab_tpu_torch.benchmarks.sections import run_profile
+    return run_profile(args)
 
 
 def _add_layout(p) -> None:
@@ -916,6 +1168,17 @@ def _add_output(p) -> None:
                    help="write the per-iteration relative residuals (the "
                         "data behind the reference's "
                         "doc/residual_result.png) as .npy or .csv")
+
+
+def _add_devices(p) -> None:
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks of the row partition; > 1 starts them "
+                        "(parallel/launch.py: NCCL on the cards, gloo with "
+                        "--device cpu) and takes the distributed path")
+    p.add_argument("--halo", choices=["allgather", "ring"],
+                   default="allgather",
+                   help="how the off-diagonal ELL blocks get the iterate "
+                        "(parallel/dist_spmv.py)")
 
 
 def _add_device(p) -> None:
@@ -995,6 +1258,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(utils/checkpoint.py; a classic-family restart "
                         "from the iterate is exact)")
     p.add_argument("--checkpoint-every", type=int, default=200)
+    _add_devices(p)
     _add_output(p)
     _add_layout(p)
     _add_device(p)
@@ -1048,6 +1312,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "original row order) as .npy")
     p.add_argument("--x0", default=None, metavar="FILE",
                    help="refused: the shifted family starts from x0 = 0")
+    _add_devices(p)
+    p.add_argument("--sigma-devices", type=int, default=1, metavar="G",
+                   help="shard the shift ladder over a second grid axis of "
+                        "G ranks (--devices x G ranks as a rows-by-sigma "
+                        "grid; requires --devices > 1 and sigma-len "
+                        "divisible by G; parallel/sigma.py)")
     _add_output(p)
     p.add_argument("--verbose-every", type=int, default=0, metavar="N",
                    help="print the seed relative residual every N "
@@ -1069,8 +1339,28 @@ def build_parser() -> argparse.ArgumentParser:
              "through the CUDA kernels)")
     p.add_argument("--dtype", choices=["float32", "float64", "df32"],
                    default="float32")
+    p.add_argument("--devices", type=int, default=1,
+                   help="> 1 adds the distributed checks over that many "
+                        "ranks (and the rows x sigma grid for an even "
+                        "count >= 4)")
     _add_device(p)
     p.set_defaults(fn=cmd_selftest)
+
+    p = sub.add_parser("profile",
+                       help="per-phase section timings (the reference's "
+                            "MEASURE_SECTION_TIME mode)")
+    p.add_argument("--matrix", default="transport-like:200000")
+    p.add_argument("--dtype", choices=["float32", "float64"],
+                   default="float32")
+    p.add_argument("--devices", type=int, default=1)
+    p.add_argument("--sigma-len", type=int, default=0)
+    p.add_argument("--iters", type=int, default=60)
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="also write a torch.profiler trace (Chrome JSON) "
+                        "of one solve to DIR")
+    p.add_argument("--json", action="store_true")
+    _add_device(p)
+    p.set_defaults(fn=cmd_profile)
 
     p = sub.add_parser(
         "convert",
@@ -1090,7 +1380,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma list: spmv, iter, shifted, batched (k = 8 "
                         "right-hand sides against one), cheby (the chain "
                         "kernel against the unfused chain); overlap and "
-                        "scaling need the distributed layer (slice 8)")
+                        "scaling wait for slice 8b of the distributed "
+                        "layer")
     p.add_argument("--method", default=None,
                    help="solver of the iter, shifted and batched sections")
     p.add_argument("--sigma-len", type=int, default=512,

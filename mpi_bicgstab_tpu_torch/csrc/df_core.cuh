@@ -107,22 +107,24 @@ struct WholeSrcDF {
 
 // sum_w vals[w, i] * src(i + off[w]), accumulated with df_fma from
 // acc = 0, diagonal by diagonal in offset order (the plain twin's
-// pad-plus-slice order). An out-of-range column is never read: its source
-// value is the pair (0, 0), exactly what the twin's zero padding gives,
-// so every row takes the twin's operation sequence bit for bit. The band
-// streams evict-first, as in dia_row (dia_core.cuh).
+// pad-plus-slice order). A column outside [lo, hi) (dia_row's bounds,
+// dia_core.cuh) is never read: its source value is the pair (0, 0),
+// exactly what the twin's zero padding gives, so every row takes the
+// twin's operation sequence bit for bit. The band streams evict-first, as
+// in dia_row.
 template <typename Src>
 __device__ __forceinline__ df_t dia_row_df(const DiaOffsets& offs,
                                            const float* __restrict__ vh,
                                            const float* __restrict__ vl,
                                            long long n, long long i,
+                                           long long lo, long long hi,
                                            Src src) {
   df_t acc = {0.0f, 0.0f};
   for (int w = 0; w < offs.n_diags; ++w) {
     const long long j = i + offs.off[w];
     const long long at = (long long)w * n + i;
     const df_t a = {__ldcs(vh + at), __ldcs(vl + at)};
-    const df_t x = (j >= 0 && j < n) ? src(j) : df_t{0.0f, 0.0f};
+    const df_t x = (j >= lo && j < hi) ? src(j) : df_t{0.0f, 0.0f};
     acc = df_fma(acc, a, x);
   }
   return acc;

@@ -11,9 +11,14 @@
 // Pallas kernels' (8,128) tiles, lane rolls and chunk-head DMAs exist for
 // the TPU's VMEM and have no counterpart here.
 //
-// Columns outside [0, n) are skipped, never read: the band values there
+// Columns outside [lo, hi) are skipped, never read: the band values there
 // are 0, but 0 * garbage can be NaN (the JAX kernels need zero margins
-// for the same reason, pallas_fused_classic.py:237-247).
+// for the same reason, pallas_fused_classic.py:237-247). On one device
+// [lo, hi) is [0, n). In the halo form of a row-partitioned solve
+// (solvers/fused_dist.py) every source vector carries h entries of each
+// neighbour's edge rows before and after the rank's n, so a column may lie
+// in [-h, n + h): lo is -h where a previous rank exists, hi is n + h where
+// a next one does, and the ends of the matrix keep 0 and n.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,21 +44,36 @@ static inline bool mbt_fill_offsets(DiaOffsets& o, const int* offsets,
   return true;
 }
 
-// sum_w vals[w, i] * src(i + off[w]) over the in-range columns.
+// sum_w vals[w, i] * src(i + off[w]) over the columns in [lo, hi).
 // The band values are read once and never again: __ldcs marks them
 // evict-first so that they do not push the source vectors (reread by
 // the neighbouring rows' threads) out of L2.
 template <typename T, typename Src>
 __device__ __forceinline__ T dia_row(const DiaOffsets& offs,
                                      const T* __restrict__ vals,
-                                     long long n, long long i, Src src) {
+                                     long long n, long long i, long long lo,
+                                     long long hi, Src src) {
   T acc = T(0);
   for (int w = 0; w < offs.n_diags; ++w) {
     const long long j = i + offs.off[w];
     const T a = __ldcs(vals + (long long)w * n + i);
-    if (j >= 0 && j < n) acc += a * src(j);
+    if (j >= lo && j < hi) acc += a * src(j);
   }
   return acc;
+}
+
+// The column bounds a band launcher takes must hold the rank's own rows:
+// lo <= 0 and hi >= n. That the source vectors hold [lo, hi) is the
+// wrapper's check (ops/cuda_spmv.Halo).
+static inline bool mbt_bounds_ok(long long n, long long lo, long long hi) {
+  return lo <= 0 && hi >= n;
+}
+
+// Is [lo, hi) a halo form's? The band kernels take it as a template flag:
+// their instance for [0, n) tests the constant bounds of the kernel before
+// the halo form (its code, and its time, unchanged), the other [lo, hi).
+static inline bool mbt_is_halo(long long n, long long lo, long long hi) {
+  return lo != 0 || hi != n;
 }
 
 // A product and a sum each rounded on its own, never contracted into an

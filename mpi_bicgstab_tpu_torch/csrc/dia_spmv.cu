@@ -16,6 +16,14 @@
 // streams past it evict-first, so HBM sees about the least traffic
 // without any tiling. The launcher returns cudaGetLastError().
 //
+// The halo form (halo > 0) is the local band multiply of the row-
+// partitioned DIA SpMV (parallel/dist_spmv.spmv_dia_halo): x is the rank's
+// halo-extended vector of n + 2 halo entries (the neighbours' edge rows,
+// or zeros at the ends of the matrix, around the rank's own n), and row i
+// reads column j = i + off at x[halo + j] for -halo <= j < n + halo. The
+// JAX package forms those slices in XLA (parallel/dist_spmv.py:59-68); at
+// halo = 0 the bounds are [0, n) and the kernel is the plain SpMV.
+//
 // The DF SpMV (mbt_dia_spmv_df) has no Pallas kernel to replace: the JAX
 // package computes it in XLA (mpi_bicgstab_tpu/ops/dia.py::dia_spmv_df).
 // The port runs it as a kernel on the card for the reason the float64
@@ -37,24 +45,26 @@ struct PlainSrc {
   }
 };
 
+// x points at the rank's first row: x[j] for -halo <= j < n + halo.
 template <typename T>
 __global__ void __launch_bounds__(MBT_BLOCK)
     dia_spmv_kernel(const __grid_constant__ DiaOffsets offs, long long n,
-                    const T* __restrict__ vals, const T* __restrict__ x,
-                    T* __restrict__ y) {
+                    long long halo, const T* __restrict__ vals,
+                    const T* __restrict__ x, T* __restrict__ y) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) y[i] = dia_row<T>(offs, vals, n, i, PlainSrc<T>{x});
+  if (i < n)
+    y[i] = dia_row<T>(offs, vals, n, i, -halo, n + halo, PlainSrc<T>{x});
 }
 
 template <typename T>
 static cudaError_t launch(const int* offsets, int n_diags, long long n,
-                          const T* vals, const T* x, T* y,
+                          long long halo, const T* vals, const T* x, T* y,
                           cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || halo < 0 || !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  dia_spmv_kernel<T><<<mbt_grid(n), MBT_BLOCK, 0, stream>>>(o, n, vals, x,
-                                                            y);
+  dia_spmv_kernel<T><<<mbt_grid(n), MBT_BLOCK, 0, stream>>>(
+      o, n, halo, vals, x + halo, y);
   return cudaGetLastError();
 }
 
@@ -68,40 +78,46 @@ struct PlainSrcDF {
 
 __global__ void __launch_bounds__(MBT_BLOCK)
     dia_spmv_df_kernel(const __grid_constant__ DiaOffsets offs, long long n,
-                       const float* __restrict__ vh,
+                       long long halo, const float* __restrict__ vh,
                        const float* __restrict__ vl,
                        const float* __restrict__ xh,
                        const float* __restrict__ xl, float* __restrict__ yh,
                        float* __restrict__ yl) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) st_df(yh, yl, i, dia_row_df(offs, vh, vl, n, i,
-                                         PlainSrcDF{xh, xl}));
+  if (i < n)
+    st_df(yh, yl, i, dia_row_df(offs, vh, vl, n, i, -halo, n + halo,
+                                PlainSrcDF{xh, xl}));
 }
 
 extern "C" {
 
+// y [n] = A x, x of n + 2 halo entries (halo 0: the plain SpMV).
 cudaError_t mbt_dia_spmv_f32(const int* offsets, int n_diags, long long n,
-                             const float* vals, const float* x, float* y,
+                             long long halo, const float* vals,
+                             const float* x, float* y,
                              cudaStream_t stream) {
-  return launch<float>(offsets, n_diags, n, vals, x, y, stream);
+  return launch<float>(offsets, n_diags, n, halo, vals, x, y, stream);
 }
 
 cudaError_t mbt_dia_spmv_f64(const int* offsets, int n_diags, long long n,
-                             const double* vals, const double* x,
-                             double* y, cudaStream_t stream) {
-  return launch<double>(offsets, n_diags, n, vals, x, y, stream);
+                             long long halo, const double* vals,
+                             const double* x, double* y,
+                             cudaStream_t stream) {
+  return launch<double>(offsets, n_diags, n, halo, vals, x, y, stream);
 }
 
-// DF: vals_hi/vals_lo [n_diags, n], x and y as (hi, lo) arrays of n.
+// DF: vals_hi/vals_lo [n_diags, n], x as (hi, lo) arrays of n + 2 halo,
+// y as (hi, lo) arrays of n.
 cudaError_t mbt_dia_spmv_df(const int* offsets, int n_diags, long long n,
-                            const float* vals_hi, const float* vals_lo,
-                            const float* x_hi, const float* x_lo,
-                            float* y_hi, float* y_lo, cudaStream_t stream) {
+                            long long halo, const float* vals_hi,
+                            const float* vals_lo, const float* x_hi,
+                            const float* x_lo, float* y_hi, float* y_lo,
+                            cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || halo < 0 || !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   dia_spmv_df_kernel<<<mbt_grid(n), MBT_BLOCK, 0, stream>>>(
-      o, n, vals_hi, vals_lo, x_hi, x_lo, y_hi, y_lo);
+      o, n, halo, vals_hi, vals_lo, x_hi + halo, x_lo + halo, y_hi, y_lo);
   return cudaGetLastError();
 }
 

@@ -37,6 +37,15 @@
 // * Dots: one partial row per block of a [G, k] buffer, summed in a
 //   fixed order by sum_partials. No float atomics.
 // * alpha, beta and omega stay on the device, read through pointers.
+//
+// The halo form (solvers/fused_dist.py; the JAX package's
+// solvers/fused_dist.py puts the neighbours' rows in the Pallas kernels'
+// zero margins): in a row-partitioned solve every vector holds the rank's
+// n rows with h entries of each neighbour's edge rows before and after,
+// exchanged before the pass. The wrappers pass pointers to the rank's
+// first row, and the launchers take the columns [lo, hi) a row may read
+// (dia_core.cuh); [0, n) on one device. A neighbour's s' or r' is
+// recomputed from its exchanged w, s, z or q, y.
 #include "dia_core.cuh"
 
 struct CaK1Src {  // s'(j) = w[j] + beta (s[j] - omega z[j])
@@ -59,8 +68,10 @@ struct CaK2Src {  // r'(j) = q[j] - omega y[j]
   }
 };
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     ca_k1_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                 long long lo, long long hi,
                  const float* __restrict__ vals, const float* __restrict__ r,
                  const float* __restrict__ p, const float* __restrict__ s,
                  const float* __restrict__ w, const float* __restrict__ z,
@@ -70,12 +81,16 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                  float* __restrict__ s2, float* __restrict__ z2,
                  float* __restrict__ q, float* __restrict__ y,
                  float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const float a = *alpha, b = *beta, om = *omega;
   const CaK1Src src{w, s, z, b, om};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[2] = {0.0f, 0.0f};
   if (i < n) {
-    const float z2_i = dia_row<float>(offs, vals, n, i, src);
+    const float z2_i = dia_row<float>(offs, vals, n, i, lo, hi, src);
     const float s2_i = src(i);
     const float r_i = r[i];
     const float q_i = __fmaf_rn(-a, s2_i, r_i);
@@ -91,8 +106,10 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   block_sum<2>(part, partials + 2 * (long long)blockIdx.x);
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     ca_k2_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                 long long lo, long long hi,
                  const float* __restrict__ vals, const float* __restrict__ q,
                  const float* __restrict__ y, const float* __restrict__ x,
                  const float* __restrict__ p2,
@@ -102,12 +119,16 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                  const float* __restrict__ omega, float* __restrict__ x2,
                  float* __restrict__ r2, float* __restrict__ w2,
                  float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const float a = *alpha, om = *omega;
   const CaK2Src src{q, y, om};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (i < n) {
-    const float w2_i = dia_row<float>(offs, vals, n, i, src);
+    const float w2_i = dia_row<float>(offs, vals, n, i, lo, hi, src);
     const float r2_i = src(i);
     const float rh = r_hat[i];
     x2[i] = __fmaf_rn(om, q[i], __fmaf_rn(a, p2[i], x[i]));
@@ -127,6 +148,7 @@ extern "C" {
 // scalars: 0-d device floats. partials: [mbt_grid(n), 2] scratch;
 // dots: [2] = (q, y), (y, y).
 cudaError_t mbt_ca_k1_f32(const int* offsets, int n_diags, long long n,
+                          long long lo, long long hi,
                           const float* vals, const float* r, const float* p,
                           const float* s, const float* w, const float* z,
                           const float* alpha, const float* beta,
@@ -134,18 +156,22 @@ cudaError_t mbt_ca_k1_f32(const int* offsets, int n_diags, long long n,
                           float* z2, float* q, float* y, float* partials,
                           float* dots, cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  ca_k1_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, p, s, w, z,
-                                            alpha, beta, omega, p2, s2, z2,
-                                            q, y, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &ca_k1_kernel<true> : &ca_k1_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, r, p, s, w, z, alpha, beta, omega, p2, s2, z2, q, y,
+      partials);
   return mbt_finish<2>(partials, G, dots, stream);
 }
 
 // partials: [mbt_grid(n), 5] scratch; dots: [5] = (r', r'), (r^, r'),
 // (r^, w'), (r^, s'), (r^, z').
 cudaError_t mbt_ca_k2_f32(const int* offsets, int n_diags, long long n,
+                          long long lo, long long hi,
                           const float* vals, const float* q, const float* y,
                           const float* x, const float* p2,
                           const float* r_hat, const float* s2,
@@ -154,12 +180,15 @@ cudaError_t mbt_ca_k2_f32(const int* offsets, int n_diags, long long n,
                           float* w2, float* partials, float* dots,
                           cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  ca_k2_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, q, y, x, p2, r_hat,
-                                            s2, z2, alpha, omega, x2, r2,
-                                            w2, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &ca_k2_kernel<true> : &ca_k2_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, q, y, x, p2, r_hat, s2, z2, alpha, omega, x2, r2, w2,
+      partials);
   return mbt_finish<5>(partials, G, dots, stream);
 }
 

@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   df_t part[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   if (i < n) {
-    const df_t z2 = dia_row_df(offs, vh, vl, n, i, src);
+    const df_t z2 = dia_row_df(offs, vh, vl, n, i, 0, n, src);
     const df_t s2 = src(i);
     const df_t r = ld_df(rh, rl, i);
     const df_t p2 =
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   df_t part[5] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f},
                   {0.0f, 0.0f}};
   if (i < n) {
-    const df_t w2 = dia_row_df(offs, vh, vl, n, i, src);
+    const df_t w2 = dia_row_df(offs, vh, vl, n, i, 0, n, src);
     const df_t r2 = src(i);
     const df_t x2 = df_fma(df_fma(ld_df(xh, xl, i), alpha, ld_df(p2h, p2l, i)),
                            omega, ld_df(qh, ql, i));
@@ -174,11 +174,15 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   store_partials_df<5>(part, partials);
 }
 
+// The launchers take the column bounds of the DF band launchers
+// (ops/cuda_spmv.df_pass) and refuse any but [0, n): these passes have
+// no halo form (neither have the JAX package's, solvers/fused_dist.py).
 extern "C" {
 
 // partials: [mbt_grid(n), 2, 2] scratch; dots: [2, 2] = (q, y), (y, y);
 // omega: [2, 1] = (q, y) / (y, y).
 cudaError_t mbt_ca_k1_df(const int* offsets, int n_diags, long long n,
+                         long long lo, long long hi,
                          const float* vh, const float* vl, const float* rh,
                          const float* rl, const float* ph, const float* pl,
                          const float* sh, const float* sl, const float* wh,
@@ -191,7 +195,8 @@ cudaError_t mbt_ca_k1_df(const int* offsets, int n_diags, long long n,
                          float* yh, float* yl, float* partials, float* dots,
                          float* omega, cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || lo != 0 || hi != n ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
   ca_k1_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(
@@ -205,6 +210,7 @@ cudaError_t mbt_ca_k1_df(const int* offsets, int n_diags, long long n,
 // (r^, r'), (r^, w'), (r^, s'), (r^, z'); folded: [2, 2] = beta, alpha'
 // (FoldBetaAlpha, with the rTr of the iteration's start).
 cudaError_t mbt_ca_k2_df(const int* offsets, int n_diags, long long n,
+                         long long lo, long long hi,
                          const float* vh, const float* vl, const float* qh,
                          const float* ql, const float* yh, const float* yl,
                          const float* xh, const float* xl, const float* p2h,
@@ -219,7 +225,8 @@ cudaError_t mbt_ca_k2_df(const int* offsets, int n_diags, long long n,
                          float* partials, float* dots, float* folded,
                          cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || lo != 0 || hi != n ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
   ca_k2_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(

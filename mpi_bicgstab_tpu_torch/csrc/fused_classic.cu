@@ -38,8 +38,19 @@
 // * alpha, beta and omega stay on the device: the kernels read them
 //   through pointers to 0-d tensors.
 //
+// The halo form (solvers/fused_dist.py; the JAX package's
+// solvers/fused_dist.py puts the neighbours' rows in the Pallas kernels'
+// zero margins): in a row-partitioned solve every vector holds the rank's
+// n rows with h entries of each neighbour's edge rows before and after,
+// exchanged before the pass. The wrappers pass pointers to the rank's
+// first row, and the launchers take the columns [lo, hi) a row may read
+// (dia_core.cuh); [0, n) on one device. A neighbour's p' or q is
+// recomputed from its exchanged r, p, s or s', as the JAX kernels form
+// p' and q over their halo rows: no other synchronisation is needed.
+//
 // Each launcher runs its pass and the partial-sum stage on `stream` and
 // returns cudaGetLastError().
+
 #include "dia_core.cuh"
 
 struct K1Src {  // p'(j) = r[j] + beta (p[j] - omega s[j])
@@ -62,19 +73,25 @@ struct K2Src {  // q(j) = r[j] - alpha s'[j]
   }
 };
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     k1_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+              long long lo, long long hi,
               const float* __restrict__ vals, const float* __restrict__ r,
               const float* __restrict__ p, const float* __restrict__ s,
               const float* __restrict__ r_hat,
               const float* __restrict__ beta,
               const float* __restrict__ omega, float* __restrict__ p2,
               float* __restrict__ s2, float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const K1Src src{r, p, s, *beta, *omega};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[1] = {0.0f};
   if (i < n) {
-    const float s2_i = dia_row<float>(offs, vals, n, i, src);
+    const float s2_i = dia_row<float>(offs, vals, n, i, lo, hi, src);
     p2[i] = src(i);
     s2[i] = s2_i;
     part[0] = r_hat[i] * s2_i;
@@ -82,17 +99,23 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   block_sum<1>(part, partials + blockIdx.x);
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     k2_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+              long long lo, long long hi,
               const float* __restrict__ vals, const float* __restrict__ r,
               const float* __restrict__ s2,
               const float* __restrict__ alpha, float* __restrict__ q,
               float* __restrict__ y, float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const K2Src src{r, s2, *alpha};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[2] = {0.0f, 0.0f};
   if (i < n) {
-    const float y_i = dia_row<float>(offs, vals, n, i, src);
+    const float y_i = dia_row<float>(offs, vals, n, i, lo, hi, src);
     const float q_i = src(i);
     q[i] = q_i;
     y[i] = y_i;
@@ -127,6 +150,7 @@ extern "C" {
 
 // partials: [mbt_grid(n), 1] scratch; dots: [1] = (r^, s').
 cudaError_t mbt_fused_k1_f32(const int* offsets, int n_diags, long long n,
+                             long long lo, long long hi,
                              const float* vals, const float* r,
                              const float* p, const float* s,
                              const float* r_hat, const float* beta,
@@ -134,26 +158,33 @@ cudaError_t mbt_fused_k1_f32(const int* offsets, int n_diags, long long n,
                              float* partials, float* dots,
                              cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  k1_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, p, s, r_hat, beta,
-                                         omega, p2, s2, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &k1_kernel<true> : &k1_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, r, p, s, r_hat, beta, omega, p2, s2, partials);
   return mbt_finish<1>(partials, G, dots, stream);
 }
 
 // partials: [mbt_grid(n), 2] scratch; dots: [2] = (q, y), (y, y).
 cudaError_t mbt_fused_k2_f32(const int* offsets, int n_diags, long long n,
+                             long long lo, long long hi,
                              const float* vals, const float* r,
                              const float* s2, const float* alpha, float* q,
                              float* y, float* partials, float* dots,
                              cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  k2_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, r, s2, alpha, q, y,
-                                         partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &k2_kernel<true> : &k2_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, r, s2, alpha, q, y, partials);
   return mbt_finish<2>(partials, G, dots, stream);
 }
 

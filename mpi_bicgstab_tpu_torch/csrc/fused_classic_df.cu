@@ -45,6 +45,13 @@
 // (other blocks read r, p, s and s' at their halo rows while a pass
 // runs); dots reduce in a fixed order with no float atomics.
 //
+// The halo form (solvers/fused_dist.py), as in fused_classic.cu: every
+// vector pointer is the rank's first row of an n + 2h array, and a row
+// reads the columns [lo, hi) (dia_core.cuh). There the folded scalar is
+// computed from the rank's own partial dots; the distributed driver
+// reduces the dots over the ranks and forms the scalar itself. The CA
+// and pipelined DF launchers take the same bounds and refuse a halo.
+//
 // Each launcher runs its pass and the finishing stage on `stream` and
 // returns cudaGetLastError().
 #include "df_core.cuh"
@@ -99,8 +106,10 @@ struct FoldBeta {  // beta = (alpha / omega) ((r^, r') / rTr)
   }
 };
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     k1_df_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                 long long lo, long long hi,
                  const float* __restrict__ vh, const float* __restrict__ vl,
                  const float* __restrict__ rh, const float* __restrict__ rl,
                  const float* __restrict__ ph, const float* __restrict__ pl,
@@ -113,12 +122,16 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                  const float* __restrict__ omega_l, float* __restrict__ p2h,
                  float* __restrict__ p2l, float* __restrict__ s2h,
                  float* __restrict__ s2l, float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const K1SrcDF src{rh, rl, ph, pl, sh, sl, ld_scalar(beta_h, beta_l),
                     df_neg(ld_scalar(omega_h, omega_l))};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   df_t part[1] = {{0.0f, 0.0f}};
   if (i < n) {
-    const df_t s2 = dia_row_df(offs, vh, vl, n, i, src);
+    const df_t s2 = dia_row_df(offs, vh, vl, n, i, lo, hi, src);
     st_df(p2h, p2l, i, src(i));
     st_df(s2h, s2l, i, s2);
     part[0] = dot_term(ld_df(rhh, rhl, i), s2);
@@ -126,8 +139,10 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   store_partials_df<1>(part, partials);
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     k2_df_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                 long long lo, long long hi,
                  const float* __restrict__ vh, const float* __restrict__ vl,
                  const float* __restrict__ rh, const float* __restrict__ rl,
                  const float* __restrict__ s2h,
@@ -136,11 +151,15 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                  const float* __restrict__ alpha_l, float* __restrict__ qh,
                  float* __restrict__ ql, float* __restrict__ yh,
                  float* __restrict__ yl, float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const K2SrcDF src{rh, rl, s2h, s2l, df_neg(ld_scalar(alpha_h, alpha_l))};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   df_t part[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   if (i < n) {
-    const df_t y = dia_row_df(offs, vh, vl, n, i, src);
+    const df_t y = dia_row_df(offs, vh, vl, n, i, lo, hi, src);
     const df_t q = src(i);
     st_df(qh, ql, i, q);
     st_df(yh, yl, i, y);
@@ -186,6 +205,7 @@ extern "C" {
 // partials: [mbt_grid(n), 1, 2] scratch; dots: [2, 1] = (r^, s');
 // alpha: [2] = rTr / (r^, s').
 cudaError_t mbt_fused_k1_df(const int* offsets, int n_diags, long long n,
+                            long long lo, long long hi,
                             const float* vh, const float* vl,
                             const float* rh, const float* rl,
                             const float* ph, const float* pl,
@@ -198,11 +218,14 @@ cudaError_t mbt_fused_k1_df(const int* offsets, int n_diags, long long n,
                             float* partials, float* dots, float* alpha,
                             cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  k1_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(
-      o, n, vh, vl, rh, rl, ph, pl, sh, sl, rhh, rhl, beta_h, beta_l,
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &k1_df_kernel<true> : &k1_df_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vh, vl, rh, rl, ph, pl, sh, sl, rhh, rhl, beta_h, beta_l,
       omega_h, omega_l, p2h, p2l, s2h, s2l, partials);
   return mbt_finish_df<1>(partials, G, dots,
                           FoldAlpha{rtr_h, rtr_l, alpha}, stream);
@@ -211,6 +234,7 @@ cudaError_t mbt_fused_k1_df(const int* offsets, int n_diags, long long n,
 // partials: [mbt_grid(n), 2, 2] scratch; dots: [2, 2] = (q, y), (y, y);
 // omega: [2] = (q, y) / (y, y).
 cudaError_t mbt_fused_k2_df(const int* offsets, int n_diags, long long n,
+                            long long lo, long long hi,
                             const float* vh, const float* vl,
                             const float* rh, const float* rl,
                             const float* s2h, const float* s2l,
@@ -219,12 +243,15 @@ cudaError_t mbt_fused_k2_df(const int* offsets, int n_diags, long long n,
                             float* partials, float* dots, float* omega,
                             cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  k2_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vh, vl, rh, rl, s2h, s2l,
-                                            alpha_h, alpha_l, qh, ql, yh,
-                                            yl, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &k2_df_kernel<true> : &k2_df_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vh, vl, rh, rl, s2h, s2l, alpha_h, alpha_l, qh, ql, yh, yl,
+      partials);
   return mbt_finish_df<2>(partials, G, dots, FoldOmega{omega}, stream);
 }
 

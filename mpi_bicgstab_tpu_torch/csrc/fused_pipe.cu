@@ -35,6 +35,15 @@
 // * Dots: one partial row per block, summed in a fixed order by
 //   sum_partials. No float atomics.
 // * alpha, beta and omega stay on the device, read through pointers.
+//
+// The halo form (solvers/fused_dist.py; the JAX package's
+// solvers/fused_dist.py puts the neighbours' rows in the Pallas kernels'
+// zero margins): in a row-partitioned solve every vector holds the rank's
+// n rows with h entries of each neighbour's edge rows before and after,
+// exchanged before the pass. The wrappers pass pointers to the rank's
+// first row, and the launchers take the columns [lo, hi) a row may read
+// (dia_core.cuh); [0, n) on one device. Only the SpMV input (z'
+// or w') is read at a neighbour's rows.
 #include "dia_core.cuh"
 
 struct WholeSrc {  // the SpMV input, read as it is
@@ -44,8 +53,10 @@ struct WholeSrc {  // the SpMV input, read as it is
   }
 };
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     phase_a_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                   long long lo, long long hi,
                    const float* __restrict__ vals,
                    const float* __restrict__ z_new,
                    const float* __restrict__ r, const float* __restrict__ p,
@@ -57,11 +68,15 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                    float* __restrict__ p2, float* __restrict__ s2,
                    float* __restrict__ q, float* __restrict__ y,
                    float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const float a = *alpha, b = *beta, om = *omega;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[2] = {0.0f, 0.0f};
   if (i < n) {
-    v2[i] = dia_row<float>(offs, vals, n, i, WholeSrc{z_new});
+    v2[i] = dia_row<float>(offs, vals, n, i, lo, hi, WholeSrc{z_new});
     const float r_i = r[i], s_i = s[i], w_i = w[i];
     const float s2_i = __fmaf_rn(b, __fmaf_rn(-om, z_old[i], s_i), w_i);
     const float q_i = __fmaf_rn(-a, s2_i, r_i);
@@ -76,8 +91,10 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   block_sum<2>(part, partials + 2 * (long long)blockIdx.x);
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     phase_b_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                   long long lo, long long hi,
                    const float* __restrict__ vals,
                    const float* __restrict__ w_new,
                    const float* __restrict__ x,
@@ -90,11 +107,15 @@ __global__ void __launch_bounds__(MBT_BLOCK)
                    const float* __restrict__ omega, float* __restrict__ t2,
                    float* __restrict__ x2, float* __restrict__ r2,
                    float* __restrict__ partials) {
+  if (!kHalo) {  // one device: the plain kernel's test, [0, n)
+    lo = 0;
+    hi = n;
+  }
   const float a = *alpha, om = *omega;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float part[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (i < n) {
-    t2[i] = dia_row<float>(offs, vals, n, i, WholeSrc{w_new});
+    t2[i] = dia_row<float>(offs, vals, n, i, lo, hi, WholeSrc{w_new});
     const float q_i = q[i], rh = r_hat[i];
     const float r2_i = __fmaf_rn(-om, y[i], q_i);
     x2[i] = __fmaf_rn(om, q_i, __fmaf_rn(a, p2[i], x[i]));
@@ -113,6 +134,7 @@ extern "C" {
 // scalars: 0-d device floats. partials: [mbt_grid(n), 2] scratch;
 // dots: [2] = (q, y), (y, y).
 cudaError_t mbt_phase_a_f32(const int* offsets, int n_diags, long long n,
+                            long long lo, long long hi,
                             const float* vals, const float* z_new,
                             const float* r, const float* p, const float* s,
                             const float* w, const float* z_old,
@@ -121,18 +143,22 @@ cudaError_t mbt_phase_a_f32(const int* offsets, int n_diags, long long n,
                             float* s2, float* q, float* y, float* partials,
                             float* dots, cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  phase_a_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, z_new, r, p, s,
-                                              w, z_old, alpha, beta, omega,
-                                              v2, p2, s2, q, y, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &phase_a_kernel<true> : &phase_a_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, z_new, r, p, s, w, z_old, alpha, beta, omega, v2, p2,
+      s2, q, y, partials);
   return mbt_finish<2>(partials, G, dots, stream);
 }
 
 // partials: [mbt_grid(n), 5] scratch; dots: [5] = (r', r'), (r^, r'),
 // (r^, w'), (r^, s'), (r^, z').
 cudaError_t mbt_phase_b_f32(const int* offsets, int n_diags, long long n,
+                            long long lo, long long hi,
                             const float* vals, const float* w_new,
                             const float* x, const float* p2, const float* q,
                             const float* y, const float* r_hat,
@@ -141,12 +167,15 @@ cudaError_t mbt_phase_b_f32(const int* offsets, int n_diags, long long n,
                             float* t2, float* x2, float* r2, float* partials,
                             float* dots, cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_bounds_ok(n, lo, hi) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
-  phase_b_kernel<<<G, MBT_BLOCK, 0, stream>>>(o, n, vals, w_new, x, p2, q,
-                                              y, r_hat, s2, z2, alpha,
-                                              omega, t2, x2, r2, partials);
+  const auto kern =
+      mbt_is_halo(n, lo, hi) ? &phase_b_kernel<true> : &phase_b_kernel<false>;
+  kern<<<G, MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, vals, w_new, x, p2, q, y, r_hat, s2, z2, alpha, omega, t2,
+      x2, r2, partials);
   return mbt_finish<5>(partials, G, dots, stream);
 }
 

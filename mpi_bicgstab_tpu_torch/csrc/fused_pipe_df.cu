@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   df_t part[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   if (i < n) {
-    const df_t t = dia_row_df(offs, vh, vl, n, i, WholeSrcDF{wh, wl});
+    const df_t t = dia_row_df(offs, vh, vl, n, i, 0, n, WholeSrcDF{wh, wl});
     const df_t w = ld_df(wh, wl, i);
     const df_t r = ld_df(rh, rl, i);
     const df_t s = ld_df(sh, sl, i);
@@ -144,7 +144,7 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   df_t part[5] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f},
                   {0.0f, 0.0f}};
   if (i < n) {
-    const df_t v2 = dia_row_df(offs, vh, vl, n, i, WholeSrcDF{z2h, z2l});
+    const df_t v2 = dia_row_df(offs, vh, vl, n, i, 0, n, WholeSrcDF{z2h, z2l});
     const df_t q = ld_df(qh, ql, i);
     const df_t y = ld_df(yh, yl, i);
     const df_t w2 =
@@ -166,11 +166,15 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   store_partials_df<5>(part, partials);
 }
 
+// The launchers take the column bounds of the DF band launchers
+// (ops/cuda_spmv.df_pass) and refuse any but [0, n): these passes have
+// no halo form (neither have the JAX package's, solvers/fused_dist.py).
 extern "C" {
 
 // partials: [mbt_grid(n), 2, 2] scratch; dots: [2, 2] = (q, y), (y, y);
 // omega: [2, 1] = (q, y) / (y, y).
 cudaError_t mbt_phase_a_df(const int* offsets, int n_diags, long long n,
+                           long long lo, long long hi,
                            const float* vh, const float* vl, const float* wh,
                            const float* wl, const float* rh, const float* rl,
                            const float* ph, const float* pl, const float* sh,
@@ -185,7 +189,8 @@ cudaError_t mbt_phase_a_df(const int* offsets, int n_diags, long long n,
                            float* partials, float* dots, float* omega,
                            cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || lo != 0 || hi != n ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
   phase_a_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(
@@ -199,6 +204,7 @@ cudaError_t mbt_phase_a_df(const int* offsets, int n_diags, long long n,
 // (r^, r'), (r^, w'), (r^, s'), (r^, z'); folded: [2, 2] = beta, alpha'
 // (FoldBetaAlpha, with the rTr of the iteration's start).
 cudaError_t mbt_phase_b_df(const int* offsets, int n_diags, long long n,
+                           long long lo, long long hi,
                            const float* vh, const float* vl,
                            const float* z2h, const float* z2l,
                            const float* xh, const float* xl,
@@ -216,7 +222,8 @@ cudaError_t mbt_phase_b_df(const int* offsets, int n_diags, long long n,
                            float* partials, float* dots, float* folded,
                            cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || lo != 0 || hi != n ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
   const long long G = mbt_grid(n);
   phase_b_df_kernel<<<G, MBT_BLOCK, 0, stream>>>(

@@ -193,7 +193,8 @@ def _window_table(k_s, G: int):
     return win_a
 
 
-def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, n_blocks: int):
+def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, n_blocks: int,
+                   P_force: int | None = None):
     """Choose (u1 window a, middle window m) for every distinct element
     (destination block u_blk, column u_col) under four uniqueness
     families: one element per destination slot (d, m_lo) and per u1 slot
@@ -209,6 +210,12 @@ def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, n_blocks: int):
     P = _pad_up(max(int(k_s.sum()), n_blocks, WIN), WIN)
     if (P // WIN) % 2 == 0:
         P += WIN
+    if P_force is not None:
+        # the shards of a row partition share P (it fixes the routing
+        # geometry G = P / 1024); the partition passes the largest
+        if P_force < P:
+            raise LayoutRefused(f"P_force {P_force} < natural P {P}")
+        P = P_force
     G = P // WIN
     win_a = _window_table(k_s, G)
     # d < n_blocks <= P = 1024 G, so q = d // G < 1024: a window slot
@@ -244,7 +251,8 @@ def _tail_levels(t_rows, t_cols, t_vals, vals_dtype):
 
 
 def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
-                    max_tail_frac: float = 0.005,
+                    max_tail_frac: float = 0.005, P_force: int | None = None,
+                    rb_force: int | None = None,
                     device="cuda") -> ButterflyMatrix:
     """Route csr (square or rectangular) and build the layout on
     `device`; LayoutRefused (a ValueError) when it is not routable (a row
@@ -253,8 +261,30 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     destination block's row count rb adapts (64 -> 32 -> 16) until every
     block's distinct columns fit a window at <= 0.55 load. dtype:
     float32, float64 (the CSR's by default) or "df32" (DF pairs split
-    from float64)."""
+    from float64). rb_force and P_force fix rb and the u1 window count P,
+    so that the shards of a row partition (parallel/partition.py) share
+    one routing geometry."""
     dev = resolve_device(device)
+    t = butterfly_tables(csr, dtype=dtype, seed=seed, max_width=max_width,
+                         max_tail_frac=max_tail_frac, P_force=P_force,
+                         rb_force=rb_force)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    put_v = (lambda a: df_from_f64(a, dev)) if is_df32(dtype) else put
+    vals = ("k3_vals", "tail_vals")
+    return ButterflyMatrix(**{k: (put_v(v) if k in vals else put(v))
+                              if isinstance(v, np.ndarray) else v
+                              for k, v in t.items()})
+
+
+def butterfly_tables(csr, dtype=None, seed: int = 0, max_width: int = 24,
+                     max_tail_frac: float = 0.005,
+                     P_force: int | None = None,
+                     rb_force: int | None = None) -> dict:
+    """build_butterfly's routed tables as host NumPy arrays (the values in
+    float64 for "df32") and its sizes, by ButterflyMatrix field name."""
     vals_dtype = host_dtype(dtype, csr.val.dtype)
     n, n_cols = csr.shape
     n_pad = _pad_up(n, 2 * WIN)        # rows: whole pairs of row tiles
@@ -267,7 +297,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     rows = np.repeat(np.arange(n, dtype=np.int64), lengths)
     cols = csr.col.astype(np.int64)
     vals = csr.val.astype(vals_dtype)
-    for rb in (64, 32, 16):
+    for rb in ((rb_force,) if rb_force else (64, 32, 16)):
         key = (rows // rb) * np.int64(nc_pad + 1) + cols
         uniq_key, entry_elem = np.unique(key, return_inverse=True)
         u_blk = (uniq_key // (nc_pad + 1)).astype(np.int64)
@@ -282,7 +312,7 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
                 f"columns (> {WIN}): not butterfly-routable")
 
     P, a_sel, m_sel, ok = _assign_routes(u_blk, u_col, nc_pad, seed,
-                                         n_pad // rb)
+                                         n_pad // rb, P_force=P_force)
     G = P // WIN
     if (~ok).sum() > max_tail_frac * max(u_blk.size, 1):
         raise LayoutRefused(f"routing spill {int((~ok).sum())}/{u_blk.size} "
@@ -356,20 +386,15 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     tail_rows, tail_cols, tail_vals = _tail_levels(t_rows, t_cols, t_vals,
                                                    vals_dtype)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     def r4(a):      # the kernel-ready [W//8, 8, NR, 128] view of [W, n_pad]
         return a.reshape(W // SUB, SUB, n_pad // LANES, LANES)
 
-    put_v = (lambda a: df_from_f64(a, dev)) if is_df32(dtype) else put
-    return ButterflyMatrix(
-        k1_src=put(k1_src), k1_sub=put(k1_sub), k1_lane=put(k1_lane),
-        k2_sub=put(k2_sub), k2_lane=put(k2_lane), k3_sub=put(r4(k3_sub)),
-        k3_lane=put(r4(k3_lane)), k3_vals=put_v(r4(k3_vals)),
-        tail_rows=put(tail_rows), tail_cols=put(tail_cols),
-        tail_vals=put_v(tail_vals), rb=rb, n_rows=n, n_cols=n_cols,
-        n_pad=n_pad, nc_pad=nc_pad, P=P, nnz=csr.nnz, tail_n=tail_n)
+    return dict(
+        k1_src=k1_src, k1_sub=k1_sub, k1_lane=k1_lane, k2_sub=k2_sub,
+        k2_lane=k2_lane, k3_sub=r4(k3_sub), k3_lane=r4(k3_lane),
+        k3_vals=r4(k3_vals), tail_rows=tail_rows, tail_cols=tail_cols,
+        tail_vals=tail_vals, rb=rb, n_rows=n, n_cols=n_cols, n_pad=n_pad,
+        nc_pad=nc_pad, P=P, nnz=csr.nnz, tail_n=tail_n)
 
 
 def butterfly_with_values(A: ButterflyMatrix, dtype,

@@ -20,7 +20,8 @@ and launch the kernel for CUDA tensors, or raise; `.launches` counts
 kernel launches. Scalars are 0-d tensors on the vectors' device; the
 stop test is the only value that crosses to the host, once per
 iteration. No padding to a tile grid and no zero margins: the kernels
-skip out-of-range neighbours.
+skip out-of-range neighbours. With `halo=` (an ops.cuda_spmv.Halo) each
+pass runs its halo form (solvers/fused_dist.py).
 """
 from __future__ import annotations
 
@@ -30,10 +31,10 @@ import functools
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
-from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
+from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_pass,
                                                   band_pass_argtypes,
-                                                  check_scalars, dia_spmv,
-                                                  dia_spmv_plain)
+                                                  band_plain, center,
+                                                  check_scalars, dia_spmv)
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import (finish, fold_beta_alpha,
                                                  start)
@@ -51,26 +52,30 @@ def _lib() -> ctypes.CDLL:
 
 # --- K1 ---------------------------------------------------------------------
 
-def fused_ca_k1_plain(vals, r, p, s, w, z, scalars, offsets):
+def fused_ca_k1_plain(vals, r, p, s, w, z, scalars, offsets,
+                      halo: Halo | None = None):
     alpha, beta, omega = scalars
     p2 = r + beta * (p - omega * s)
     s2 = w + beta * (s - omega * z)
-    z2 = dia_spmv_plain(vals, offsets, s2)
+    z2 = band_plain(vals, offsets, s2, halo)
     q = r - alpha * s2
     y = w - alpha * z2
-    return p2, s2, z2, q, y, torch.dot(q, y), torch.dot(y, y)
+    qc, yc = center(q, halo), center(y, halo)
+    return p2, s2, z2, q, y, torch.dot(qc, yc), torch.dot(yc, yc)
 
 
-def fused_ca_k1(vals, r, p, s, w, z, scalars, offsets: tuple):
+def fused_ca_k1(vals, r, p, s, w, z, scalars, offsets: tuple,
+                halo: Halo | None = None):
     """scalars = (alpha, beta, omega). Returns (p2, s2, z2, q, y, qTy,
     yTy) with p2 = r + beta (p - omega s), s2 = w + beta (s - omega z),
     z2 = A s2, q = r - alpha s2, y = w - alpha z2."""
     if r.device.type == "cpu":
-        return fused_ca_k1_plain(vals, r, p, s, w, z, scalars, offsets)
+        return fused_ca_k1_plain(vals, r, p, s, w, z, scalars, offsets,
+                                 halo)
     what = "fused_ca_k1"
     sc = check_scalars(what, ("alpha", "beta", "omega"), scalars)
     outs, dots = band_pass(_lib(), "mbt_ca_k1_f32", what, vals, offsets,
-                           dict(r=r, p=p, s=s, w=w, z=z), sc, 5, 2)
+                           dict(r=r, p=p, s=s, w=w, z=z), sc, 5, 2, halo)
     fused_ca_k1.launches += 1
     return (*outs, dots[0], dots[1])
 
@@ -80,27 +85,30 @@ fused_ca_k1.launches = 0
 
 # --- K2 ---------------------------------------------------------------------
 
-def fused_ca_k2_plain(vals, q, y, x, p2, r_hat, s2, z2, scalars, offsets):
+def fused_ca_k2_plain(vals, q, y, x, p2, r_hat, s2, z2, scalars, offsets,
+                      halo: Halo | None = None):
     alpha, omega = scalars
     r2 = q - omega * y
-    w2 = dia_spmv_plain(vals, offsets, r2)
+    w2 = band_plain(vals, offsets, r2, halo)
     x2 = x + alpha * p2 + omega * q
-    return (x2, r2, w2, torch.dot(r2, r2), torch.dot(r_hat, r2),
-            torch.dot(r_hat, w2), torch.dot(r_hat, s2), torch.dot(r_hat, z2))
+    rh, rc, wc, sc, zc = (center(v, halo) for v in (r_hat, r2, w2, s2, z2))
+    return (x2, r2, w2, torch.dot(rc, rc), torch.dot(rh, rc),
+            torch.dot(rh, wc), torch.dot(rh, sc), torch.dot(rh, zc))
 
 
-def fused_ca_k2(vals, q, y, x, p2, r_hat, s2, z2, scalars, offsets: tuple):
+def fused_ca_k2(vals, q, y, x, p2, r_hat, s2, z2, scalars, offsets: tuple,
+                halo: Halo | None = None):
     """scalars = (alpha, omega). Returns (x2, r2, w2, dot_r, rTr, rhTw,
     rhTs, rhTz) with r2 = q - omega y, w2 = A r2,
     x2 = x + alpha p2 + omega q and the five dots of r2, w2, s2, z2."""
     if q.device.type == "cpu":
         return fused_ca_k2_plain(vals, q, y, x, p2, r_hat, s2, z2, scalars,
-                                 offsets)
+                                 offsets, halo)
     what = "fused_ca_k2"
     sc = check_scalars(what, ("alpha", "omega"), scalars)
     outs, dots = band_pass(_lib(), "mbt_ca_k2_f32", what, vals, offsets,
                            dict(q=q, y=y, x=x, p2=p2, r_hat=r_hat, s2=s2,
-                                z2=z2), sc, 3, 5)
+                                z2=z2), sc, 3, 5, halo)
     fused_ca_k2.launches += 1
     return (*outs, *dots.unbind())
 

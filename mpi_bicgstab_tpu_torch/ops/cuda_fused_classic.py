@@ -21,7 +21,9 @@ come back as 0-d tensors. The iteration count is the only value that
 crosses to the host: the stop test reads dot_r once per iteration.
 
 Unlike the JAX solver loop this one needs no padding to a tile grid and no
-zero margins: the kernels skip out-of-range neighbours.
+zero margins: the kernels skip out-of-range neighbours. With `halo=` (an
+ops.cuda_spmv.Halo) each pass runs its halo form, every vector holding a
+rank's rows and its neighbours' edge rows (solvers/fused_dist.py).
 """
 from __future__ import annotations
 
@@ -31,13 +33,12 @@ import functools
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
-from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
+from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_pass,
                                                   band_pass_argtypes,
+                                                  band_plain, center,
                                                   check_cuda, check_scalars,
                                                   check_vectors, dia_spmv,
-                                                  dia_spmv_plain,
-                                                  partials_scratch,
-                                                  stream_arg)
+                                                  grid_blocks, stream_arg)
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -63,23 +64,25 @@ def format_ok(A, dtype) -> bool:
 
 # --- K1 ---------------------------------------------------------------------
 
-def fused_k1_plain(vals, r, p, s, r_hat, scalars, offsets):
+def fused_k1_plain(vals, r, p, s, r_hat, scalars, offsets,
+                   halo: Halo | None = None):
     beta, omega = scalars
     p2 = r + beta * (p - omega * s)
-    s2 = dia_spmv_plain(vals, offsets, p2)
-    return p2, s2, torch.dot(r_hat, s2)
+    s2 = band_plain(vals, offsets, p2, halo)
+    return p2, s2, torch.dot(center(r_hat, halo), center(s2, halo))
 
 
-def fused_k1(vals, r, p, s, r_hat, scalars, offsets: tuple):
+def fused_k1(vals, r, p, s, r_hat, scalars, offsets: tuple,
+             halo: Halo | None = None):
     """scalars = (beta, omega). Returns (p2, s2, rhTs) with
     p2 = r + beta (p - omega s), s2 = A p2, rhTs = (r_hat, s2)."""
     if r.device.type == "cpu":
-        return fused_k1_plain(vals, r, p, s, r_hat, scalars, offsets)
+        return fused_k1_plain(vals, r, p, s, r_hat, scalars, offsets, halo)
     what = "fused_k1"
     sc = check_scalars(what, ("beta", "omega"), scalars)
     (p2, s2), dots = band_pass(_lib(), "mbt_fused_k1_f32", what, vals,
                                offsets, dict(r=r, p=p, s=s, r_hat=r_hat),
-                               sc, 2, 1)
+                               sc, 2, 1, halo)
     fused_k1.launches += 1
     return p2, s2, dots[0]
 
@@ -89,22 +92,23 @@ fused_k1.launches = 0
 
 # --- K2 ---------------------------------------------------------------------
 
-def fused_k2_plain(vals, r, s2, scalars, offsets):
+def fused_k2_plain(vals, r, s2, scalars, offsets, halo: Halo | None = None):
     (alpha,) = scalars
     q = r - alpha * s2
-    y = dia_spmv_plain(vals, offsets, q)
-    return q, y, torch.dot(q, y), torch.dot(y, y)
+    y = band_plain(vals, offsets, q, halo)
+    qc, yc = center(q, halo), center(y, halo)
+    return q, y, torch.dot(qc, yc), torch.dot(yc, yc)
 
 
-def fused_k2(vals, r, s2, scalars, offsets: tuple):
+def fused_k2(vals, r, s2, scalars, offsets: tuple, halo: Halo | None = None):
     """scalars = (alpha,). Returns (q, y, qTy, yTy) with q = r - alpha s2,
     y = A q."""
     if r.device.type == "cpu":
-        return fused_k2_plain(vals, r, s2, scalars, offsets)
+        return fused_k2_plain(vals, r, s2, scalars, offsets, halo)
     what = "fused_k2"
     sc = check_scalars(what, ("alpha",), scalars)
     (q, y), dots = band_pass(_lib(), "mbt_fused_k2_f32", what, vals,
-                             offsets, dict(r=r, s2=s2), sc, 2, 2)
+                             offsets, dict(r=r, s2=s2), sc, 2, 2, halo)
     fused_k2.launches += 1
     return q, y, dots[0], dots[1]
 
@@ -114,33 +118,36 @@ fused_k2.launches = 0
 
 # --- K3 ---------------------------------------------------------------------
 
-def fused_k3_plain(x, p2, q, y, r_hat, scalars):
+def fused_k3_plain(x, p2, q, y, r_hat, scalars, halo: Halo | None = None):
     alpha, omega = scalars
     x2 = x + alpha * p2 + omega * q
     r2 = q - omega * y
-    return x2, r2, torch.dot(r2, r2), torch.dot(r_hat, r2)
+    rc = center(r2, halo)
+    return x2, r2, torch.dot(rc, rc), torch.dot(center(r_hat, halo), rc)
 
 
-def fused_k3(x, p2, q, y, r_hat, scalars):
+def fused_k3(x, p2, q, y, r_hat, scalars, halo: Halo | None = None):
     """scalars = (alpha, omega). Returns (x2, r2, dot_r, rTr_new) with
     x2 = x + alpha p2 + omega q, r2 = q - omega y, dot_r = (r2, r2),
-    rTr_new = (r_hat, r2)."""
+    rTr_new = (r_hat, r2). Pointwise: a halo form only skips the halo."""
     if x.device.type == "cpu":
-        return fused_k3_plain(x, p2, q, y, r_hat, scalars)
+        return fused_k3_plain(x, p2, q, y, r_hat, scalars, halo)
     what = "fused_k3"
-    n = x.shape[0]
+    h = halo.h if halo is not None else 0
+    n = x.shape[0] - 2 * h
     sc = check_scalars(what, ("alpha", "omega"), scalars)
-    check_vectors(what, n, x=x, p2=p2, q=q, y=y, r_hat=r_hat)
+    check_vectors(what, x.shape[0], x=x, p2=p2, q=q, y=y, r_hat=r_hat)
     check_cuda(what, torch.float32, x=x, p2=p2, q=q, y=y, r_hat=r_hat,
                **sc)
     x2, r2 = torch.empty_like(x), torch.empty_like(x)
-    partials, dots = partials_scratch(x, 2)
+    partials, dots = x.new_empty((grid_blocks(n), 2)), x.new_empty(2)
     lib = _lib()
+    at = h * x.element_size()
     err = lib.mbt_fused_k3_f32(
-        n, x.data_ptr(), p2.data_ptr(), q.data_ptr(), y.data_ptr(),
-        r_hat.data_ptr(), sc["alpha"].data_ptr(), sc["omega"].data_ptr(),
-        x2.data_ptr(), r2.data_ptr(), partials.data_ptr(), dots.data_ptr(),
-        stream_arg())
+        n, *(t.data_ptr() + at for t in (x, p2, q, y, r_hat)),
+        sc["alpha"].data_ptr(), sc["omega"].data_ptr(),
+        x2.data_ptr() + at, r2.data_ptr() + at, partials.data_ptr(),
+        dots.data_ptr(), stream_arg())
     _build.check(lib, err, what)
     fused_k3.launches += 1
     return x2, r2, dots[0], dots[1]

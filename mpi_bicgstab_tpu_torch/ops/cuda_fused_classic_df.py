@@ -23,7 +23,10 @@ kernel for CUDA tensors, or raises; `.launches` counts kernel launches.
 The twins compute the same scalars with ops/precision.py. Vectors from a
 kernel and its twin agree bit for bit; dots agree to ~1e-15 relative of
 sum |u_i v_i| (the kernels sum their compensated partials in another
-order than the twin's pairwise df_sum).
+order than the twin's pairwise df_sum). With `halo=` (an
+ops.cuda_spmv.Halo) each pass runs its halo form (solvers/fused_dist.py);
+its folded scalar then comes from the rank's own dots, and the
+distributed driver forms the scalar from the reduced ones instead.
 """
 from __future__ import annotations
 
@@ -33,10 +36,10 @@ import functools
 import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
-from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass_argtypes,
+from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_df_plain,
+                                                  band_pass_argtypes, center,
                                                   check_scalars, df_pass,
-                                                  dia_spmv_df,
-                                                  dia_spmv_df_plain)
+                                                  dia_spmv_df)
 from mpi_bicgstab_tpu_torch.ops.precision import (df_div, df_dot, df_fma,
                                                   df_mul, is_df, vvalue,
                                                   vzeros_like)
@@ -66,25 +69,29 @@ def format_ok(A, dtype) -> bool:
 
 # --- K1 ---------------------------------------------------------------------
 
-def fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets):
+def fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets,
+                      halo: Halo | None = None):
     beta, omega, rTr = scalars
     p2 = df_fma(r, beta, df_fma(p, -omega, s))
-    s2 = dia_spmv_df_plain(vals, offsets, p2)
-    rhTs = df_dot(r_hat, s2)
+    s2 = band_df_plain(vals, offsets, p2, halo)
+    rhTs = df_dot(center(r_hat, halo), center(s2, halo))
     return p2, s2, rhTs, df_div(rTr, rhTs)
 
 
-def fused_k1_df(vals, r, p, s, r_hat, scalars, offsets: tuple):
+def fused_k1_df(vals, r, p, s, r_hat, scalars, offsets: tuple,
+                halo: Halo | None = None):
     """scalars = (beta, omega, rTr). Returns (p2, s2, rhTs, alpha) with
     p2 = r + beta (p - omega s), s2 = A p2, rhTs = (r_hat, s2) and
     alpha = rTr / rhTs."""
     if r.device.type == "cpu":
-        return fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets)
+        return fused_k1_df_plain(vals, r, p, s, r_hat, scalars, offsets,
+                                 halo)
     what = "fused_k1_df"
     (p2, s2), (rhTs,), (alpha,) = df_pass(
         _lib(), "mbt_fused_k1_df", what, vals, offsets,
         dict(r=r, p=p, s=s, r_hat=r_hat),
-        check_scalars(what, ("beta", "omega", "rTr"), scalars), 2, 1)
+        check_scalars(what, ("beta", "omega", "rTr"), scalars), 2, 1,
+        halo=halo)
     fused_k1_df.launches += 1
     return p2, s2, rhTs, alpha
 
@@ -94,23 +101,26 @@ fused_k1_df.launches = 0
 
 # --- K2 ---------------------------------------------------------------------
 
-def fused_k2_df_plain(vals, r, s2, scalars, offsets):
+def fused_k2_df_plain(vals, r, s2, scalars, offsets,
+                      halo: Halo | None = None):
     (alpha,) = scalars
     q = df_fma(r, -alpha, s2)
-    y = dia_spmv_df_plain(vals, offsets, q)
-    qTy, yTy = df_dot(q, y), df_dot(y, y)
+    y = band_df_plain(vals, offsets, q, halo)
+    qc, yc = center(q, halo), center(y, halo)
+    qTy, yTy = df_dot(qc, yc), df_dot(yc, yc)
     return q, y, qTy, yTy, df_div(qTy, yTy)
 
 
-def fused_k2_df(vals, r, s2, scalars, offsets: tuple):
+def fused_k2_df(vals, r, s2, scalars, offsets: tuple,
+                halo: Halo | None = None):
     """scalars = (alpha,). Returns (q, y, qTy, yTy, omega) with
     q = r - alpha s2, y = A q and omega = qTy / yTy."""
     if r.device.type == "cpu":
-        return fused_k2_df_plain(vals, r, s2, scalars, offsets)
+        return fused_k2_df_plain(vals, r, s2, scalars, offsets, halo)
     what = "fused_k2_df"
     (q, y), (qTy, yTy), (omega,) = df_pass(
         _lib(), "mbt_fused_k2_df", what, vals, offsets, dict(r=r, s2=s2),
-        check_scalars(what, ("alpha",), scalars), 2, 2)
+        check_scalars(what, ("alpha",), scalars), 2, 2, halo=halo)
     fused_k2_df.launches += 1
     return q, y, qTy, yTy, omega
 
@@ -120,27 +130,30 @@ fused_k2_df.launches = 0
 
 # --- K3 ---------------------------------------------------------------------
 
-def fused_k3_df_plain(x, p2, q, y, r_hat, scalars):
+def fused_k3_df_plain(x, p2, q, y, r_hat, scalars,
+                      halo: Halo | None = None):
     alpha, omega, rTr = scalars
     x2 = df_fma(df_fma(x, alpha, p2), omega, q)
     r2 = df_fma(q, -omega, y)
-    dot_r, rTr_new = df_dot(r2, r2), df_dot(r_hat, r2)
+    rc = center(r2, halo)
+    dot_r, rTr_new = df_dot(rc, rc), df_dot(center(r_hat, halo), rc)
     return (x2, r2, dot_r, rTr_new,
             df_mul(df_div(alpha, omega), df_div(rTr_new, rTr)))
 
 
-def fused_k3_df(x, p2, q, y, r_hat, scalars):
+def fused_k3_df(x, p2, q, y, r_hat, scalars, halo: Halo | None = None):
     """scalars = (alpha, omega, rTr). Returns (x2, r2, dot_r, rTr_new,
     beta) with x2 = (x + alpha p2) + omega q, r2 = q - omega y,
     dot_r = (r2, r2), rTr_new = (r_hat, r2) and
     beta = (alpha / omega) (rTr_new / rTr)."""
     if x.device.type == "cpu":
-        return fused_k3_df_plain(x, p2, q, y, r_hat, scalars)
+        return fused_k3_df_plain(x, p2, q, y, r_hat, scalars, halo)
     what = "fused_k3_df"
     (x2, r2), (dot_r, rTr_new), (beta,) = df_pass(
         _lib(), "mbt_fused_k3_df", what, None, None,
         dict(x=x, p2=p2, q=q, y=y, r_hat=r_hat),
-        check_scalars(what, ("alpha", "omega", "rTr"), scalars), 2, 2)
+        check_scalars(what, ("alpha", "omega", "rTr"), scalars), 2, 2,
+        halo=halo)
     fused_k3_df.launches += 1
     return x2, r2, dot_r, rTr_new, beta
 

@@ -23,7 +23,8 @@ tensors and launch the kernel for CUDA tensors, or raise; `.launches`
 counts kernel launches. pipe_bicgstab_rr_fused runs its rare
 residual-replacement iterations (chosen by a host test on the iteration
 counter) as six DIA SpMV kernel launches and tensor operations, and the
-fused phases on every other iteration.
+fused phases on every other iteration. With `halo=` (an
+ops.cuda_spmv.Halo) each phase runs its halo form (solvers/fused_dist.py).
 """
 from __future__ import annotations
 
@@ -34,10 +35,10 @@ import torch
 
 from mpi_bicgstab_tpu_torch.ops import _build
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
-from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (band_pass,
+from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_pass,
                                                   band_pass_argtypes,
-                                                  check_scalars, dia_spmv,
-                                                  dia_spmv_plain)
+                                                  band_plain, center,
+                                                  check_scalars, dia_spmv)
 from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import (finish, fold_beta_alpha,
                                                  is_rr, start)
@@ -55,29 +56,32 @@ def _lib() -> ctypes.CDLL:
 
 # --- phase A ----------------------------------------------------------------
 
-def fused_phase_a_plain(vals, z_new, r, p, s, w, z_old, scalars, offsets):
+def fused_phase_a_plain(vals, z_new, r, p, s, w, z_old, scalars, offsets,
+                        halo: Halo | None = None):
     alpha, beta, omega = scalars
-    v2 = dia_spmv_plain(vals, offsets, z_new)
+    v2 = band_plain(vals, offsets, z_new, halo)
     p2 = r + beta * (p - omega * s)
     s2 = w + beta * (s - omega * z_old)
     q = r - alpha * s2
     y = w - alpha * z_new
-    return v2, p2, s2, q, y, torch.dot(q, y), torch.dot(y, y)
+    qc, yc = center(q, halo), center(y, halo)
+    return v2, p2, s2, q, y, torch.dot(qc, yc), torch.dot(yc, yc)
 
 
-def fused_phase_a(vals, z_new, r, p, s, w, z_old, scalars, offsets: tuple):
+def fused_phase_a(vals, z_new, r, p, s, w, z_old, scalars, offsets: tuple,
+                  halo: Halo | None = None):
     """scalars = (alpha, beta, omega). Returns (v2, p2, s2, q, y, qTy,
     yTy) with v2 = A z_new, p2 = r + beta (p - omega s),
     s2 = w + beta (s - omega z_old), q = r - alpha s2,
     y = w - alpha z_new."""
     if r.device.type == "cpu":
         return fused_phase_a_plain(vals, z_new, r, p, s, w, z_old, scalars,
-                                   offsets)
+                                   offsets, halo)
     what = "fused_phase_a"
     sc = check_scalars(what, ("alpha", "beta", "omega"), scalars)
     outs, dots = band_pass(_lib(), "mbt_phase_a_f32", what, vals, offsets,
                            dict(z_new=z_new, r=r, p=p, s=s, w=w,
-                                z_old=z_old), sc, 5, 2)
+                                z_old=z_old), sc, 5, 2, halo)
     fused_phase_a.launches += 1
     return (*outs, dots[0], dots[1])
 
@@ -88,29 +92,30 @@ fused_phase_a.launches = 0
 # --- phase B ----------------------------------------------------------------
 
 def fused_phase_b_plain(vals, w_new, x, p2, q, y, r_hat, s2, z2, scalars,
-                        offsets):
+                        offsets, halo: Halo | None = None):
     alpha, omega = scalars
-    t2 = dia_spmv_plain(vals, offsets, w_new)
+    t2 = band_plain(vals, offsets, w_new, halo)
     x2 = x + alpha * p2 + omega * q
     r2 = q - omega * y
-    return (t2, x2, r2, torch.dot(r2, r2), torch.dot(r_hat, r2),
-            torch.dot(r_hat, w_new), torch.dot(r_hat, s2),
-            torch.dot(r_hat, z2))
+    rh, rc, wc, sc, zc = (center(v, halo) for v in (r_hat, r2, w_new, s2,
+                                                     z2))
+    return (t2, x2, r2, torch.dot(rc, rc), torch.dot(rh, rc),
+            torch.dot(rh, wc), torch.dot(rh, sc), torch.dot(rh, zc))
 
 
 def fused_phase_b(vals, w_new, x, p2, q, y, r_hat, s2, z2, scalars,
-                  offsets: tuple):
+                  offsets: tuple, halo: Halo | None = None):
     """scalars = (alpha, omega). Returns (t2, x2, r2, dot_r, rTr, rhTw,
     rhTs, rhTz) with t2 = A w_new, x2 = x + alpha p2 + omega q,
     r2 = q - omega y and the five dots of r2, w_new, s2, z2."""
     if x.device.type == "cpu":
         return fused_phase_b_plain(vals, w_new, x, p2, q, y, r_hat, s2, z2,
-                                   scalars, offsets)
+                                   scalars, offsets, halo)
     what = "fused_phase_b"
     sc = check_scalars(what, ("alpha", "omega"), scalars)
     outs, dots = band_pass(_lib(), "mbt_phase_b_f32", what, vals, offsets,
                            dict(w_new=w_new, x=x, p2=p2, q=q, y=y,
-                                r_hat=r_hat, s2=s2, z2=z2), sc, 3, 5)
+                                r_hat=r_hat, s2=s2, z2=z2), sc, 3, 5, halo)
     fused_phase_b.launches += 1
     return (*outs, *dots.unbind())
 

@@ -50,6 +50,13 @@ class DiaMatrix:
     def device(self):
         return self.vals.device
 
+    @property
+    def pad(self) -> tuple[int, int]:
+        """(left, right) padding the SpMV needs around x."""
+        lo = -min(0, min(self.offsets)) if self.offsets else 0
+        hi = max(0, max(self.offsets)) if self.offsets else 0
+        return (lo, hi)
+
 
 def is_df32(dtype) -> bool:
     """Is `dtype` the double-float mode's name "df32"?"""

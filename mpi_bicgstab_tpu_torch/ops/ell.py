@@ -58,6 +58,11 @@ class EllMatrix:
     def device(self):
         return self.vals.device
 
+    @property
+    def nnz_stored(self) -> int:
+        """Dense storage footprint (includes padding)."""
+        return self.cols.numel() + self.tail_size
+
 
 def csr_to_ell(csr, width: int | None = None, tail_pad: int = 0,
                dtype=None, device="cuda") -> EllMatrix:

@@ -27,6 +27,12 @@ def ell_spmv(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def ell_spmv_shifted(A: EllMatrix, x: torch.Tensor, sigma) -> torch.Tensor:
+    """y = (A + sigma I) @ x, the shifted-system operator (reference: s <-
+    A p then daxpy sigma p, shifted_solver.c:261-262); A square."""
+    return ell_spmv(A, x) + sigma * x
+
+
 def ell_spmv_df(A: EllMatrix, x: DF) -> DF:
     """Double-float y = A @ x: A.vals and x are DF pairs. The gathers act
     on hi and lo alike; the slabs accumulate with df_fma; the COO tail's

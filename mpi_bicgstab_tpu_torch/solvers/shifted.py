@@ -42,8 +42,7 @@ from mpi_bicgstab_tpu_torch.ops.precision import (_as_df, is_df, vabs,
                                                   vbroadcast_rows, vfma,
                                                   vones, vvalue, vwhere,
                                                   vzeros)
-from mpi_bicgstab_tpu_torch.parallel.sigma import (coeff, row_add, row_set,
-                                                   take_row)
+from mpi_bicgstab_tpu_torch.parallel.sigma import as_shift_comm
 from mpi_bicgstab_tpu_torch.solvers.base import ShiftedResult, start
 from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
 
@@ -125,13 +124,13 @@ def seed_true_relres(spmv, comm, b, sigma_seed, x_seed, dot_zero):
 
 
 def _shift_result(x_set, k, dot_r, dot_zero, scale_abs, tol2, hist, seed,
-                  spmv, comm, b, sigma_seed):
+                  spmv, comm, b, sigma_seed, sc):
     relres = torch.sqrt(vvalue(dot_r) / vvalue(dot_zero))
     history = torch.sqrt(hist / vvalue(dot_zero))
     stop = scale_abs * scale_abs * vvalue(dot_r) \
         <= tol2 * vvalue(dot_zero)
     true_rr = seed_true_relres(spmv, comm, b, sigma_seed,
-                               take_row(x_set, seed), dot_zero)
+                               sc.take_row(x_set, seed), dot_zero)
     return ShiftedResult(x_set=x_set, n_iter=k, final_relres=relres,
                          history=history, stop_flags=stop, final_seed=seed,
                          shift_relres=scale_abs * relres,
@@ -146,8 +145,8 @@ def _go_on(exact, k, max_iter, scale_max, dot_r, tol2, dot_zero) -> bool:
     return exact or bool(scale_max * scale_max * dot_r > tol2 * dot_zero)
 
 
-def shifted_bicgstab(spmv, comm, b, sigma,
-                     cfg: ShiftedConfig) -> ShiftedResult:
+def shifted_bicgstab(spmv, comm, b, sigma, cfg: ShiftedConfig,
+                     shift_comm=None) -> ShiftedResult:
     """Multi-shift BiCGStab with the UNSHIFTED A as seed (reference
     shifted_solver.c:13-180; seed index 0 by construction).
 
@@ -157,15 +156,17 @@ def shifted_bicgstab(spmv, comm, b, sigma,
     maps the seed polynomial to the shifted one; tau (:132) accumulates
     the omega-stabiliser ratios."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     S, n = sigma.shape[0], b.shape[0]
+    S_loc = sc.s_local(S)
     tol2, exact, _ = start(b, cfg)
     mask = torch.arange(S, device=b.device) != 0
 
     r_hat = b                                   # :72 (r = b, x0 = 0)
     rTr = comm.dot(b, b)                        # :70-71
     dot_zero = dot_r = rTr
-    x_set = vzeros((S, n), b)
-    p_set = vbroadcast_rows(b, S)               # :74 p[j] = b
+    x_set = vzeros((S_loc, n), b)
+    p_set = vbroadcast_rows(b, S_loc)               # :74 p[j] = b
     alpha = vones((S,), b)                      # :76
     beta = vzeros((S,), b)                      # :75
     tau = vones((S,), b)                        # :79
@@ -175,14 +176,14 @@ def shifted_bicgstab(spmv, comm, b, sigma,
     hist = hist_init(cfg, b)
     r, k = b, 0
     while _go_on(exact, k, cfg.max_iter, max_xi, dot_r, tol2, dot_zero):
-        p_seed = take_row(p_set, 0)
+        p_seed = sc.take_row(p_set, 0)
         s = spmv(p_seed)                        # :90 (unshifted)
         rTs = comm.dot(r_hat, s)                # :91
         # shift p part 1 (:92-96), mask folded into the coefficients
         ratio = xi_curr / xi_old
         beta_sh = ratio * ratio * beta[0]
-        p_set = scale_add(p_set, coeff(mask, beta_sh, 1.0),
-                          coeff(mask, tau * xi_curr), r[None, :])
+        p_set = scale_add(p_set, sc.coeff(mask, beta_sh, 1.0),
+                          sc.coeff(mask, tau * xi_curr), r[None, :])
         r_old = r                               # :97
         alpha_old, beta_old = alpha[0], beta[0]  # :98-99
         a0 = rTr / rTs                          # :102
@@ -194,15 +195,15 @@ def shifted_bicgstab(spmv, comm, b, sigma,
             + xi_old * alpha_old * (1.0 + a0 * sigma))
         alpha_sh = (xi_new / xi_curr) * a0
         w0 = qTy / yTy                          # omega[0], :117
-        x_set = row_add(x_set, 0, vfma(a0 * p_seed, w0, q))  # :118-119
+        x_set = sc.row_add(x_set, 0, vfma(a0 * p_seed, w0, q))  # :118-119
         # shift x / p part 2 (:120-126)
         omega_sh = w0 / (1.0 + w0 * sigma)      # :121
-        x_set = add_update(x_set, coeff(mask, alpha_sh), p_set,
-                           coeff(mask, omega_sh * tau * xi_new),
+        x_set = add_update(x_set, sc.coeff(mask, alpha_sh), p_set,
+                           sc.coeff(mask, omega_sh * tau * xi_new),
                            q[None, :])
         p_set = _sub_update(
-            p_set, coeff(mask, omega_sh * tau * xi_new / alpha_sh),
-            q[None, :], coeff(mask, omega_sh * tau * xi_curr / alpha_sh),
+            p_set, sc.coeff(mask, omega_sh * tau * xi_new / alpha_sh),
+            q[None, :], sc.coeff(mask, omega_sh * tau * xi_curr / alpha_sh),
             r_old[None, :])
         r_new = q - w0 * y                      # :127
         dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :128-130
@@ -212,7 +213,7 @@ def shifted_bicgstab(spmv, comm, b, sigma,
         max_xi = _running_max(vvalue(vabs(xi_curr * tau)), mask)
         xi_old = vwhere(mask, xi_curr, xi_old)      # :143
         xi_curr = vwhere(mask, xi_new, xi_curr)     # :144
-        p_set = row_set(p_set, 0,
+        p_set = sc.row_set(p_set, 0,
                         vfma(r_new, b0, vfma(p_seed, -w0, s)))  # :145-147
         alpha = set_at(vwhere(mask, alpha_sh, alpha), 0, a0)
         beta = set_at(vwhere(mask, beta_sh, beta), 0, b0)
@@ -221,18 +222,21 @@ def shifted_bicgstab(spmv, comm, b, sigma,
         k += 1
     scale = torch.where(mask, vvalue(vabs(xi_curr * tau)), 1.0)
     return _shift_result(x_set, k, dot_r, dot_zero, scale, tol2, hist, 0,
-                         spmv, comm, b, vzeros((), b))
+                         spmv, comm, b, vzeros((), b), sc)
 
 
 def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
-                        cfg: ShiftedConfig) -> ShiftedResult:
+                        cfg: ShiftedConfig,
+                        shift_comm=None) -> ShiftedResult:
     """Shifted LOP-BiCGStab (reference shifted_solver.c:182-354). The seed
     system is (A + sigma[seed] I); shifts are RELATIVE: sigma[seed] -
     sigma[j] appears in every recurrence (:285, :298, :303).
     omega_seed = (q,q)/(q,y) (:293), the 'locally optimal' choice that
     keeps the shifted omega recurrence rational."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     S, n = sigma.shape[0], b.shape[0]
+    S_loc = sc.s_local(S)
     tol2, exact, _ = start(b, cfg)
     mask = torch.arange(S, device=b.device) != seed
     sig_seed = sigma[seed]
@@ -240,8 +244,8 @@ def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
     r_hat = b                                   # :242
     rTr = comm.dot(b, b)                        # :240-241
     dot_zero = dot_r = rTr
-    x_set = vzeros((S, n), b)
-    p_set = row_set(vzeros((S, n), b), seed, b)  # :252
+    x_set = vzeros((S_loc, n), b)
+    p_set = sc.row_set(vzeros((S_loc, n), b), seed, b)  # :252
     alpha = vones((S,), b)
     beta = vzeros((S,), b)
     eta = vzeros((S,), b)                       # :247
@@ -252,14 +256,14 @@ def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
     hist = hist_init(cfg, b)
     r, k = b, 0
     while _go_on(exact, k, cfg.max_iter, max_zp, dot_r, tol2, dot_zero):
-        p_seed = take_row(p_set, seed)
+        p_seed = sc.take_row(p_set, seed)
         s = spmv(p_seed) + sig_seed * p_seed             # :261-262
         rTs = comm.dot(r_hat, s)                         # :263
         # shift p part 1 (:264-269), mask folded into the coefficients
         ratio = pi_old / pi_new
         beta_sh = ratio * ratio * beta[seed]
-        p_set = scale_add(p_set, coeff(mask, beta_sh, 1.0),
-                          coeff(mask, 1.0 / (pi_new * zeta)), r[None, :])
+        p_set = scale_add(p_set, sc.coeff(mask, beta_sh, 1.0),
+                          sc.coeff(mask, 1.0 / (pi_new * zeta)), r[None, :])
         pi_old = pi_new                                  # :270
         r_old = r                                        # :271
         alpha_old, beta_old = alpha[seed], beta[seed]    # :272-273
@@ -275,17 +279,17 @@ def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
         eta = vwhere(mask, eta2, eta)
         pi_new = vwhere(mask, pi_new2, pi_new)
         w_s = qTq / qTy                                  # :293
-        x_set = row_add(x_set, seed,
+        x_set = sc.row_add(x_set, seed,
                         vfma(a_s * p_seed, w_s, q))    # :294-295
         # shift x / p part 2 (:296-304)
         omega_sh = w_s / (1.0 - w_s * (sig_seed - sigma))    # :298
-        x_set = add_update(x_set, coeff(mask, alpha_sh), p_set,
-                           coeff(mask, omega_sh / (pi_new2 * zeta)),
+        x_set = add_update(x_set, sc.coeff(mask, alpha_sh), p_set,
+                           sc.coeff(mask, omega_sh / (pi_new2 * zeta)),
                            q[None, :])
         p_set = _sub_update(
-            p_set, coeff(mask, omega_sh / (alpha_sh * zeta * pi_new2)),
+            p_set, sc.coeff(mask, omega_sh / (alpha_sh * zeta * pi_new2)),
             q[None, :],
-            coeff(mask, omega_sh / (alpha_sh * zeta * pi_old)),
+            sc.coeff(mask, omega_sh / (alpha_sh * zeta * pi_old)),
             r_old[None, :])
         zeta = vwhere(mask, (1.0 - w_s * (sig_seed - sigma)) * zeta,
                       zeta)                              # :303
@@ -293,7 +297,7 @@ def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
         dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :306-308
         b_s = (a_s / w_s) * (rTr_new / rTr)              # :312
         max_zp = _running_max(vvalue(vabs(1.0 / (zeta * pi_new2))), mask)
-        p_set = row_set(p_set, seed,
+        p_set = sc.row_set(p_set, seed,
                         vfma(r_new, b_s, vfma(p_seed, -w_s, s)))  # :319-321
         alpha = set_at(vwhere(mask, alpha_sh, alpha), seed, a_s)
         beta = set_at(vwhere(mask, beta_sh, beta), seed, b_s)
@@ -302,7 +306,7 @@ def shifted_lopbicgstab(spmv, comm, b, sigma, seed: int,
         k += 1
     scale = torch.where(mask, vvalue(vabs(1.0 / (zeta * pi_new))), 1.0)
     return _shift_result(x_set, k, dot_r, dot_zero, scale, tol2, hist,
-                         seed, spmv, comm, b, sig_seed)
+                         seed, spmv, comm, b, sig_seed, sc)
 
 
 # The reference's reordered / no-overlap twins are the same recurrences:
@@ -311,13 +315,16 @@ shifted_lopbicgstab_nooverlap = shifted_lopbicgstab     # ref :531-701
 
 
 def shifted_pipe_lopbicgstab(spmv, comm, b, sigma, seed: int,
-                             cfg: ShiftedConfig) -> ShiftedResult:
+                             cfg: ShiftedConfig,
+                             shift_comm=None) -> ShiftedResult:
     """Shifted PIPELINED LOP-BiCGStab (reference shifted_solver.c:703-895).
     The seed iteration is the pipelined BiCGStab recurrence (s, z, w, v, t;
     alpha by the rational update :859); the shift updates are the LOP
     variant's pi/eta/zeta recurrences."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     S, n = sigma.shape[0], b.shape[0]
+    S_loc = sc.s_local(S)
     tol2, exact, _ = start(b, cfg)
     mask = torch.arange(S, device=b.device) != seed
     sig_seed = sigma[seed]
@@ -335,8 +342,8 @@ def shifted_pipe_lopbicgstab(spmv, comm, b, sigma, seed: int,
     a_old = vones((), b)                        # :786
     b_s = vzeros((), b)
     w_s = vzeros((), b)
-    x_set = vzeros((S, n), b)
-    p_set = row_set(vzeros((S, n), b), seed, b)  # :782
+    x_set = vzeros((S_loc, n), b)
+    p_set = sc.row_set(vzeros((S_loc, n), b), seed, b)  # :782
     z, s, v = vzeros((n,), b), vzeros((n,), b), vzeros((n,), b)
     eta = vzeros((S,), b)
     zeta = vones((S,), b)
@@ -346,16 +353,16 @@ def shifted_pipe_lopbicgstab(spmv, comm, b, sigma, seed: int,
     hist = hist_init(cfg, b)
     r, k = b, 0
     while _go_on(exact, k, cfg.max_iter, max_zp, dot_r, tol2, dot_zero):
-        p_seed = r + b_s * (take_row(p_set, seed)
+        p_seed = r + b_s * (sc.take_row(p_set, seed)
                             - w_s * s)                   # :795-797
-        p_set = row_set(p_set, seed, p_seed)
+        p_set = sc.row_set(p_set, seed, p_seed)
         s = w + b_s * (s - w_s * z)                      # :798-800
         z = t + b_s * (z - w_s * v)                      # :801-803
         # shift p part 1 (:804-809), mask folded into the coefficients
         ratio = pi_old / pi_new
         beta_sh = ratio * ratio * b_s
-        p_set = scale_add(p_set, coeff(mask, beta_sh, 1.0),
-                          coeff(mask, 1.0 / (pi_new * zeta)), r[None, :])
+        p_set = scale_add(p_set, sc.coeff(mask, beta_sh, 1.0),
+                          sc.coeff(mask, 1.0 / (pi_new * zeta)), r[None, :])
         r_old = r                                        # :810
         q = r - a_s * s                                  # :811
         y = w - a_s * z                                  # :812
@@ -372,16 +379,16 @@ def shifted_pipe_lopbicgstab(spmv, comm, b, sigma, seed: int,
         eta = vwhere(mask, eta2, eta)
         pi_new = vwhere(mask, pi_new2, pi_new)
         w_s = qTy / yTy                                  # :829
-        x_set = row_add(x_set, seed, a_s * p_seed + w_s * q)  # :830-831
+        x_set = sc.row_add(x_set, seed, a_s * p_seed + w_s * q)  # :830-831
         # shift x / p part 2 (:832-840)
         omega_sh = w_s / (1.0 - w_s * (sig_seed - sigma))        # :834
-        x_set = add_update(x_set, coeff(mask, alpha_sh), p_set,
-                           coeff(mask, omega_sh / (pi_new2 * zeta)),
+        x_set = add_update(x_set, sc.coeff(mask, alpha_sh), p_set,
+                           sc.coeff(mask, omega_sh / (pi_new2 * zeta)),
                            q[None, :])
         p_set = _sub_update(
-            p_set, coeff(mask, omega_sh / (alpha_sh * zeta * pi_new2)),
+            p_set, sc.coeff(mask, omega_sh / (alpha_sh * zeta * pi_new2)),
             q[None, :],
-            coeff(mask, omega_sh / (alpha_sh * zeta * pi_old)),
+            sc.coeff(mask, omega_sh / (alpha_sh * zeta * pi_old)),
             r_old[None, :])
         zeta = vwhere(mask, (1.0 - w_s * (sig_seed - sigma)) * zeta,
                       zeta)                              # :839
@@ -400,7 +407,7 @@ def shifted_pipe_lopbicgstab(spmv, comm, b, sigma, seed: int,
         k += 1
     scale = torch.where(mask, vvalue(vabs(1.0 / (zeta * pi_new))), 1.0)
     return _shift_result(x_set, k, dot_r, dot_zero, scale, tol2, hist,
-                         seed, spmv, comm, b, sig_seed)
+                         seed, spmv, comm, b, sig_seed, sc)
 
 
 shifted_pipe_lopbicgstab_nooverlap = shifted_pipe_lopbicgstab  # ref :897-1086

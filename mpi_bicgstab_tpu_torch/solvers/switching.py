@@ -50,8 +50,7 @@ from mpi_bicgstab_tpu_torch.ops.precision import (is_df, vabs,
                                                   vbroadcast_rows, vcat,
                                                   vfma, vones, vvalue,
                                                   vwhere, vzeros)
-from mpi_bicgstab_tpu_torch.parallel.sigma import (coeff, row_add, row_set,
-                                                   take_row)
+from mpi_bicgstab_tpu_torch.parallel.sigma import as_shift_comm
 from mpi_bicgstab_tpu_torch.solvers.base import ShiftedResult, start
 from mpi_bicgstab_tpu_torch.solvers.shifted import (_as_sigma, add_update,
                                                     hist_init, scale_add,
@@ -60,14 +59,15 @@ from mpi_bicgstab_tpu_torch.solvers.shifted import (_as_sigma, add_update,
 from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
 
 
-def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
-                    cfg: ShiftedConfig) -> ShiftedResult:
+def shifted_lopbicg(spmv, comm, b, sigma, seed: int, cfg: ShiftedConfig,
+                    shift_comm=None) -> ShiftedResult:
     """Per-shift-stopping LOP-BiCG (shifted_switching_solver.c:20-257).
 
     Converged shifts keep their x/p frozen through the active mask; the
     loop runs until every shift (the seed system included) meets
     |1/(zeta_j pi_j)|^2 (r,r) <= tol^2 (r0,r0)  (:199, seed scale 1 :192)."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     S, n = sigma.shape[0], b.shape[0]
     tol2, exact, _ = start(b, cfg)
     not_seed = torch.arange(S, device=b.device) != seed
@@ -76,8 +76,8 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
     r_hat = b
     rTr = comm.dot(b, b)                        # :83-84
     dot_zero = dot_r = rTr
-    x_set = vzeros((S, n), b)
-    p_set = vbroadcast_rows(b, S)               # :87 p[j] = b
+    x_set = vzeros((sc.s_local(S), n), b)
+    p_set = vbroadcast_rows(b, sc.s_local(S))   # :87 p[j] = b
     alpha = vones((S,), b)
     beta = vzeros((S,), b)
     eta = vzeros((S,), b)
@@ -92,7 +92,7 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
         r_old = r                               # :108
         pi_old = pi_new                         # :109
         alpha_old, beta_old = alpha[seed], beta[seed]   # :110-111
-        p_seed = take_row(p_set, seed)
+        p_seed = sc.take_row(p_set, seed)
         s = spmv(p_seed) + sig_seed * p_seed    # :113-114
         rTs = comm.dot(r_hat, s)                # :116
         a_s = rTr / rTs                         # :119
@@ -100,7 +100,7 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
         y = spmv(q) + sig_seed * q              # :121-122
         qTq, qTy = comm.dots((q, q), (q, y))    # :123-124
         w_s = qTq / qTy                         # :128
-        x_set = row_add(x_set, seed,
+        x_set = sc.row_add(x_set, seed,
                         vfma(a_s * p_seed, w_s, q))  # :129-130
         # shift update (:136-149), the active mask folded into the
         # coefficients (inactive rows: 0 increment / (1, 0) affine)
@@ -109,13 +109,13 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
         pi_new2 = eta2 + pi_old
         alpha_sh = (pi_old / pi_new2) * a_s
         omega_sh = w_s / (1.0 - w_s * (sig_seed - sigma))
-        x_set = add_update(x_set, coeff(active, alpha_sh), p_set,
-                           coeff(active, omega_sh / (pi_new2 * zeta)),
+        x_set = add_update(x_set, sc.coeff(active, alpha_sh), p_set,
+                           sc.coeff(active, omega_sh / (pi_new2 * zeta)),
                            q[None, :])
         p_set = add_update(
-            p_set, coeff(active, omega_sh / (alpha_sh * zeta * pi_new2)),
+            p_set, sc.coeff(active, omega_sh / (alpha_sh * zeta * pi_new2)),
             q[None, :],
-            coeff(active, -(omega_sh / (alpha_sh * zeta * pi_old))),
+            sc.coeff(active, -(omega_sh / (alpha_sh * zeta * pi_old))),
             r_old[None, :])
         zeta2 = (1.0 - w_s * (sig_seed - sigma)) * zeta
         eta = vwhere(active, eta2, eta)
@@ -125,13 +125,13 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
         r_new = vfma(q, -w_s, y)                # :156
         dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :157-159
         b_s = (a_s / w_s) * (rTr_new / rTr)     # :163
-        p_set = row_set(p_set, seed,
+        p_set = sc.row_set(p_set, seed,
                         vfma(r_new, b_s, vfma(p_seed, -w_s, s)))  # :164-166
         # shift p part (:168-174), with the UPDATED zeta
         ratio = pi_old / pi_new
         beta_sh = ratio * ratio * b_s
-        p_set = scale_add(p_set, coeff(active, beta_sh, 1.0),
-                          coeff(active, 1.0 / (pi_new * zeta)),
+        p_set = scale_add(p_set, sc.coeff(active, beta_sh, 1.0),
+                          sc.coeff(active, 1.0 / (pi_new * zeta)),
                           r_new[None, :])
         beta = set_at(vwhere(active, beta_sh, beta), seed, b_s)
         # per-shift convergence (:184-203)
@@ -146,7 +146,7 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
     relres = torch.sqrt(vvalue(dot_r) / vvalue(dot_zero))
     scale = torch.where(not_seed, vvalue(vabs(1.0 / (zeta * pi_new))), 1.0)
     true_rr = seed_true_relres(spmv, comm, b, sig_seed,
-                               take_row(x_set, seed), dot_zero)
+                               sc.take_row(x_set, seed), dot_zero)
     return ShiftedResult(x_set=x_set, n_iter=k, final_relres=relres,
                          history=torch.sqrt(hist / vvalue(dot_zero)),
                          stop_flags=stop, final_seed=seed,
@@ -154,7 +154,7 @@ def shifted_lopbicg(spmv, comm, b, sigma, seed: int,
 
 
 def init_switching_carry(b, sigma, seed: int, cfg: ShiftedConfig,
-                         comm=None):
+                         comm=None, shift_comm=None):
     """The seed-switching solver's initial carry
     (shifted_switching_solver.c:297-364), the 16-slot tuple
 
@@ -163,12 +163,14 @@ def init_switching_carry(b, sigma, seed: int, cfg: ShiftedConfig,
 
     with k and seed Python ints, as the JAX package's carry orders its
     leaves. comm=None gives zeros of the right kind in the rTr and dot_r
-    slots (a template for checkpoint loading)."""
+    slots (a template for checkpoint loading). Under a shift_comm the
+    slabs are this sigma group's [S/G, n] rows."""
     sigma = _as_sigma(sigma, b)
     S, n = sigma.shape[0], b.shape[0]
+    S_loc = as_shift_comm(shift_comm).s_local(S)
     M = cfg.max_iter                   # archives sized M + 1 (:297-299)
-    x_set = vzeros((S, n), b)
-    p_set = vbroadcast_rows(b, S)               # :348
+    x_set = vzeros((S_loc, n), b)
+    p_set = vbroadcast_rows(b, S_loc)           # :348
     eta = vzeros((S,), b)                       # :351
     zeta = vones((S,), b)                       # :354
     pi_arc = vones((M + 1, S), b)               # :352-353 (rows 0, 1 = 1)
@@ -258,7 +260,8 @@ def print_seed_relres(cfg, k: int, dot_r, dot_zero) -> None:
 
 
 def seed_step(spmv, comm, r_hat, sigma, seed: int, k: int, x_set, p_set,
-              r, rTr, eta, zeta, zp_eff, pi_arc, a_arc, b_arc, w_arc, stop):
+              r, rTr, eta, zeta, zp_eff, pi_arc, a_arc, b_arc, w_arc, stop,
+              sc):
     """Iteration k of the seed-switching solve up to the [S, n] shift
     update (shifted_switching_solver.c:376-475): the seed's LOP-BiCGStab
     step and the shift recurrences. The per-iteration and the blocked
@@ -271,12 +274,14 @@ def seed_step(spmv, comm, r_hat, sigma, seed: int, k: int, x_set, p_set,
         x' = x + (cxp p + cxq q);  p' = m1 (p + (cpq q + cpr r_old)) + m2 r_new
 
     and the active mask folded in: inactive rows get (0, 0, 0, 0, 1, 0),
-    an exact identity (the form the fused shift update takes)."""
+    an exact identity (the form the fused shift update takes). sc (a
+    parallel.sigma.SigmaComm) addresses the seed rows of the slabs; the
+    coefficients stay the replicated [S] vectors."""
     S = stop.shape[0]
     sig_seed = sigma[seed]
     not_seed = torch.arange(S, device=stop.device) != seed
     active = not_seed & ~stop
-    p_seed = take_row(p_set, seed)
+    p_seed = sc.take_row(p_set, seed)
     # --- seed iteration (one LOP-BiCGStab step on A + sig_seed I) ---
     s = spmv(p_seed) + sig_seed * p_seed         # :379-387
     rTs = comm.dot(r_hat, s)                     # :388
@@ -287,12 +292,13 @@ def seed_step(spmv, comm, r_hat, sigma, seed: int, k: int, x_set, p_set,
     qTq, qTy = comm.dots((q, q), (q, y))         # :405-406
     w_k = qTq / qTy                              # :410
     set_at(w_arc, k, w_k)
-    row_add(x_set, seed, vfma(a_k * p_seed, w_k, q))        # :411-412
+    sc.row_add(x_set, seed, vfma(a_k * p_seed, w_k, q))        # :411-412
     r_new = vfma(q, -w_k, y)                     # :413
     dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :414-416
     b_k = (a_k / w_k) * (rTr_new / rTr)          # :420
     set_at(b_arc, k, b_k)
-    row_set(p_set, seed, vfma(r_new, b_k, vfma(p_seed, -w_k, s)))  # :421-423
+    sc.row_set(p_set, seed,
+               vfma(r_new, b_k, vfma(p_seed, -w_k, s)))   # :421-423
     # --- shift recurrences (:429-445) ---
     pi_prev = pi_arc[k - 1]                      # pi_archive[j, k-1]
     eta2 = (b_arc[k - 1] / a_arc[k - 1]) * a_k * eta \
@@ -333,13 +339,14 @@ def stop_test(stop, abs_zp, dot_r, tol2, dot_zero, seed: int):
 
 
 def _switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig, carry,
-                    k_stop: int):
+                    k_stop: int, shift_comm=None):
     """Run the seed-switching loop from `carry` until every shift stops,
     k passes max_iter, or k reaches k_stop (segmented runs for
     checkpoint/resume). Returns the final carry. The arithmetic is
     bit-identical however the run is segmented: the carry is the complete
     solver state. The carry's state is updated in place."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     tol2, exact, _ = start(b, cfg)
     M = cfg.max_iter
     dot_zero = comm.dot(b, b)                    # :344-345
@@ -352,7 +359,9 @@ def _switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig, carry,
         (q, r_new, dot_r, rTr_new, c, eta, zeta, zp_eff, abs_zp,
          not_seed) = seed_step(spmv, comm, b, sigma, seed, k, x_set, p_set,
                                r, rTr, eta, zeta, zp_eff, pi_arc, a_arc,
-                               b_arc, w_arc, stop)  # r_hat = b (:346)
+                               b_arc, w_arc, stop, sc)  # r_hat = b (:346)
+        # the coefficients of this sigma group's slab rows
+        c = [sc.loc(v) for v in c]
         if is_df(x_set):
             # all three stages in ONE in-place pass (ops/cuda_shift_update.py)
             x_set, p_set = fused_shift_update_df(x_set, p_set, q, r_old,
@@ -380,9 +389,11 @@ def _switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig, carry,
             b_arc, w_arc, stop, rTr, dot_r, hist)
 
 
-def _switching_finish(out, spmv, comm, b, sigma) -> ShiftedResult:
+def _switching_finish(out, spmv, comm, b, sigma,
+                      shift_comm=None) -> ShiftedResult:
     """Carry -> ShiftedResult (the reference's exit prints, :555-598)."""
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     S = sigma.shape[0]
     dot_zero = comm.dot(b, b)
     (k, seed, x_set, _p, _r, _eta, _zeta, zp_eff, _pi, _aa, _ba, _wa,
@@ -393,7 +404,7 @@ def _switching_finish(out, spmv, comm, b, sigma) -> ShiftedResult:
     scale = torch.where(torch.arange(S, device=b.device) != seed,
                         vvalue(vabs(1.0 / zp_eff)), 1.0)
     true_rr = seed_true_relres(spmv, comm, b, sigma[seed],
-                               take_row(x_set, seed), dot_zero)
+                               sc.take_row(x_set, seed), dot_zero)
     return ShiftedResult(x_set=x_set, n_iter=int(k) - 1,  # :559 reports k-1
                          final_relres=relres,
                          history=torch.sqrt(hist / vvalue(dot_zero)),
@@ -402,24 +413,30 @@ def _switching_finish(out, spmv, comm, b, sigma) -> ShiftedResult:
 
 
 def shifted_lopbicg_switching(spmv, comm, b, sigma, seed: int,
-                              cfg: ShiftedConfig) -> ShiftedResult:
+                              cfg: ShiftedConfig,
+                              shift_comm=None) -> ShiftedResult:
     """Seed-switching shifted solver (shifted_switching_solver.c:260-608).
 
     A float32 ladder on the card runs its shift updates BLOCKED: L
     iterations of [S, n] updates deferred and applied as [S, L] @ [L, n]
     matrix products (solvers/switching_blocked.py; cfg.shift_block). The
     per-iteration path (f64, df32, the CPU, and the segmented checkpoint
-    driver always) is the reference-exact build."""
+    driver always) is the reference-exact build. shift_comm (a
+    parallel.sigma.SigmaComm) shards the ladder's slabs over sigma
+    groups."""
     from mpi_bicgstab_tpu_torch.solvers.switching_blocked import (
         blocked_switching_loop, resolve_block)
-    carry0 = init_switching_carry(b, sigma, seed, cfg, comm=comm)
+    carry0 = init_switching_carry(b, sigma, seed, cfg, comm=comm,
+                                  shift_comm=shift_comm)
     L = resolve_block(cfg, b, int(_as_sigma(sigma, b).shape[0]))
     if L:
-        out = blocked_switching_loop(spmv, comm, b, sigma, cfg, carry0, L)
+        out = blocked_switching_loop(spmv, comm, b, sigma, cfg, carry0, L,
+                                     shift_comm=shift_comm)
     else:
         out = _switching_loop(spmv, comm, b, sigma, cfg, carry0,
-                              k_stop=cfg.max_iter + 1)
-    return _switching_finish(out, spmv, comm, b, sigma)
+                              k_stop=cfg.max_iter + 1,
+                              shift_comm=shift_comm)
+    return _switching_finish(out, spmv, comm, b, sigma, shift_comm)
 
 
 def shifted_lopbicg_switching_segment(spmv, comm, b, sigma,

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from mpi_bicgstab_tpu_torch.ops.precision import is_df
+from mpi_bicgstab_tpu_torch.parallel.sigma import as_shift_comm
 from mpi_bicgstab_tpu_torch.solvers.base import start
 from mpi_bicgstab_tpu_torch.solvers.shifted import _as_sigma
 from mpi_bicgstab_tpu_torch.solvers.switching import (print_seed_relres,
@@ -82,13 +83,17 @@ def _check_no_tf32():
 
 
 def blocked_switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig,
-                           carry, L: int):
+                           carry, L: int, shift_comm=None):
     """Run the seed-switching solve from `carry` (the 16-slot tuple of
     switching.init_switching_carry) to the end with block depth L.
     Returns the final carry (the contract of switching._switching_loop
-    with k_stop = max_iter + 1). The carry's state is updated in place."""
+    with k_stop = max_iter + 1). The carry's state is updated in place.
+    shift_comm (a parallel.sigma.SigmaComm): the slabs are this sigma
+    group's rows, flushed with its rows of the [S] and [S, L]
+    coefficients."""
     _check_no_tf32()
     sigma = _as_sigma(sigma, b)
+    sc = as_shift_comm(shift_comm)
     dtype, dev = b.dtype, b.device
     S, n = sigma.shape[0], b.shape[0]
     tol2, exact, _ = start(b, cfg)
@@ -115,7 +120,7 @@ def blocked_switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig,
             (q, r_new, dot_r, rTr_new, (cxp, cxq, cpq, cpr, m1, m2), eta,
              zeta, zp_eff, abs_zp, not_seed) = seed_step(
                 spmv, comm, b, sigma, seed, k, x_set, p_set, r, rTr, eta,
-                zeta, zp_eff, pi_arc, a_arc, b_arc, w_arc, stop)
+                zeta, zp_eff, pi_arc, a_arc, b_arc, w_arc, stop, sc)
             oh_j = (idxL == j).to(dtype)[None, :]               # [1, L]
             oh_jm1 = (idxL == j - 1).to(dtype)[None, :]
             # x_k = x + cxp.p_pre + cxq.q_j  (p_pre: before stages 1 and 2)
@@ -151,14 +156,14 @@ def blocked_switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig,
         # the block-entry p, whose non-seed rows are untouched until the
         # p flush; the seed row's coefficients are 0). The sums associate
         # as the JAX expression's, left to right. ---
-        x_set += xA[:, None] * p_set
-        x_set += xr0[:, None] * r0_blk[None, :]
-        x_set += torch.matmul(CxQ, Q)
-        x_set += torch.matmul(CxR, R)
-        p_set.mul_(aP[:, None])
-        p_set += pr0[:, None] * r0_blk[None, :]
-        p_set += torch.matmul(CpQ, Q)
-        p_set += torch.matmul(CpR, R)
+        x_set += sc.loc(xA)[:, None] * p_set
+        x_set += sc.loc(xr0)[:, None] * r0_blk[None, :]
+        x_set += torch.matmul(sc.loc(CxQ), Q)
+        x_set += torch.matmul(sc.loc(CxR), R)
+        p_set.mul_(sc.loc(aP)[:, None])
+        p_set += sc.loc(pr0)[:, None] * r0_blk[None, :]
+        p_set += torch.matmul(sc.loc(CpQ), Q)
+        p_set += torch.matmul(sc.loc(CpR), R)
         # --- seed switching (:490-527) after the flush, at k_sw = k - 1,
         # the iteration that found it ---
         if pend:

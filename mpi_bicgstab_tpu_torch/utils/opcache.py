@@ -13,9 +13,9 @@ mismatched entry cannot be hit: a changed value, shape, option or
 LAYOUT_VERSION changes the key.
 
 Serialisation walks the operator dataclasses on a whitelist (DiaMatrix,
-EllMatrix, HybridMatrix, WindowEllMatrix, ButterflyMatrix, and DF pairs
-for df32): tensors go into the npz, the rest into a JSON entry; no
-pickle. Only a dataclass's init fields are stored. Derived fields
+EllMatrix, HybridMatrix, WindowEllMatrix, ButterflyMatrix, the row
+partition's PartitionedMatrix, and DF pairs for df32): tensors go into
+the npz, the rest into a JSON entry; no pickle. Only a dataclass's init fields are stored. Derived fields
 (WindowEllMatrix.rc_*, ButterflyMatrix.k3_col) are rebuilt by the
 class's __post_init__ on load, on the loading caller's device, which is
 where every tensor lands (on the card the butterfly's column table is
@@ -60,8 +60,10 @@ def _registry() -> dict:
     from mpi_bicgstab_tpu_torch.ops.layout import HybridMatrix
     from mpi_bicgstab_tpu_torch.ops.precision import DF
     from mpi_bicgstab_tpu_torch.ops.window_ell import WindowEllMatrix
+    from mpi_bicgstab_tpu_torch.parallel.partition import PartitionedMatrix
     return {c.__name__: c for c in (DiaMatrix, EllMatrix, HybridMatrix,
-                                    WindowEllMatrix, ButterflyMatrix, DF)}
+                                    WindowEllMatrix, ButterflyMatrix,
+                                    PartitionedMatrix, DF)}
 
 
 def operator_key(csr, **options) -> str:

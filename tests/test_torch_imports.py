@@ -74,6 +74,15 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/utils/host_build.py",
                  "mpi_bicgstab_tpu_torch/utils/checkpoint.py",
                  "mpi_bicgstab_tpu_torch/benchmarks/runner.py",
+                 "mpi_bicgstab_tpu_torch/benchmarks/sections.py",
+                 "mpi_bicgstab_tpu_torch/parallel/comm.py",
+                 "mpi_bicgstab_tpu_torch/parallel/mesh.py",
+                 "mpi_bicgstab_tpu_torch/parallel/launch.py",
+                 "mpi_bicgstab_tpu_torch/parallel/partition.py",
+                 "mpi_bicgstab_tpu_torch/parallel/dist_spmv.py",
+                 "mpi_bicgstab_tpu_torch/parallel/driver.py",
+                 "mpi_bicgstab_tpu_torch/parallel/sigma.py",
+                 "mpi_bicgstab_tpu_torch/solvers/fused_dist.py",
                  "mpi_bicgstab_tpu_torch/cli.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
@@ -106,6 +115,10 @@ def test_new_modules_import_without_jax():
             "mpi_bicgstab_tpu_torch.ops.cuda_window_spmv",
             "mpi_bicgstab_tpu_torch.ops.reorder",
             "mpi_bicgstab_tpu_torch.ops.scale",
+            "mpi_bicgstab_tpu_torch.parallel.launch",
+            "mpi_bicgstab_tpu_torch.parallel.driver",
+            "mpi_bicgstab_tpu_torch.solvers.fused_dist",
+            "mpi_bicgstab_tpu_torch.benchmarks.sections",
             "mpi_bicgstab_tpu_torch.cli")
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -114,3 +127,21 @@ def test_new_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_spawned_ranks_import_no_jax():
+    """The ranks parallel/launch.py spawns from this process, which has
+    JAX loaded, import neither JAX nor the JAX package (each rank checks
+    sys.modules after its task), and the launcher refuses a task from
+    any other module."""
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch.models.generators import banded_random
+    from mpi_bicgstab_tpu_torch.parallel import driver, launch
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    csr = banded_random(256, [1, -1, 3, -3], seed=0)
+    x = np.arange(256.0)
+    y = launch.run(driver.spmv_global, 2, partition_csr(csr, 2), x)
+    np.testing.assert_allclose(y, csr.matvec(x), rtol=1e-14)
+    with pytest.raises(ValueError, match="not a function of"):
+        launch.run(np.ones, 2, 3)

@@ -120,6 +120,122 @@ def test_dia_spmv_kernel_matches_plain(n, offsets, dtype):
     _close([y], [cuda_spmv.dia_spmv_plain(A.vals, A.offsets, x)])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "df32"])
+@pytest.mark.parametrize("n,offsets", CASES[:2])
+def test_dia_spmv_halo_form_matches_plain(n, offsets, dtype):
+    """The halo form (parallel/dist_spmv.spmv_dia_halo): a rank's rows of
+    the band over x with `halo` neighbour entries at each end, nonzero
+    there; float against the twin, DF bit for bit."""
+    dev = _card()
+    A = _band(n, offsets, dtype, dev)
+    halo = -(-max(abs(o) for o in offsets) // 128) * 128
+    g = np.random.default_rng(3).standard_normal(n + 2 * halo)
+    df = dtype == "df32"
+    xh = df_from_f64(g, dev) if df else torch.as_tensor(g, dtype=dtype,
+                                                       device=dev)
+    kern = cuda_spmv.dia_spmv_df if df else cuda_spmv.dia_spmv
+    plain = cuda_spmv.dia_spmv_df_plain if df else cuda_spmv.dia_spmv_plain
+    before = kern.launches
+    y = kern(A.vals, A.offsets, xh, halo=halo)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = plain(A.vals, A.offsets, xh, halo=halo)
+    if df:
+        assert torch.equal(y.hi, want.hi) and torch.equal(y.lo, want.lo)
+    else:
+        _close([y], [want])
+
+
+HALO_SIDES = {"first": (False, True), "middle": (True, True),
+              "last": (True, False)}
+
+
+def _halo_vecs(n, halo, k, dev, df=False, seed=5):
+    """k halo-form vectors (solvers/fused_dist.py): n + 2h random entries,
+    NaN in a halo whose neighbour does not exist (never read)."""
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        a = g.standard_normal(n + 2 * halo.h)
+        if not halo.prev:
+            a[:halo.h] = np.nan
+        if not halo.next:
+            a[halo.h + n:] = np.nan
+        out.append(df_from_f64(a, dev) if df else
+                   torch.as_tensor(a, dtype=torch.float32, device=dev))
+    return out
+
+
+def _rows_of(outs, halo):
+    return [cuda_spmv.center(t, halo) if t.dim() else t for t in outs]
+
+
+@pytest.mark.parametrize("side", list(HALO_SIDES))
+@pytest.mark.parametrize("n,offsets", CASES[:2])
+def test_fused_halo_forms_match_plain(n, offsets, side):
+    """The float32 passes' halo forms against their twins on the same
+    halo-form inputs, the rank's rows compared."""
+    dev = _card()
+    halo = cuda_spmv.Halo(-(-max(abs(o) for o in offsets) // 128) * 128,
+                          *HALO_SIDES[side])
+    A = _band(n, offsets, torch.float32, dev)
+    r, p, s, w, z, x, q, y, rh = _halo_vecs(n, halo, 9, dev)
+    a, b, om = (torch.tensor(v, device=dev) for v in (0.7, 0.3, 0.2))
+    v, o = A.vals, A.offsets
+    for kern, plain, args in (
+            (fcl.fused_k1, fcl.fused_k1_plain, (v, r, p, s, rh, (b, om), o)),
+            (fcl.fused_k2, fcl.fused_k2_plain, (v, r, s, (a,), o)),
+            (fcl.fused_k3, fcl.fused_k3_plain, (x, p, q, y, rh, (a, om))),
+            (fca.fused_ca_k1, fca.fused_ca_k1_plain,
+             (v, r, p, s, w, z, (a, b, om), o)),
+            (fca.fused_ca_k2, fca.fused_ca_k2_plain,
+             (v, q, y, x, p, rh, s, z, (a, om), o)),
+            (fpipe.fused_phase_a, fpipe.fused_phase_a_plain,
+             (v, z, r, p, s, w, x, (a, b, om), o)),
+            (fpipe.fused_phase_b, fpipe.fused_phase_b_plain,
+             (v, w, x, p, q, y, rh, s, z, (a, om), o))):
+        before = kern.launches
+        got = kern(*args, halo=halo)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        _close(_rows_of(got, halo), _rows_of(plain(*args, halo=halo), halo),
+               dot_atol=1e-3)
+
+
+@pytest.mark.parametrize("side", list(HALO_SIDES))
+@pytest.mark.parametrize("n,offsets", CASES[:2])
+def test_df_halo_forms_match_plain(n, offsets, side):
+    """The DF classic passes' halo forms: the rank's rows of every output
+    vector bit-equal to the twin's, dots and folded scalars within 1e-9
+    relative (their partials sum in another order)."""
+    dev = _card()
+    halo = cuda_spmv.Halo(-(-max(abs(o) for o in offsets) // 128) * 128,
+                          *HALO_SIDES[side])
+    A = _band(n, offsets, "df32", dev)
+    r, p, s, rh, x, q, y = _halo_vecs(n, halo, 7, dev, df=True)
+    a, b, w, rtr = _df_scalars(dev, 0.7, 0.3, 0.2, 2.5)
+    v, o = A.vals, A.offsets
+    for kern, plain, args in (
+            (fcldf.fused_k1_df, fcldf.fused_k1_df_plain,
+             (v, r, p, s, rh, (b, w, rtr), o)),
+            (fcldf.fused_k2_df, fcldf.fused_k2_df_plain,
+             (v, r, s, (a,), o)),
+            (fcldf.fused_k3_df, fcldf.fused_k3_df_plain,
+             (x, p, q, y, rh, (a, w, rtr)))):
+        before = kern.launches
+        got = kern(*args, halo=halo)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        want = plain(*args, halo=halo)
+        for g, wv in zip(got, want):
+            if g.hi.dim():
+                gc, wc = cuda_spmv.center(g, halo), cuda_spmv.center(wv, halo)
+                assert torch.equal(gc.hi, wc.hi) and torch.equal(gc.lo, wc.lo)
+            else:
+                np.testing.assert_allclose(df_to_f64(g), df_to_f64(wv),
+                                           rtol=1e-9, atol=1e-9)
+
+
 @pytest.mark.parametrize("n,offsets", CASES)
 def test_fused_kernels_match_plain(n, offsets):
     dev = _card()

@@ -135,9 +135,12 @@ def test_bad_arguments_exit():
         _port("--method", "shifted_lopbicgstab", "--checkpoint", "c.npz")
     with pytest.raises(SystemExit, match="--repeat"):
         _port("--checkpoint", "c.npz", "--repeat", "2")
-    with pytest.raises(SystemExit):                   # not accepted yet
-        _port("--devices", "2")
-    with pytest.raises(SystemExit):
+    # the distributed path's refusals (JAX cli.py:523-535)
+    with pytest.raises(SystemExit, match="--devices must be >= 1"):
+        _port("--devices", "0")
+    with pytest.raises(SystemExit, match="single-device for the shifted"):
+        _port("--devices", "2", "--checkpoint", "c.npz")
+    with pytest.raises(SystemExit, match="requires the distributed path"):
         _port("--sigma-devices", "2")
 
 
