@@ -148,18 +148,23 @@ numbers; any failure exits non-zero:
              derived k3_col and rc_* rebuilt there): every field
              bit-equal, and a float32 solve from each the same n_iter and
              x bit for bit. `[tools]` prints `info`'s census, runs
-             `selftest` on the card (every check PASS, exit 0) and `bench
+             `selftest` on the card (every check PASS, exit 0), `bench
              --matrix transport-like:1602112 --what
              spmv,iter,batched,cheby,shifted` (its times finite and
              positive, every byte rate it allows reckoning at most 3.35
-             TB/s, check_bench_line). The distributed layer (ROADMAP
-             slice 8a) on one rank of a real NCCL process group met in
-             this process (init_world; the card machine has one GPU):
-             first `[halo_kernels]`: the halo forms of the DIA SpMV, the
-             DF SpMV and the ten fused passes (solvers/fused_dist.py) at
-             the main path's n on a rank in the middle of a partition
-             (inp's vectors with random neighbour rows around them),
-             the rank's rows of each output against the twin's.
+             TB/s, check_bench_line) and `bench --devices 1 --what
+             overlap,scaling` in its own process (run_bench_dist: the
+             JAX package's keys, the one-rank labels). The distributed
+             layer (ROADMAP slices 8a, 8b) on one rank of a real NCCL
+             process group met in this process (init_world; the card
+             machine has one GPU): first `[halo_kernels]`: the halo
+             forms of the DIA SpMV, the DF SpMV, the ten fused passes
+             (solvers/fused_dist.py) and the batched kernels 19-22
+             (solvers/batched_dist.py, k = 8, two lanes frozen) at the
+             main path's n on a rank in the middle of a partition (inp's
+             vectors and planes with random neighbour rows around them),
+             the rank's rows of each output against the twin's, with
+             device ms.
              `[dist]`, `[dist_ca]`, `[dist_pipe]`, `[dist_f64]`,
              `[dist_df32]`, `[dist_ring]` (DIST_PATHS) solve
              transport_like(1602112) partitioned for one rank (DIA halo
@@ -177,11 +182,23 @@ numbers; any failure exits non-zero:
              SpMV, the column table built once on the shard);
              `[dist_shifted]` (512 shifts, seed 255, switching, df32:
              kernel 18 once per iteration, every shift's true residual
-             <= 100 tol); `[dist_batched]` (8 f32 lanes);
-             `[dist_cheby]` (cheby:8, f32, transport_hard(1602112), the
-             residual <= 100 tol as `[cheby]`'s); each under
-             no_twin_on_card (a plain twin given a CUDA tensor fails
-             the phase), launches in check_dist_counts. `[dist_cli]`:
+             <= 100 tol); `[dist_batched]` (8 f32 lanes on the blocked
+             halo-fused route: K1b, K2b, K3b once per batch iteration,
+             kernel 19 at set-up and exit, 3 reductions per iteration
+             for all lanes, n_iter, history and x bit-equal to the
+             single-device fused batch; eager and device ms per batch
+             iteration); `[dist_cheby]` (cheby:8, f32,
+             transport_hard(1602112), the residual <= 100 tol as
+             `[cheby]`'s); `[dist_overlap]` (the split-phase Comm bit-
+             equal to the blocking form, pipelined f32 with serialize_comm
+             on and off bit-equal, then bench_overlap's overlap_gain and
+             its label); `[dist_checkpoint]` (solve_with_checkpoints over
+             the one-rank runner, cut after one segment and resumed,
+             equal to the uninterrupted run, a foreign meta refused);
+             each under no_twin_on_card (a plain twin given a CUDA
+             tensor fails the phase), launches in check_dist_counts or
+             the phase's own rule; the phases share their partitions
+             (dist_partition). `[dist_cli]`:
              `solve --devices 1 --json` converges, `--devices 2` exits
              naming the single CUDA device. `[profile]`: `profile --json`
              in f32 on transport-like:1602112, with --sigma-len 64, and
@@ -217,8 +234,9 @@ numbers; any failure exits non-zero:
              beside two SpMVs' bytes; the one-rank distributed f32
              classic iteration (eager, and its kernels' device time by
              torch.profiler) beside the single-device unfused and fused
-             routes, and one global dot over the group against one on
-             the device
+             routes, and one global dot over the group (the split-phase
+             Comm, and the blocking list form it replaced) against one
+             on the device
   6. report  the kernels JSON line, the card's name and power limit,
              and the final {"ok": true, "device": ...} line
 
@@ -1004,7 +1022,88 @@ def halo_inputs(inp: dict, seed: int = 7) -> dict:
     for k in ("r", "p", "s", "r_hat", "x", "q", "y", "w", "z"):
         out["h_" + k] = ext(inp[k])
         out["h_df_" + k] = ext(inp["df_" + k])
+    for k in ("r", "p", "s", "r_hat", "x", "q", "y"):   # batched planes
+        P = inp["b_" + k]
+        lo, hi = (torch.as_tensor(rng.standard_normal((P.shape[0], h)),
+                                  dtype=P.dtype, device=P.device)
+                  for _ in range(2))
+        out["hb_" + k] = torch.cat([lo, P, hi], 1)
     return out
+
+
+def halo_batched_calls(inp: dict, hinp: dict) -> dict:
+    """name -> (kernel call, plain call, which outputs hold the halo rows
+    too) of the batched kernels' halo forms (kernels 19-22, the
+    row-partitioned batch of solvers/batched_dist.py) on halo_inputs'
+    K_MAIN-lane planes, two lanes frozen: the SpMV over the halo-form X
+    (its [k, n] result), K1b and K2b (stage 0 writes P2 and Q over the
+    halo rows too), K3b on the rank's rows."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fbat
+    H = hinp["halo"]
+    v, o = inp["A32"].vals, inp["A32"].offsets
+    r, p, s, rh, x, q, y = (hinp["hb_" + k] for k in
+                            ("r", "p", "s", "r_hat", "x", "q", "y"))
+    a, b, w, act = (inp["b_" + k] for k in
+                    ("alpha", "beta", "omega", "active"))
+    k1 = (v, r, p, s, rh, (b, w, act), o)
+    k2 = (v, r, s, (a,), o)
+    k3 = (x, p, q, y, rh, (a, w, act))
+    return {
+        "batched_dia_spmv": (
+            lambda: (cbs.batched_dia_spmv(v, o, x, H),),
+            lambda: (cbs.batched_dia_spmv_plain(v, o, x, H),), ()),
+        "fused_k1b": (lambda: fbat.fused_k1b(*k1, halo=H),
+                      lambda: fbat.fused_k1b_plain(*k1, halo=H), (0,)),
+        "fused_k2b": (lambda: fbat.fused_k2b(*k2, halo=H),
+                      lambda: fbat.fused_k2b_plain(*k2, halo=H), (0,)),
+        "fused_k3b": (lambda: fbat.fused_k3b(*k3, halo=H),
+                      lambda: fbat.fused_k3b_plain(*k3, halo=H), ()),
+    }
+
+
+def check_halo_batched(inp: dict, hinp: dict) -> None:
+    """`[halo_kernels]`, kernels 19-22: each batched halo form against its
+    twin on the same halo-form planes; an output's rank rows (and the
+    halo rows of P2 and Q, which stage 0 writes) within TOL["float32"],
+    the per-lane dots within TOL["float32_dot"], the frozen lanes' P2,
+    S2, X2 and R2 bit-unchanged; then its device ms per call (a replayed
+    graph)."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    H = hinp["halo"]
+    n = inp["A32"].vals.shape[1]
+    fz = list(FROZEN_LANES)
+    olds = {"fused_k1b": ("hb_p", "hb_s"), "fused_k3b": ("hb_x", "hb_q")}
+    for name, (kern, plain, whole) in halo_batched_calls(inp,
+                                                         hinp).items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            what = f"{name} (halo form) output {i}"
+            if g.dim() == 1:
+                _close(what, g, w, TOL["float32_dot"]["rtol"], 0.0)
+            else:
+                if g.shape[1] != n and i not in whole:
+                    g, w = g[:, H.h:H.h + n], w[:, H.h:H.h + n]
+                _close(what, g, w, **TOL["float32"])
+            errs.append(_err(g.double(), w.double()))
+        for i, key in enumerate(olds.get(name, ())):
+            old = hinp[key]
+            if not torch.equal(got[i][fz, H.h:H.h + n],
+                               old[fz, H.h:H.h + n]):
+                raise SmokeFailure(f"{name} (halo form) output {i}: a "
+                                   f"frozen lane changed")
+        _say("halo_kernels", kernel=name, ok=True, halo=H.h,
+             neighbours="both", lanes=K_MAIN, frozen_lanes=fz, rows=n,
+             halo_rows_compared=bool(whole),
+             ms=f"{time_call(kern, graph=True) * 1e3:.4f}",
+             max_abs_err_per_output="[" + ",".join(
+                 f"{e:.3e}" for e in errs) + "]")
 
 
 def halo_kernel_calls(inp: dict, hinp: dict) -> dict:
@@ -1073,7 +1172,8 @@ def halo_kernel_calls(inp: dict, hinp: dict) -> dict:
 
 def check_halo_kernels(inp: dict) -> None:
     """`[halo_kernels]`: each halo form against its twin on the same
-    halo-form inputs, the rank's rows of every output vector compared:
+    halo-form inputs (then kernels 19-22's, check_halo_batched), the
+    rank's rows of every output vector compared:
     float32 with the kernels' tolerances (TOL), DF bit-equal, each DF dot
     within TOL["df32_dot"] x sum |u_i v_i| over the rank's rows, a folded
     scalar within the same bar relative to its value; then its device ms
@@ -1133,6 +1233,7 @@ def check_halo_kernels(inp: dict) -> None:
              ms=f"{time_call(kern, graph=True) * 1e3:.4f}",
              max_abs_err_per_output="[" + ",".join(
                  f"{e:.3e}" for e in errs) + "]")
+    check_halo_batched(inp, hinp)
 
 
 def check_kernels(calls: dict, inp: dict) -> dict:
@@ -3710,6 +3811,42 @@ def run_tools(inp: dict) -> None:
         {k: round(v / 1e12, 4) for k, v in rates.items()},
         separators=(",", ":")), hbm_peak_tb_per_s=HBM_BYTES_PER_S / 1e12,
         seconds=round(time.perf_counter() - t0, 3))
+    run_bench_dist()
+
+
+def run_bench_dist(n: int = N_MAIN, device: str = "cuda",
+                   iters: int = 12) -> dict:
+    """`[tools]`: `bench --devices 1 --what overlap,scaling` in its own
+    process (the CLI spawns the rank, whose standard output is the
+    line): the JAX package's overlap and scaling keys, finite positive
+    times, and the one-rank labels (no fabric exercised)."""
+    import math
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_bicgstab_tpu_torch", "bench", "--matrix",
+         f"transport-like:{n}", "--dtype", "float32", "--devices", "1",
+         "--what", "overlap,scaling", "--iters", str(iters), "--device",
+         device], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode or not lines:
+        raise SmokeFailure(f"bench --devices 1: exit {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    times = ("time_per_iter_overlap_s", "time_per_iter_serialized_s",
+             "time_per_iter_s_d1")
+    label = "single-device (no fabric exercised)"
+    if not (all(math.isfinite(line[k]) and line[k] > 0 for k in times)
+            and line["scaling_devices"] == [1]
+            and line["scaling_fabric"] == label
+            and line["overlap_fabric"] == label):
+        raise SmokeFailure(f"bench --devices 1 --what overlap,scaling: "
+                           f"{line}")
+    print(f"[tools] bench_dist: {lines[-1]}", flush=True)
+    out = {k: line[k] for k in ("overlap_gain", "speedup_d1")}
+    _say("tools", bench_devices=1, **out,
+         seconds=round(time.perf_counter() - t0, 3))
+    return line
 
 
 # --- the distributed layer (slice 8a): one rank of a real process group ------
@@ -3754,7 +3891,11 @@ TWINS = (("mpi_bicgstab_tpu_torch.ops.cuda_spmv",
           ("k1_plain", "k2_plain", "decode_plain", "k3_plain",
            "k3_df_plain")),
          ("mpi_bicgstab_tpu_torch.ops.cuda_shift_update",
-          ("fused_shift_update_df_plain",)))
+          ("fused_shift_update_df_plain",)),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_batched_spmv",
+          ("batched_dia_spmv_plain",)),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_fused_batched",
+          ("fused_k1b_plain", "fused_k2b_plain", "fused_k3b_plain")))
 
 
 def init_world(device: str) -> None:
@@ -3934,12 +4075,11 @@ def run_dist_path(phase: str, csr, n_devices: int = 1,
 
     from mpi_bicgstab_tpu_torch.api import solve
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
-    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     method, dtype, tol, halo = DIST_PATHS[phase]
     dt = _dtype(dtype)
     cfg = SolverConfig(tol=tol, max_iter=1000, dtype=dt)
-    part = partition_csr(csr, n_devices, dtype=dt)
+    part = dist_partition(csr, n_devices, dt)
     if part.dia_mode != "halo":
         raise SmokeFailure(f"{phase}: partition in {part.dia_mode} mode")
     b = csr.matvec(np.ones(csr.nrows))
@@ -4043,11 +4183,10 @@ def run_dist_shifted(csr, n_devices: int = 1, device: str = "cuda",
     from mpi_bicgstab_tpu_torch.parallel.driver import \
         solve_shifted_distributed
     from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
-    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
     from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
     sigma = flagship_ladder(S)
     b = csr.matvec(np.ones(csr.nrows)) + sigma[seed]
-    part = partition_csr(csr, n_devices, dtype="df32")
+    part = dist_partition(csr, n_devices, "df32")
     mesh = make_row_mesh(n_devices, device)
     cfg = ShiftedConfig(tol=DIST_SHIFT_TOL, max_iter=1000, dtype="df32")
     reset_counts()
@@ -4083,41 +4222,310 @@ def run_dist_shifted(csr, n_devices: int = 1, device: str = "cuda",
     return {**out, "counts": counts}
 
 
+_PARTS: dict = {}
+
+
+def dist_partition(csr, n_devices: int, dtype):
+    """partition_csr(csr, n_devices, dtype), built once per run for each
+    matrix, rank count and dtype (the distributed phases share them)."""
+    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
+    key = (id(csr), n_devices, str(dtype))
+    if key not in _PARTS:
+        _PARTS[key] = (csr, partition_csr(csr, n_devices, dtype=dtype))
+    return _PARTS[key][1]
+
+
+def _chain_ms(make_chain, device: str) -> dict:
+    """Eager and device ms per iteration of tol = 0 chains (make_chain(K)
+    runs K iterations) of DIST_CHAINS lengths: the slope of CUDA-event
+    (on the CPU host-clock) times, and on the card the slope of the
+    kernels' device time by torch.profiler."""
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import _slope_time
+    K1, K2 = DIST_CHAINS
+    eager = _slope_time(make_chain, K1, K2, reps=3, device=device) * 1e3
+    dev = "not measured"
+    if device == "cuda":
+        k1, k2 = (_kernel_ms(make_chain(K)) for K in (K1, K2))
+        dev = f"{(k2 - k1) / (K2 - K1):.4f}"
+    return {"eager_ms_per_batch_iter": f"{eager:.4f}",
+            "device_ms_per_batch_iter": dev,
+            "chains": f"tol=0x{K1},{K2}"}
+
+
 def run_dist_batched(csr, n_devices: int = 1, device: str = "cuda",
                      k: int = DIST_LANES, tol: float = 1e-6) -> dict:
     """`[dist_batched]`: solve_batched_distributed with k float32 lanes
-    (batched_rhs): every lane converged with its true residual within 10
-    tol, the launches of check_dist_counts over k lanes."""
+    (batched_rhs) on transport_like's DIA halo partition, the blocked
+    halo-fused route (solvers/batched_dist.py): every lane converged with
+    its true residual within 10 tol; on the card K1b, K2b and K3b once per
+    batch iteration for all k lanes (the largest n_iter) and kernel 19
+    twice (r0 and the exit true residuals), nothing else; 3 reductions per
+    batch iteration for all lanes (comm.counted: 3 per iteration, r0's,
+    the exit's and the gather of X); on one rank n_iter, history and x
+    bit-equal to the single-device fused batch (api.solve_batched, the
+    `[batched]` route); eager and device ms per batch iteration."""
     import numpy as np
     import torch
 
-    from mpi_bicgstab_tpu_torch.parallel.driver import \
-        solve_batched_distributed
+    from mpi_bicgstab_tpu_torch.api import solve_batched
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.parallel.comm import counted
+    from mpi_bicgstab_tpu_torch.parallel.driver import (
+        put_partitioned, solve_batched_distributed)
     from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
-    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     B, _ = batched_rhs(csr, k)
-    part = partition_csr(csr, n_devices, dtype=torch.float32)
+    part = dist_partition(csr, n_devices, torch.float32)
     mesh = make_row_mesh(n_devices, device)
     cfg = SolverConfig(tol=tol, max_iter=1000, dtype=torch.float32)
     reset_counts()
     with no_twin_on_card():
-        res = solve_batched_distributed(part, B, cfg=cfg, mesh=mesh)
+        shard = put_partitioned(part, mesh)
+        res, issued = counted(solve_batched_distributed, shard, B, cfg=cfg,
+                              mesh=mesh)
         conv = res.converged.cpu().numpy()
     counts = read_counts()
     its = [int(v) for v in res.n_iter]
-    check_dist_counts("dist_batched", "dia_spmv", sum(its), counts,
-                      cfg.restarts, lanes=k, device=device)
-    times = solve_times(lambda: solve_batched_distributed(
-        part, B, cfg=cfg, mesh=mesh).converged.cpu(), sum(its), device)
+    it = max(its)
+    want = dict.fromkeys(counts, 0)
+    if device == "cuda":
+        want.update(fused_k1b=it, fused_k2b=it, fused_k3b=it,
+                    batched_dia_spmv=2)
+    if counts != want or issued != 3 * it + 3:
+        bad = {c: (v, want[c]) for c, v in counts.items() if v != want[c]}
+        raise SmokeFailure(f"dist_batched: launches (got, expected) {bad}, "
+                           f"{issued} collectives for {it} iterations "
+                           f"(3 per iteration + 3 expected)")
     trues = [_true_relres(csr, B[j], res.x[j]) for j in range(k)]
     if not conv.all() or max(trues) > 10 * tol:
         raise SmokeFailure(f"dist_batched: converged {conv.tolist()}, "
                            f"true residuals {trues}")
-    out = dict(lanes=k, ranks=n_devices, n_iter=its, **times,
+    same = {}
+    if n_devices == 1:
+        prob = build_problem(csr, dtype=torch.float32, multiple=1,
+                             device=device)
+        ref = solve_batched(prob.A, torch.as_tensor(
+            B, dtype=torch.float32, device=device), cfg=cfg)
+        eq = (ref.n_iter.tolist() == its
+              and np.array_equal(ref.history.cpu().numpy(),
+                                 res.history.cpu().numpy(), equal_nan=True)
+              and np.array_equal(ref.x.cpu().numpy(),
+                                 res.x.cpu().numpy()[:, :csr.nrows]))
+        if not eq:
+            raise SmokeFailure(f"dist_batched: one rank's n_iter {its} "
+                               f"against the single-device batch's "
+                               f"{ref.n_iter.tolist()}, or their histories "
+                               f"or x differ")
+        same = {"equals_single_device_fused_batch": "bit for bit"}
+
+    def chain(K):
+        c = cfg.replace(tol=0.0, max_iter=K)
+        return lambda: solve_batched_distributed(shard, B, cfg=c, mesh=mesh)
+
+    out = dict(lanes=k, ranks=n_devices, route="halo-fused batch",
+               n_iter=its, collectives=issued,
+               reductions_per_batch_iter=3, **same, **_chain_ms(chain,
+                                                                device),
                max_true_relres_f64=f"{max(trues):.3e}",
                launches=_launches(counts))
     _say0("dist_batched", **out)
+    return {**out, "counts": counts}
+
+
+def check_split_phase(n_devices: int = 1, device: str = "cuda",
+                      m: int = 7) -> dict:
+    """The split-phase reductions and gathers of parallel/comm.Comm on
+    every rank of the world: Comm.start(x), a matrix product on the
+    device while it is in flight, then wait(), equal bit for bit to the
+    serialized Comm's (every collective waited at once) and to the ranks'
+    values summed in rank order here (each rank makes every rank's seeded
+    values): float32, float64 and a double-float pair of [m]; the
+    gathers' concatenation bit for bit."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_from_f64,
+                                                      df_renorm, df_sum)
+    from mpi_bicgstab_tpu_torch.parallel.driver import row_comm
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    mesh = make_row_mesh(n_devices, device)
+    if not mesh.member:
+        return None
+    dev = mesh.device
+    comm, ser = row_comm(mesh), row_comm(mesh).with_serialize(True)
+
+    def value(r, kind):
+        x = np.random.default_rng(100 + r).standard_normal(m)
+        if kind == "df32":
+            return df_from_f64(x, dev)
+        return torch.as_tensor(x, dtype=getattr(torch, kind), device=dev)
+
+    def host(v):
+        return (torch.stack([v.hi, v.lo]) if hasattr(v, "hi") else v).cpu()
+
+    busy = torch.randn(512, 512, device=dev)
+    for kind in ("float32", "float64", "df32"):
+        mine = value(mesh.row_index, kind)
+        pend = comm.start(mine)
+        busy = busy @ busy / 512.0         # device work beside it
+        split = pend.wait()
+        blocking = ser.allreduce(mine)
+        parts = [value(r, kind) for r in range(n_devices)]
+        if kind == "df32":
+            st = DF(torch.stack([p.hi for p in parts]),
+                    torch.stack([p.lo for p in parts]))
+            ref = df_renorm(df_sum(st, axis=0))
+        else:
+            ref = parts[0]
+            for p in parts[1:]:
+                ref = ref + p
+        gathered = comm.allgather(mine)
+        cat = (DF(torch.cat([p.hi for p in parts]),
+                  torch.cat([p.lo for p in parts])) if kind == "df32"
+               else torch.cat(parts))
+        if not (torch.equal(host(split), host(blocking))
+                and torch.equal(host(split), host(ref))
+                and torch.equal(host(gathered), host(cat))):
+            raise SmokeFailure(f"split phase: the {kind} reduction or "
+                               f"gather differs from the blocking form or "
+                               f"the rank-order sum")
+    return {"split_phase": "bit-equal to blocking and rank-order sums",
+            "kinds": "float32,float64,df32"}
+
+
+def run_dist_overlap(csr, n_devices: int = 1, device: str = "cuda",
+                     tol: float = 1e-6, iters: int = 24) -> dict:
+    """`[dist_overlap]`: check_split_phase, then pipelined BiCGStab in
+    float32 on transport_like's DIA partition, the unfused distributed
+    solver with its reductions overlapped (solve_distributed(unfused=
+    True)) against serialize_comm: n_iter, history and x bit-equal, the
+    DIA SpMV kernel's halo form the only kernel (2 per iteration, 4 per
+    segment); then bench_overlap's line (both sides unfused), with
+    overlap_gain and the label of what the collectives crossed (on one
+    rank no fabric)."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import bench_overlap
+    from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
+                                                        solve_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    split = check_split_phase(n_devices, device)
+    part = dist_partition(csr, n_devices, torch.float32)
+    mesh = make_row_mesh(n_devices, device)
+    b = csr.matvec(np.ones(csr.nrows))
+    cfg = SolverConfig(tol=tol, max_iter=1000, dtype=torch.float32)
+    reset_counts()
+    with no_twin_on_card():
+        shard = put_partitioned(part, mesh)
+        over = solve_distributed(shard, b, method="pipe_bicgstab", cfg=cfg,
+                                 mesh=mesh, unfused=True)
+        ser = solve_distributed(shard, b, method="pipe_bicgstab",
+                                cfg=cfg.replace(serialize_comm=True),
+                                mesh=mesh)
+        bool(ser.converged)
+    counts = read_counts()
+    it = over.n_iter
+    check_dist_counts("dist_overlap", "dia_spmv", 2 * it, counts,
+                      cfg.restarts, lanes=2, per_seg=4, device=device)
+    same = (over.n_iter == ser.n_iter
+            and np.array_equal(over.history.cpu().numpy(),
+                               ser.history.cpu().numpy(), equal_nan=True)
+            and torch.equal(over.x.cpu(), ser.x.cpu()))
+    true = _true_relres(csr, b, over.x)
+    if not same or not bool(over.converged) or true > 10 * tol:
+        raise SmokeFailure(f"dist_overlap: overlapped and serialized "
+                           f"solves differ ({over.n_iter} against "
+                           f"{ser.n_iter} iterations) or did not converge "
+                           f"(true relres {true:.3e})")
+    line = bench_overlap(csr, torch.float32, n_devices, iters=iters,
+                         device=device)
+    out = dict(ranks=n_devices, **split, method="pipe_bicgstab",
+               dtype="float32", n_iter=it, serialize_on_off="bit-equal",
+               true_relres_f64=f"{true:.3e}",
+               overlap_gain=f"{line['overlap_gain']:.4f}",
+               time_per_iter_overlap_ms=(
+                   f"{line['time_per_iter_overlap_s'] * 1e3:.4f}"),
+               time_per_iter_serialized_ms=(
+                   f"{line['time_per_iter_serialized_s'] * 1e3:.4f}"),
+               overlap_fabric=repr(line["overlap_fabric"]),
+               launches=_launches(counts))
+    _say0("dist_overlap", **out)
+    return {**out, "counts": counts}
+
+
+def run_dist_checkpoint(csr, n_devices: int = 1, device: str = "cuda",
+                        tol: float = 1e-6, every: int = 3,
+                        workdir=None) -> dict:
+    """`[dist_checkpoint]`: utils/checkpoint.solve_with_checkpoints over
+    the distributed runner (float32 classic, segments of `every`
+    iterations, rank 0 writing the file): a run cut after one segment and
+    resumed from the file ends with the uninterrupted run's x, total
+    iterations and cum_rel, bit for bit; a different meta is refused on
+    every rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
+                                                        solve_distributed)
+    from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
+    from mpi_bicgstab_tpu_torch.utils.checkpoint import \
+        solve_with_checkpoints
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    part = dist_partition(csr, n_devices, torch.float32)
+    mesh = make_row_mesh(n_devices, device)
+    shard = put_partitioned(part, mesh)
+    b = csr.matvec(np.ones(csr.nrows))
+    cfg = SolverConfig(tol=tol, max_iter=1000, dtype=torch.float32)
+    meta = {"n": part.n_global, "matrix": "transport_like", "method":
+            "bicgstab", "dtype": "float32"}
+    wd = Path(workdir or _workdir())
+    wd.mkdir(parents=True, exist_ok=True)
+    paths = [wd / f"dist_ck_{n_devices}_{name}.npz" for name in
+             ("whole", "cut")]
+    if dist.get_rank() == 0:
+        for path in paths:
+            path.unlink(missing_ok=True)
+    dist.barrier()
+
+    def runner(x0, budget, tol_seg):
+        return solve_distributed(shard, b, x0=x0, mesh=mesh,
+                                 cfg=cfg.replace(max_iter=budget,
+                                                 tol=tol_seg))
+
+    def run(path, max_iter, m=meta):
+        return solve_with_checkpoints(runner, str(path), every, max_iter,
+                                      m, tol, group=dist.group.WORLD)
+
+    reset_counts()
+    with no_twin_on_card():
+        whole, done, cum = run(paths[0], cfg.max_iter)
+        run(paths[1], every)                     # cut after one segment
+        cut, done2, cum2 = run(paths[1], cfg.max_iter)
+    counts = read_counts()
+    try:
+        run(paths[1], cfg.max_iter, dict(meta, method="ca_bicgstab"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if not (done == done2 and cum == cum2 and refused
+            and torch.equal(whole.x.cpu(), cut.x.cpu())
+            and bool(whole.converged)):
+        raise SmokeFailure(f"dist_checkpoint: resumed run {done2} "
+                           f"iterations, cum_rel {cum2}, uninterrupted "
+                           f"{done}, {cum}, x equal "
+                           f"{torch.equal(whole.x.cpu(), cut.x.cpu())}, "
+                           f"meta mismatch refused: {refused!r}")
+    if dist.get_rank() == 0:
+        for path in paths:
+            path.unlink(missing_ok=True)
+    out = dict(ranks=n_devices, every=every, total_iter=done,
+               cum_rel=f"{cum:.3e}", resumed="bit-equal x, total_iter, "
+               "cum_rel", meta_mismatch="refused",
+               launches=_launches(counts))
+    _say0("dist_checkpoint", **out)
     return {**out, "counts": counts}
 
 
@@ -4229,6 +4637,27 @@ def _kernel_ms(fn) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
 
+class _ListComm:
+    """A reduction in the blocking list form the distributed layer had
+    before its split-phase Comm (one dist.all_gather into a Python list
+    of P tensors, waited at once, summed in rank order), to time the
+    two side by side in one run."""
+
+    def __init__(self, comm):
+        self.comm = comm
+
+    def dot(self, u, v):
+        import torch
+        import torch.distributed as dist
+        t = torch.dot(u, v).contiguous()
+        out = [torch.empty_like(t) for _ in range(self.comm.size)]
+        dist.all_gather(out, t, group=self.comm.group)
+        acc = out[0]
+        for p in out[1:]:
+            acc = acc + p
+        return acc
+
+
 def time_dist_iteration(csr, prob32) -> None:
     """The one-rank distributed f32 classic iteration (the halo-fused
     route) beside the single-device routes, ms per iteration from tol=0
@@ -4237,8 +4666,9 @@ def time_dist_iteration(csr, prob32) -> None:
     NCCL's cannot be captured in a graph with the solve's host-to-device
     copies); the single-device unfused solver eager and as a replayed
     graph; the single-device fused route, the same passes, eager and as a
-    replayed graph; and one global dot alone, over the one-rank group and
-    on the single device, eager."""
+    replayed graph; and one global dot alone, over the one-rank group
+    (the split-phase Comm, and the blocking list form it replaced,
+    _ListComm) and on the single device, eager."""
     import numpy as np
     import torch
 
@@ -4252,13 +4682,11 @@ def time_dist_iteration(csr, prob32) -> None:
                                                         row_comm,
                                                         solve_distributed)
     from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
-    from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
     from mpi_bicgstab_tpu_torch.solvers.bicgstab import bicgstab
     from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
     K1, K2 = DIST_CHAINS
     mesh = make_row_mesh(1, "cuda")
-    shard = put_partitioned(partition_csr(csr, 1, dtype=torch.float32),
-                            mesh)
+    shard = put_partitioned(dist_partition(csr, 1, torch.float32), mesh)
     b = csr.matvec(np.ones(csr.nrows))
 
     def cfg(K):
@@ -4282,7 +4710,8 @@ def time_dist_iteration(csr, prob32) -> None:
                                 graph=g)["time_per_iter_s"] * 1e3
              for g in (False, True)}
     dots = {}
-    for name, comm in (("dist", row_comm(mesh)), ("single", Comm())):
+    for name, comm in (("dist", row_comm(mesh)), ("single", Comm()),
+                       ("list", _ListComm(row_comm(mesh)))):
         def dot_chain(K, comm=comm):
             return lambda: [comm.dot(prob32.b, prob32.b) for _ in range(K)]
         dots[name] = _slope_time(dot_chain, K1, K2) * 1e3
@@ -4294,6 +4723,7 @@ def time_dist_iteration(csr, prob32) -> None:
          single_fused_f32_device_ms_per_iter=f"{fused[True]:.4f}",
          one_rank_overhead_eager_ms=f"{dist_eager - fused[False]:.4f}",
          dist_dot_eager_ms=f"{dots['dist']:.4f}",
+         dist_dot_list_all_gather_eager_ms=f"{dots['list']:.4f}",
          single_dot_eager_ms=f"{dots['single']:.4f}",
          chains=f"tol=0x{K1},{K2}")
 
@@ -4321,6 +4751,9 @@ def run_dist_phases(csr, csr_h, lo: float, hi: float, winp: dict,
             layout=binp["B32"])["counts"]
         runs["dist_shifted"] = run_dist_shifted(csr, device=device)["counts"]
         runs["dist_batched"] = run_dist_batched(csr, device=device)["counts"]
+        runs["dist_overlap"] = run_dist_overlap(csr, device=device)["counts"]
+        runs["dist_checkpoint"] = run_dist_checkpoint(
+            csr, device=device)["counts"]
         runs["dist_cheby"] = run_dist_cheby(csr_h, lo, hi,
                                             device=device)["counts"]
         run_dist_cli(N_MAIN, device=device)

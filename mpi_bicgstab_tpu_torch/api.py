@@ -74,17 +74,20 @@ def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     route is the same on the CPU and on the card; only each kernel
     wrapper's choice between kernel and plain twin follows the tensors'
     device. cfg.out_iter != 0 takes the unfused route, where the
-    periodic residual print lives. A ChebyOperator takes the unfused
+    periodic residual print lives, and so does cfg.serialize_comm (the
+    no-overlap A/B times the unfused solvers, JAX api.py:25-59). A
+    ChebyOperator takes the unfused
     route; there df32 pipelined BiCGStab runs its fused DF iteration
     bodies (solvers/bicgstab.pipe_bicgstab), as on any other layout and
     with out_iter."""
-    if is_df(b) and method in FUSED_DF and not cfg.out_iter \
+    unfused = cfg.out_iter or cfg.serialize_comm
+    if is_df(b) and method in FUSED_DF and not unfused \
             and fcldf.format_ok(A, cfg.dtype):
         return FUSED_DF[method](A, b, x0, cfg)
-    if method in FUSED and not cfg.out_iter \
-            and fcl.format_ok(A, cfg.dtype):
+    if method in FUSED and not unfused and fcl.format_ok(A, cfg.dtype):
         return FUSED[method](A, b, x0, cfg)
-    return CLASSIC_SOLVERS[method](lambda v: generic_spmv(A, v), Comm(), b,
+    return CLASSIC_SOLVERS[method](lambda v: generic_spmv(A, v),
+                                   Comm(serialize=cfg.serialize_comm), b,
                                    x0, cfg)
 
 
@@ -219,11 +222,12 @@ def _solve_batched_once(A, B, X0, method: str, cfg) -> SolveResult:
     fused batched passes to an SpMV-amortised loop when their VMEM
     windows do not fit; on the card nothing is staged, so the fused
     driver takes every operator that loop would, and the port has no
-    such loop. A ChebyOperator solves lane by lane."""
+    such loop. A ChebyOperator solves lane by lane, and so does every
+    solve under cfg.serialize_comm (JAX api.py:340)."""
     from mpi_bicgstab_tpu_torch.solvers.batched_fused import \
         bicgstab_batched_fully_fused
     k = B.shape[0]
-    if method == "bicgstab" and not is_df(B) \
+    if method == "bicgstab" and not is_df(B) and not cfg.serialize_comm \
             and cbs.format_ok(A, cfg.dtype, k):
         return bicgstab_batched_fully_fused(A, B, X0, cfg)
     fn = CLASSIC_SOLVERS[method]
@@ -231,11 +235,12 @@ def _solve_batched_once(A, B, X0, method: str, cfg) -> SolveResult:
                             X0[j], cfg) for j in range(k)])
 
 
-def _restart_batch_lanes(A, B, method: str, cfg, res: SolveResult):
+def _restart_batch_lanes(solve_lane, cfg, res: SolveResult):
     """Per-lane refinement restarts after a batched solve: a lane whose
     recurrence hit tol but failed the true-residual gate re-enters the
-    single-RHS solver (_solve_once) on its own, by the policy of
-    _restarted."""
+    single-RHS solver on its own (solve_lane(j, x0, cfg) runs one segment
+    of lane j: _solve_once here, the distributed solver in
+    parallel/driver.py), by the policy of _restarted."""
     if exact_iters(cfg):
         return res    # tol=0 contract: no restart segments (and no read)
     conv = res.converged.cpu().numpy()
@@ -249,9 +254,8 @@ def _restart_batch_lanes(A, B, method: str, cfg, res: SolveResult):
         lane = SolveResult(x=x[j], **{f: (int(v[j]) if f == "n_iter"
                                           else v[j])
                                       for f, v in fields.items()})
-        lane2 = _restarted(
-            lambda x0, c, j=j: _solve_once(A, B[j], x0, method, c), cfg,
-            lane)
+        lane2 = _restarted(lambda x0, c, j=j: solve_lane(j, x0, c), cfg,
+                           lane)
         if lane2 is lane:
             continue                # no restart fired for this lane
         if is_df(x):
@@ -289,7 +293,8 @@ def solve_batched(A, B, x0=None, method: str = "bicgstab",
         x0 = vzeros_like(B)
     res = _solve_batched_once(A, B, x0, method, cfg)
     if cfg.restarts:
-        res = _restart_batch_lanes(A, B, method, cfg, res)
+        res = _restart_batch_lanes(
+            lambda j, x0, c: _solve_once(A, B[j], x0, method, c), cfg, res)
     if isinstance(A, ChebyOperator):
         res = dataclasses.replace(res, x=_stack_x(
             [A.apply(res.x[j]) for j in range(res.x.shape[0])]))

@@ -116,7 +116,7 @@ def dist_sections(csr, dtype, devices: int, iters: int = 60) -> dict:
 
         def halo_only(v):
             xh = v.new_zeros(n_loc + 2 * h)
-            exchange_halo(comm, h, [(v, xh)])
+            exchange_halo(comm, h, [(v, xh)]).wait()
             return v + (xh[:h].sum() + xh[h + n_loc:].sum()) * 1e-30
         out["halo_exchange"] = slope(halo_only)
 

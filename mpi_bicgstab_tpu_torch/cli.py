@@ -48,10 +48,10 @@ CLI does, and prints the fields the JAX package's `solve` prints (one
 JSON line of the JAX package's keys with --json) and exits 0 when the
 solve converged, 2 when it did not. --checkpoint FILE saves the iterate
 every --checkpoint-every iterations and resumes from it
-(utils/checkpoint.py). `solve --rhs-batch B.npy` solves every row of a
-[k, n] array as a right-hand side in one batched solve
-(api.solve_batched), prints the JAX package's batched fields and exits 0
-only when every lane converged. `solve-shifted` (reference
+(utils/checkpoint.py; with --devices N rank 0 reads and writes it).
+`solve --rhs-batch B.npy` solves every row of a [k, n] array as a
+right-hand side in one batched solve (api.solve_batched), prints the JAX
+package's batched fields and exits 0 only when every lane converged. `solve-shifted` (reference
 main_shifted.c) solves a ladder of shifted systems with the
 seed-switching solver or another shifted method, prints the JAX
 package's solve-shifted fields, and exits 0 when every shift converged,
@@ -59,7 +59,9 @@ package's solve-shifted fields, and exits 0 when every shift converged,
 solver family, layout and precision on a small system against ground
 truth (exit 2 on any failure), `convert` writes a matrix as the binary
 .npz container, and `bench` prints one JSON line of SpMV and iteration
-times on the card (benchmarks/runner.run_bench).
+times on the card, or on the CPU with --device cpu
+(benchmarks/runner.run_bench; with --devices N, and for --what
+overlap,scaling, over spawned ranks).
 """
 from __future__ import annotations
 
@@ -444,7 +446,8 @@ def _run_solve_dist(args, csr, dtype, cfg, b_user, x0_host, prec, perm,
                     d_invsqrt, io_time, t_set):
     """run_solve on this rank of a --devices world: the partition, this
     rank's shard on its device, and solve_distributed (JAX cli.py:337-
-    354); the global x on every rank."""
+    354), in checkpointed segments with --checkpoint; the global x on
+    every rank."""
     from mpi_bicgstab_tpu_torch.parallel.driver import (put_partitioned,
                                                         solve_distributed)
     from mpi_bicgstab_tpu_torch.parallel.mesh import make_row_mesh
@@ -456,10 +459,38 @@ def _run_solve_dist(args, csr, dtype, cfg, b_user, x0_host, prec, perm,
     b = b_user if b_user is not None else csr.matvec(np.ones(csr.nrows))
     setup = time.perf_counter() - t_set
     _ready(mesh.device)
-    res, total = _timed(args.repeat, lambda: solve_distributed(
-        shard, b, x0=x0_host, method=args.method, cfg=cfg, mesh=mesh,
-        halo=args.halo, precond=prec))
-    return _solve_report(args, res, res.n_iter, total, None, csr, perm,
+    if args.checkpoint:
+        # JAX cli.py:337-420: the iterate checkpoint over the distributed
+        # runner; x is global on every rank, rank 0 reads and writes the
+        # file and broadcasts a resume (utils/checkpoint.py)
+        import torch.distributed as dist
+
+        from mpi_bicgstab_tpu_torch.utils.checkpoint import \
+            solve_with_checkpoints
+
+        def run_once(x0_seg, budget, tol_seg):
+            return solve_distributed(
+                shard, b, x0=x0_seg, method=args.method, mesh=mesh,
+                cfg=cfg.replace(max_iter=budget, tol=tol_seg),
+                halo=args.halo)
+
+        t0 = time.perf_counter()
+        res, done, cum_rel = solve_with_checkpoints(
+            run_once, args.checkpoint, segment_iters=args.checkpoint_every,
+            max_iter=args.max_iter,
+            meta=_checkpoint_meta(args, part.n_global, csr, b_user),
+            tol=args.tol, group=dist.group.WORLD)
+        total = time.perf_counter() - t0
+        if res is None:
+            return {"checkpoint": args.checkpoint, "total_iter": done,
+                    "final_relres": cum_rel, "converged": cum_rel <= args.tol,
+                    "note": "run already complete in checkpoint"}, None
+    else:
+        res, total = _timed(args.repeat, lambda: solve_distributed(
+            shard, b, x0=x0_host, method=args.method, cfg=cfg, mesh=mesh,
+            halo=args.halo, precond=prec))
+        done, cum_rel = res.n_iter, None
+    return _solve_report(args, res, done, total, cum_rel, csr, perm,
                          d_invsqrt, prec, io_time, setup, mesh.device,
                          _part_layout(part)), res
 
@@ -579,10 +610,6 @@ def _check_devices_args(args) -> None:
     if args.devices > 1 and getattr(args, "rhs_batch", None):
         raise SystemExit("--rhs-batch is single-device (use separate runs "
                          "or shard the batch across processes)")
-    if args.devices > 1 and args.checkpoint:
-        raise SystemExit("--checkpoint is single-device here: the "
-                         "distributed iterate checkpoint is not ported "
-                         "yet (ROADMAP queue 1 item 8b)")
 
 
 def cmd_solve(args) -> int:
@@ -1370,8 +1397,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("dst", help="output .npz path")
     p.set_defaults(fn=cmd_convert)
 
-    p = sub.add_parser("bench", help="SpMV and solver-iteration times on "
-                                     "the card, one JSON line")
+    p = sub.add_parser("bench", help="SpMV and solver-iteration times, one "
+                                     "JSON line (on the card by default)")
     p.add_argument("--matrix", default="transport-like:1602112")
     p.add_argument("--dtype", choices=["float32", "float64", "df32"],
                    default="float32")
@@ -1379,9 +1406,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--what", default="spmv,iter",
                    help="comma list: spmv, iter, shifted, batched (k = 8 "
                         "right-hand sides against one), cheby (the chain "
-                        "kernel against the unfused chain); overlap and "
-                        "scaling wait for slice 8b of the distributed "
-                        "layer")
+                        "kernel against the unfused chain), overlap (the "
+                        "distributed solve with its reductions overlapped "
+                        "against serialize_comm) and scaling (1, 2, 4, "
+                        "... ranks up to --devices)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks: > 1 (or overlap / scaling) spawns them as "
+                        "solve --devices does and times the distributed "
+                        "path; rank 0 prints")
     p.add_argument("--method", default=None,
                    help="solver of the iter, shifted and batched sections")
     p.add_argument("--sigma-len", type=int, default=512,
@@ -1398,6 +1430,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="accepted for the JAX CLI's sake: the line is JSON "
                         "always")
+    _add_device(p)
     p.set_defaults(fn=cmd_bench)
     return ap
 

@@ -154,13 +154,9 @@ def cheby_operator_from_arrays(kind: str, arrays: dict, meta: dict,
 
 def _port_fields(fields: dict) -> dict:
     """A JAX config's fields as the port's config takes them:
-    record_history is dropped; serialize_comm=True (the JAX package's
-    distributed no-overlap A/B mode) raises until slice 8b ports it."""
+    record_history is dropped; serialize_comm (the distributed no-overlap
+    A/B mode) is carried."""
     fields = dict(fields)
-    if fields.pop("serialize_comm", False):
-        raise NotImplementedError(
-            "serialize_comm (the distributed no-overlap mode) is not "
-            "ported yet: ROADMAP queue 1 item 2b (slice 8b)")
     for k in _IGNORED:
         fields.pop(k, None)
     if "dtype" in fields:

@@ -1,5 +1,8 @@
 // Batched DIA SpMV Y[l] = A X[l] for k <= 8 right-hand-side lanes, float32.
-// X and Y are [k, n] row-major.
+// X and Y are [k, n] row-major; in the halo form (the row-partitioned
+// batch, solvers/batched_dist.py) X is [k, n + 2h], lane stride ldx, its
+// pointer at the rank's first row, the columns [lo, hi) read, and Y the
+// rank's [k, n].
 //
 // Replaces: mpi_bicgstab_tpu/ops/pallas_batched_spmv.py::_kernel (wrapper
 // batched_dia_spmv). That kernel double-buffers one [W, 64, 128] block of
@@ -23,44 +26,56 @@
 
 struct LaneSrc {  // X[l, j]
   const float* __restrict__ x;
-  long long n;
+  long long ld;
   __device__ __forceinline__ float operator()(int l, long long j) const {
-    return __ldg(x + (long long)l * n + j);
+    return __ldg(x + (long long)l * ld + j);
   }
 };
 
-template <int K>
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
     batched_spmv_kernel(const __grid_constant__ DiaOffsets offs, long long n,
+                        long long lo, long long hi, long long ldx,
                         const float* __restrict__ vals,
                         const float* __restrict__ x, float* __restrict__ y) {
+  if (!kHalo) {  // one device: the plain kernel's bounds and stride
+    lo = 0;
+    hi = n;
+    ldx = n;
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float acc[K];
-  dia_row_lanes<K>(offs, vals, n, i, LaneSrc{x, n}, acc);
+  dia_row_lanes<K>(offs, vals, n, i, lo, hi, LaneSrc{x, ldx}, acc);
 #pragma unroll
   for (int l = 0; l < K; ++l) y[(long long)l * n + i] = acc[l];
 }
 
-template <int K>
-static cudaError_t launch(const DiaOffsets& o, long long n, const float* vals,
+template <int K, bool kHalo>
+static cudaError_t launch(const DiaOffsets& o, long long n, long long lo,
+                          long long hi, long long ldx, const float* vals,
                           const float* x, float* y, cudaStream_t stream) {
-  batched_spmv_kernel<K><<<mbt_grid(n), MBT_BLOCK, 0, stream>>>(o, n, vals,
-                                                               x, y);
+  batched_spmv_kernel<K, kHalo><<<mbt_grid(n), MBT_BLOCK, 0, stream>>>(
+      o, n, lo, hi, ldx, vals, x, y);
   return cudaGetLastError();
 }
 
 extern "C" {
 
-// vals [n_diags, n]; x, y [k, n].
+// vals [n_diags, n]; x [k, ldx] from its rank's first row, columns
+// [lo, hi) read (0, n, n on one device); y [k, n].
 cudaError_t mbt_batched_dia_spmv_f32(const int* offsets, int n_diags,
-                                     long long n, int k, const float* vals,
+                                     long long n, long long lo, long long hi,
+                                     long long ldx, int k, const float* vals,
                                      const float* x, float* y,
                                      cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_lanes_ok(n, lo, hi, ldx) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  MBT_BY_LANES(k, launch<K>(o, n, vals, x, y, stream));
+  MBT_BY_LANES_HALO(k, mbt_lanes_halo(n, lo, hi, ldx),
+                    (launch<K, kHalo>(o, n, lo, hi, ldx, vals, x, y,
+                                      stream)));
 }
 
 }  // extern "C"

@@ -53,6 +53,17 @@
 // single-rounding FMAs, so the stored values do not depend on the
 // compiler's contraction choices.
 //
+// The halo form (the row-partitioned batch, solvers/batched_dist.py):
+// every plane is [k, ld] with ld = n + 2h, lane l's row j at l * ld + j
+// from pointers at the rank's first row, and h rows of each neighbour on
+// either side. Stage 0 forms p' (or q) over the rows [lo, hi), the halo
+// rows included, from inputs whose edges were exchanged before the pass
+// (the scratch plane u too, for a frozen lane's neighbours); stage 1 and
+// K3b run over the rank's n rows, stage 1 reading the columns [lo, hi).
+// lo is -h where a previous rank exists, hi n + h where a next one does.
+// The halo is a template flag: the [0, n) instance (lo 0, hi n, ld n) is
+// the kernel of one device.
+//
 // Each launcher runs its pass and the partial-sum stage on `stream` and
 // returns cudaGetLastError().
 #include "batched_core.cuh"
@@ -68,7 +79,7 @@ struct StoredLanes {
 };
 
 struct K1bArgs {
-  long long n;
+  long long n, lo, hi, ld;  // rows, readable columns, lane stride
   const float* vals;
   const float* r;
   const float* p;
@@ -79,12 +90,12 @@ struct K1bArgs {
   const float* active;
   float* p2;
   float* s2;
-  float* u;          // [k, n] scratch: a frozen lane's unmasked p'
+  float* u;          // a plane of scratch: a frozen lane's unmasked p'
   float* partials;
 };
 
 struct K2bArgs {
-  long long n;
+  long long n, lo, hi, ld;
   const float* vals;
   const float* r;
   const float* s2;
@@ -93,6 +104,18 @@ struct K2bArgs {
   float* y;
   float* partials;
 };
+
+// A pass's rows, readable columns and lane stride: the launch's, or the
+// one-device constants when kHalo is false.
+struct Geom {
+  long long n, lo, hi, ld;
+};
+
+template <bool kHalo, typename Args>
+__device__ __forceinline__ Geom geom(const Args& a) {
+  if (!kHalo) return Geom{a.n, 0, a.n, a.n};
+  return Geom{a.n, a.lo, a.hi, a.ld};
+}
 
 template <int K>
 struct K1bLanes {
@@ -112,12 +135,12 @@ struct K1bLanes {
 // chain; P2 gets p' on an active lane, p on a frozen one, whose unmasked
 // p' goes to the scratch plane u (stage 1 still needs it for the dot).
 template <int K>
-__device__ __forceinline__ void k1b_form(const K1bArgs& a,
+__device__ __forceinline__ void k1b_form(const K1bArgs& a, const Geom& g,
                                          const K1bLanes<K>& c, long long i) {
-  if (i >= a.n) return;
+  if (i >= g.hi) return;
 #pragma unroll
   for (int l = 0; l < K; ++l) {
-    const long long o = (long long)l * a.n + i;
+    const long long o = (long long)l * g.ld + i;
     const float p_o = __ldg(a.p + o);
     const float pp = __fmaf_rn(
         c.beta[l], __fmaf_rn(-c.omega[l], __ldg(a.s + o), p_o),
@@ -136,24 +159,24 @@ __device__ __forceinline__ void k1b_form(const K1bArgs& a,
 // the block's partial row.
 template <int K>
 __device__ __forceinline__ void k1b_spmv(const DiaOffsets& offs,
-                                         const K1bArgs& a,
+                                         const K1bArgs& a, const Geom& g,
                                          const K1bLanes<K>& c,
                                          long long row0, float* out) {
-  const long long n = a.n;
+  const long long n = g.n;
   const long long i = row0 + threadIdx.x;
   StoredLanes<K> src;
 #pragma unroll
   for (int l = 0; l < K; ++l)
-    src.base[l] = (c.act[l] ? a.p2 : a.u) + (long long)l * n;
+    src.base[l] = (c.act[l] ? a.p2 : a.u) + (long long)l * g.ld;
   float part[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) part[l] = 0.0f;
   if (i < n) {
     float acc[K];
-    dia_row_lanes<K>(offs, a.vals, n, i, src, acc);
+    dia_row_lanes<K>(offs, a.vals, n, i, g.lo, g.hi, src, acc);
 #pragma unroll
     for (int l = 0; l < K; ++l) {
-      const long long o = (long long)l * n + i;
+      const long long o = (long long)l * g.ld + i;
       if (c.act[l])
         a.s2[o] = acc[l];
       else
@@ -167,13 +190,13 @@ __device__ __forceinline__ void k1b_spmv(const DiaOffsets& offs,
 // K2b stage 0 on row i: q = r - alpha s' (no mask: a frozen lane runs with
 // alpha = 0, so q = r).
 template <int K>
-__device__ __forceinline__ void k2b_form(const K2bArgs& a,
+__device__ __forceinline__ void k2b_form(const K2bArgs& a, const Geom& g,
                                          const float (&alpha)[K],
                                          long long i) {
-  if (i >= a.n) return;
+  if (i >= g.hi) return;
 #pragma unroll
   for (int l = 0; l < K; ++l) {
-    const long long o = (long long)l * a.n + i;
+    const long long o = (long long)l * g.ld + i;
     a.q[o] = __fmaf_rn(-alpha[l], __ldg(a.s2 + o), __ldg(a.r + o));
   }
 }
@@ -182,22 +205,22 @@ __device__ __forceinline__ void k2b_form(const K2bArgs& a,
 // stored Q, and the block's partial rows (q, y), (y, y).
 template <int K>
 __device__ __forceinline__ void k2b_spmv(const DiaOffsets& offs,
-                                         const K2bArgs& a, long long row0,
-                                         float* out) {
-  const long long n = a.n;
+                                         const K2bArgs& a, const Geom& g,
+                                         long long row0, float* out) {
+  const long long n = g.n;
   const long long i = row0 + threadIdx.x;
   StoredLanes<K> src;
 #pragma unroll
-  for (int l = 0; l < K; ++l) src.base[l] = a.q + (long long)l * n;
+  for (int l = 0; l < K; ++l) src.base[l] = a.q + (long long)l * g.ld;
   float part[2 * K];
 #pragma unroll
   for (int d = 0; d < 2 * K; ++d) part[d] = 0.0f;
   if (i < n) {
     float acc[K];
-    dia_row_lanes<K>(offs, a.vals, n, i, src, acc);
+    dia_row_lanes<K>(offs, a.vals, n, i, g.lo, g.hi, src, acc);
 #pragma unroll
     for (int l = 0; l < K; ++l) {
-      const long long o = (long long)l * n + i;
+      const long long o = (long long)l * g.ld + i;
       const float q_i = __ldg(a.q + o);
       a.y[o] = acc[l];
       part[l] = q_i * acc[l];
@@ -210,50 +233,58 @@ __device__ __forceinline__ void k2b_spmv(const DiaOffsets& offs,
 // The four kernels. On an H100 stage 1 ran 3-6% faster at the 40
 // registers a thread this code takes (6 blocks an SM) than at 32 (8
 // blocks): the loads a thread keeps in flight count, not occupancy.
-template <int K>
+// Stage 0 runs over the rows [lo, hi): block b starts at row lo + 256 b.
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK) k1b_form_kernel(
     const __grid_constant__ K1bArgs a) {
+  const Geom g = geom<kHalo>(a);
   const K1bLanes<K> c(a);
-  k1b_form<K>(a, c, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+  k1b_form<K>(a, g, c,
+              g.lo + (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-template <int K>
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK) k1b_spmv_kernel(
     const __grid_constant__ DiaOffsets offs,
     const __grid_constant__ K1bArgs a) {
+  const Geom g = geom<kHalo>(a);
   const K1bLanes<K> c(a);
-  k1b_spmv<K>(offs, a, c, (long long)blockIdx.x * MBT_BLOCK,
+  k1b_spmv<K>(offs, a, g, c, (long long)blockIdx.x * MBT_BLOCK,
               a.partials + (long long)K * blockIdx.x);
 }
 
-template <int K>
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK) k2b_form_kernel(
     const __grid_constant__ K2bArgs a) {
+  const Geom g = geom<kHalo>(a);
   float alpha[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) alpha[l] = a.alpha[l];
-  k2b_form<K>(a, alpha, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+  k2b_form<K>(a, g, alpha,
+              g.lo + (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-template <int K>
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK) k2b_spmv_kernel(
     const __grid_constant__ DiaOffsets offs,
     const __grid_constant__ K2bArgs a) {
-  k2b_spmv<K>(offs, a, (long long)blockIdx.x * MBT_BLOCK,
+  const Geom g = geom<kHalo>(a);
+  k2b_spmv<K>(offs, a, g, (long long)blockIdx.x * MBT_BLOCK,
               a.partials + 2LL * K * blockIdx.x);
 }
 
 // --- K3b ---------------------------------------------------------------------
 
-template <int K>
+template <int K, bool kHalo>
 __global__ void __launch_bounds__(MBT_BLOCK)
-    k3b_kernel(long long n, const float* __restrict__ x,
+    k3b_kernel(long long n, long long ld, const float* __restrict__ x,
                const float* __restrict__ p2, const float* __restrict__ q,
                const float* __restrict__ y, const float* __restrict__ r_hat,
                const float* __restrict__ alpha,
                const float* __restrict__ omega,
                const float* __restrict__ active, float* __restrict__ x2,
                float* __restrict__ r2, float* __restrict__ partials) {
+  if (!kHalo) ld = n;  // one device: the plain kernel's stride
   float a[K], w[K];
   bool act[K];
 #pragma unroll
@@ -269,7 +300,7 @@ __global__ void __launch_bounds__(MBT_BLOCK)
   if (i < n) {
 #pragma unroll
     for (int l = 0; l < K; ++l) {
-      const long long o = (long long)l * n + i;
+      const long long o = (long long)l * ld + i;
       const float x_i = x[o];
       const float q_i = q[o];
       const float r2_i = __fmaf_rn(-w[l], y[o], q_i);
@@ -285,47 +316,52 @@ __global__ void __launch_bounds__(MBT_BLOCK)
 
 // --- launchers ---------------------------------------------------------------
 
-template <int K>
+template <int K, bool kHalo>
 static cudaError_t launch_k1b(const DiaOffsets& o, const K1bArgs& a,
                               float* dots, cudaStream_t stream) {
   const long long G = mbt_grid(a.n);
-  k1b_form_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(a);
+  k1b_form_kernel<K, kHalo><<<mbt_grid(a.hi - a.lo), MBT_BLOCK, 0,
+                              stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k1b_spmv_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, a);
+  k1b_spmv_kernel<K, kHalo><<<G, MBT_BLOCK, 0, stream>>>(o, a);
   return mbt_finish<K>(a.partials, G, dots, stream);
 }
 
-template <int K>
+template <int K, bool kHalo>
 static cudaError_t launch_k2b(const DiaOffsets& o, const K2bArgs& a,
                               float* dots, cudaStream_t stream) {
   const long long G = mbt_grid(a.n);
-  k2b_form_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(a);
+  k2b_form_kernel<K, kHalo><<<mbt_grid(a.hi - a.lo), MBT_BLOCK, 0,
+                              stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k2b_spmv_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(o, a);
+  k2b_spmv_kernel<K, kHalo><<<G, MBT_BLOCK, 0, stream>>>(o, a);
   return mbt_finish<2 * K>(a.partials, G, dots, stream);
 }
 
-template <int K>
-static cudaError_t launch_k3b(long long n, const float* x, const float* p2,
+template <int K, bool kHalo>
+static cudaError_t launch_k3b(long long n, long long ld, const float* x,
+                              const float* p2,
                               const float* q, const float* y,
                               const float* r_hat, const float* alpha,
                               const float* omega, const float* active,
                               float* x2, float* r2, float* partials,
                               float* dots, cudaStream_t stream) {
   const long long G = mbt_grid(n);
-  k3b_kernel<K><<<G, MBT_BLOCK, 0, stream>>>(n, x, p2, q, y, r_hat, alpha,
-                                             omega, active, x2, r2,
-                                             partials);
+  k3b_kernel<K, kHalo><<<G, MBT_BLOCK, 0, stream>>>(
+      n, ld, x, p2, q, y, r_hat, alpha, omega, active, x2, r2, partials);
   return mbt_finish<2 * K>(partials, G, dots, stream);
 }
 
 extern "C" {
 
-// Planes [k, n]; beta, omega, active [k]; u [k, n] scratch; partials
+// Planes [k, ld] from the rank's first row, rows [lo, hi) formed in
+// stage 0 and columns [lo, hi) read in stage 1 (0, n, n on one device);
+// beta, omega, active [k]; u a plane of scratch; partials
 // [mbt_grid(n), k] scratch; dots [k] = (r^_l, s'_l).
 cudaError_t mbt_fused_k1b_f32(const int* offsets, int n_diags, long long n,
+                              long long lo, long long hi, long long ld,
                               int k, const float* vals, const float* r,
                               const float* p, const float* s,
                               const float* r_hat, const float* beta,
@@ -334,39 +370,48 @@ cudaError_t mbt_fused_k1b_f32(const int* offsets, int n_diags, long long n,
                               float* partials, float* dots,
                               cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_lanes_ok(n, lo, hi, ld) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  const K1bArgs a{n,     vals,   r,  p,  s, r_hat, beta,
-                  omega, active, p2, s2, u, partials};
-  MBT_BY_LANES(k, launch_k1b<K>(o, a, dots, stream));
+  const K1bArgs a{n,    lo,    hi,    ld, vals, r,  p,  s,
+                  r_hat, beta, omega, active, p2, s2, u, partials};
+  MBT_BY_LANES_HALO(k, mbt_lanes_halo(n, lo, hi, ld),
+                    (launch_k1b<K, kHalo>(o, a, dots, stream)));
 }
 
-// alpha [k]; partials [mbt_grid(n), 2 k] scratch; dots [2, k] = (q_l, y_l),
-// (y_l, y_l).
+// Planes, bounds and stride as for K1b; alpha [k]; partials
+// [mbt_grid(n), 2 k] scratch; dots [2, k] = (q_l, y_l), (y_l, y_l).
 cudaError_t mbt_fused_k2b_f32(const int* offsets, int n_diags, long long n,
+                              long long lo, long long hi, long long ld,
                               int k, const float* vals, const float* r,
                               const float* s2, const float* alpha, float* q,
                               float* y, float* partials, float* dots,
                               cudaStream_t stream) {
   DiaOffsets o;
-  if (n < 1 || !mbt_fill_offsets(o, offsets, n_diags))
+  if (n < 1 || !mbt_lanes_ok(n, lo, hi, ld) ||
+      !mbt_fill_offsets(o, offsets, n_diags))
     return cudaErrorInvalidValue;
-  const K2bArgs a{n, vals, r, s2, alpha, q, y, partials};
-  MBT_BY_LANES(k, launch_k2b<K>(o, a, dots, stream));
+  const K2bArgs a{n, lo, hi, ld, vals, r, s2, alpha, q, y, partials};
+  MBT_BY_LANES_HALO(k, mbt_lanes_halo(n, lo, hi, ld),
+                    (launch_k2b<K, kHalo>(o, a, dots, stream)));
 }
 
-// alpha, omega, active [k]; partials [mbt_grid(n), 2 k] scratch; dots
-// [2, k] = (r'_l, r'_l), (r^_l, r'_l).
-cudaError_t mbt_fused_k3b_f32(long long n, int k, const float* x,
+// Planes [k, ld] from the rank's first row, its n rows computed (ld = n
+// on one device); alpha, omega, active [k]; partials [mbt_grid(n), 2 k]
+// scratch; dots [2, k] = (r'_l, r'_l), (r^_l, r'_l).
+cudaError_t mbt_fused_k3b_f32(long long n, long long ld, int k,
+                              const float* x,
                               const float* p2, const float* q,
                               const float* y, const float* r_hat,
                               const float* alpha, const float* omega,
                               const float* active, float* x2, float* r2,
                               float* partials, float* dots,
                               cudaStream_t stream) {
-  if (n < 1) return cudaErrorInvalidValue;
-  MBT_BY_LANES(k, launch_k3b<K>(n, x, p2, q, y, r_hat, alpha, omega, active,
-                                x2, r2, partials, dots, stream));
+  if (n < 1 || ld < n) return cudaErrorInvalidValue;
+  MBT_BY_LANES_HALO(k, ld != n,
+                    (launch_k3b<K, kHalo>(n, ld, x, p2, q, y, r_hat, alpha,
+                                          omega, active, x2, r2, partials,
+                                          dots, stream)));
 }
 
 }  // extern "C"

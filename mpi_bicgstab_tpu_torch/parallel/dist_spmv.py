@@ -2,14 +2,16 @@
 mpi_bicgstab_tpu/parallel/dist_spmv.py), run by every rank on its shard.
 
 * DIA halo mode: two edge exchanges of `halo` elements with each
-  neighbour (dist.batch_isend_irecv; the ranks at the ends of the matrix
-  take zeros), then the local band multiply over the halo-extended vector:
+  neighbour (dist.batch_isend_irecv, an Exchange the caller waits on
+  before the band kernel; the ranks at the ends of the matrix take
+  zeros), then the local band multiply over the halo-extended vector:
   on the card one launch of the DIA SpMV kernel (csrc/dia_spmv.cu, its
   halo form), float32 / float64, or of the DF SpMV for pairs.
 * DIA gather mode (a band wider than a shard): the whole iterate
   gathered, the rank's window of it cut out, the same kernel.
 * allgather: MPI_csr_spmv_ovlap (matrix.c:428-441), the diag block over
-  the local slice and the off-diagonal block over the gathered iterate.
+  the local slice while the gather is in flight, then the off-diagonal
+  block over the gathered iterate.
 * ring: MPI_csr_spmv_async (matrix.c:450-492), P - 1 hops of send/recv,
   each multiplying the off-diagonal columns of the slice in hand ("slower
   than Allgatherv, unused", matrix.c:448; kept for parity).
@@ -47,12 +49,43 @@ def _global_rank(comm: Comm, r: int) -> int:
     return dist.get_global_rank(comm.group, r)
 
 
-def exchange_halo(comm: Comm, halo: int, vecs) -> None:
-    """Fill the edges of halo-extended vectors from the neighbours, all in
-    one batch: for each (x_loc, xh) of vecs, the last `halo` entries of
-    rank r - 1 go before x_loc's rows in xh, the first `halo` of rank
-    r + 1 after them (both halves of a pair); the ends of the matrix keep
-    what xh holds there."""
+class Exchange:
+    """A batch of point-to-point transfers in flight: wait() waits on
+    them (once), then runs `after` (the copies out of receive buffers).
+    The send and receive buffers live here until the wait."""
+
+    def __init__(self, reqs, keep=(), after=None):
+        self._reqs, self._keep, self._after = reqs, keep, after
+
+    def complete(self) -> None:
+        for req in self._reqs:
+            req.wait()
+        self._reqs, self._keep = [], ()
+
+    def wait(self) -> None:
+        self.complete()
+        if self._after is not None:
+            self._after()
+            self._after = None
+
+
+def _issue(comm: Comm, ops, keep=(), after=None) -> Exchange:
+    """One dist.batch_isend_irecv of ops, as an Exchange (waited on at
+    once under comm.serialize)."""
+    import torch.distributed as dist
+    ex = Exchange(dist.batch_isend_irecv(ops) if ops else [], keep, after)
+    if comm.serialize:
+        ex.complete()
+    return ex
+
+
+def exchange_halo(comm: Comm, halo: int, vecs) -> Exchange:
+    """Start filling the edges of halo-extended vectors from the
+    neighbours, all in one batch: for each (x_loc, xh) of vecs, the last
+    `halo` entries of rank r - 1 go before x_loc's rows in xh, the first
+    `halo` of rank r + 1 after them (both halves of a pair); the ends of
+    the matrix keep what xh holds there. The caller waits on the returned
+    Exchange before it reads xh."""
     import torch.distributed as dist
     me, ops = comm.rank, []
     for x_loc, xh in vecs:
@@ -69,9 +102,35 @@ def exchange_halo(comm: Comm, halo: int, vecs) -> None:
                                    nxt, comm.group),
                         dist.P2POp(dist.irecv, e[halo + n:], nxt,
                                    comm.group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    return _issue(comm, ops, keep=[op.tensor for op in ops])
+
+
+def exchange_planes(comm: Comm, halo: int, planes) -> Exchange:
+    """exchange_halo for [k, n + 2 halo] planes of k lanes (the blocked
+    batch, solvers/batched_dist.py): each plane's [k, halo] edge columns
+    from the neighbours, one message per plane and neighbour, received
+    into buffers and copied into the plane at the wait."""
+    import torch.distributed as dist
+    me, ops, copies = comm.rank, [], []
+    for P in planes:
+        n = P.shape[1] - 2 * halo
+        for lo_src, lo_dst, peer, there in (
+                (halo, 0, me - 1, me > 0),
+                (n, halo + n, me + 1, me < comm.size - 1)):
+            if not there:
+                continue
+            rank = _global_rank(comm, peer)
+            buf = P.new_empty((P.shape[0], halo))
+            ops += [dist.P2POp(dist.isend,
+                               P[:, lo_src:lo_src + halo].contiguous(),
+                               rank, comm.group),
+                    dist.P2POp(dist.irecv, buf, rank, comm.group)]
+            copies.append((P[:, lo_dst:lo_dst + halo], buf))
+
+    def after():
+        for dst, buf in copies:
+            dst.copy_(buf)
+    return _issue(comm, ops, keep=[op.tensor for op in ops], after=after)
 
 
 def _band(vals_loc, offsets: tuple, xh, halo: int):
@@ -88,14 +147,15 @@ def spmv_dia_halo(vals_loc, offsets: tuple, halo: int, comm: Comm, x_loc,
         return _band(vals_loc, offsets, x_loc, 0)
     xh = _extended(x_loc, halo)
     if n_devices > 1 and comm.group is not None:
-        exchange_halo(comm, halo, [(x_loc, xh)])
+        # nooverlap: the exchange completes first (JAX dist_spmv.py:54)
+        comm.seq(exchange_halo(comm, halo, [(x_loc, xh)])).wait()
     return _band(vals_loc, offsets, xh, halo)
 
 
 def spmv_dia_gather(vals_loc, offsets: tuple, comm: Comm, x_loc):
     """For bands wider than a shard: gather the iterate and multiply
     over this rank's rows' window of it (zeros beyond the matrix)."""
-    x_full = comm.allgather(x_loc)
+    x_full = comm.seq(comm.allgather(x_loc))
     n_loc = x_loc.shape[0]
     n_glob = x_full.shape[0]
     reach = max((abs(o) for o in offsets), default=0)
@@ -111,11 +171,17 @@ def spmv_dia_gather(vals_loc, offsets: tuple, comm: Comm, x_loc):
 
 
 def spmv_allgather(diag: EllMatrix, offd: EllMatrix, comm: Comm, x_loc):
-    """y_loc = A_diag @ x_loc + A_offd @ allgather(x)."""
-    x_full = comm.allgather(x_loc)
+    """y_loc = A_diag @ x_loc + A_offd @ allgather(x): the gather is
+    started, the diag block multiplied while it is in flight, then the
+    off-diagonal block over the gathered x (matrix.c:428-441). Under
+    comm.serialize the gather completes before the diag multiply (JAX
+    dist_spmv.py:105)."""
+    gather = comm.seq(comm.start_allgather(x_loc))
     if is_df(x_loc):
-        return df_add(ell_spmv_df(diag, x_loc), ell_spmv_df(offd, x_full))
-    return ell_spmv(diag, x_loc) + ell_spmv(offd, x_full)
+        y = ell_spmv_df(diag, x_loc)
+        return df_add(y, ell_spmv_df(offd, gather.wait()))
+    y = ell_spmv(diag, x_loc)          # overlaps the gather (matrix.c:437)
+    return y + ell_spmv(offd, gather.wait())  # matrix.c:440
 
 
 def _tail(offd: EllMatrix, x_full, y):
@@ -172,8 +238,7 @@ def spmv_ring(diag: EllMatrix, offd: EllMatrix, comm: Comm, x_loc,
                     dist.P2POp(dist.irecv, r,
                                _global_rank(comm, (me + 1) % n_devices),
                                comm.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        _issue(comm, ops, keep=[op.tensor for op in ops]).wait()
         buf = DF(*nxt) if df else nxt[0]
     if offd.tail_size:
         y = _tail(offd, comm.allgather(x_loc), y)

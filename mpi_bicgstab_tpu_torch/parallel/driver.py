@@ -18,9 +18,14 @@ solve_distributed routes as the JAX `_go` does: a float32 classic, CA or
 pipelined solve (df32: classic) on a pure-DIA halo partition without a
 preconditioner takes the halo-fused iterations of solvers/fused_dist.py,
 the fused kernels' halo forms; every other solve the unfused solver over
-the composed SpMV. The batched form solves its lanes one after another
-with the unfused solver (ROADMAP queue 1 item 2b: the JAX package vmaps
-them, one band read and one reduction per point for all lanes).
+the composed SpMV. The rank's Comm takes cfg.serialize_comm (the
+no-overlap A/B, parallel/comm.py), under which every solve is unfused.
+The batched form (solve_batched_distributed) advances its lanes together
+(solvers/batched_dist.py): float32 bicgstab on a pure-DIA halo partition
+with k <= 8 lanes runs the fused batched passes' halo forms, float32 /
+float64 bicgstab elsewhere a blocked unfused loop, each with one
+reduction per point for all lanes; df32 and the other methods solve lane
+by lane.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from mpi_bicgstab_tpu_torch.parallel.mesh import (make_grid_mesh,
 from mpi_bicgstab_tpu_torch.parallel.partition import PartitionedMatrix
 from mpi_bicgstab_tpu_torch.parallel.sigma import SigmaComm
 from mpi_bicgstab_tpu_torch.solvers.base import SolveResult
-from mpi_bicgstab_tpu_torch.solvers import fused_dist
+from mpi_bicgstab_tpu_torch.solvers import batched_dist, fused_dist
 from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
 
@@ -167,11 +172,10 @@ def _exit_transform(spmv, precond, x):
     return cheby_apply(spmv, x, precond.degree, precond.lo, precond.hi)
 
 
-def _classic(method, spmv, comm, b_loc, x0_loc, cfg, shard=None):
-    """One solve with the refinement restarts of api.solve; given the
+def _once(method, spmv, comm, b_loc, cfg, shard=None):
+    """once(x0, cfg): one solver segment without restarts; given the
     rank's shard, on the halo-fused route where fused_dist.applicable
     takes it (every segment alike)."""
-    from mpi_bicgstab_tpu_torch.api import _restarted
     fused = shard is not None and fused_dist.applicable(shard, method,
                                                         b_loc, cfg)
 
@@ -180,7 +184,13 @@ def _classic(method, spmv, comm, b_loc, x0_loc, cfg, shard=None):
             return fused_dist.solve_fused_dist(shard, comm, method, spmv,
                                                b_loc, x0, c)
         return CLASSIC_SOLVERS[method](spmv, comm, b_loc, x0, c)
+    return once
 
+
+def _classic(method, spmv, comm, b_loc, x0_loc, cfg, shard=None):
+    """One solve with the refinement restarts of api.solve (_once)."""
+    from mpi_bicgstab_tpu_torch.api import _restarted
+    once = _once(method, spmv, comm, b_loc, cfg, shard)
     res = once(x0_loc, cfg)
     if cfg.restarts:
         res = _restarted(once, cfg, res)
@@ -212,13 +222,17 @@ def spmv_global(part, x, mesh=None, halo: str = "allgather"):
 
 def solve_distributed(part, b, x0=None, method: str = "bicgstab",
                       cfg: SolverConfig | None = None, mesh=None,
-                      halo: str = "allgather", precond=None) -> SolveResult:
+                      halo: str = "allgather", precond=None,
+                      unfused: bool = False) -> SolveResult:
     """Distributed solve of A x = b over the row grid.
 
     precond: an ops.cheby.ChebyPrecond with lo/hi SET (bounds cannot be
     estimated from a partition: compute them from the host CSR with
     ops.cheby.estimate_bounds before partitioning). Right-preconditioned:
-    residuals are the original system's; x = p(A) y runs once at exit."""
+    residuals are the original system's; x = p(A) y runs once at exit.
+    unfused: take the unfused solver where the halo-fused route would
+    apply (the overlapped side of benchmarks/runner.bench_overlap, which
+    cfg.serialize_comm's side takes by rule)."""
     precond = _check_method(method, precond)
     mesh, shard, comm = _grid(part, mesh, halo)
     if shard is None:
@@ -226,30 +240,47 @@ def solve_distributed(part, b, x0=None, method: str = "bicgstab",
     dtype = part.dtype
     if cfg is None:
         cfg = SolverConfig(dtype=dtype)
+    comm = comm.with_serialize(cfg.serialize_comm)
     spmv = make_local_spmv(shard, comm, halo)
     op = _precond_spmv(spmv, precond) if precond is not None else spmv
     b_loc = put_vector(b, part, mesh)
     x0_loc = put_vector(x0, part, mesh) if x0 is not None \
         else vzeros_like(b_loc)
     res = _classic(method, op, comm, b_loc, x0_loc, cfg,
-                   shard if precond is None else None)
+                   shard if precond is None and not unfused else None)
     x = res.x if precond is None else _exit_transform(spmv, precond, res.x)
     return dataclasses.replace(res, x=comm.allgather(x))
+
+
+def put_planes(B, part, mesh):
+    """This rank's columns of the host [k, n] B (zero-padded to n_global),
+    on its device in the partition's dtype (a pair for df32)."""
+    r = mesh.row_index
+    Bp = np.zeros((B.shape[0], part.n_global))
+    Bp[:, : B.shape[1]] = B
+    Bl = np.ascontiguousarray(Bp[:, r * part.n_loc:(r + 1) * part.n_loc])
+    if part.dtype == "df32":
+        return df_from_f64(Bl, mesh.device)
+    return torch.as_tensor(Bl, dtype=part.dtype, device=mesh.device)
 
 
 def solve_batched_distributed(part, B, method: str = "bicgstab",
                               cfg: SolverConfig | None = None, mesh=None,
                               halo: str = "allgather",
                               precond=None) -> SolveResult:
-    """Distributed batched solve: B is [k, n] (host float64); each lane
-    is solved as the JAX package's vmapped lane is, with the unfused
-    solver (a stopped lane freezes there) and the per-lane refinement
-    restarts of api.solve_batched. The lanes run one after another: the
-    band is read and every reduction made once per lane, where the JAX
-    package's vmap reads it once and batches the k lanes' reductions
-    (ROADMAP queue 1 item 2b). The result's fields carry a leading batch
-    axis (x [k, n_global] on every rank)."""
-    from mpi_bicgstab_tpu_torch.api import _stack_lanes
+    """Distributed batched solve: B is [k, n] (host float64). The lanes
+    advance together as the JAX package's vmapped lanes do
+    (solvers/batched_dist.py; a stopped lane freezes there, so each lane's
+    trajectory is its own): float32 bicgstab on a pure-DIA halo partition
+    with k <= 8 lanes and no preconditioner on the halo-fused batched
+    passes, float32 / float64 bicgstab otherwise in the blocked unfused
+    loop, each with one reduction per point for all lanes; df32 and the
+    other methods lane by lane with the unfused solver. Then the per-lane
+    refinement restarts of api.solve_batched, each lane on its own through
+    solve_distributed's route, and the Chebyshev exit transform per lane,
+    in the JAX package's order (driver.py:383-404). The result's fields
+    carry a leading batch axis (x [k, n_global] on every rank)."""
+    from mpi_bicgstab_tpu_torch.api import _restart_batch_lanes, _stack_lanes
     precond = _check_method(method, precond)
     B = np.asarray(B, np.float64)
     if B.ndim != 2:
@@ -260,15 +291,43 @@ def solve_batched_distributed(part, B, method: str = "bicgstab",
     dtype = part.dtype
     if cfg is None:
         cfg = SolverConfig(dtype=dtype)
+    comm = comm.with_serialize(cfg.serialize_comm)
     spmv = make_local_spmv(shard, comm, halo)
     op = _precond_spmv(spmv, precond) if precond is not None else spmv
+    B_loc = put_planes(B, part, mesh)
+    k = B.shape[0]
+
+    def lane(j):
+        return B_loc[j] if not is_df(B_loc) else DF(B_loc.hi[j],
+                                                    B_loc.lo[j])
+
+    if batched_dist.applicable(shard, method, B_loc, cfg, precond):
+        res = batched_dist.bicgstab_batched_halo(
+            shard, comm, B_loc, torch.zeros_like(B_loc), cfg)
+    elif batched_dist.blocked(method, B_loc):
+        res = batched_dist.bicgstab_blocked(op, comm, B_loc,
+                                            torch.zeros_like(B_loc), cfg)
+    else:
+        res = None
+    if res is not None:
+        if cfg.restarts:
+            seg_shard = shard if precond is None else None
+
+            def segment(j, x0, c):
+                return _once(method, op, comm, lane(j), c, seg_shard)(x0, c)
+            res = _restart_batch_lanes(segment, cfg, res)
+        X = res.x
+        if precond is not None:
+            X = torch.stack([_exit_transform(spmv, precond, X[j])
+                             for j in range(k)])
+        return dataclasses.replace(res, x=comm.allgather(X, axis=1))
     lanes = []
-    for bj in B:
-        b_loc = put_vector(bj, part, mesh)
-        res = _classic(method, op, comm, b_loc, vzeros_like(b_loc), cfg)
-        x = res.x if precond is None \
-            else _exit_transform(spmv, precond, res.x)
-        lanes.append(dataclasses.replace(res, x=comm.allgather(x)))
+    for j in range(k):
+        b_loc = lane(j)
+        r = _classic(method, op, comm, b_loc, vzeros_like(b_loc), cfg)
+        x = r.x if precond is None \
+            else _exit_transform(spmv, precond, r.x)
+        lanes.append(dataclasses.replace(r, x=comm.allgather(x)))
     return _stack_lanes(lanes)
 
 
@@ -303,6 +362,7 @@ def solve_shifted_distributed(part, b, sigma, seed: int = 0,
     dtype = part.dtype
     if cfg is None:
         cfg = ShiftedConfig(dtype=dtype)
+    comm = comm.with_serialize(cfg.serialize_comm)
     sc = None
     if sigma_devices > 1:
         sc = SigmaComm(Comm(mesh.sigma, mesh.n_sigma, mesh.sigma_index),

@@ -11,8 +11,16 @@ imports torch and this package, nothing of the parent's __main__ beyond
 what spawn imports, and sets torch.set_num_threads(1). The ranks meet
 through a file:// store in a fresh temporary directory (no TCP port to
 collide under parallel test workers) and form one world: gloo for
-device="cpu", NCCL for device="cuda", one card per rank (rank r on
-cuda:r). fn must be a module-level function of this package, so that a
+device="cpu", NCCL for device="cuda", one card per rank (local rank j on
+cuda:j). A Pool may also be one node's share of a larger world
+(parallel/multihost.py): its ranks then meet the other nodes' at
+init_method (tcp://HOST:PORT, the address torchrun's MASTER_ADDR and
+MASTER_PORT give), as the global ranks first_rank .. first_rank + n - 1
+of world_size. A process that torchrun started (RANK, WORLD_SIZE,
+MASTER_ADDR and MASTER_PORT in its environment) joins that world
+instead of spawning one: `run` then calls fn in this process
+(`torchrun --nproc-per-node 2 -m mpi_bicgstab_tpu_torch solve --devices
+2`). fn must be a module-level function of this package, so that a
 rank imports nothing but the port; `call_script` runs a function of a
 script file instead (a script beside the package, as a smoke run is). A
 rank that finds JAX or the JAX package imported after a task fails it.
@@ -83,24 +91,50 @@ def _check_devices(n: int, device: str) -> None:
         raise ValueError(f"device {device!r}: use 'cuda' or 'cpu'")
 
 
-def _init(rank: int, n: int, store: str, device: str) -> None:
+def _backend(device: str) -> str:
+    return "nccl" if device == "cuda" else "gloo"
+
+
+def _init(local: int, rank: int, world: int, init_method: str,
+          device: str) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
+    os.environ["LOCAL_RANK"] = str(local)   # parallel/mesh.py's device
     if device == "cuda":
-        torch.cuda.set_device(rank)
+        torch.cuda.set_device(local)
     dist.init_process_group(
-        "nccl" if device == "cuda" else "gloo",
-        init_method=f"file://{store}", rank=rank, world_size=n,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        _backend(device), init_method=init_method, rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
 
 
-def _worker(rank: int, n: int, store: str, device: str, tasks, results):
+def in_torchrun() -> bool:
+    """Did torchrun (or an equivalent launcher) start this process as a
+    rank of a world?"""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR", "MASTER_PORT"))
+
+
+def join_torchrun(n: int, device: str) -> None:
+    """Join the world torchrun described in the environment (env://), on
+    cuda:LOCAL_RANK or gloo; its size must be n."""
+    import torch.distributed as dist
+    world = int(os.environ["WORLD_SIZE"])
+    if world != n:
+        raise ValueError(f"requested {n} ranks, torchrun started {world}")
+    local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+    _check_devices(int(os.environ.get("LOCAL_WORLD_SIZE", n)), device)
+    if not dist.is_initialized():
+        _init(local, int(os.environ["RANK"]), world, "env://", device)
+
+
+def _worker(local: int, rank: int, world: int, init_method: str,
+            device: str, tasks, results):
     """A rank of a Pool: run tasks until the None sentinel."""
     import torch.distributed as dist
     try:
-        _init(rank, n, store, device)
+        _init(local, rank, world, init_method, device)
     except Exception:   # noqa: BLE001 — reported to the parent
-        results.put((rank, False, traceback.format_exc()))
+        results.put((local, False, traceback.format_exc()))
         return
     try:
         while True:
@@ -111,19 +145,23 @@ def _worker(rank: int, n: int, store: str, device: str, tasks, results):
                 fn, args, kwargs = task
                 out = fn(*args, **kwargs)
                 _check_imports()
-                results.put((rank, True, to_host(out) if rank == 0
+                results.put((local, True, to_host(out) if local == 0
                              else None))
             except Exception:   # noqa: BLE001 — reported to the parent
-                results.put((rank, False, traceback.format_exc()))
+                results.put((local, False, traceback.format_exc()))
     finally:
         dist.destroy_process_group()
 
 
 class Pool:
     """n ranks that run task after task until closed (a context
-    manager)."""
+    manager); run() returns the result of the first of them. By default
+    the n ranks are the whole world; with init_method, the global ranks
+    first_rank .. first_rank + n - 1 of a world of world_size ranks."""
 
-    def __init__(self, n: int, device: str = "cpu"):
+    def __init__(self, n: int, device: str = "cpu",
+                 init_method: str | None = None, first_rank: int = 0,
+                 world_size: int | None = None):
         import torch.multiprocessing as mp
         _check_devices(n, device)
         self.n = n
@@ -131,10 +169,12 @@ class Pool:
         ctx = mp.get_context("spawn")
         self._results = ctx.Queue()
         self._tasks = [ctx.Queue() for _ in range(n)]
-        store = os.path.join(self._dir, "store")
+        if init_method is None:
+            init_method = "file://" + os.path.join(self._dir, "store")
+        world = n if world_size is None else world_size
         self._procs = [ctx.Process(target=_worker, daemon=True, args=(
-            r, n, store, device, self._tasks[r], self._results))
-            for r in range(n)]
+            j, first_rank + j, world, init_method, device, self._tasks[j],
+            self._results)) for j in range(n)]
         for p in self._procs:
             p.start()
 
@@ -180,8 +220,18 @@ class Pool:
 
 def run(fn, n: int, *args, device: str = "cpu", **kwargs):
     """fn(*args, **kwargs) on n fresh ranks; rank 0's result, as host
-    arrays."""
+    arrays. Under torchrun, this process is one of the n ranks: it joins
+    the world, calls fn and returns its own result."""
     _check_fn(fn)
+    if in_torchrun():
+        import torch.distributed as dist
+        join_torchrun(n, device)
+        try:
+            out = fn(*args, **kwargs)
+            _check_imports()
+            return to_host(out)
+        finally:
+            dist.destroy_process_group()
     with Pool(n, device) as pool:
         return pool.run(fn, *args, **kwargs)
 

@@ -74,7 +74,11 @@ class _Lanes:
         self.hist.append(torch.where(ab, dot_new, torch.nan))
         self.it += 1
 
-    def result(self, X, B, dot_r, dot_zero, tol2, spmv) -> SolveResult:
+    def result(self, X, B, dot_r, dot_zero, tol2, spmv,
+               reduce=None) -> SolveResult:
+        """The SolveResult at exit; the true residuals from spmv(X), their
+        per-lane dots completed by reduce (over a row group:
+        solvers/batched_dist.py)."""
         k = dot_zero.shape[0]
         history = torch.full((k, self.max_iter), float("nan"),
                              dtype=dot_zero.dtype, device=dot_zero.device)
@@ -82,7 +86,9 @@ class _Lanes:
             history[:, :len(self.hist)] = torch.sqrt(
                 torch.stack(self.hist, 1) / dot_zero[:, None])
         R_true = B - spmv(X)
-        true_relres = torch.sqrt(_dot(R_true, R_true) / dot_zero)
+        rr = _dot(R_true, R_true)
+        true_relres = torch.sqrt((rr if reduce is None else reduce(rr))
+                                 / dot_zero)
         tol = torch.sqrt(tol2)
         return SolveResult(
             x=X, n_iter=torch.as_tensor(self.n_iter),

@@ -128,11 +128,12 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool,
           fused_bodies: bool = False) -> SolveResult:
     """Pipelined BiCGStab, with residual replacement when rr is set.
 
-    Each SpMV follows the dot batch whose latency it hides in the
-    reference: v <- A z after (q,y),(y,y) (solver.c:363-367), t <- A w
-    after the batch of five (solver.c:377-385). The JAX package orders
-    them with comm.seq for its no-overlap mode (serialize_comm); one
-    device has no reduction latency to hide, so the port has no seq.
+    Each SpMV sits between a dot batch and its wait, so that it hides the
+    reduction's latency as in the reference: v <- A z between the start
+    and the wait of (q,y),(y,y) (solver.c:363-367), t <- A w between those
+    of the batch of five (solver.c:377-385). comm.seq stands where the
+    JAX package puts its barriers: under comm.serialize (the no-overlap
+    A/B) each batch completes before its SpMV is issued.
     A replacement iteration (host test on the iteration counter, the
     JAX lax.cond) re-anchors s <- A p, z <- A s (solver.c:498-500) and
     the true residual r <- b - A x, w <- A r (solver.c:522-526).
@@ -164,7 +165,7 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool,
         if fused_bodies:
             p, s, z, q, y, dots = bodies.fused_body_a(
                 r, p, s, w, z, t, v, (alpha, beta, omega))  # :352-362
-            qTy, yTy = comm.allreduce(dots)             # solver.c:363-364
+            batch = comm.start(dots)                    # solver.c:363-364
         else:
             p = axpy(beta, axpy(-omega, s, p), r)       # solver.c:352-354
             if replace:
@@ -175,13 +176,14 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool,
                 z = axpy(beta, axpy(-omega, v, z), t)   # solver.c:358-360
             q = axpy(-alpha, s, r)                      # solver.c:361
             y = axpy(-alpha, z, w)                      # solver.c:362
-            qTy, yTy = comm.dots((q, y), (y, y))        # solver.c:363-364
-        v = spmv(z)                                     # solver.c:365
+            batch = comm.start_dots((q, y), (y, y))     # solver.c:363-364
+        v = spmv(comm.seq(batch, z)[1])   # overlaps the dots, solver.c:365
+        qTy, yTy = batch.wait()                         # solver.c:367
         omega = qTy / yTy                               # solver.c:369
         if fused_bodies:
             x, r, w, dots = bodies.fused_body_b(
                 x, p, q, y, t, v, r_hat, s, z, (alpha, omega))  # :370-375
-            dot_r, rTr_new, rhTw, rhTs, rhTz = comm.allreduce(dots)
+            batch = comm.start(dots)
         else:
             x = axpy(omega, q, axpy(alpha, p, x))       # solver.c:370-371
             if replace:
@@ -190,10 +192,11 @@ def _pipe(spmv, comm, b, x0, cfg: SolverConfig, rr: bool,
             else:
                 r = axpy(-omega, y, q)                  # solver.c:372
                 w = axpy(-omega, axpy(-alpha, v, t), y)  # solver.c:374-375
-            dot_r, rTr_new, rhTw, rhTs, rhTz = comm.dots(
+            batch = comm.start_dots(
                 (r, r), (r_hat, r), (r_hat, w), (r_hat, s),
                 (r_hat, z))                             # solver.c:373,377-380
-        t = spmv(w)                                     # solver.c:381
+        t = spmv(comm.seq(batch, w)[1])   # overlaps the dots, solver.c:381
+        dot_r, rTr_new, rhTw, rhTs, rhTz = batch.wait()  # solver.c:385
         beta, alpha = fold_beta_alpha(alpha, omega, rTr, rTr_new, rhTw,
                                       rhTs, rhTz)       # solver.c:387-388
         hist.append(dot_r)

@@ -24,13 +24,13 @@ reads the columns [0, n) and every reduction is the identity: the solve is
 the single-device fused driver's, bit for bit.
 
 `applicable` is the JAX gate: a pure-DIA halo partition, no
-preconditioner, float32 for bicgstab, ca_bicgstab, pipe_bicgstab and
-pipe_bicgstab_rr, df32 for bicgstab only (the JAX package's DF CA and
-pipelined kernels have no halo form either); also out_iter 0, as for the
-single-device fused routes (api._solve_once). The JAX gate's n_loc % 8192
-(its tile grid) and its backend test have no counterpart: the kernels take
-any n, and the route is the same on the CPU (the plain twins, gloo) as on
-the card.
+preconditioner, no serialize_comm, float32 for bicgstab, ca_bicgstab,
+pipe_bicgstab and pipe_bicgstab_rr, df32 for bicgstab only (the JAX
+package's DF CA and pipelined kernels have no halo form either); also
+out_iter 0, as for the single-device fused routes (api._solve_once). The
+JAX gate's n_loc % 8192 (its tile grid) and its backend test have no
+counterpart: the kernels take any n, and the route is the same on the
+CPU (the plain twins, gloo) as on the card.
 """
 from __future__ import annotations
 
@@ -54,8 +54,10 @@ F32_METHODS = ("bicgstab", "ca_bicgstab", "pipe_bicgstab",
 
 def applicable(shard, method: str, b_loc, cfg, precond=None) -> bool:
     """Does this rank's solve take the halo-fused route? Every rank holds
-    a shard of the same partition, so every rank decides alike."""
-    if precond is not None or cfg.out_iter:
+    a shard of the same partition, so every rank decides alike. Never
+    under cfg.serialize_comm: the no-overlap A/B times the unfused
+    solvers (JAX fused_dist.py:67)."""
+    if precond is not None or cfg.out_iter or cfg.serialize_comm:
         return False
     if shard.dia_vals is None or shard.dia_mode != "halo":
         return False
@@ -92,8 +94,8 @@ class _Rows:
     def edges(self, *vecs) -> None:
         """The neighbours' edge rows into vecs' halos, in one batch."""
         if self.h and (self.halo.prev or self.halo.next):
-            exchange_halo(self.comm, self.h,
-                          [(self.c(v), v) for v in vecs])
+            self.comm.seq(exchange_halo(
+                self.comm, self.h, [(self.c(v), v) for v in vecs])).wait()
 
     def reduce(self, *dots):
         """The global values of a pass's dots: one rank-ordered

@@ -3,7 +3,10 @@ mpi_bicgstab_tpu/utils/checkpoint.py). The reference has none: a failure
 aborts the whole job. Two mechanisms:
 
 * The classic family's ITERATE checkpoint (save_checkpoint,
-  load_checkpoint, solve_with_checkpoints; `solve --checkpoint`): a
+  load_checkpoint, solve_with_checkpoints; `solve [--devices N]
+  --checkpoint`; over a distributed runner rank 0 alone reads and writes
+  the file and broadcasts a resume to the group, so the ranks need no
+  shared file system): a
   BiCGStab restart from x0 = the saved iterate (r recomputed as b - A x0)
   is exact mathematically; the Krylov space is rebuilt, costing a few
   iterations, for a checkpoint of one vector, valid across methods,
@@ -246,9 +249,29 @@ def load_checkpoint(path: str, expect: dict | None = None):
     return x, int(header["n_iter_done"]), header
 
 
+def _resume(path: str, meta: dict, group):
+    """load_checkpoint(path, meta); with a process group, rank 0 loads it
+    and broadcasts what it found (or its error, which every rank then
+    raises) to the others."""
+    if group is None:
+        return load_checkpoint(path, expect=meta)
+    import torch.distributed as dist
+    box = [None]
+    if dist.get_rank() == 0:
+        try:
+            box[0] = ("ok", load_checkpoint(path, expect=meta))
+        except Exception as e:   # noqa: BLE001 — re-raised on every rank
+            box[0] = ("error", f"{type(e).__name__}: {e}")
+    dist.broadcast_object_list(box, src=0, group=group)
+    kind, payload = box[0]
+    if kind == "error":
+        raise ValueError(payload)
+    return payload
+
+
 def solve_with_checkpoints(runner, path: str, segment_iters: int,
                            max_iter: int, meta: dict, tol: float,
-                           x_key: str = "x"):
+                           x_key: str = "x", group=None):
     """Run runner(x0_host or None, iters_budget, tol_segment) in segments,
     saving the iterate after each; resumes from `path` when it exists.
 
@@ -263,10 +286,20 @@ def solve_with_checkpoints(runner, path: str, segment_iters: int,
     iterations, cum_rel): cum_rel is the residual relative to the
     original ||b||, what the solve without checkpoints reports; the
     result is None when the checkpoint alone satisfies the run
-    (converged, or out of budget)."""
+    (converged, or out of budget).
+
+    group: the torch.distributed group of a distributed runner, called
+    on every rank with the global iterate on each: rank 0 reads the file
+    and broadcasts the iterate, done and cum_rel to the group (_resume),
+    rank 0 alone saves each segment, and a barrier after each save keeps
+    the ranks in step."""
     if segment_iters < 1:
         raise ValueError("segment_iters must be >= 1")
-    resumed = load_checkpoint(path, expect=meta)
+    writer = True
+    if group is not None:
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+    resumed = _resume(path, meta, group)
     x0 = None
     done = 0
     cum_rel = 1.0
@@ -283,7 +316,10 @@ def solve_with_checkpoints(runner, path: str, segment_iters: int,
         # cumulative residual
         cum_rel *= float(res.final_relres)
         x = getattr(res, x_key)
-        save_checkpoint(path, x, done, dict(meta, cum_rel=cum_rel))
+        if writer:
+            save_checkpoint(path, x, done, dict(meta, cum_rel=cum_rel))
+        if group is not None:
+            dist.barrier(group=group)
         if bool(res.converged) or int(res.n_iter) < budget:
             break
         x0 = _host_iterate(x)[1]

@@ -55,6 +55,11 @@ class SolverConfig:
     out_iter: print the relative residual every out_iter iterations
               (DISPLAY_RESIDUAL, solver.c:8-9,122-126); 0 is silent and
               is required for the fused float32 route.
+    serialize_comm: the reference's *_nooverlap mode for distributed
+              runs: every collective completes before the compute that
+              would hide it (parallel/comm.Comm(serialize=True)); the
+              solve takes the unfused solvers, as in the JAX package.
+              Same bits as the overlapped run.
     """
 
     tol: float = 1.0e-15
@@ -64,6 +69,7 @@ class SolverConfig:
     restarts: int = 2
     dtype: torch.dtype = torch.float64
     out_iter: int = 0
+    serialize_comm: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", canon_dtype(self.dtype))
@@ -91,6 +97,7 @@ class ShiftedConfig:
               at 1.6M rows), 0 the per-iteration path, > 0 an explicit
               depth L. The checkpointed segment driver always takes the
               per-iteration path (bit-exact resume).
+    serialize_comm: the no-overlap mode, as in SolverConfig.
     """
 
     tol: float = 1.0e-12
@@ -99,6 +106,7 @@ class ShiftedConfig:
     out_iter: int = 0
     verbose_switch: bool = False
     shift_block: int = -1
+    serialize_comm: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", canon_dtype(self.dtype))

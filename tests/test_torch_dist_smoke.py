@@ -66,19 +66,30 @@ def _inputs(phase):
         return smoke.run_dist_shifted, (tgen.transport_like(N),)
     if phase == "dist_batched":
         return smoke.run_dist_batched, (tgen.transport_like(N),)
+    if phase == "dist_overlap":
+        return smoke.run_dist_overlap, (tgen.transport_like(N),)
+    if phase == "dist_checkpoint":
+        return smoke.run_dist_checkpoint, (tgen.transport_like(N),)
     csr = tgen.transport_hard(N)
     return smoke.run_dist_cheby, (csr, *estimate_bounds(csr))
 
 
 PHASES = [*smoke.DIST_PATHS, "dist_window", "dist_butterfly",
-          "dist_shifted", "dist_batched", "dist_cheby"]
+          "dist_shifted", "dist_batched", "dist_cheby", "dist_overlap",
+          "dist_checkpoint"]
 SHIFTED_KW = {"S": 16, "seed": 15}
 
 
+def _kw(phase, tmp_path):
+    if phase == "dist_shifted":
+        return SHIFTED_KW
+    return {"workdir": str(tmp_path)} if phase == "dist_checkpoint" else {}
+
+
 @pytest.mark.parametrize("phase", PHASES)
-def test_dist_phase_one_rank_on_cpu(one_rank, phase, capsys):
+def test_dist_phase_one_rank_on_cpu(one_rank, phase, capsys, tmp_path):
     fn, args = _inputs(phase)
-    kw = SHIFTED_KW if phase == "dist_shifted" else {}
+    kw = _kw(phase, tmp_path)
     out = fn(*args, n_devices=1, device="cpu", **kw)
     assert not any(out["counts"].values())
     line = capsys.readouterr().out.strip().splitlines()[-1]
@@ -88,13 +99,22 @@ def test_dist_phase_one_rank_on_cpu(one_rank, phase, capsys):
 @pytest.mark.parametrize("phase", ["dist", "dist_ca", "dist_pipe",
                                    "dist_df32", "dist_ring",
                                    "dist_window", "dist_butterfly",
-                                   "dist_shifted", "dist_cheby"])
-def test_dist_phase_two_ranks_on_cpu(pool, phase):
+                                   "dist_shifted", "dist_cheby",
+                                   "dist_batched", "dist_overlap",
+                                   "dist_checkpoint"])
+def test_dist_phase_two_ranks_on_cpu(pool, phase, tmp_path):
     fn, args = _inputs(phase)
-    kw = SHIFTED_KW if phase == "dist_shifted" else {}
+    kw = _kw(phase, tmp_path)
     out = pool.run(launch.call_script, SCRIPT, fn.__name__, *args,
                    n_devices=2, device="cpu", **kw)
     assert out["ranks"] == 2 and not any(out["counts"].values())
+
+
+def test_bench_dist_tool_on_cpu():
+    """`[tools]`' bench --devices 1 --what overlap,scaling, in its own
+    process as on the card: the one-rank labels."""
+    line = smoke.run_bench_dist(N, device="cpu", iters=6)
+    assert line["scaling_devices"] == [1] and line["devices"] == 1
 
 
 def test_dist_cli_and_profile_phases_on_cpu(one_rank, tmp_path, capsys):

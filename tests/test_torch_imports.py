@@ -83,6 +83,8 @@ def test_scan_sees_every_module_and_tells_the_names_apart():
                  "mpi_bicgstab_tpu_torch/parallel/driver.py",
                  "mpi_bicgstab_tpu_torch/parallel/sigma.py",
                  "mpi_bicgstab_tpu_torch/solvers/fused_dist.py",
+                 "mpi_bicgstab_tpu_torch/solvers/batched_dist.py",
+                 "mpi_bicgstab_tpu_torch/parallel/multihost.py",
                  "mpi_bicgstab_tpu_torch/cli.py"):
         assert must in names
     ok = ast.parse("import mpi_bicgstab_tpu_torch.api\n"
@@ -118,6 +120,8 @@ def test_new_modules_import_without_jax():
             "mpi_bicgstab_tpu_torch.parallel.launch",
             "mpi_bicgstab_tpu_torch.parallel.driver",
             "mpi_bicgstab_tpu_torch.solvers.fused_dist",
+            "mpi_bicgstab_tpu_torch.solvers.batched_dist",
+            "mpi_bicgstab_tpu_torch.parallel.multihost",
             "mpi_bicgstab_tpu_torch.benchmarks.sections",
             "mpi_bicgstab_tpu_torch.cli")
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

@@ -982,6 +982,69 @@ def test_staged_batched_passes_match_plain(n, k):
                                        atol=1e-3)
 
 
+def _halo_planes(n, k, m, halo, dev, seed=3):
+    """m random [k, n + 2h] halo-form planes (solvers/batched_dist.py),
+    NaN in a halo whose neighbour does not exist (never read)."""
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(m):
+        a = g.standard_normal((k, n + 2 * halo.h))
+        if not halo.prev:
+            a[:, :halo.h] = np.nan
+        if not halo.next:
+            a[:, halo.h + n:] = np.nan
+        out.append(torch.as_tensor(a, dtype=torch.float32, device=dev))
+    return out
+
+
+@pytest.mark.parametrize("side", list(HALO_SIDES))
+@pytest.mark.parametrize("k,frozen", [(1, ()), (3, (1,)), (8, (0, 5))])
+@pytest.mark.parametrize("n", [30001, 1000])
+def test_batched_halo_forms_match_plain(n, k, frozen, side):
+    """Kernels 19-22's halo forms against their twins on the same
+    halo-form planes at the main path's reach: the rank's rows of every
+    output, and the readable halo rows of P2 and Q (stage 0 forms p' and q
+    there too); the frozen lanes' P2, S2, X2 and R2 rows bit-unchanged."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
+    from mpi_bicgstab_tpu_torch.ops import cuda_fused_batched as fb
+    dev = _card()
+    halo = cuda_spmv.Halo(13824, *HALO_SIDES[side])
+    A = _band(n, TRANSPORT_OFFSETS, torch.float32, dev)
+    R, P, S, Rh, X, Q, Y = _halo_planes(n, k, 7, halo, dev)
+    a, b, w, act = _lane_scalars(k, dev, frozen)
+    v, o, h, fz = A.vals, A.offsets, halo.h, list(frozen)
+    lo, hi = halo.bounds(n)
+
+    def rows(t):
+        return t if t.shape[1] == n else t[:, h:h + n]
+
+    before = cbs.batched_dia_spmv.launches
+    Yx = cbs.batched_dia_spmv(v, o, X, halo)
+    torch.cuda.synchronize()
+    assert cbs.batched_dia_spmv.launches == before + 1
+    _close([Yx], [cbs.batched_dia_spmv_plain(v, o, X, halo)])
+    for kern, plain, args, keep, whole in (
+            (fb.fused_k1b, fb.fused_k1b_plain,
+             (v, R, P, S, Rh, (b, w, act), o), (P, S), True),
+            (fb.fused_k2b, fb.fused_k2b_plain, (v, R, S, (a,), o), None,
+             True),
+            (fb.fused_k3b, fb.fused_k3b_plain,
+             (X, P, Q, Y, Rh, (a, w, act)), (X, Q), False)):
+        before = kern.launches
+        got = kern(*args, halo=halo)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = plain(*args, halo=halo)
+        _close([rows(g) for g in got[:2]], [rows(w_) for w_ in want[:2]])
+        if whole:
+            _close([got[0][:, h + lo:h + hi]], [want[0][:, h + lo:h + hi]])
+        for g_, w_ in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-3)
+        if keep is not None:
+            for out, old in zip(got[:2], keep):
+                assert torch.equal(rows(out)[fz], rows(old)[fz])
+
+
 def test_batched_limits_match_the_libraries():
     from mpi_bicgstab_tpu_torch.ops import cuda_batched_spmv as cbs
     _card()

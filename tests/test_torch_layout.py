@@ -164,9 +164,9 @@ def test_config_from_jax_fields():
         JCfg(tol=1e-7, max_iter=33, restarts=1, dtype=jnp.float32)))
     assert (cfg.tol, cfg.max_iter, cfg.restarts, cfg.dtype) == (
         1e-7, 33, 1, torch.float32)
-    with pytest.raises(NotImplementedError):
-        convert.config_from_fields(dataclasses.asdict(
-            JCfg(serialize_comm=True)))
+    # the distributed no-overlap mode is carried
+    assert convert.config_from_fields(dataclasses.asdict(
+        JCfg(serialize_comm=True))).serialize_comm is True
     # df32 is ported: its config dtype is float32, as in the JAX package
     assert convert.config_from_fields({"dtype": "df32"}).dtype \
         == torch.float32
