@@ -202,7 +202,31 @@ numbers; any failure exits non-zero:
              `solve --devices 1 --json` converges, `--devices 2` exits
              naming the single CUDA device. `[profile]`: `profile --json`
              in f32 on transport-like:1602112, with --sigma-len 64, and
-             --trace (the Chrome trace must name dia_spmv_kernel)
+             --trace (the Chrome trace must name dia_spmv_kernel).
+             The last slice (ROADMAP slice 9b-ii): `[butterfly_numpy]`
+             routes uniform:1602112 again with the NumPy router
+             (MBT_NATIVE_ROUTE=0, in a process of its own that starts
+             with the butterfly checks, start_numpy_route) and holds its
+             layout on the card: the f32 bicgstab at 1e-6 converged
+             within 2 iterations of `[butterfly]`, x held to torch's
+             float64 CSR residual, K1, K2, the decode once and K3 per
+             SpMV; the whole f32 SpMV bit-equal to its twin on a CPU
+             copy, the f64 one within 1e-12 of the CSR product;
+             simulate_numpy of the layout within 1e-12 of the CSR
+             product's largest entry at full size; the route's host seconds, the tails and the
+             f32 SpMV's ms beside the native layout's. `[curves]` runs
+             scripts/record_curves_torch.py's method loop on
+             transport_hard(1602112), df32, tol 1e-14, krr 400, nrr 8
+             (the fused DF drivers, check_counts per method), each row
+             beside the TPU record's iteration count: classic, CA and
+             pipelined-RR converged with a true relres <= 1e-12.
+             `[entry]`: entry()'s flagship step on the card and on the
+             CPU, n_iter within 1, x_set within 1e-3, kernel 1 only.
+             `[dryrun]`: dryrun_multichip(1) on the one-rank NCCL group,
+             every assert of the JAX dry run, kernel 1, the DF SpMV and
+             kernels 2-4, 7-8 and 9-11 (halo forms) launched.
+             `[quickstart]`: `python examples/quickstart_torch.py` exits
+             0 with every section's line, the mesh hint for one card
   5. times   CUDA-event slopes: time per iteration of f32 classic, CA and
              pipelined BiCGStab and of df32 classic, CA and pipelined
              (tol=0 chains of 200 iterations) as the host issues it and as
@@ -3407,7 +3431,29 @@ def dominance_margin(csr) -> float:
                   - off).min())
 
 
-def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
+def held_to_csr(csr, x, n_logical: int) -> tuple:
+    """x (float32 or float64, on any device) held to its residual,
+    computed apart from the butterfly kernels with torch's float64 CSR
+    product of csr (the padded matrix): (relative residual of A x = A e,
+    max|x - e|, Varah's bound ||r||_inf / margin on it, the margin), e
+    the exact solution (1 on the n_logical rows, 0 on the identity pad
+    rows)."""
+    import numpy as np
+    import torch
+    exact = np.zeros(csr.nrows)
+    exact[:n_logical] = 1.0
+    A = torch_csr(csr, torch.float64, x.device)
+    e = torch.as_tensor(exact, device=x.device)
+    x = x.double()
+    b = A @ e
+    r = A @ x - b
+    margin = dominance_margin(csr)
+    return (float(r.norm() / b.norm()), float((x - e).abs().max()),
+            float(r.abs().max()) / margin, margin)
+
+
+def run_butterfly_cli(n: int, ell_prob, device: str = "cuda",
+                      out: dict | None = None) -> dict:
     """`[butterfly]`: `solve --matrix uniform:n --dtype float32 --tol
     1e-6` through the CLI's own code with its defaults (--format auto,
     --reorder auto), counted as run_main_path: the ButterflyMatrix route,
@@ -3421,10 +3467,7 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
     the stopping rule leaves max|x - 1| ~1e-3 on this matrix at n = 1.6M
     in float32, growing with n; the JAX package's solves leave the same
     error as the port's, tests/test_torch_butterfly.py.) Returns the
-    counts."""
-    import numpy as np
-    import torch
-
+    counts; `out`, when given, receives the run's n_iter."""
     from mpi_bicgstab_tpu_torch import cli
     args = cli.build_parser().parse_args(
         ["solve", "--matrix", f"uniform:{n}", "--dtype", "float32",
@@ -3436,17 +3479,7 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
     if report["reordered"] or res.x.shape != (csr.nrows,):
         raise SmokeFailure(f"butterfly: {report}: not the padded "
                            f"uniform:{n} (x {tuple(res.x.shape)})")
-    exact = np.zeros(csr.nrows)
-    exact[: report["n"]] = 1.0        # the identity pad rows' solution: 0
-    A = torch_csr(csr, torch.float64, res.x.device)
-    e = torch.as_tensor(exact, device=res.x.device)
-    x = res.x.double()
-    b = A @ e
-    r = A @ x - b
-    relres = float(r.norm() / b.norm())
-    margin = dominance_margin(csr)
-    bound = float(r.abs().max()) / margin
-    err = float((x - e).abs().max())
+    relres, err, bound, margin = held_to_csr(csr, res.x, report["n"])
     it = report["total_iter"]
     ell_it = _ell_iters(ell_prob, "bicgstab", "float32", UNIFORM_TOL)
     if not (report["converged"] and report["layout"] == "ButterflyMatrix"
@@ -3467,6 +3500,8 @@ def run_butterfly_cli(n: int, ell_prob, device: str = "cuda") -> dict:
          dominance_margin=margin, io_time_s=report["io_time_s"],
          setup_s=report["setup_s"], solve_s=report["total_time_s"],
          launches=_launches(counts))
+    if out is not None:
+        out["n_iter"] = it
     return counts
 
 
@@ -4728,12 +4763,296 @@ def time_dist_iteration(csr, prob32) -> None:
          chains=f"tol=0x{K1},{K2}")
 
 
+# --- the last slice (9b-ii): the NumPy router, the curves, the hooks --------
+
+# the JAX package's TPU v5e record of the residual curves (the committed
+# CSVs; their iteration counts are quoted as trajectories, no time)
+CURVES_TOL, CURVES_MAX_ITER = 1e-14, 6000
+CURVES_GATED = ("bicgstab", "ca_bicgstab", "pipe_bicgstab_rr")
+# the lines examples/quickstart_torch.py prints with one rank, in order
+QUICKSTART_LINES = ("pipe_bicgstab: ", "shifted (4 shifts): ",
+                    "df32: relres ", "hard regime: ", "batched 4-RHS: ",
+                    "(1 device visible", "skew-dominant spectrum: ")
+# the kernels dryrun_multichip(1) must launch on the card: kernel 1 and
+# the DF SpMV (the small partition's unfused solves, halo form), the
+# halo-fused float32 classic and pipelined passes and the DF classic ones
+DRYRUN_KERNELS = ("dia_spmv", "dia_spmv_df", "fused_k1", "fused_k2",
+                  "fused_k3", "fused_phase_a", "fused_phase_b",
+                  "fused_k1_df", "fused_k2_df", "fused_k3_df")
+
+
+def _here() -> Path:
+    return Path(__file__).resolve().parent
+
+
+def numpy_route(n: int, out: str) -> None:
+    """Route uniform_csr(n) with the NumPy router (this process must run
+    with MBT_NATIVE_ROUTE=0) and save its float64 tables and the route's
+    host seconds ("route_s") to `out` (.npz)."""
+    import numpy as np
+
+    from mpi_bicgstab_tpu_torch.ops import native_route
+    from mpi_bicgstab_tpu_torch.ops.butterfly import butterfly_tables
+    if native_route.native_enabled():
+        raise SmokeFailure("numpy_route: MBT_NATIVE_ROUTE is not 0")
+    csr = uniform_csr(n)
+    t0 = time.perf_counter()
+    tables = butterfly_tables(csr)
+    np.savez(out, route_s=time.perf_counter() - t0, **tables)
+
+
+def start_numpy_route(n: int, out: Path):
+    """numpy_route(n, out) in a process of its own under
+    MBT_NATIVE_ROUTE=0, so that the route's host seconds overlap the
+    phases that run meanwhile. Returns the Popen."""
+    import atexit
+    import os
+    out.parent.mkdir(parents=True, exist_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(_here())!r}); "
+            f"import chip_smoke; chip_smoke.numpy_route({n}, {str(out)!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=_here(),
+                            env={**os.environ, "MBT_NATIVE_ROUTE": "0"})
+    atexit.register(proc.kill)      # a failed run leaves no route behind
+    return proc
+
+
+def finish_numpy_route(proc, out: Path):
+    """(the NumPy-routed float64 layout on the CPU, its column table
+    built by the twins; the route's host seconds) from start_numpy_route."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.ops.butterfly import ButterflyMatrix
+    if proc.wait(timeout=900):
+        raise SmokeFailure(f"the NumPy route exited {proc.returncode}")
+    with np.load(out) as z:
+        fields = {k: (torch.from_numpy(z[k]) if z[k].ndim else int(z[k]))
+                  for k in z.files if k != "route_s"}
+        route_s = float(z["route_s"])
+    out.unlink()
+    return ButterflyMatrix(**fields), route_s
+
+
+def run_butterfly_numpy(binp: dict, host, route_s: float, it_native: int,
+                        device: str = "cuda") -> dict:
+    """`[butterfly_numpy]`: the NumPy router's layout of binp's matrix
+    (host: float64 on the CPU, routed under MBT_NATIVE_ROUTE=0) beside
+    the native one. Cast to float32 on `device` (its column table built
+    there by K1, K2 and the decode) and solved by f32 bicgstab at
+    UNIFORM_TOL, counted from the cast to the solve's end, under
+    no_twin_on_card: converged within 2 iterations of `it_native`
+    ([butterfly]'s), x held as [butterfly] holds it (held_to_csr),
+    launches in check_butterfly_counts (one layout built). Then the whole
+    f32 SpMV (K3 and the tail) on binp's x equal bit for bit to its twin
+    on a CPU copy of the layout, the float64 SpMV within 1e-12 of torch's
+    CSR product (as [butterfly]'s), and simulate_numpy of the layout
+    (host copies of its tables, no column table) within 1e-12 of the CSR
+    product's largest entry on a float64 x. Prints the route's host
+    seconds, the tails, the whole f32 SpMV's ms and K3's alone beside the
+    native layout's. Returns the counts."""
+    import numpy as np
+    import torch
+
+    from mpi_bicgstab_tpu_torch.api import solve
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import time_call
+    from mpi_bicgstab_tpu_torch.ops import butterfly_spmv as bs
+    from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
+    from mpi_bicgstab_tpu_torch.ops.butterfly import (butterfly_with_values,
+                                                      simulate_numpy)
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    csr = binp["b_csr"]
+    native = binp["B32"]
+    cfg = SolverConfig(tol=UNIFORM_TOL, dtype=torch.float32)
+    b = torch.as_tensor(csr.matvec(np.ones(csr.nrows)), dtype=torch.float32,
+                        device=device)
+    with no_twin_on_card():
+        reset_counts()
+        B32 = butterfly_with_values(host, torch.float32, device)
+        res = solve(B32, b, cfg=cfg)
+        converged = bool(res.converged)
+        counts = read_counts()
+        y = spmv(B32, binp["bx32"])
+        B64 = butterfly_with_values(host, torch.float64, device)
+        y64 = spmv(B64, binp["bx64"])
+    check_butterfly_counts("butterfly_numpy", "bicgstab", "float32",
+                           res.n_iter, counts, cfg.restarts, device,
+                           layouts=1)
+    twin = spmv(butterfly_with_values(host, torch.float32, "cpu"),
+                binp["bx32"].cpu())
+    if not same_bits(y.cpu(), twin):
+        raise SmokeFailure("butterfly_numpy: the f32 SpMV on the card "
+                           "differs from its twin on the CPU")
+    ref = torch_csr(csr, torch.float64, y64.device) @ binp["bx64"]
+    rel = _err(y64, ref) / float(ref.abs().max())
+    relres, err, bound, _ = held_to_csr(csr, res.x, csr.nrows)
+    if not (converged and abs(res.n_iter - it_native) <= 2 and rel <= 1e-12
+            and relres <= 10 * UNIFORM_TOL and err <= bound):
+        raise SmokeFailure(f"butterfly_numpy: converged {converged}, "
+                           f"n_iter {res.n_iter} ([butterfly] {it_native}), "
+                           f"f64 SpMV {rel:.3e}, CSR relres {relres:.3e}, "
+                           f"max|x-1| {err:.3e} (bound {bound:.3e})")
+    del B64, y64, ref, twin
+    graph = device == "cuda"
+    k3 = cbf.butterfly_k3 if graph else bs.k3_plain
+    ms = {(k, part): time_call(lambda A=A, f=f: f(A, binp["bx32"]),
+                               graph=graph, device=device) * 1e3
+          for k, A in (("numpy", B32), ("native", native))
+          for part, f in (("spmv", spmv), ("k3", k3))}
+    x = np.random.default_rng(3).standard_normal(csr.nrows)
+    t0 = time.perf_counter()
+    y_sim = simulate_numpy(host, x)
+    sim_s = time.perf_counter() - t0
+    want = csr.matvec(x)
+    sim_rel = float(np.abs(y_sim - want).max() / np.abs(want).max())
+    if not sim_rel <= 1e-12:
+        raise SmokeFailure(f"butterfly_numpy: simulate_numpy is "
+                           f"{sim_rel:.3e} from the CSR product")
+    _say("butterfly_numpy", n=csr.nrows, route_numpy_host_s=round(route_s, 3),
+         route_native_host_s=round(binp["b_build_s"], 3),
+         tail_n=host.tail_n, native_tail_n=native.tail_n,
+         tail_levels_x_cap="x".join(map(str, host.tail_rows.shape)),
+         native_tail_levels_x_cap="x".join(map(str, native.tail_rows.shape)),
+         P=host.P,
+         rb=host.rb, W=host.width, n_iter=res.n_iter,
+         native_n_iter=it_native, converged=converged,
+         csr_f64_relres=f"{relres:.3e}", max_abs_x_minus_1=err,
+         varah_bound=f"{bound:.3e}", f64_spmv_vs_torch_csr=f"{rel:.3e}",
+         f32_spmv_bit_equal_cpu_twin=True,
+         spmv_f32_ms=f"{ms['numpy', 'spmv']:.4f}",
+         native_spmv_f32_ms=f"{ms['native', 'spmv']:.4f}",
+         k3_f32_ms=f"{ms['numpy', 'k3']:.4f}",
+         native_k3_f32_ms=f"{ms['native', 'k3']:.4f}",
+         minus_one_slots=int((B32.k3_col < 0).sum()),
+         native_minus_one_slots=int((native.k3_col < 0).sum()),
+         spmv_ms_kind="graph replay" if graph else "host clock",
+         simulate_numpy_n=csr.nrows, simulate_numpy_s=round(sim_s, 3),
+         simulate_numpy_vs_csr=f"{sim_rel:.3e}", launches=_launches(counts))
+    return counts
+
+
+def tpu_record_iters(method: str) -> int:
+    """The iterations of the JAX package's committed TPU curve of method
+    (docs/data/r2_hard1601k_df32_<method>.csv, its last row)."""
+    path = _here() / "docs" / "data" / f"r2_hard1601k_df32_{method}.csv"
+    last = path.read_text().strip().splitlines()[-1]
+    return int(float(last.split(",")[0]))
+
+
+def run_curves(csr_h, device: str = "cuda", tol: float = CURVES_TOL,
+               max_iter: int = CURVES_MAX_ITER, out_dir=None) -> dict:
+    """`[curves]`: scripts/record_curves_torch.py's method loop on csr_h
+    (transport_hard), df32, at tol with JAX's krr 400 / nrr 8, writing
+    into out_dir (the work directory's curves/ by default); each method counted under no_twin_on_card
+    (check_counts: the fused DF drivers), its JSON row printed, beside
+    the TPU record's iteration count (tpu_record_iters). Gate: bicgstab,
+    ca_bicgstab and pipe_bicgstab_rr converged with a true relres <=
+    max(1e-12, 100 tol) (1e-12 at the default tol); pipe_bicgstab and the
+    iteration counts are printed, not gated. Returns {method: counts}."""
+    import importlib.util
+    path = _here() / "scripts" / "record_curves_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    rec = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rec)
+    runs = {}
+
+    def after(row):
+        m = row["method"]
+        runs[m] = read_counts()
+        check_counts(m, "df32", row["iters"], runs[m], 2, device)
+        _say("curves", method=m, iters=row["iters"],
+             tpu_record_iters=tpu_record_iters(m),
+             converged=row["converged"], true_relres=row["true_relres"],
+             eager_ms_per_iter=row["eager_ms_per_iter"],
+             launches=_launches(runs[m]))
+        if m in CURVES_GATED and not (
+                row["converged"] and row["true_relres"] <= max(1e-12,
+                                                               100 * tol)):
+            raise SmokeFailure(f"curves: {m}: {row}")
+        reset_counts()
+
+    reset_counts()
+    with no_twin_on_card():
+        rec.record_methods(csr_h, "df32", tol, max_iter, device,
+                           str(out_dir or _workdir() / "curves"),
+                           after=after)
+    return runs
+
+
+def run_entry(device: str = "cuda") -> dict:
+    """`[entry]`: entry()'s step on `device` and on the CPU, each counted
+    under no_twin_on_card: n_iter within 1, x_set within 1e-3 (the card
+    tests' float32 bar for the switching solver); on the card only
+    kernel 1 (float32) launches. Returns the device's counts."""
+    from mpi_bicgstab_tpu_torch.entry import entry
+    got = {}
+    for dev in (device, "cpu"):
+        reset_counts()
+        with no_twin_on_card():
+            fn, args = entry(device=dev)
+            x_set, k, relres = fn(*args)
+            got[dev] = (_f64(x_set).cpu(), k, float(relres), read_counts())
+    (x, k, r, counts), (x_cpu, k_cpu, r_cpu, _) = got[device], got["cpu"]
+    diff = float((x - x_cpu).abs().max())
+    used = {c for c, v in counts.items() if v}
+    if not (abs(k - k_cpu) <= 1 and diff <= 1e-3
+            and used == ({"dia_spmv"} if device == "cuda" else set())):
+        raise SmokeFailure(f"entry: n_iter {k} (cpu {k_cpu}), max|x - "
+                           f"x_cpu| {diff:.3e}, launches {counts}")
+    _say("entry", n_iter=k, cpu_n_iter=k_cpu, final_relres=f"{r:.3e}",
+         cpu_final_relres=f"{r_cpu:.3e}", max_abs_x_minus_x_cpu=f"{diff:.3e}",
+         launches=_launches(counts))
+    return counts
+
+
+def run_dryrun(device: str = "cuda") -> dict:
+    """`[dryrun]`: dryrun_multichip(1) on the one-rank group of this
+    process (init_world; it runs in place, every assert of the JAX dry
+    run inside), counted under no_twin_on_card: on the card each kernel
+    of DRYRUN_KERNELS launched. Returns the counts."""
+    from mpi_bicgstab_tpu_torch.entry import dryrun_multichip
+    init_world(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    with no_twin_on_card():
+        out = dryrun_multichip(1, device=device)
+    counts = read_counts()
+    missing = [k for k in DRYRUN_KERNELS if not counts[k]]
+    if device == "cuda" and missing:
+        raise SmokeFailure(f"dryrun: {missing} never launched: {counts}")
+    _say("dryrun", **{p: json.dumps(v).replace(" ", "")
+                      for p, v in out.items()},
+         seconds=round(time.perf_counter() - t0, 3),
+         launches=_launches(counts))
+    return counts
+
+
+def run_quickstart(device: str = "cuda") -> None:
+    """`[quickstart]`: `python examples/quickstart_torch.py` in its own
+    process (one rank: the mesh section prints its hint): exit 0 and every
+    section's line (QUICKSTART_LINES), each printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(_here() / "examples" / "quickstart_torch.py"),
+         "--device", device, "--ranks", "1"], capture_output=True,
+        text=True, timeout=600, cwd=_here())
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode or len(lines) != len(QUICKSTART_LINES) or not all(
+            ln.startswith(s) for ln, s in zip(lines, QUICKSTART_LINES)):
+        raise SmokeFailure(f"quickstart: exit {proc.returncode}: "
+                           f"{proc.stdout}{proc.stderr[-2000:]}")
+    for ln in lines:
+        print(f"[quickstart] {ln}", flush=True)
+    _say("quickstart", seconds=round(time.perf_counter() - t0, 3))
+
+
 def run_dist_phases(csr, csr_h, lo: float, hi: float, winp: dict,
                     binp: dict, device="cuda"):
     """Every distributed phase on a one-rank process group of this
     process (init_world), on the matrices and layouts the run has built:
     transport_like (csr), transport_hard (csr_h, Chebyshev bounds lo /
-    hi), the window and butterfly inputs. Returns {phase: counts}."""
+    hi), the window and butterfly inputs; last the dry run of the
+    distributed surface (run_dryrun). Returns {phase: counts}."""
     from mpi_bicgstab_tpu_torch.models.problem import build_problem
     import torch
     init_world(device)
@@ -4757,6 +5076,7 @@ def run_dist_phases(csr, csr_h, lo: float, hi: float, winp: dict,
         runs["dist_cheby"] = run_dist_cheby(csr_h, lo, hi,
                                             device=device)["counts"]
         run_dist_cli(N_MAIN, device=device)
+        runs["dryrun"] = run_dryrun(device)
     finally:
         end_world()
     run_profile_path(N_MAIN, device=device)
@@ -4899,6 +5219,9 @@ def main() -> int:
          tail_n=B.tail_n, tail_levels=B.tail_rows.shape[0],
          router=native_route.lib_path(),
          host_setup_s=round(time.perf_counter() - t0, 3))
+    # the NumPy router's layout of the same matrix, routed meanwhile
+    route_path = _workdir() / "numpy_route.npz"
+    route_proc = start_numpy_route(N_UNIFORM, route_path)
     bcalls = butterfly_kernel_calls(binp)
     errs.update(check_kernels(bcalls, binp))
     check_column_tables(binp)
@@ -4951,6 +5274,8 @@ def main() -> int:
         runs[phase] = run_cheby_api(phase, probs_h, prec)
     run_cheby_batched(inp["h_prob32"], prec)
     run_cheby_ab(probs_h, prec)
+    # the residual curves of the four classic methods (df32, tol 1e-14)
+    runs.update({f"curves_{m}": c for m, c in run_curves(csr_h).items()})
     del prob64h, probs_h
     gc.collect()
     torch.cuda.empty_cache()
@@ -4966,9 +5291,13 @@ def main() -> int:
 
     # butterfly solves, each beside gather-ELL
     bprobs = butterfly_problems(binp)
-    runs["butterfly"] = run_butterfly_cli(N_UNIFORM, bprobs["float32"][1])
+    bfly = {}
+    runs["butterfly"] = run_butterfly_cli(N_UNIFORM, bprobs["float32"][1],
+                                          out=bfly)
     for phase in BUTTERFLY_PATHS:
         runs[phase] = run_butterfly_api(phase, bprobs)
+    runs["butterfly_numpy"] = run_butterfly_numpy(
+        binp, *finish_numpy_route(route_proc, route_path), bfly["n_iter"])
     # the layout cache: both unstructured layouts saved and loaded back
     run_layout_cache_path("uniform", binp["B32"], binp["b_csr"],
                           binp["b_build_s"], UNIFORM_TOL, _workdir())
@@ -5056,11 +5385,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_tools(inp)
+    runs["entry"] = run_entry()
     gc.collect()
     torch.cuda.empty_cache()
     # the distributed layer on a one-rank NCCL group, and `profile`
     runs.update(run_dist_phases(csr, csr_h, inp["h_lo"], inp["h_hi"], winp,
                                 binp))
+    run_quickstart()
     _say("times", max_memory_allocated_gb_whole_run=round(
         torch.cuda.max_memory_allocated() / 1e9, 3))
 

@@ -37,11 +37,17 @@ over x and the tail (ops/butterfly_spmv.py).
 Routing (host, once per matrix): an element bound for destination (d,
 m_lo) has m_hi = d mod G and q = d div G fixed; the assigner picks its u1
 window and its middle window under the slot and lane uniqueness rules
-(_assign_routes, csrc/butterfly_route.cpp), then the K3 entries are
-coloured into slabs; what does not fit (a few per mille) spills to a
-tail, leveled by duplicate rank as in ops/window_ell.py (within a level
+(_assign_routes: the C++ assigner csrc/butterfly_route.cpp, or the JAX
+package's global NumPy rounds when MBT_NATIVE_ROUTE is 0 / off or the
+assigner cannot allocate; ops/native_route.py), then the K3 entries are
+coloured into slabs (by the same two routes); what does not fit (a few
+per mille) spills to a tail, leveled by duplicate rank as in ops/window_ell.py (within a level
 a row appears at most once; padding entries are row 0, column 0, value
 0).
+
+simulate_numpy(bf, x) runs the routed pipeline on host copies of the
+tables with the chained-gather semantics, never reading k3_col: an
+oracle independent of the column table.
 
 The reference's unstructured `mult` (matrix.c:498-516).
 """
@@ -193,14 +199,16 @@ def _window_table(k_s, G: int):
     return win_a
 
 
-def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, n_blocks: int,
-                   P_force: int | None = None):
+def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, rounds: int,
+                   n_blocks: int, P_force: int | None = None):
     """Choose (u1 window a, middle window m) for every distinct element
     (destination block u_blk, column u_col) under four uniqueness
     families: one element per destination slot (d, m_lo) and per u1 slot
     (a, b), strictly; and K1's and K2's gather-row lane injectivity,
     (a, b // 128, source lane) and (m, q // 128, a mod 128), which a
-    rider on the same value may share. Returns (P, a_sel, m_sel, ok)."""
+    rider on the same value may share. The native assigner routes them
+    when it answers; else `rounds` global NumPy rounds (_route_rounds).
+    Returns (P, a_sel, m_sel, ok)."""
     src = u_col // WIN
     Ts = nc_pad // WIN
     out_deg = np.bincount(src, minlength=Ts)
@@ -219,10 +227,128 @@ def _assign_routes(u_blk, u_col, nc_pad: int, seed: int, n_blocks: int,
     G = P // WIN
     win_a = _window_table(k_s, G)
     # d < n_blocks <= P = 1024 G, so q = d // G < 1024: a window slot
-    a_sel, m_sel = native_route.assign_native(
+    routes = native_route.assign_native(
         u_blk, u_col, u_blk % G, u_blk // G, u_col % LANES, win_a, k_s,
         win_a.shape[1], Ts, G, P, n_blocks, seed)
+    if routes is None:
+        routes = _route_rounds(u_blk, u_col, win_a, k_s, G, P, n_blocks,
+                               seed, rounds)
+    a_sel, m_sel = routes
     return P, a_sel, m_sel, a_sel >= 0
+
+
+def _winners(idx, claims, scratch):
+    """The proposals of idx that win each claim (key, value) in turn: the
+    last writer per key wins and a rider with the winner's value passes.
+    Every scratch position read is written in the same step, so scratch
+    needs no reset between rounds."""
+    for key, v in claims:
+        k_i, v_i = key[idx], v[idx]
+        scratch[k_i] = v_i
+        idx = idx[scratch[k_i] == v_i]
+    return idx
+
+
+def _route_rounds(d, u_col, win_a, n_opts, G: int, P: int, Td: int,
+                  seed: int, rounds: int):
+    """The NumPy router (the JAX package's, draw for draw): in each round
+    every element still to place draws a random option (its u1 window
+    among its source's n_opts, then its middle window in the stride-G
+    class of that window's group); proposals that the dense claim maps
+    allow resolve by scatter, the last writer per key winning and riders
+    on an equal value passing, and the winners claim their keys. Round 0
+    skips the checks (every map is empty). Returns (a_sel, m_sel), -1
+    where an element is still unplaced after `rounds` rounds."""
+    rng = np.random.default_rng(seed)
+    E = d.size
+    src = u_col // WIN
+    m_hi = d % G
+    q = d // G
+    src_lane = u_col % LANES
+    a_sel = np.full(E, -1, np.int64)
+    m_sel = np.full(E, -1, np.int64)
+    PB64 = np.int64(P) * WIN
+    taken_d = np.zeros(Td * WIN, bool)           # d * 1024 + m_lo
+    taken_a = np.zeros(PB64, bool)               # a * 1024 + b
+    # value maps hold v + 1, 0 = empty
+    val_l1 = np.zeros(PB64, np.int32)            # a*1024 + brow*128 + lane
+    val_l2 = np.zeros(PB64, np.int32)            # m*1024 + qrow*128 + lane
+    scratch = np.zeros(max(PB64, Td * WIN), np.int64)   # winners
+    todo = np.arange(E)
+    for rnd in range(rounds):
+        if todo.size == 0:
+            break
+        s_t = src[todo]
+        j = rng.integers(0, 1 << 30, todo.size) % n_opts[s_t]
+        a_t = win_a[s_t, j]
+        a_hi = a_t // WIN
+        mh = m_hi[todo]
+        base = 1024 * mh + ((a_hi - 1024 * mh) % G)
+        n_t = (1024 * mh + WIN - 1 - base) // G + 1
+        t = rng.integers(0, 1 << 30, todo.size) % n_t
+        m_t = base + G * t
+        b_t = (m_t - a_hi) // G
+        kd = d[todo] * np.int64(WIN) + (m_t % WIN)
+        ka = a_t * np.int64(WIN) + b_t
+        kl1 = a_t * np.int64(WIN) + (b_t // LANES) * LANES + src_lane[todo]
+        vl1 = u_col[todo].astype(np.int32) + 1
+        kl2 = m_t * np.int64(WIN) + (q[todo] // LANES) * LANES \
+            + (a_t % LANES)
+        vl2 = (a_t % WIN).astype(np.int32) + 1
+        if rnd == 0:
+            idx = np.arange(todo.size)
+        else:
+            idx = np.nonzero(~taken_d[kd] & ~taken_a[ka]
+                             & ((val_l1[kl1] == 0) | (val_l1[kl1] == vl1))
+                             & ((val_l2[kl2] == 0)
+                                | (val_l2[kl2] == vl2)))[0]
+        idx = _winners(idx, ((kd, todo), (ka, todo), (kl1, vl1),
+                             (kl2, vl2)), scratch)
+        e_win = todo[idx]
+        a_sel[e_win] = a_t[idx]
+        m_sel[e_win] = m_t[idx]
+        taken_d[kd[idx]] = True
+        taken_a[ka[idx]] = True
+        val_l1[kl1[idx]] = vl1[idx]
+        val_l2[kl2[idx]] = vl2[idx]
+        keep = np.ones(todo.size, bool)
+        keep[idx] = False
+        todo = todo[keep]
+    return a_sel, m_sel
+
+
+def _colour_rounds(r_all, grp, lane3, sub3, n_pad: int, W3: int,
+                   seed: int):
+    """The NumPy slab colouring (the JAX package's, draw for draw):
+    4 W3 + 12 rounds of random slabs for the entries still to place, a
+    row at most once per slab and one stacked sublane per (row tile,
+    slab, lane), winners as in _route_rounds (_winners). Returns w_sel,
+    -1 where an entry spills."""
+    NR = n_pad // LANES
+    NE = r_all.size
+    w_sel = np.full(NE, -1, np.int64)
+    taken_row = np.zeros(n_pad * W3, bool)
+    val_gl = np.zeros(NR * W3 * LANES, np.int16)        # v + 1, 0 = empty
+    scratch = np.zeros(max(n_pad * W3, NR * W3 * LANES), np.int64)
+    rng = np.random.default_rng(seed)
+    todo = np.arange(NE)
+    for _ in range(4 * W3 + 12):
+        if todo.size == 0:
+            break
+        w_t = rng.integers(0, 1 << 30, todo.size) % W3
+        krow = r_all[todo] * np.int64(W3) + w_t
+        kgl = (grp[todo] * np.int64(W3) + w_t) * LANES + lane3[todo]
+        vgl = sub3[todo].astype(np.int16) + 1
+        idx = np.nonzero(~taken_row[krow]
+                         & ((val_gl[kgl] == 0) | (val_gl[kgl] == vgl)))[0]
+        idx = _winners(idx, ((krow, todo), (kgl, vgl)), scratch)
+        w_sel[todo[idx]] = w_t[idx]
+        taken_row[krow[idx]] = True
+        val_gl[kgl[idx]] = vgl[idx]
+        keep = np.ones(todo.size, bool)
+        keep[idx] = False
+        todo = todo[keep]
+    return w_sel
 
 
 def _tail_levels(t_rows, t_cols, t_vals, vals_dtype):
@@ -250,9 +376,9 @@ def _tail_levels(t_rows, t_cols, t_vals, vals_dtype):
     return rows, cols, vals
 
 
-def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
-                    max_tail_frac: float = 0.005, P_force: int | None = None,
-                    rb_force: int | None = None,
+def build_butterfly(csr, dtype=None, seed: int = 0, rounds: int = 80,
+                    max_width: int = 24, max_tail_frac: float = 0.005,
+                    P_force: int | None = None, rb_force: int | None = None,
                     device="cuda") -> ButterflyMatrix:
     """Route csr (square or rectangular) and build the layout on
     `device`; LayoutRefused (a ValueError) when it is not routable (a row
@@ -263,9 +389,11 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
     float32, float64 (the CSR's by default) or "df32" (DF pairs split
     from float64). rb_force and P_force fix rb and the u1 window count P,
     so that the shards of a row partition (parallel/partition.py) share
-    one routing geometry."""
+    one routing geometry. rounds: the NumPy router's rounds, where the
+    native assigner does not answer (ops/native_route.py)."""
     dev = resolve_device(device)
-    t = butterfly_tables(csr, dtype=dtype, seed=seed, max_width=max_width,
+    t = butterfly_tables(csr, dtype=dtype, seed=seed, rounds=rounds,
+                         max_width=max_width,
                          max_tail_frac=max_tail_frac, P_force=P_force,
                          rb_force=rb_force)
 
@@ -279,8 +407,8 @@ def build_butterfly(csr, dtype=None, seed: int = 0, max_width: int = 24,
                               for k, v in t.items()})
 
 
-def butterfly_tables(csr, dtype=None, seed: int = 0, max_width: int = 24,
-                     max_tail_frac: float = 0.005,
+def butterfly_tables(csr, dtype=None, seed: int = 0, rounds: int = 80,
+                     max_width: int = 24, max_tail_frac: float = 0.005,
                      P_force: int | None = None,
                      rb_force: int | None = None) -> dict:
     """build_butterfly's routed tables as host NumPy arrays (the values in
@@ -312,7 +440,8 @@ def butterfly_tables(csr, dtype=None, seed: int = 0, max_width: int = 24,
                 f"columns (> {WIN}): not butterfly-routable")
 
     P, a_sel, m_sel, ok = _assign_routes(u_blk, u_col, nc_pad, seed,
-                                         n_pad // rb, P_force=P_force)
+                                         rounds, n_pad // rb,
+                                         P_force=P_force)
     G = P // WIN
     if (~ok).sum() > max_tail_frac * max(u_blk.size, 1):
         raise LayoutRefused(f"routing spill {int((~ok).sum())}/{u_blk.size} "
@@ -362,6 +491,9 @@ def butterfly_tables(csr, dtype=None, seed: int = 0, max_width: int = 24,
     for W3 in (int(W * 1.4) + 1, int(W * 1.8) + 1, 2 * W + 2):
         w_sel = native_route.color_native(r_all, grp, lane3, sub3, n_pad,
                                           n_pad // LANES, W3, seed + 1)
+        if w_sel is None:
+            w_sel = _colour_rounds(r_all, grp, lane3, sub3, n_pad, W3,
+                                   seed + 1)
         if (w_sel < 0).sum() <= 0.3 * max_tail_frac * max(csr.nnz, 1):
             break
     placed = w_sel >= 0
@@ -418,3 +550,48 @@ def butterfly_with_values(A: ButterflyMatrix, dtype,
              "k3_lane", "tail_rows", "tail_cols")}
     return dataclasses.replace(A, k3_vals=cast(A.k3_vals),
                                tail_vals=cast(A.tail_vals), **move)
+
+
+def _host(a) -> np.ndarray:
+    """A table as host NumPy; a DF pair as hi + lo in float32, as the JAX
+    package's simulate_numpy sums its host pair."""
+    if is_df(a):
+        return a.hi.detach().cpu().numpy() + a.lo.detach().cpu().numpy()
+    return a.detach().cpu().numpy()
+
+
+def simulate_numpy(bf: ButterflyMatrix, x: np.ndarray) -> np.ndarray:
+    """y = A x by the routed pipeline in NumPy on host copies of bf's
+    tables, with the device kernels' chained-gather semantics (t1 =
+    take_along_axis(win, sub, axis=sublane), out = take_along_axis(t1,
+    lane, axis=lane)): K1, T1, K2, T2, the stacked K3 gather, the slab
+    sum and np.add.at of the tail (the JAX package's simulate_numpy, step
+    for step). It does not read k3_col."""
+    n_pad, P = bf.n_pad, bf.P
+    xp = np.zeros(bf.nc_pad, x.dtype)
+    xp[: x.size] = x
+    xw = xp.reshape(bf.nc_pad // WIN, SUB, LANES)
+    win = xw[_host(bf.k1_src)]                              # [P, 8, 128]
+    t1 = np.take_along_axis(win, _host(bf.k1_sub).astype(np.int64), axis=1)
+    u1 = np.take_along_axis(t1, _host(bf.k1_lane).astype(np.int64), axis=2)
+    mid = np.ascontiguousarray(
+        u1.reshape(P, WIN).T).reshape(P, SUB, LANES)        # T1
+    t2 = np.take_along_axis(mid, _host(bf.k2_sub).astype(np.int64), axis=1)
+    z1 = np.take_along_axis(t2, _host(bf.k2_lane).astype(np.int64), axis=2)
+    z = np.ascontiguousarray(z1.reshape(P, WIN).T).ravel()  # T2
+    F = bf.stack
+    NR = n_pad // LANES
+    st = z[: NR * SUB * F * LANES].reshape(NR, SUB * F, LANES)
+    W = bf.width
+    ss3 = _host(bf.k3_sub).reshape(W, NR, LANES).astype(np.int64)
+    li3 = _host(bf.k3_lane).reshape(W, NR, LANES).astype(np.int64)
+    v3 = _host(bf.k3_vals).reshape(W, NR, LANES)
+    iN = np.arange(NR)[:, None, None]
+    iL = np.arange(LANES)[None, None, :]
+    t3 = st[iN, ss3.transpose(1, 0, 2), iL]                 # [NR, W, 128]
+    xg = np.take_along_axis(t3, li3.transpose(1, 0, 2), axis=2)
+    y = (v3.transpose(1, 0, 2) * xg).sum(axis=1).ravel()
+    tvr = _host(bf.tail_vals).ravel()
+    np.add.at(y, _host(bf.tail_rows).ravel(),
+              tvr * xp[_host(bf.tail_cols).ravel()])
+    return y[: bf.n_rows]

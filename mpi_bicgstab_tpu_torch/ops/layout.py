@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+from mpi_bicgstab_tpu_torch.ops import native_route
 from mpi_bicgstab_tpu_torch.ops.butterfly import (ButterflyMatrix,
                                                  build_butterfly)
 from mpi_bicgstab_tpu_torch.ops.butterfly_spmv import (butterfly_spmv,
@@ -108,10 +109,13 @@ def build_operator(csr, format: str = "auto", dtype=None,
         from mpi_bicgstab_tpu_torch.utils import opcache
         tag = "df32" if is_df32(dtype) else str(host_dtype(dtype,
                                                            csr.val.dtype))
+        # the router enters the key: a NumPy-routed butterfly layout
+        # has another tail than a native one (ops/native_route.py)
         key = opcache.operator_key(csr, format=format, dtype=tag,
                                    max_diags=max_diags,
                                    dia_min_fill=dia_min_fill,
-                                   ell_width=ell_width)
+                                   ell_width=ell_width,
+                                   router=native_route.router())
         op = opcache.load_operator(cache_dir, key, resolve_device(device))
         if op is None:
             op = build_operator(csr, format=format, dtype=dtype,

@@ -1,10 +1,14 @@
 """Start the ranks of a distributed run: the port's counterpart of the JAX
 package's in-process device mesh (and of `mpirun -np P`).
 
-    run(fn, n, *args, device="cpu")     n ranks run fn(*args); rank 0's
+    run(fn, n, *args, device="cuda")    n ranks run fn(*args); rank 0's
                                         result comes back as host arrays
-    with Pool(n, device="cpu") as pool: n ranks that stay up and run
-        pool.run(fn, *args)             task after task (the tests' pool)
+    with Pool(n, device="cuda") as pool: n ranks that stay up and run
+        pool.run(fn, *args)             task after task
+
+As every entry point of the port, both run on the card unless the
+caller asks for the CPU (device="cpu", as the tests do), and raise when
+fewer than n cards are present.
 
 Each rank is a process started with torch.multiprocessing's "spawn": it
 imports torch and this package, nothing of the parent's __main__ beyond
@@ -159,7 +163,7 @@ class Pool:
     the n ranks are the whole world; with init_method, the global ranks
     first_rank .. first_rank + n - 1 of a world of world_size ranks."""
 
-    def __init__(self, n: int, device: str = "cpu",
+    def __init__(self, n: int, device: str = "cuda",
                  init_method: str | None = None, first_rank: int = 0,
                  world_size: int | None = None):
         import torch.multiprocessing as mp
@@ -218,7 +222,7 @@ class Pool:
         self.close()
 
 
-def run(fn, n: int, *args, device: str = "cpu", **kwargs):
+def run(fn, n: int, *args, device: str = "cuda", **kwargs):
     """fn(*args, **kwargs) on n fresh ranks; rank 0's result, as host
     arrays. Under torchrun, this process is one of the n ranks: it joins
     the world, calls fn and returns its own result."""

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from mpi_bicgstab_tpu_torch.models.problem import pad_csr_identity
+from mpi_bicgstab_tpu_torch.ops import native_route
 from mpi_bicgstab_tpu_torch.ops.dia import (analyze_diagonals, csr_to_dia,
                                             host_dtype, is_df32)
 from mpi_bicgstab_tpu_torch.ops.ell import EllMatrix, csr_to_ell
@@ -407,7 +408,8 @@ def _cached(csr, n_devices, dtype, width, format, max_diags, dia_min_fill,
     key = opcache.operator_key(
         csr, kind="partition", n_devices=n_devices, dtype=dtype_tag,
         width=width, format=format, max_diags=max_diags,
-        dia_min_fill=dia_min_fill, align=align)
+        dia_min_fill=dia_min_fill, align=align,
+        router=native_route.router())
     part = opcache.load_operator(cache_dir, key)
     if part is None:
         part = partition_csr(csr, n_devices, dtype=dtype, width=width,

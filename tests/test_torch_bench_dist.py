@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(2) as p:
+    with launch.Pool(2, device="cpu") as p:
         yield p
 
 

@@ -46,7 +46,7 @@ F32 = torch.float32
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(4) as p:
+    with launch.Pool(4, device="cpu") as p:
         yield p
 
 

@@ -31,7 +31,7 @@ BASE = ["solve", "--matrix", "banded:4096", "--devices", "2",
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(2) as p:
+    with launch.Pool(2, device="cpu") as p:
         yield p
 
 

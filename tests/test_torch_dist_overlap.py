@@ -46,7 +46,7 @@ SCRIPT = str(Path(__file__).resolve().parents[1] / "chip_smoke.py")
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(4) as p:
+    with launch.Pool(4, device="cpu") as p:
         yield p
 
 

@@ -31,7 +31,7 @@ SIGMA8 = np.array([0.0, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0, 4.0])
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(4) as p:
+    with launch.Pool(4, device="cpu") as p:
         yield p
 
 

@@ -50,7 +50,7 @@ def one_rank():
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(2) as p:
+    with launch.Pool(2, device="cpu") as p:
         yield p
 
 

@@ -33,7 +33,7 @@ TOL = {"float64": 1e-12, "float32": 1e-5, "df32": 1e-12}
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(4) as p:
+    with launch.Pool(4, device="cpu") as p:
         yield p
 
 

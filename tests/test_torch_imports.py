@@ -16,7 +16,9 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpi_bicgstab_tpu"}
 PORT_FILES = sorted(Path(mpi_bicgstab_tpu_torch.__file__).parent.rglob(
-    "*.py")) + [REPO / "chip_smoke.py"]
+    "*.py")) + [REPO / "chip_smoke.py",
+                REPO / "examples" / "quickstart_torch.py",
+                REPO / "scripts" / "record_curves_torch.py"]
 
 
 def _imported_modules(tree):
@@ -123,6 +125,7 @@ def test_new_modules_import_without_jax():
             "mpi_bicgstab_tpu_torch.solvers.batched_dist",
             "mpi_bicgstab_tpu_torch.parallel.multihost",
             "mpi_bicgstab_tpu_torch.benchmarks.sections",
+            "mpi_bicgstab_tpu_torch.entry",
             "mpi_bicgstab_tpu_torch.cli")
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -145,7 +148,8 @@ def test_spawned_ranks_import_no_jax():
     from mpi_bicgstab_tpu_torch.parallel.partition import partition_csr
     csr = banded_random(256, [1, -1, 3, -3], seed=0)
     x = np.arange(256.0)
-    y = launch.run(driver.spmv_global, 2, partition_csr(csr, 2), x)
+    y = launch.run(driver.spmv_global, 2, partition_csr(csr, 2), x,
+                   device="cpu")
     np.testing.assert_allclose(y, csr.matvec(x), rtol=1e-14)
     with pytest.raises(ValueError, match="not a function of"):
-        launch.run(np.ones, 2, 3)
+        launch.run(np.ones, 2, 3, device="cpu")

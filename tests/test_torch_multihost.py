@@ -60,7 +60,7 @@ def test_two_nodes_over_tcp_equal_a_four_rank_solve():
     for shifted in (False, True):
         rows = _nodes(["--shifted"] if shifted else [])
         want = launch.run(multihost.solve_rank, 4, 4096, "bicgstab",
-                          "float64", shifted, "cpu")
+                          "float64", shifted, "cpu", device="cpu")
         assert want["ok"] and want["world"] == 4
         for i, r in enumerate(rows):
             assert r["sentinel"] == "MULTIHOST_OK", r

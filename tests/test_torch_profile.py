@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def pool():
-    with launch.Pool(4) as p:
+    with launch.Pool(4, device="cpu") as p:
         yield p
 
 
