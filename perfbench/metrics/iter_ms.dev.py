@@ -1,0 +1,8 @@
+"""`iter_ms` in a cell whose end-to-end time is the card's
+(`device_solve_s`): the same reading, moving that metric."""
+from perfbench.spec import reader
+
+UNIT = "ms"
+LAYER = "solver loop"
+MOVES = "device_solve_s"
+read = reader("iter_ms").read
