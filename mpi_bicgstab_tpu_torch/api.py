@@ -51,6 +51,7 @@ from mpi_bicgstab_tpu_torch.parallel.comm import Comm
 from mpi_bicgstab_tpu_torch.solvers.base import SolveResult, exact_iters
 from mpi_bicgstab_tpu_torch.solvers.bicgstab import CLASSIC_SOLVERS
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
 
 METHODS = tuple(CLASSIC_SOLVERS)
 # float32 DIA drivers over the fused kernels; BiCGStab(l) has none
@@ -81,14 +82,15 @@ def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     bodies (solvers/bicgstab.pipe_bicgstab), as on any other layout and
     with out_iter."""
     unfused = cfg.out_iter or cfg.serialize_comm
-    if is_df(b) and method in FUSED_DF and not unfused \
-            and fcldf.format_ok(A, cfg.dtype):
-        return FUSED_DF[method](A, b, x0, cfg)
-    if method in FUSED and not unfused and fcl.format_ok(A, cfg.dtype):
-        return FUSED[method](A, b, x0, cfg)
-    return CLASSIC_SOLVERS[method](lambda v: generic_spmv(A, v),
-                                   Comm(serialize=cfg.serialize_comm), b,
-                                   x0, cfg)
+    with span("mbt.segment"):
+        if is_df(b) and method in FUSED_DF and not unfused \
+                and fcldf.format_ok(A, cfg.dtype):
+            return FUSED_DF[method](A, b, x0, cfg)
+        if method in FUSED and not unfused and fcl.format_ok(A, cfg.dtype):
+            return FUSED[method](A, b, x0, cfg)
+        return CLASSIC_SOLVERS[method](lambda v: generic_spmv(A, v),
+                                       Comm(serialize=cfg.serialize_comm),
+                                       b, x0, cfg)
 
 
 def _restart_tol(outer_tol: float, scale: float) -> float:
@@ -112,12 +114,12 @@ def _restarted(solve_fn, cfg, res: SolveResult) -> SolveResult:
         return res    # tol=0 contract: no restart segments either
     scale = 1.0                       # segment r0 norm in outer units
     total_iter = res.n_iter
-    hist = [res.history[:total_iter].cpu().numpy()]
+    hist = [host_read(lambda: res.history[:total_iter].cpu().numpy())]
     for _ in range(max(int(cfg.restarts), 0)):
-        if bool(res.converged):
+        if host_read(res.converged):
             break
-        est = float(res.final_relres)
-        t_out = float(res.true_relres) * scale
+        est = host_read(res.final_relres)
+        t_out = host_read(res.true_relres) * scale
         seg_tol = _restart_tol(cfg.tol, scale) if scale != 1.0 else cfg.tol
         est_hit = est <= seg_tol * (1.0 + 1e-3)
         if not (est_hit and np.isfinite(t_out) and t_out > 100.0 * cfg.tol):
@@ -130,22 +132,24 @@ def _restarted(solve_fn, cfg, res: SolveResult) -> SolveResult:
                                                            new_scale)))
         scale = new_scale
         total_iter += res.n_iter
-        hist.append(res.history[:res.n_iter].cpu().numpy() * scale)
+        hist.append(host_read(
+            lambda: res.history[:res.n_iter].cpu().numpy()) * scale)
     if scale == 1.0:
         return res      # no restart fired: untouched
-    t_out = float(res.true_relres) * scale
-    est = float(res.final_relres)
+    t_out = host_read(res.true_relres) * scale
+    est = host_read(res.final_relres)
     converged = (est <= _restart_tol(cfg.tol, scale) * (1.0 + 1e-3)
                  and t_out <= 100.0 * cfg.tol)
     h = np.concatenate(hist)[: cfg.max_iter]
     h = np.pad(h, (0, cfg.max_iter - h.shape[0]), constant_values=np.nan)
     dev, dt = res.x.device, res.final_relres.dtype
-    return SolveResult(
+    # copies from the host's memory to the card wait for it, as reads do
+    return host_read(lambda: SolveResult(
         x=res.x, n_iter=min(total_iter, 2**31 - 1),
         final_relres=torch.tensor(est * scale, dtype=dt, device=dev),
         history=torch.tensor(h, dtype=res.history.dtype, device=dev),
         converged=torch.tensor(converged, device=dev),
-        true_relres=torch.tensor(t_out, dtype=dt, device=dev))
+        true_relres=torch.tensor(t_out, dtype=dt, device=dev)))
 
 
 def solve(A, b, x0=None, method: str = "bicgstab",
@@ -163,18 +167,19 @@ def solve(A, b, x0=None, method: str = "bicgstab",
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from "
                          f"{sorted(METHODS)}")
-    A = _wrap(A, precond)
-    b = _check_rhs(A, b, "solve")
-    if cfg is None:
-        cfg = SolverConfig(dtype=b.dtype)
-    if x0 is None:
-        x0 = vzeros_like(b)
-    res = _solve_once(A, b, x0, method, cfg)
-    if cfg.restarts:
-        res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),
-                         cfg, res)
-    if isinstance(A, ChebyOperator):
-        res = dataclasses.replace(res, x=A.apply(res.x))
+    with span("mbt.solve"):
+        A = _wrap(A, precond)
+        b = _check_rhs(A, b, "solve")
+        if cfg is None:
+            cfg = SolverConfig(dtype=b.dtype)
+        if x0 is None:
+            x0 = vzeros_like(b)
+        res = _solve_once(A, b, x0, method, cfg)
+        if cfg.restarts:
+            res = _restarted(lambda x, c: _solve_once(A, b, x, method, c),
+                             cfg, res)
+        if isinstance(A, ChebyOperator):
+            res = dataclasses.replace(res, x=A.apply(res.x))
     return res
 
 
@@ -319,12 +324,14 @@ def _ladder(b, sigma):
         if is_df(sigma):
             return sigma.to(b.device)
         if torch.is_tensor(sigma):
-            sigma = sigma.cpu().numpy()
-        return df_from_f64(np.asarray(sigma, np.float64), b.device)
+            sigma = host_read(sigma.cpu).numpy()
+        return host_read(lambda: df_from_f64(np.asarray(sigma, np.float64),
+                                             b.device))
     if torch.is_tensor(sigma) and sigma.dtype == b.dtype \
             and sigma.device == b.device:
         return sigma
-    return torch.as_tensor(np.asarray(sigma), dtype=b.dtype, device=b.device)
+    return host_read(lambda: torch.as_tensor(
+        np.asarray(sigma), dtype=b.dtype, device=b.device))
 
 
 def _shifted_inputs(A, b, sigma, seed: int):
@@ -347,14 +354,15 @@ def solve_shifted(A, b, sigma, seed: int = 0,
     if method not in solvers:
         raise ValueError(f"unknown method {method!r}; "
                          f"choose from {sorted(solvers)}")
-    b, sigma = _shifted_inputs(A, b, sigma, seed)
-    if cfg is None:
-        cfg = ShiftedConfig(dtype=b.dtype)
-    spmv = lambda v: generic_spmv(A, v)  # noqa: E731
-    fn = solvers[method]
-    if method == "shifted_bicgstab":
-        return fn(spmv, Comm(), b, sigma, cfg)
-    return fn(spmv, Comm(), b, sigma, int(seed), cfg)
+    with span("mbt.solve"):
+        b, sigma = _shifted_inputs(A, b, sigma, seed)
+        if cfg is None:
+            cfg = ShiftedConfig(dtype=b.dtype)
+        spmv = lambda v: generic_spmv(A, v)  # noqa: E731
+        fn = solvers[method]
+        if method == "shifted_bicgstab":
+            return fn(spmv, Comm(), b, sigma, cfg)
+        return fn(spmv, Comm(), b, sigma, int(seed), cfg)
 
 
 def solve_shifted_checkpointed(A, b, sigma, seed: int, cfg, path: str,

@@ -41,6 +41,7 @@ from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (check_band, check_cuda,
                                                   dia_spmv_plain,
                                                   offsets_arg, stream_arg)
 from mpi_bicgstab_tpu_torch.ops.precision import DF, is_df
+from mpi_bicgstab_tpu_torch.utils.timing import span
 
 MAX_DEGREE = 64      # MBT_MAX_CHEBY_DEGREE of csrc/cheby.cu
 _P = ctypes.c_void_p
@@ -158,26 +159,28 @@ def cheby_chain(vals, v, offsets: tuple, degree: int, lo: float,
                 hi: float):
     """x = p(A) v, float32: the degree-`degree` Chebyshev iteration on
     [lo, hi] over the DIA band (vals [W, n], offsets)."""
-    if v.device.type == "cpu":
-        return cheby_chain_plain(vals, v, offsets, degree, lo, hi)
-    what = "cheby_chain"
-    if is_df(vals) or is_df(v):
-        raise TypeError(f"{what}: float32 tensors expected; DF pairs take "
-                        f"cheby_chain_df")
-    check_cuda(what, torch.float32, vals=vals, v=v)
-    n = _check(what, vals, v, offsets, degree)
-    p = chain_plan(n, tuple(offsets), resident_blocks(v.device.index, False))
-    x = torch.empty_like(v)
-    scratch = v.new_empty((3, n))
-    work = torch.zeros(p.n_tiles + 1, dtype=torch.int32, device=v.device)
-    lib = _lib()
-    err = lib.mbt_cheby_chain_f32(
-        offsets_arg(offsets), len(offsets), n, vals.data_ptr(), v.data_ptr(),
-        _coeff_arg(degree, lo, hi, False), degree, p.arg(), x.data_ptr(),
-        scratch.data_ptr(), work.data_ptr(), stream_arg())
-    _build.check(lib, err, what)
-    cheby_chain.launches += 1
-    return x
+    with span("mbt.launch.cheby_chain"):
+        if v.device.type == "cpu":
+            return cheby_chain_plain(vals, v, offsets, degree, lo, hi)
+        what = "cheby_chain"
+        if is_df(vals) or is_df(v):
+            raise TypeError(f"{what}: float32 tensors expected; DF pairs "
+                            f"take cheby_chain_df")
+        check_cuda(what, torch.float32, vals=vals, v=v)
+        n = _check(what, vals, v, offsets, degree)
+        p = chain_plan(n, tuple(offsets),
+                       resident_blocks(v.device.index, False))
+        x = torch.empty_like(v)
+        scratch = v.new_empty((3, n))
+        work = torch.zeros(p.n_tiles + 1, dtype=torch.int32, device=v.device)
+        lib = _lib()
+        err = lib.mbt_cheby_chain_f32(
+            offsets_arg(offsets), len(offsets), n, vals.data_ptr(),
+            v.data_ptr(), _coeff_arg(degree, lo, hi, False), degree, p.arg(),
+            x.data_ptr(), scratch.data_ptr(), work.data_ptr(), stream_arg())
+        _build.check(lib, err, what)
+        cheby_chain.launches += 1
+        return x
 
 
 cheby_chain.launches = 0
@@ -193,28 +196,32 @@ def cheby_chain_df(vals: DF, v: DF, offsets: tuple, degree: int,
                    lo: float, hi: float) -> DF:
     """x = p(A) v in double-float, with full-precision DF coefficients;
     the kernel agrees with its twin bit for bit."""
-    if v.device.type == "cpu":
-        return cheby_chain_df_plain(vals, v, offsets, degree, lo, hi)
-    what = "cheby_chain_df"
-    if not (is_df(vals) and is_df(v)):
-        raise TypeError(f"{what}: vals and v must be DF pairs")
-    check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
-               v_hi=v.hi, v_lo=v.lo)
-    n = _check(what, vals, v, offsets, degree)
-    check_vectors(what, n, v_lo=v.lo)
-    p = chain_plan(n, tuple(offsets), resident_blocks(v.hi.device.index, True))
-    x = DF(torch.empty_like(v.hi), torch.empty_like(v.hi))
-    scratch = v.hi.new_empty((6, n))
-    work = torch.zeros(p.n_tiles + 1, dtype=torch.int32, device=v.hi.device)
-    lib = _lib()
-    err = lib.mbt_cheby_chain_df(
-        offsets_arg(offsets), len(offsets), n, vals.hi.data_ptr(),
-        vals.lo.data_ptr(), v.hi.data_ptr(), v.lo.data_ptr(),
-        _coeff_arg(degree, lo, hi, True), degree, p.arg(), x.hi.data_ptr(),
-        x.lo.data_ptr(), scratch.data_ptr(), work.data_ptr(), stream_arg())
-    _build.check(lib, err, what)
-    cheby_chain_df.launches += 1
-    return x
+    with span("mbt.launch.cheby_chain_df"):
+        if v.device.type == "cpu":
+            return cheby_chain_df_plain(vals, v, offsets, degree, lo, hi)
+        what = "cheby_chain_df"
+        if not (is_df(vals) and is_df(v)):
+            raise TypeError(f"{what}: vals and v must be DF pairs")
+        check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
+                   v_hi=v.hi, v_lo=v.lo)
+        n = _check(what, vals, v, offsets, degree)
+        check_vectors(what, n, v_lo=v.lo)
+        p = chain_plan(n, tuple(offsets),
+                       resident_blocks(v.hi.device.index, True))
+        x = DF(torch.empty_like(v.hi), torch.empty_like(v.hi))
+        scratch = v.hi.new_empty((6, n))
+        work = torch.zeros(p.n_tiles + 1, dtype=torch.int32,
+                           device=v.hi.device)
+        lib = _lib()
+        err = lib.mbt_cheby_chain_df(
+            offsets_arg(offsets), len(offsets), n, vals.hi.data_ptr(),
+            vals.lo.data_ptr(), v.hi.data_ptr(), v.lo.data_ptr(),
+            _coeff_arg(degree, lo, hi, True), degree, p.arg(),
+            x.hi.data_ptr(), x.lo.data_ptr(), scratch.data_ptr(),
+            work.data_ptr(), stream_arg())
+        _build.check(lib, err, what)
+        cheby_chain_df.launches += 1
+        return x
 
 
 cheby_chain_df.launches = 0

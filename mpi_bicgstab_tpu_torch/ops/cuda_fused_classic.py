@@ -39,6 +39,8 @@ from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_pass,
                                                   check_cuda, check_scalars,
                                                   check_vectors, dia_spmv,
                                                   grid_blocks, stream_arg)
+from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -177,19 +179,25 @@ def bicgstab_fused(A, b, x0, cfg):
     hist = []
     # solver.c:86; the stop test compares the float32 values exactly as
     # the JAX loop condition does (NaN stops the loop)
-    thresh = None if exact else float(dot_zero * tol2)
-    k = 0
-    while k < cfg.max_iter and (exact or float(dot_r) > thresh):
-        p2, s2, rhTs = fused_k1(vals, r, p, s, r_hat, (beta, omega),
-                                offsets)
-        alpha = rTr / rhTs                              # solver.c:93
-        q, y, qTy, yTy = fused_k2(vals, r, s2, (alpha,), offsets)
-        omega2 = qTy / yTy                              # solver.c:104
-        x, r, dot_r, rTr_new = fused_k3(x, p2, q, y, r_hat,
-                                        (alpha, omega2))
-        beta = (alpha / omega2) * (rTr_new / rTr)       # solver.c:116
-        p, s, omega, rTr = p2, s2, omega2, rTr_new
-        hist.append(dot_r)
-        k += 1
+    thresh = None if exact else host_read(dot_zero * tol2)
+
+    def more(k, dot_r):
+        return k < cfg.max_iter and (exact or host_read(dot_r) > thresh)
+
+    k, go = 0, more(0, dot_r)
+    while go:
+        with span("mbt.iter"):      # the stop test after it included
+            p2, s2, rhTs = fused_k1(vals, r, p, s, r_hat, (beta, omega),
+                                    offsets)
+            alpha = rTr / rhTs                          # solver.c:93
+            q, y, qTy, yTy = fused_k2(vals, r, s2, (alpha,), offsets)
+            omega2 = qTy / yTy                          # solver.c:104
+            x, r, dot_r, rTr_new = fused_k3(x, p2, q, y, r_hat,
+                                            (alpha, omega2))
+            beta = (alpha / omega2) * (rTr_new / rTr)   # solver.c:116
+            p, s, omega, rTr = p2, s2, omega2, rTr_new
+            hist.append(dot_r)
+            k += 1
+            go = more(k, dot_r)
     return finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter,
                   lambda v: dia_spmv(vals, offsets, v), Comm(), b)

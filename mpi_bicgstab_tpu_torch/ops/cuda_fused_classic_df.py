@@ -43,6 +43,7 @@ from mpi_bicgstab_tpu_torch.ops.cuda_spmv import (Halo, band_df_plain,
 from mpi_bicgstab_tpu_torch.ops.precision import (df_div, df_dot, df_fma,
                                                   df_mul, is_df, vvalue,
                                                   vzeros_like)
+from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
 
 
 @functools.cache
@@ -168,8 +169,8 @@ def bicgstab_fused_df(A, b, x0, cfg):
     (reference solver.c:35-146, the end-of-loop p update deferred into
     the next K1; JAX pallas_fused_classic_df.bicgstab_fused_df). The stop
     test compares float32 values, vvalue(dot_r) > vvalue(dot_zero) tol^2,
-    with one host read per iteration and none at tol = 0. Runs where A
-    and b live."""
+    with one host read per iteration (utils/timing.host_read) and none at
+    tol = 0. Runs where A and b live."""
     from mpi_bicgstab_tpu_torch.parallel.comm import Comm
     from mpi_bicgstab_tpu_torch.solvers.base import finish, start
 
@@ -188,16 +189,23 @@ def bicgstab_fused_df(A, b, x0, cfg):
     beta = omega = zero
     rTr = dot_r = rTr0
     hist = []
-    thresh = None if exact else float(vvalue(dot_zero) * tol2)
-    k = 0
-    while k < cfg.max_iter and (exact or float(vvalue(dot_r)) > thresh):
-        p, s, _, alpha = fused_k1_df(vals, r, p, s, r_hat,
-                                     (beta, omega, rTr), offsets)
-        q, y, _, _, omega = fused_k2_df(vals, r, s, (alpha,), offsets)
-        x, r, dot_r, rTr_new, beta = fused_k3_df(x, p, q, y, r_hat,
-                                                 (alpha, omega, rTr))
-        rTr = rTr_new
-        hist.append(dot_r)
-        k += 1
+    thresh = None if exact else host_read(vvalue(dot_zero) * tol2)
+
+    def more(k, dot_r):
+        return k < cfg.max_iter and (exact
+                                     or host_read(vvalue(dot_r)) > thresh)
+
+    k, go = 0, more(0, dot_r)
+    while go:
+        with span("mbt.iter"):      # the stop test after it included
+            p, s, _, alpha = fused_k1_df(vals, r, p, s, r_hat,
+                                         (beta, omega, rTr), offsets)
+            q, y, _, _, omega = fused_k2_df(vals, r, s, (alpha,), offsets)
+            x, r, dot_r, rTr_new, beta = fused_k3_df(x, p, q, y, r_hat,
+                                                     (alpha, omega, rTr))
+            rTr = rTr_new
+            hist.append(dot_r)
+            k += 1
+            go = more(k, dot_r)
     return finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter, spmv,
                   Comm(), b, f32_test=True)

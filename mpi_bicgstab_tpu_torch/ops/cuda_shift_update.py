@@ -26,6 +26,7 @@ import torch
 from mpi_bicgstab_tpu_torch.ops import _build
 from mpi_bicgstab_tpu_torch.ops.cuda_spmv import check_cuda, stream_arg
 from mpi_bicgstab_tpu_torch.ops.precision import DF, df_add, df_fma, df_mul, is_df
+from mpi_bicgstab_tpu_torch.utils.timing import span
 
 _P = ctypes.c_void_p
 _COEFS = ("cxp", "cxq", "cpq", "cpr", "m1", "m2")
@@ -88,28 +89,30 @@ def fused_shift_update_df(x_set: DF, p_set: DF, q: DF, r_old: DF, r_new: DF,
     its state) must clone what it wants to keep. CPU tensors take the
     plain twin (written back into the state); CUDA tensors the kernel,
     which computes the twin's bits, or raise."""
-    what = "fused_shift_update_df"
-    if x_set.device.type == "cpu":
-        x2, p2 = fused_shift_update_df_plain(x_set, p_set, q, r_old, r_new,
-                                             cxp, cxq, cpq, cpr, m1, m2)
-        for dst, src in ((x_set, x2), (p_set, p2)):
-            dst.hi.copy_(src.hi)
-            dst.lo.copy_(src.lo)
+    with span("mbt.launch.fused_shift_update_df"):
+        what = "fused_shift_update_df"
+        if x_set.device.type == "cpu":
+            x2, p2 = fused_shift_update_df_plain(x_set, p_set, q, r_old,
+                                                 r_new, cxp, cxq, cpq, cpr,
+                                                 m1, m2)
+            for dst, src in ((x_set, x2), (p_set, p2)):
+                dst.hi.copy_(src.hi)
+                dst.lo.copy_(src.lo)
+            return x_set, p_set
+        coefs = dict(zip(_COEFS, (cxp, cxq, cpq, cpr, m1, m2)))
+        S, n = _check(what, {"x_set": x_set, "p_set": p_set},
+                      {"q": q, "r_old": r_old, "r_new": r_new}, coefs)
+        coef_ptrs = (_P * 12)(*(t.data_ptr() for c in coefs.values()
+                                for t in (c.hi, c.lo)))
+        lib = _lib()
+        err = lib.mbt_shift_update_df(
+            S, n, *(t.data_ptr() for t in (x_set.hi, x_set.lo, p_set.hi,
+                                           p_set.lo, q.hi, q.lo, r_old.hi,
+                                           r_old.lo, r_new.hi, r_new.lo)),
+            coef_ptrs, stream_arg())
+        _build.check(lib, err, what)
+        fused_shift_update_df.launches += 1
         return x_set, p_set
-    coefs = dict(zip(_COEFS, (cxp, cxq, cpq, cpr, m1, m2)))
-    S, n = _check(what, {"x_set": x_set, "p_set": p_set},
-                  {"q": q, "r_old": r_old, "r_new": r_new}, coefs)
-    coef_ptrs = (_P * 12)(*(t.data_ptr() for c in coefs.values()
-                            for t in (c.hi, c.lo)))
-    lib = _lib()
-    err = lib.mbt_shift_update_df(
-        S, n, *(t.data_ptr() for t in (x_set.hi, x_set.lo, p_set.hi,
-                                       p_set.lo, q.hi, q.lo, r_old.hi,
-                                       r_old.lo, r_new.hi, r_new.lo)),
-        coef_ptrs, stream_arg())
-    _build.check(lib, err, what)
-    fused_shift_update_df.launches += 1
-    return x_set, p_set
 
 
 fused_shift_update_df.launches = 0

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from mpi_bicgstab_tpu_torch.ops import _build
 from mpi_bicgstab_tpu_torch.ops.precision import DF, df_fma, df_zeros, is_df
+from mpi_bicgstab_tpu_torch.utils.timing import span
 
 _P = ctypes.c_void_p
 _KERNELS = {torch.float32: "mbt_dia_spmv_f32",
@@ -230,25 +231,26 @@ def band_pass(lib, symbol: str, what: str, vals, offsets: tuple,
     (outputs, dots): n_out fresh vectors (never aliasing an input) and the
     [n_dots] dot products. With a halo every vector, output too, is in
     its halo form, and the kernel reads the columns halo.bounds(n)."""
-    first = next(iter(vecs.values()))
-    n, length, at = _pass_shape(what, first, vals, halo)
-    if halo is not None:
-        _check_halo(what, halo.h, offsets)
-    check_vectors(what, length, **vecs)
-    check_cuda(what, torch.float32, vals=vals, **vecs, **scalars)
-    check_band(what, vals, offsets, n)
-    outs = [torch.empty_like(first) for _ in range(n_out)]
-    partials, dots = first.new_empty((grid_blocks(n), n_dots)), \
-        first.new_empty(n_dots)
-    lo, hi = halo.bounds(n) if halo is not None else (0, n)
-    err = getattr(lib, symbol)(
-        offsets_arg(offsets), len(offsets), n, lo, hi, vals.data_ptr(),
-        *(_ptr(t, at) for t in vecs.values()),
-        *(t.data_ptr() for t in scalars.values()),
-        *(_ptr(t, at) for t in outs),
-        partials.data_ptr(), dots.data_ptr(), stream_arg())
-    _build.check(lib, err, what)
-    return outs, dots
+    with span("mbt.launch." + what):
+        first = next(iter(vecs.values()))
+        n, length, at = _pass_shape(what, first, vals, halo)
+        if halo is not None:
+            _check_halo(what, halo.h, offsets)
+        check_vectors(what, length, **vecs)
+        check_cuda(what, torch.float32, vals=vals, **vecs, **scalars)
+        check_band(what, vals, offsets, n)
+        outs = [torch.empty_like(first) for _ in range(n_out)]
+        partials, dots = first.new_empty((grid_blocks(n), n_dots)), \
+            first.new_empty(n_dots)
+        lo, hi = halo.bounds(n) if halo is not None else (0, n)
+        err = getattr(lib, symbol)(
+            offsets_arg(offsets), len(offsets), n, lo, hi, vals.data_ptr(),
+            *(_ptr(t, at) for t in vecs.values()),
+            *(t.data_ptr() for t in scalars.values()),
+            *(_ptr(t, at) for t in outs),
+            partials.data_ptr(), dots.data_ptr(), stream_arg())
+        _build.check(lib, err, what)
+        return outs, dots
 
 
 def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
@@ -263,50 +265,51 @@ def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
     DF [n_dots] (rows of one [2, n_dots] tensor, row 0 hi) that unpacks
     into 0-d pairs, the scalars 0-d views of a [2, n_fold] tensor. A halo
     as for band_pass."""
-    first = next(iter(vecs.values()))
-    for name, v in (*vecs.items(), *scalars.items()):
-        if not is_df(v):
-            raise TypeError(f"{what}: {name} must be a DF pair")
-    n, length, at = _pass_shape(what, first.hi,
-                                None if vals is None else vals.hi, halo)
-    if halo is not None and vals is not None:
-        _check_halo(what, halo.h, offsets)
-    vec_parts, sc_parts = {}, {}
-    for name, v in vecs.items():
-        check_vectors(what, length, **{f"{name}.hi": v.hi,
-                                       f"{name}.lo": v.lo})
-        vec_parts[f"{name}.hi"], vec_parts[f"{name}.lo"] = v.hi, v.lo
-    for name, v in scalars.items():
-        sc_parts[f"{name}.hi"], sc_parts[f"{name}.lo"] = v.hi, v.lo
-    head = [n]
-    if vals is not None:
-        if not is_df(vals):
-            raise TypeError(f"{what}: vals must be a DF pair")
-        check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
-                   **vec_parts, **sc_parts)
-        check_band(what, vals.hi, offsets, n)
-        check_band(what, vals.lo, offsets, n)
-        lo, hi = halo.bounds(n) if halo is not None else (0, n)
-        head = [offsets_arg(offsets), len(offsets), n, lo, hi,
-                vals.hi.data_ptr(), vals.lo.data_ptr()]
-    else:
-        check_cuda(what, torch.float32, **vec_parts, **sc_parts)
-    outs = [DF(torch.empty_like(first.hi), torch.empty_like(first.hi))
-            for _ in range(n_out)]
-    partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
-    dots = first.hi.new_empty((2, n_dots))
-    folded = first.hi.new_empty((2, n_fold))
-    # the vectors' (hi, lo) pointers, then the scalars', in the dicts'
-    # order: the scalars follow every vector in each launcher
-    err = getattr(lib, symbol)(
-        *head, *(_ptr(t, at) for t in vec_parts.values()),
-        *(t.data_ptr() for t in sc_parts.values()),
-        *(_ptr(t, at) for o in outs for t in (o.hi, o.lo)),
-        partials.data_ptr(), dots.data_ptr(),
-        *((folded.data_ptr(),) if n_fold else ()), stream_arg())
-    _build.check(lib, err, what)
-    return (outs, DF(dots[0], dots[1]),
-            [DF(folded[0, k], folded[1, k]) for k in range(n_fold)])
+    with span("mbt.launch." + what):
+        first = next(iter(vecs.values()))
+        for name, v in (*vecs.items(), *scalars.items()):
+            if not is_df(v):
+                raise TypeError(f"{what}: {name} must be a DF pair")
+        n, length, at = _pass_shape(what, first.hi,
+                                    None if vals is None else vals.hi, halo)
+        if halo is not None and vals is not None:
+            _check_halo(what, halo.h, offsets)
+        vec_parts, sc_parts = {}, {}
+        for name, v in vecs.items():
+            check_vectors(what, length, **{f"{name}.hi": v.hi,
+                                           f"{name}.lo": v.lo})
+            vec_parts[f"{name}.hi"], vec_parts[f"{name}.lo"] = v.hi, v.lo
+        for name, v in scalars.items():
+            sc_parts[f"{name}.hi"], sc_parts[f"{name}.lo"] = v.hi, v.lo
+        head = [n]
+        if vals is not None:
+            if not is_df(vals):
+                raise TypeError(f"{what}: vals must be a DF pair")
+            check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
+                       **vec_parts, **sc_parts)
+            check_band(what, vals.hi, offsets, n)
+            check_band(what, vals.lo, offsets, n)
+            lo, hi = halo.bounds(n) if halo is not None else (0, n)
+            head = [offsets_arg(offsets), len(offsets), n, lo, hi,
+                    vals.hi.data_ptr(), vals.lo.data_ptr()]
+        else:
+            check_cuda(what, torch.float32, **vec_parts, **sc_parts)
+        outs = [DF(torch.empty_like(first.hi), torch.empty_like(first.hi))
+                for _ in range(n_out)]
+        partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
+        dots = first.hi.new_empty((2, n_dots))
+        folded = first.hi.new_empty((2, n_fold))
+        # the vectors' (hi, lo) pointers, then the scalars', in the dicts'
+        # order: the scalars follow every vector in each launcher
+        err = getattr(lib, symbol)(
+            *head, *(_ptr(t, at) for t in vec_parts.values()),
+            *(t.data_ptr() for t in sc_parts.values()),
+            *(_ptr(t, at) for o in outs for t in (o.hi, o.lo)),
+            partials.data_ptr(), dots.data_ptr(),
+            *((folded.data_ptr(),) if n_fold else ()), stream_arg())
+        _build.check(lib, err, what)
+        return (outs, DF(dots[0], dots[1]),
+                [DF(folded[0, k], folded[1, k]) for k in range(n_fold)])
 
 
 def band_pass_argtypes(n_pointers: int) -> list:
@@ -350,26 +353,27 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor,
     """y = A @ x for the DIA matrix (vals [W, n], offsets); x has n
     entries, or n + 2 halo for the halo form. CPU tensors take the plain
     version; CUDA tensors the kernel, float32 or float64."""
-    if x.device.type == "cpu":
-        return dia_spmv_plain(vals, offsets, x, halo)
-    what = "dia_spmv"
-    if x.dtype not in _KERNELS:
-        raise TypeError(f"{what}: dtype {x.dtype}, the kernel takes "
-                        f"float32 or float64")
-    if x.dim() != 1:
-        raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
-    check_cuda(what, x.dtype, vals=vals, x=x)
-    n = x.shape[0] - 2 * halo
-    _check_halo(what, halo, offsets)
-    check_band(what, vals, offsets, n)
-    y = x.new_empty(n)
-    lib = _lib()
-    err = getattr(lib, _KERNELS[x.dtype])(
-        offsets_arg(offsets), len(offsets), n, halo, vals.data_ptr(),
-        x.data_ptr(), y.data_ptr(), stream_arg())
-    _build.check(lib, err, what)
-    dia_spmv.launches += 1
-    return y
+    with span("mbt.launch.dia_spmv"):
+        if x.device.type == "cpu":
+            return dia_spmv_plain(vals, offsets, x, halo)
+        what = "dia_spmv"
+        if x.dtype not in _KERNELS:
+            raise TypeError(f"{what}: dtype {x.dtype}, the kernel takes "
+                            f"float32 or float64")
+        if x.dim() != 1:
+            raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
+        check_cuda(what, x.dtype, vals=vals, x=x)
+        n = x.shape[0] - 2 * halo
+        _check_halo(what, halo, offsets)
+        check_band(what, vals, offsets, n)
+        y = x.new_empty(n)
+        lib = _lib()
+        err = getattr(lib, _KERNELS[x.dtype])(
+            offsets_arg(offsets), len(offsets), n, halo, vals.data_ptr(),
+            x.data_ptr(), y.data_ptr(), stream_arg())
+        _build.check(lib, err, what)
+        dia_spmv.launches += 1
+        return y
 
 
 dia_spmv.launches = 0
@@ -398,29 +402,30 @@ def dia_spmv_df(vals: DF, offsets: tuple, x: DF, halo: int = 0) -> DF:
     """Double-float y = A @ x for the DIA matrix (vals a DF [W, n] pair,
     offsets; x of n entries, or n + 2 halo). CPU tensors take the plain
     version; CUDA tensors the kernel, which agrees with it bit for bit."""
-    if x.device.type == "cpu":
-        return dia_spmv_df_plain(vals, offsets, x, halo)
-    what = "dia_spmv_df"
-    if not (is_df(vals) and is_df(x)):
-        raise TypeError(f"{what}: vals and x must be DF pairs")
-    if x.hi.dim() != 1:
-        raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
-    check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
-               x_hi=x.hi, x_lo=x.lo)
-    check_vectors(what, x.hi.shape[0], x_lo=x.lo)
-    n = x.hi.shape[0] - 2 * halo
-    _check_halo(what, halo, offsets)
-    check_band(what, vals.hi, offsets, n)
-    check_band(what, vals.lo, offsets, n)
-    y = DF(x.hi.new_empty(n), x.hi.new_empty(n))
-    lib = _lib()
-    err = lib.mbt_dia_spmv_df(
-        offsets_arg(offsets), len(offsets), n, halo, vals.hi.data_ptr(),
-        vals.lo.data_ptr(), x.hi.data_ptr(), x.lo.data_ptr(),
-        y.hi.data_ptr(), y.lo.data_ptr(), stream_arg())
-    _build.check(lib, err, what)
-    dia_spmv_df.launches += 1
-    return y
+    with span("mbt.launch.dia_spmv_df"):
+        if x.device.type == "cpu":
+            return dia_spmv_df_plain(vals, offsets, x, halo)
+        what = "dia_spmv_df"
+        if not (is_df(vals) and is_df(x)):
+            raise TypeError(f"{what}: vals and x must be DF pairs")
+        if x.hi.dim() != 1:
+            raise ValueError(f"{what}: x must be 1-D, got {tuple(x.shape)}")
+        check_cuda(what, torch.float32, vals_hi=vals.hi, vals_lo=vals.lo,
+                   x_hi=x.hi, x_lo=x.lo)
+        check_vectors(what, x.hi.shape[0], x_lo=x.lo)
+        n = x.hi.shape[0] - 2 * halo
+        _check_halo(what, halo, offsets)
+        check_band(what, vals.hi, offsets, n)
+        check_band(what, vals.lo, offsets, n)
+        y = DF(x.hi.new_empty(n), x.hi.new_empty(n))
+        lib = _lib()
+        err = lib.mbt_dia_spmv_df(
+            offsets_arg(offsets), len(offsets), n, halo, vals.hi.data_ptr(),
+            vals.lo.data_ptr(), x.hi.data_ptr(), x.lo.data_ptr(),
+            y.hi.data_ptr(), y.lo.data_ptr(), stream_arg())
+        _build.check(lib, err, what)
+        dia_spmv_df.launches += 1
+        return y
 
 
 dia_spmv_df.launches = 0

@@ -36,6 +36,7 @@ from mpi_bicgstab_tpu_torch.ops.window_ell import (WindowEllMatrix,
                                                    window_ell_stats)
 from mpi_bicgstab_tpu_torch.ops.window_spmv import window_spmv, window_spmv_df
 from mpi_bicgstab_tpu_torch.utils.device import resolve_device
+from mpi_bicgstab_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,22 +168,23 @@ def auto_route(csr, max_diags: int = 64, dia_min_fill: float = 0.02):
 def spmv(op, x):
     """Generic y = op @ x over any ported layout (DF values take the DF
     SpMVs, as in the JAX package)."""
-    if isinstance(op, ChebyOperator):
-        return precond_spmv(op, x)       # y = A p(A) x (ops/cheby.py)
-    if isinstance(op, DiaMatrix):
-        return dia_spmv(op, x)
-    if isinstance(op, EllMatrix):
-        return ell_spmv_df(op, x) if is_df(op.vals) else ell_spmv(op, x)
-    if isinstance(op, WindowEllMatrix):
-        return (window_spmv_df(op, x) if is_df(op.vals)
-                else window_spmv(op, x))
-    if isinstance(op, ButterflyMatrix):
-        if is_df(op.k3_vals):
-            y = butterfly_spmv_df(op, x)
-            return DF(y.hi[: op.n_rows], y.lo[: op.n_rows])
-        return butterfly_spmv(op, x)[: op.n_rows]
-    if isinstance(op, HybridMatrix):
-        if is_df(op.dia.vals):
-            return df_add(dia_spmv(op.dia, x), ell_spmv_df(op.ell, x))
-        return dia_spmv(op.dia, x) + ell_spmv(op.ell, x)
-    raise TypeError(f"not a device sparse operator: {type(op)}")
+    with span("mbt.spmv"):
+        if isinstance(op, ChebyOperator):
+            return precond_spmv(op, x)       # y = A p(A) x (ops/cheby.py)
+        if isinstance(op, DiaMatrix):
+            return dia_spmv(op, x)
+        if isinstance(op, EllMatrix):
+            return ell_spmv_df(op, x) if is_df(op.vals) else ell_spmv(op, x)
+        if isinstance(op, WindowEllMatrix):
+            return (window_spmv_df(op, x) if is_df(op.vals)
+                    else window_spmv(op, x))
+        if isinstance(op, ButterflyMatrix):
+            if is_df(op.k3_vals):
+                y = butterfly_spmv_df(op, x)
+                return DF(y.hi[: op.n_rows], y.lo[: op.n_rows])
+            return butterfly_spmv(op, x)[: op.n_rows]
+        if isinstance(op, HybridMatrix):
+            if is_df(op.dia.vals):
+                return df_add(dia_spmv(op.dia, x), ell_spmv_df(op.ell, x))
+            return dia_spmv(op.dia, x) + ell_spmv(op.ell, x)
+        raise TypeError(f"not a device sparse operator: {type(op)}")

@@ -42,6 +42,7 @@ import torch
 from mpi_bicgstab_tpu_torch.ops import blas
 from mpi_bicgstab_tpu_torch.ops.precision import (DF, df_renorm, df_sum,
                                                   is_df)
+from mpi_bicgstab_tpu_torch.utils.timing import span
 
 
 def _gather_into(out, t, group):
@@ -190,12 +191,14 @@ class Comm:
 
     def dot(self, u, v):
         """One global dot product."""
-        return self.allreduce(blas.dot(u, v))
+        with span("mbt.dot"):
+            return self.allreduce(blas.dot(u, v))
 
     def dots(self, *pairs):
         """Several global dot products as ONE stacked reduction — the
         batched-Iallreduce of the reference (solver.c:240-247)."""
-        return self.allreduce(blas.dots(*pairs))
+        with span("mbt.dot"):
+            return self.allreduce(blas.dots(*pairs))
 
     def max(self, x):
         if self.group is None:

@@ -27,7 +27,8 @@ does on its TPU.
 Each solver takes spmv: x -> A@x, a Comm for the global dots, b, x0 and a
 SolverConfig. The loop runs on the host; the scalars stay on the device
 as 0-d tensors, and the only host synchronisation per iteration is the
-stop test (none at all when tol == 0). The first-iteration reads of the
+stop test (none at all when tol == 0; in `bicgstab` a
+utils/timing.host_read). The first-iteration reads of the
 reference's uninitialised omega/s/z/v/p (solver.c:217-222,352-360) are
 explicit zeros, which give the same first step because beta = 0.
 """
@@ -41,6 +42,7 @@ from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish,
                                                  maybe_print_residual, start)
 from mpi_bicgstab_tpu_torch.solvers.bicgstab_l import bicgstab_l2, bicgstab_l4
 from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
 
 
 def bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
@@ -57,26 +59,32 @@ def bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
     x, r, p = x0, r0, r0                                # solver.c:77
     rTr = dot_r = rTr0
     hist = []
-    thresh = None if exact else float(dot_zero * tol2)
-    k = 0
-    while k < cfg.max_iter and (exact or float(dot_r) > thresh):  # :86
-        s = spmv(p)                                     # solver.c:88
-        rTs = comm.dot(r_hat, s)                        # solver.c:89-91
-        alpha = rTr / rTs                               # solver.c:93
-        q = axpy(-alpha, s, r)                          # solver.c:94
-        y = spmv(q)                                     # solver.c:96
-        qTy, yTy = comm.dots((q, y), (y, y))            # solver.c:97-102
-        omega = qTy / yTy                               # solver.c:104
-        x = axpy(omega, q, axpy(alpha, p, x))           # solver.c:105-106
-        r_new = axpy(-omega, y, q)                      # solver.c:107
-        dot_r, rTr_new = comm.dots((r_new, r_new),
-                                   (r_hat, r_new))      # solver.c:108-114
-        beta = (alpha / omega) * (rTr_new / rTr)        # solver.c:116
-        p = axpy(beta, axpy(-omega, s, p), r_new)       # solver.c:117-119
-        hist.append(dot_r)
-        maybe_print_residual(cfg, k, dot_r, dot_zero)
-        r, rTr = r_new, rTr_new
-        k += 1
+    thresh = None if exact else host_read(dot_zero * tol2)
+
+    def more(k, dot_r):                                 # solver.c:86
+        return k < cfg.max_iter and (exact or host_read(dot_r) > thresh)
+
+    k, go = 0, more(0, dot_r)
+    while go:
+        with span("mbt.iter"):      # the stop test after it included
+            s = spmv(p)                                 # solver.c:88
+            rTs = comm.dot(r_hat, s)                    # solver.c:89-91
+            alpha = rTr / rTs                           # solver.c:93
+            q = axpy(-alpha, s, r)                      # solver.c:94
+            y = spmv(q)                                 # solver.c:96
+            qTy, yTy = comm.dots((q, y), (y, y))        # solver.c:97-102
+            omega = qTy / yTy                           # solver.c:104
+            x = axpy(omega, q, axpy(alpha, p, x))       # solver.c:105-106
+            r_new = axpy(-omega, y, q)                  # solver.c:107
+            dot_r, rTr_new = comm.dots((r_new, r_new),
+                                       (r_hat, r_new))  # solver.c:108-114
+            beta = (alpha / omega) * (rTr_new / rTr)    # solver.c:116
+            p = axpy(beta, axpy(-omega, s, p), r_new)   # solver.c:117-119
+            hist.append(dot_r)
+            maybe_print_residual(cfg, k, dot_r, dot_zero)
+            r, rTr = r_new, rTr_new
+            k += 1
+            go = more(k, dot_r)
     return finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter, spmv,
                   comm, b)
 

@@ -57,6 +57,7 @@ from mpi_bicgstab_tpu_torch.solvers.shifted import (_as_sigma, add_update,
                                                     seed_true_relres,
                                                     set_at)
 from mpi_bicgstab_tpu_torch.utils.config import ShiftedConfig
+from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
 
 
 def shifted_lopbicg(spmv, comm, b, sigma, seed: int, cfg: ShiftedConfig,
@@ -249,8 +250,8 @@ def switch_seed(cfg, sigma, seed: int, ms: int, k: int, r, eta, zeta,
 def worst_remaining(stop, not_seed, abs_zp) -> int:
     """The remaining non-seed shift with the largest |1/(zeta pi)|
     (:470-473); the first one on a tie, as jnp.argmax picks it."""
-    return int(torch.argmax(torch.where(~stop & not_seed, abs_zp,
-                                        float("-inf"))))
+    return host_read(torch.argmax(torch.where(~stop & not_seed, abs_zp,
+                                              float("-inf"))))
 
 
 def print_seed_relres(cfg, k: int, dot_r, dot_zero) -> None:
@@ -281,48 +282,50 @@ def seed_step(spmv, comm, r_hat, sigma, seed: int, k: int, x_set, p_set,
     sig_seed = sigma[seed]
     not_seed = torch.arange(S, device=stop.device) != seed
     active = not_seed & ~stop
-    p_seed = sc.take_row(p_set, seed)
-    # --- seed iteration (one LOP-BiCGStab step on A + sig_seed I) ---
-    s = spmv(p_seed) + sig_seed * p_seed         # :379-387
-    rTs = comm.dot(r_hat, s)                     # :388
-    a_k = rTr / rTs                              # :391
-    set_at(a_arc, k, a_k)
-    q = vfma(r, -a_k, s)                         # :392
-    y = spmv(q) + sig_seed * q                   # :396-404
-    qTq, qTy = comm.dots((q, q), (q, y))         # :405-406
-    w_k = qTq / qTy                              # :410
-    set_at(w_arc, k, w_k)
-    sc.row_add(x_set, seed, vfma(a_k * p_seed, w_k, q))        # :411-412
-    r_new = vfma(q, -w_k, y)                     # :413
-    dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :414-416
-    b_k = (a_k / w_k) * (rTr_new / rTr)          # :420
-    set_at(b_arc, k, b_k)
-    sc.row_set(p_set, seed,
-               vfma(r_new, b_k, vfma(p_seed, -w_k, s)))   # :421-423
-    # --- shift recurrences (:429-445) ---
-    pi_prev = pi_arc[k - 1]                      # pi_archive[j, k-1]
-    eta2 = (b_arc[k - 1] / a_arc[k - 1]) * a_k * eta \
-        - (sig_seed - sigma) * a_k * pi_prev                # :432
-    pi_k = eta2 + pi_prev                                   # :434
-    alpha_sh = (pi_prev / pi_k) * a_k                       # :435
-    omega_sh = w_k / (1.0 - w_k * (sig_seed - sigma))       # :436
-    zeta2 = (1.0 - w_k * (sig_seed - sigma)) * zeta         # :441
-    ratio = pi_prev / pi_k
-    beta_sh = ratio * ratio * b_k                           # :442
-    zero_s, one_s = vzeros((S,), r), vones((S,), r)
-    coeffs = (   # x: :437-438; p stage 1: :439-440; p stage 2: :443-444
-        vwhere(active, alpha_sh, zero_s),
-        vwhere(active, omega_sh / (pi_k * zeta), zero_s),
-        vwhere(active, omega_sh / (alpha_sh * zeta * pi_k), zero_s),
-        vwhere(active, -(omega_sh / (alpha_sh * zeta * pi_prev)), zero_s),
-        vwhere(active, beta_sh, one_s),
-        vwhere(active, 1.0 / (pi_k * zeta2), zero_s))
-    eta = vwhere(active, eta2, eta)
-    zeta = vwhere(active, zeta2, zeta)
-    zp_eff = vwhere(active, zeta2 * pi_k, zp_eff)
-    set_at(pi_arc, k, vwhere(active, pi_k, pi_arc[k]))
-    abs_zp = torch.where(not_seed, vvalue(vabs(1.0 / (zeta * pi_arc[k]))),
-                         1.0)
+    with span("mbt.seed_step"):
+        p_seed = sc.take_row(p_set, seed)
+        # --- seed iteration (one LOP-BiCGStab step on A + sig_seed I) ---
+        s = spmv(p_seed) + sig_seed * p_seed         # :379-387
+        rTs = comm.dot(r_hat, s)                     # :388
+        a_k = rTr / rTs                              # :391
+        set_at(a_arc, k, a_k)
+        q = vfma(r, -a_k, s)                         # :392
+        y = spmv(q) + sig_seed * q                   # :396-404
+        qTq, qTy = comm.dots((q, q), (q, y))         # :405-406
+        w_k = qTq / qTy                              # :410
+        set_at(w_arc, k, w_k)
+        sc.row_add(x_set, seed, vfma(a_k * p_seed, w_k, q))        # :411-412
+        r_new = vfma(q, -w_k, y)                     # :413
+        dot_r, rTr_new = comm.dots((r_new, r_new), (r_hat, r_new))  # :414-416
+        b_k = (a_k / w_k) * (rTr_new / rTr)          # :420
+        set_at(b_arc, k, b_k)
+        sc.row_set(p_set, seed,
+                   vfma(r_new, b_k, vfma(p_seed, -w_k, s)))   # :421-423
+    with span("mbt.shift_recur"):
+        # --- shift recurrences (:429-445) ---
+        pi_prev = pi_arc[k - 1]                      # pi_archive[j, k-1]
+        eta2 = (b_arc[k - 1] / a_arc[k - 1]) * a_k * eta \
+            - (sig_seed - sigma) * a_k * pi_prev                # :432
+        pi_k = eta2 + pi_prev                                   # :434
+        alpha_sh = (pi_prev / pi_k) * a_k                       # :435
+        omega_sh = w_k / (1.0 - w_k * (sig_seed - sigma))       # :436
+        zeta2 = (1.0 - w_k * (sig_seed - sigma)) * zeta         # :441
+        ratio = pi_prev / pi_k
+        beta_sh = ratio * ratio * b_k                           # :442
+        zero_s, one_s = vzeros((S,), r), vones((S,), r)
+        coeffs = (   # x: :437-438; p stage 1: :439-440; p stage 2: :443-444
+            vwhere(active, alpha_sh, zero_s),
+            vwhere(active, omega_sh / (pi_k * zeta), zero_s),
+            vwhere(active, omega_sh / (alpha_sh * zeta * pi_k), zero_s),
+            vwhere(active, -(omega_sh / (alpha_sh * zeta * pi_prev)), zero_s),
+            vwhere(active, beta_sh, one_s),
+            vwhere(active, 1.0 / (pi_k * zeta2), zero_s))
+        eta = vwhere(active, eta2, eta)
+        zeta = vwhere(active, zeta2, zeta)
+        zp_eff = vwhere(active, zeta2 * pi_k, zp_eff)
+        set_at(pi_arc, k, vwhere(active, pi_k, pi_arc[k]))
+        abs_zp = torch.where(not_seed, vvalue(vabs(1.0 / (zeta * pi_arc[k]))),
+                             1.0)
     return (q, r_new, dot_r, rTr_new, coeffs, eta, zeta, zp_eff, abs_zp,
             not_seed)
 
@@ -333,7 +336,7 @@ def stop_test(stop, abs_zp, dot_r, tol2, dot_zero, seed: int):
     switch test (:490). Returns (stop, done, switch_pending)."""
     stop = stop | (~stop & (abs_zp * abs_zp * vvalue(dot_r)
                             <= tol2 * vvalue(dot_zero)))
-    stop_h = stop.cpu()
+    stop_h = host_read(stop.cpu)
     done = bool(stop_h.all())
     return stop, done, bool(stop_h[seed]) and not done
 
@@ -353,38 +356,42 @@ def _switching_loop(spmv, comm, b, sigma, cfg: ShiftedConfig, carry,
     (k, seed, x_set, p_set, r, eta, zeta, zp_eff, pi_arc, a_arc, b_arc,
      w_arc, stop, rTr, dot_r, hist) = carry
     k, seed = int(k), int(seed)
-    done = (not exact) and bool(stop.all())      # :374; tol == 0 reads nothing
+    done = (not exact) and host_read(stop.all())  # :374; tol 0 reads nothing
     while not done and k < M + 1 and k < k_stop:
-        r_old = r                                # :376
-        (q, r_new, dot_r, rTr_new, c, eta, zeta, zp_eff, abs_zp,
-         not_seed) = seed_step(spmv, comm, b, sigma, seed, k, x_set, p_set,
-                               r, rTr, eta, zeta, zp_eff, pi_arc, a_arc,
-                               b_arc, w_arc, stop, sc)  # r_hat = b (:346)
-        # the coefficients of this sigma group's slab rows
-        c = [sc.loc(v) for v in c]
-        if is_df(x_set):
-            # all three stages in ONE in-place pass (ops/cuda_shift_update.py)
-            x_set, p_set = fused_shift_update_df(x_set, p_set, q, r_old,
-                                                 r_new, *c)
-        else:
-            cxp, cxq, cpq, cpr, m1, m2 = (v[:, None] for v in c)
-            x_set = add_update(x_set, cxp, p_set, cxq, q[None, :])  # :437-438
-            p_set = add_update(p_set, cpq, q[None, :], cpr,
-                               r_old[None, :])                     # :439-440
-            p_set = scale_add(p_set, m1, m2, r_new[None, :])       # :443-444
-        if not exact:   # tol == 0: no per-shift stop, no seed switch
-            stop, done, pend = stop_test(stop, abs_zp, dot_r, tol2,
-                                         dot_zero, seed)
-            if pend:    # seed switching (:490-527)
-                ms = worst_remaining(stop, not_seed, abs_zp)
-                (seed, r_new, eta, zeta, zp_eff, pi_arc, a_arc, b_arc,
-                 w_arc) = switch_seed(cfg, sigma, seed, ms, k, r_new, eta,
-                                      zeta, zp_eff, pi_arc, a_arc, b_arc,
-                                      w_arc, stop)
-        hist[k - 1] = vvalue(dot_r)
-        print_seed_relres(cfg, k, dot_r, dot_zero)
-        r, rTr = r_new, rTr_new
-        k += 1
+        with span("mbt.iter"):     # its stop test and any switch included
+            r_old = r                                # :376
+            (q, r_new, dot_r, rTr_new, c, eta, zeta, zp_eff, abs_zp,
+             not_seed) = seed_step(spmv, comm, b, sigma, seed, k, x_set,
+                                   p_set, r, rTr, eta, zeta, zp_eff, pi_arc,
+                                   a_arc, b_arc, w_arc, stop,
+                                   sc)              # r_hat = b (:346)
+            # the coefficients of this sigma group's slab rows
+            c = [sc.loc(v) for v in c]
+            if is_df(x_set):
+                # all three stages in ONE in-place pass
+                # (ops/cuda_shift_update.py)
+                x_set, p_set = fused_shift_update_df(x_set, p_set, q, r_old,
+                                                     r_new, *c)
+            else:
+                cxp, cxq, cpq, cpr, m1, m2 = (v[:, None] for v in c)
+                x_set = add_update(x_set, cxp, p_set, cxq,
+                                   q[None, :])                 # :437-438
+                p_set = add_update(p_set, cpq, q[None, :], cpr,
+                                   r_old[None, :])             # :439-440
+                p_set = scale_add(p_set, m1, m2, r_new[None, :])  # :443-444
+            if not exact:   # tol == 0: no per-shift stop, no seed switch
+                stop, done, pend = stop_test(stop, abs_zp, dot_r, tol2,
+                                             dot_zero, seed)
+                if pend:    # seed switching (:490-527)
+                    ms = worst_remaining(stop, not_seed, abs_zp)
+                    (seed, r_new, eta, zeta, zp_eff, pi_arc, a_arc, b_arc,
+                     w_arc) = switch_seed(cfg, sigma, seed, ms, k, r_new, eta,
+                                          zeta, zp_eff, pi_arc, a_arc, b_arc,
+                                          w_arc, stop)
+            hist[k - 1] = vvalue(dot_r)
+            print_seed_relres(cfg, k, dot_r, dot_zero)
+            r, rTr = r_new, rTr_new
+            k += 1
     return (k, seed, x_set, p_set, r, eta, zeta, zp_eff, pi_arc, a_arc,
             b_arc, w_arc, stop, rTr, dot_r, hist)
 

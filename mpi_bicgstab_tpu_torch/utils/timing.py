@@ -1,95 +1,81 @@
-"""Wall-clock and per-phase timing (counterpart of
-mpi_bicgstab_tpu/utils/timing.py).
+"""The port's tracing: named spans on the profiler's clock and the one
+helper through which the solver loops read from the card.
 
-The reference hand-rolls section timers behind its MEASURE_TIME /
-MEASURE_SECTION_TIME compile flags (solver.c:6,129-140;
-shifted_switching_solver.c:9,338-342,994-1005). Here they are a small
-runtime utility. A timer stopped with a result first waits for the card
-to finish the work behind it (torch.cuda.synchronize on each CUDA
-device the result's tensors live on), which plays the role MPI_Wtime
-and the reference's implicit synchronisation played there; a result on
-the CPU needs no wait.
+`span(name)` opens a profiler range (a RecordFunction, what
+`torch.profiler.record_function` opens) only while a torch profiler is
+enabled, so that a trace of a solve shows which part of the program the
+host was in at every instant, on the same clock as the card's kernels.
+With no profiler it costs one check and returns a shared no-op context;
+nothing is recorded or kept. `host_read(x)` runs a
+read from the card (or any call that waits for it) inside span
+`mbt.sync`, so that a trace counts the host's syncs.
+
+The spans, one at each layer boundary of the single-device routes:
+
+  mbt.solve           api.solve, api.solve_shifted: one a call
+  mbt.segment         api._solve_once: the first pass and each restart
+  mbt.iter            one iteration of the fused float32 and df32
+                      classic drivers, the unfused classic BiCGStab and
+                      the seed-switching loop, its stop test included
+  mbt.seed_step       switching.seed_step: the seed's LOP step
+  mbt.shift_recur     switching.seed_step: the [S] shift recurrences
+  mbt.spmv            ops/layout.spmv (the chain inside it for a
+                      Chebyshev operator)
+  mbt.dot             Comm.dot, Comm.dots
+  mbt.launch.<what>   a kernel wrapper's host work (checks, allocations,
+                      the launch; on the CPU its plain twin): band_pass
+                      and df_pass by their `what`, dia_spmv,
+                      dia_spmv_df, cheby_chain, cheby_chain_df,
+                      fused_shift_update_df
+  mbt.sync            host_read
 """
 from __future__ import annotations
 
-import time
-from collections import defaultdict
-from contextlib import contextmanager
-
 import torch
+from torch.autograd import profiler as _profiler
 
 
-def _tensors(x):
-    if torch.is_tensor(x):
-        yield x
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _tensors(v)
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-    elif hasattr(x, "__dataclass_fields__"):
-        for name in x.__dataclass_fields__:
-            yield from _tensors(getattr(x, name, None))
+class _Off:
+    """The no-op context (contextlib.nullcontext's __exit__ takes
+    *args, which costs a tuple on every exit)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, kind, value, tb):
+        return None
 
 
-def sync(x):
-    """Wait for the card to finish the work that produces x (a tensor, a
-    DF pair, a result dataclass, or a list, tuple or dict of them)."""
-    for dev in {t.device for t in _tensors(x) if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
-    return x
+_OFF = _Off()
+# torch's C++ range: under a profiler it adds 0-3 us to a span where
+# torch.profiler.record_function, a TorchScript op, adds 7-12 (an H100's
+# host), and a profiled loop of small launches stretches with that cost.
+# Its events are `cpu_op`s, record_function's `user_annotation`s.
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) \
+    or torch.profiler.record_function
 
 
-class Timer:
-    """Fenced wall-clock timer (reference MPI_Wtime, solver.c:70,130)."""
-
-    def __init__(self):
-        self._t0 = None
-        self.elapsed = 0.0
-
-    def start(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self, result=None):
-        if result is not None:
-            sync(result)
-        self.elapsed += time.perf_counter() - self._t0
-        return self.elapsed
+def span(name: str):
+    """A context that records `name` as a range in the running torch
+    profiler's trace; a shared no-op context when no profiler runs. The
+    check reads the flag torch's profilers set while they run, a module
+    attribute (a call into the profiler's C++ state costs more)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _RANGE(name)
 
 
-class PhaseTimer:
-    """Accumulating per-phase timer (reference MEASURE_SECTION_TIME,
-    shifted_switching_solver.c:678-695,884-892).
+def _read(x):
+    return x() if callable(x) else x.item()
 
-    Usage::
 
-        pt = PhaseTimer()
-        with pt.phase("spmv"):
-            sync(spmv(A, x))
-        pt.report()
-    """
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def csv_row(self):
-        keys = sorted(self.totals)
-        return ",".join(f"{self.totals[k]:.6e}" for k in keys), keys
-
-    def report(self, println=print):
-        for k in sorted(self.totals):
-            avg = self.totals[k] / max(1, self.counts[k])
-            println(f"{k:>16s}: total {self.totals[k]:.6e} s, "
-                    f"calls {self.counts[k]}, avg {avg:.6e} s")
+def host_read(x):
+    """x() for a callable (a read such as `t.cpu`), else x.item() (the
+    value of a 0-d tensor or DF pair), inside span mbt.sync. With no
+    profiler the read runs outside any context."""
+    if not _profiler._is_profiler_enabled:
+        return _read(x)
+    with _RANGE("mbt.sync"):
+        return _read(x)

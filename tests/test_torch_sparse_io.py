@@ -2,8 +2,7 @@
 parser (io/native.py over its own csrc/mmio_fast.cpp, hooked into
 io/mmio.read_matrix_market), the binary CSR container (save_csr /
 load_csr_npz), the sparse helpers (to_dense, shift_diagonal,
-csr_from_scipy, csr_from_torch, dia_to_dense, ell_to_dense) and the
-timers of utils/timing.py.
+csr_from_scipy, csr_from_torch, dia_to_dense, ell_to_dense).
 
 Every parse is held bit for bit (the same int64 indices, the same
 float64 values) to the JAX package's native and NumPy parses and to the
@@ -31,7 +30,7 @@ from mpi_bicgstab_tpu_torch.ops import sparse
 from mpi_bicgstab_tpu_torch.ops.dia import csr_to_dia, dia_to_dense
 from mpi_bicgstab_tpu_torch.ops.ell import csr_to_ell, ell_to_dense
 from mpi_bicgstab_tpu_torch.ops.precision import df_from_f64, df_to_f64
-from mpi_bicgstab_tpu_torch.utils import host_build, timing
+from mpi_bicgstab_tpu_torch.utils import host_build
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -279,23 +278,3 @@ def test_dia_and_ell_to_dense_equal_jax(dtype):
     assert np.array_equal(ell_to_dense(E), split(jell.ell_to_dense(JE)))
     assert np.array_equal(ell_to_dense(E), split(csr.to_dense().astype(
         ell_to_dense(E).dtype)))
-
-
-def test_timers_fence_and_accumulate():
-    t = timing.Timer().start()
-    x = torch.ones(1000) * 2.0
-    elapsed = t.stop(x)
-    assert elapsed >= 0.0 and t.stop() >= elapsed
-    pt = timing.PhaseTimer()
-    for _ in range(3):
-        with pt.phase("spmv"):
-            timing.sync({"y": [x, (x,)]})
-    with pt.phase("dot"):
-        pass
-    assert pt.counts == {"spmv": 3, "dot": 1}
-    row, keys = pt.csv_row()
-    assert keys == ["dot", "spmv"] and row.count(",") == 1
-    lines = []
-    pt.report(lines.append)
-    assert lines[1].lstrip().startswith("spmv: total") \
-        and "calls 3" in lines[1]
