@@ -340,6 +340,10 @@ TOL = {   # kernel versus plain version on the same inputs
     # routing stages pure movement
     "bit_equal": 0.0,
 }
+# the passes of df32 classic BiCGStab around an operator
+# (ops/cuda_classic_df_bodies.py); kernel 11 (fused_k3_df) is its pass X
+CLASSIC_BODIES = ("classic_df_p", "classic_df_a", "classic_df_q",
+                  "classic_df_o")
 REPLACES = {
     "dia_spmv": "mpi_bicgstab_tpu/ops/pallas_spmv.py:85",
     "fused_k1": "mpi_bicgstab_tpu/ops/pallas_fused_classic.py:129",
@@ -365,6 +369,10 @@ REPLACES = {
     "fused_k3b": "mpi_bicgstab_tpu/ops/pallas_fused_batched.py:297",
     "fused_body_a": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df.py:124",
     "fused_body_b": "mpi_bicgstab_tpu/ops/pallas_fused_pipe_df.py:153",
+    # the classic DF bodies replace no Pallas kernel: XLA fuses the JAX
+    # loop's DF vector ops, dots and scalars (solvers/bicgstab.py:145-157)
+    **dict.fromkeys(CLASSIC_BODIES, "none (XLA fusion of "
+                    "mpi_bicgstab_tpu/solvers/bicgstab.py:145-157)"),
     "cheby_chain": "mpi_bicgstab_tpu/ops/pallas_cheby.py:141",
     "cheby_chain_df": "mpi_bicgstab_tpu/ops/pallas_cheby_df.py:105",
     "window_spmv": "mpi_bicgstab_tpu/ops/pallas_window_spmv.py:43",
@@ -402,6 +410,7 @@ SOURCES = {
     "fused_k3b": _CSRC + "fused_batched.cu",
     "fused_body_a": _CSRC + "pipe_df_bodies.cu",
     "fused_body_b": _CSRC + "pipe_df_bodies.cu",
+    **dict.fromkeys(CLASSIC_BODIES, _CSRC + "classic_df_bodies.cu"),
     "cheby_chain": _CSRC + "cheby.cu",
     "cheby_chain_df": _CSRC + "cheby.cu",
     "window_spmv": _CSRC + "window_spmv.cu",
@@ -466,6 +475,7 @@ LAUNCHES_FROM = {"dia_spmv_f32": ("f32", "dia_spmv"),
                  "cheby_chain_df": ("cheby_df32", "cheby_chain_df"),
                  "fused_body_a": ("cheby_pipe_df32", "fused_body_a"),
                  "fused_body_b": ("cheby_pipe_df32", "fused_body_b"),
+                 **{k: ("cheby_df32", k) for k in CLASSIC_BODIES},
                  "window_spmv_f32": ("window", "window_rows"),
                  "window_spmv_f64": ("window_f64", "window_rows"),
                  "window_spmv_df": ("window_df32", "window_rows_df"),
@@ -547,6 +557,7 @@ def _counters():
     from mpi_bicgstab_tpu_torch.ops import cuda_spmv
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
+    from mpi_bicgstab_tpu_torch.ops import cuda_classic_df_bodies as ccb
     from mpi_bicgstab_tpu_torch.ops import cuda_window_spmv as cws
     from mpi_bicgstab_tpu_torch.ops import cuda_butterfly as cbf
     return {"dia_spmv": cuda_spmv.dia_spmv, "fused_k1": fcl.fused_k1,
@@ -568,6 +579,7 @@ def _counters():
             "fused_k3b": fbat.fused_k3b,
             "fused_body_a": cpb.fused_body_a,
             "fused_body_b": cpb.fused_body_b,
+            **{k: getattr(ccb, k) for k in CLASSIC_BODIES},
             "cheby_chain": cc.cheby_chain,
             "cheby_chain_df": cc.cheby_chain_df,
             "window_rows": cws.window_rows,
@@ -914,6 +926,7 @@ def df_kernel_calls(inp: dict) -> dict:
         return (*out[:-1], *out[-1])
 
     return {
+        **classic_body_calls(inp),
         "fused_body_a": (lambda: flat(cpb.fused_body_a(*ba)),
                          lambda: flat(cpb.fused_body_a_plain(*ba)), "df32"),
         "fused_body_b": (lambda: flat(cpb.fused_body_b(*bb)),
@@ -945,16 +958,44 @@ def df_kernel_calls(inp: dict) -> dict:
     }
 
 
+def classic_body_calls(inp: dict) -> dict:
+    """The classic DF bodies' entries of kernel_calls (CLASSIC_BODIES):
+    each call returns its vector, or its dots one by one and then the
+    folded scalar."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_classic_df_bodies as ccb
+    r, p, s, rh, q, y = (inp["df_" + k] for k in
+                         ("r", "p", "s", "r_hat", "q", "y"))
+    a, b, w, rtr = (inp["df_" + k] for k in
+                    ("alpha", "beta", "omega", "rTr"))
+    args = {"classic_df_p": (r, p, s, (b, w)),
+            "classic_df_a": (rh, s, (rtr,)),
+            "classic_df_q": (r, s, (a,)), "classic_df_o": (q, y)}
+
+    def flat(out):      # dots and a folded scalar, or one vector
+        return (*out[0], out[1]) if isinstance(out, tuple) else (out,)
+
+    return {name: (lambda f=getattr(ccb, name), a=a_: flat(f(*a)),
+                   lambda f=getattr(ccb, name + "_plain"), a=a_:
+                   flat(f(*a)), "df32")
+            for name, a_ in args.items()}
+
+
 def df_outputs(name: str, out: tuple, inp: dict):
     """What a DF kernel's outputs are: (number of vectors, the (u, v)
     pair of each dot, the folded scalars recomputed from the outputs'
     own dots with the twin's formulas, ops/precision.py)."""
     from mpi_bicgstab_tpu_torch.ops.precision import df_div, df_mul
     from mpi_bicgstab_tpu_torch.solvers.base import fold_beta_alpha
-    if name in ("dia_spmv_df", "cheby_chain_df"):
+    if name in ("dia_spmv_df", "cheby_chain_df", "classic_df_p",
+                "classic_df_q"):
         return 1, [], []
     a, w, rtr, rh, s, z = (inp["df_" + k] for k in
                            ("alpha", "omega", "rTr", "r_hat", "s", "z"))
+    if name == "classic_df_a":      # (r^, s), alpha
+        return 0, [(rh, s)], [df_div(rtr, out[0])]
+    if name == "classic_df_o":      # (q, y), (y, y), omega
+        q, y = inp["df_q"], inp["df_y"]
+        return 0, [(q, y), (y, y)], [df_div(out[0], out[1])]
     if name in ("fused_ca_k1_df", "fused_phase_a_df"):
         # [t,] p2, s2, z2, q, y, (q, y), (y, y), omega2
         nv = 5 if name == "fused_ca_k1_df" else 6
@@ -1447,10 +1488,20 @@ def work(name: str, inp: dict) -> tuple[float, float, str]:
             return 4 * (W * n + 2 * n), 2 * nz * d + 5 * n * d, "float32"
         return (8 * (W * n + 2 * n), DF_FMA_FLOPS * (nz * d + 4 * n * d),
                 "df32")
+    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
+    if name in CLASSIC_BODIES:
+        # (DF vectors in, out, scalars in and out, df_fma, dots) a row:
+        # P r p s in, p' out; A r^ s in, rTr, alpha; Q r s in, q out; O q y
+        n = inp["df_r"].hi.shape[0]
+        n_in, n_out, n_sc, n_fma, n_dot = {
+            "classic_df_p": (3, 1, 2, 2, 0), "classic_df_a": (2, 0, 3, 0, 1),
+            "classic_df_q": (2, 1, 1, 1, 0),
+            "classic_df_o": (2, 0, 3, 0, 2)}[name]
+        return (8 * ((n_in + n_out) * n + n_sc),
+                (fma * n_fma + dot * n_dot) * n, "df32")
     A = inp["A32"]
     n, W = A.n_rows, A.n_diags
     nz = _band_nnz(A)
-    fma, dot = DF_FMA_FLOPS, DF_DOT_FLOPS
     if name == "fused_body_a":   # 7 DF vectors in, 5 out, 3 scalars, 2 dots
         return 8 * (12 * n + 3 + 2), fma * 8 * n + dot * 2 * n, "df32"
     if name == "fused_body_b":   # 9 DF vectors in, 3 out, 2 scalars, 5 dots
@@ -2103,8 +2154,9 @@ def run_batched_lanes(n: int, dtype: str, device: str = "cuda",
     float64 or df32 at LANES_TOL, each lane through the unfused classic
     solver over the DIA SpMV kernel of its type (2 SpMVs per iteration and
     2 per solve segment, r0 and the true residual; a lane restart adds a
-    segment), no other kernel; every lane converged, true residual <= 100
-    tol, lane 0 (x = ones) within 1e-6. Returns the counts."""
+    segment), in df32 the classic bodies' passes once per iteration
+    (df32_passes), no other kernel; every lane converged, true residual
+    <= 100 tol, lane 0 (x = ones) within 1e-6. Returns the counts."""
     from mpi_bicgstab_tpu_torch.models.generators import transport_like
     csr = transport_like(n)
     B, _ = batched_rhs(csr, K_LANES)
@@ -2119,9 +2171,12 @@ def run_batched_lanes(n: int, dtype: str, device: str = "cuda",
                            f"{err0:.3e}")
     spmv = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
     segs = counts[spmv] - 2 * sum(its)
-    others = {c: v for c, v in counts.items() if v and c != spmv}
+    passes = df32_passes("bicgstab", dtype) if device != "cpu" else ()
+    others = {c: v for c, v in counts.items()
+              if v and c != spmv and (c not in passes or v != sum(its))}
     ok = (counts[spmv] == 0 if device == "cpu"
-          else segs % 2 == 0 and K_LANES <= segs // 2 <= 3 * K_LANES)
+          else segs % 2 == 0 and K_LANES <= segs // 2 <= 3 * K_LANES
+          and all(counts[c] == sum(its) for c in passes))
     if others or not ok:
         raise SmokeFailure(f"batched_{dtype}: launches {counts} for n_iter "
                            f"{its}")
@@ -2197,6 +2252,17 @@ def time_shifted(csr, probs: dict) -> None:
 
 # --- Chebyshev preconditioning and the DF pipelined bodies -----------------
 
+def df32_passes(method: str, dtype: str) -> tuple:
+    """The passes the unfused route of `method` launches once an
+    iteration around its operator (solvers/bicgstab.py): df32
+    pipe_bicgstab its two body kernels, df32 classic the classic bodies
+    and kernel 11 as pass X; none in another dtype."""
+    if dtype != "df32":
+        return ()
+    return {"pipe_bicgstab": ("fused_body_a", "fused_body_b"),
+            "bicgstab": (*CLASSIC_BODIES, "fused_k3_df")}.get(method, ())
+
+
 def check_cheby_counts(what: str, method: str, dtype: str, it: int,
                        counts: dict, restarts: int, lanes: int = 1,
                        device: str = "cuda") -> None:
@@ -2205,9 +2271,9 @@ def check_cheby_counts(what: str, method: str, dtype: str, it: int,
     application of A p(A) is a chain and a SpMV: the chain kernel on a
     float32 or DF band, degree float64 SpMVs in float64. Per segment
     the classic solver applies it for r0 and the true residual and twice
-    per iteration, df32 pipe_bicgstab also for w0 and t0 (its body kernels
-    once each per iteration); each lane ends with one p(A) (the exit
-    transform). Nothing else launches; on the CPU nothing at all."""
+    per iteration, df32 pipe_bicgstab also for w0 and t0; df32_passes
+    launch once each per iteration; each lane ends with one p(A) (the
+    exit transform). Nothing else launches; on the CPU nothing at all."""
     if device == "cpu":
         if any(counts.values()):
             raise SmokeFailure(f"{what}: launches {counts} on the CPU")
@@ -2215,9 +2281,8 @@ def check_cheby_counts(what: str, method: str, dtype: str, it: int,
     d = CHEBY_DEGREE
     spmv = "dia_spmv_df" if dtype == "df32" else "dia_spmv"
     chain = {"float32": "cheby_chain", "df32": "cheby_chain_df"}.get(dtype)
-    bodies = method == "pipe_bicgstab" and dtype == "df32"
-    used = {spmv, chain} | ({"fused_body_a", "fused_body_b"} if bodies
-                            else set())
+    passes = df32_passes(method, dtype)
+    used = {spmv, chain, *passes}
     bad = {k: v for k, v in counts.items() if v and k not in used}
     if chain:
         applied = counts[spmv]
@@ -2228,8 +2293,7 @@ def check_cheby_counts(what: str, method: str, dtype: str, it: int,
     per_segment = 4 if method == "pipe_bicgstab" else 2
     segs, rest = divmod(applied - 2 * it, per_segment)
     ok = ok and rest == 0 and lanes <= segs <= lanes * (restarts + 1)
-    if bodies:
-        ok = ok and counts["fused_body_a"] == counts["fused_body_b"] == it
+    ok = ok and all(counts.get(k, 0) == it for k in passes)
     if bad or not ok:
         raise SmokeFailure(f"{what}: launches {counts} do not fit {it} "
                            f"iterations of {method} {dtype} over {lanes} "
@@ -2480,6 +2544,96 @@ def band_times() -> int:
     print(json.dumps({"band_times": {
         k: [round(time_call(calls[k][0], graph=True) * 1e3, 5)
             for _ in range(3)] for k in BAND_KERNELS}}))
+    return 0
+
+
+def time_classic_loops(prob, prec, iters: int = 30) -> None:
+    """`[classic_bodies]`: df32 classic BiCGStab with prec on prob by
+    its two loops over the same operator, solvers/bicgstab.bicgstab (the
+    classic bodies) and _classic (the unfused DF steps, the route before
+    the bodies): a solve at CHEBY_PATHS' tol by each (converged, n_iter
+    within 5% of each other: the bodies' dots sum in another order,
+    seconds, the largest difference of their iterates), then each loop's
+    time per iteration from tol=0 chains of `iters`, eager and as
+    replayed CUDA graphs."""
+    import torch
+
+    from mpi_bicgstab_tpu_torch.benchmarks.runner import _graph, _slope_time
+    from mpi_bicgstab_tpu_torch.ops.cheby import wrap_operator
+    from mpi_bicgstab_tpu_torch.ops.layout import spmv
+    from mpi_bicgstab_tpu_torch.parallel.comm import Comm
+    from mpi_bicgstab_tpu_torch.solvers.bicgstab import _classic, bicgstab
+    from mpi_bicgstab_tpu_torch.utils.config import SolverConfig
+    _, dtype, tol = CHEBY_PATHS["cheby_df32"]
+    A = wrap_operator(prob.A, prec)
+
+    def op(v):
+        return spmv(A, v)
+
+    out, xs = {}, {}
+    for name, fn in (("bodies", bicgstab), ("unfused", _classic)):
+        cfg = SolverConfig(tol=tol, max_iter=CHEBY_MAX_ITER, dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(op, Comm(), prob.b, prob.x0, cfg)
+        conv = bool(res.converged)
+        secs = time.perf_counter() - t0
+
+        def make_chain(K, graph=False, fn=fn):
+            c = SolverConfig(tol=0.0, max_iter=K, dtype=dtype)
+            run = lambda: fn(op, Comm(), prob.b, prob.x0, c)  # noqa: E731
+            return _graph(run) if graph else run
+
+        eager = _slope_time(make_chain, max(2, iters // 6), iters, reps=3)
+        dev = _slope_time(lambda K: make_chain(K, True), max(2, iters // 6),
+                          iters, reps=3)
+        xs[name] = _f64(res.x)
+        out[name] = dict(converged=conv, n_iter=res.n_iter,
+                         true_relres=f"{float(res.true_relres):.3e}",
+                         solve_s=round(secs, 3),
+                         eager_ms_per_iter=f"{eager * 1e3:.4f}",
+                         device_ms_per_iter=f"{dev * 1e3:.4f}")
+    diff = float((xs["bodies"] - xs["unfused"]).abs().max())
+    b, u = out["bodies"], out["unfused"]
+    _say("classic_bodies", degree=CHEBY_DEGREE, tol=tol,
+         chain=f"tol=0x{iters}", max_abs_x_diff=f"{diff:.3e}",
+         **{f"{k}_{f}": v for k, row in out.items() for f, v in row.items()})
+    if not (b["converged"] and u["converged"]
+            and abs(b["n_iter"] - u["n_iter"]) <= 0.05 * u["n_iter"]):
+        raise SmokeFailure(f"classic_bodies: bodies {b}, unfused {u}")
+
+
+def classic_bodies() -> int:
+    """`chip_smoke.py --classic-bodies`: df32 classic BiCGStab's bodies
+    (CLASSIC_BODIES, and kernel 11 as pass X) alone on
+    transport_hard(N_HARD), a few minutes: each held to its twin
+    (check_kernels: vectors and folded scalars bit-equal, dots within
+    TOL["df32_dot"] of sum |u v|), `[cheby_df32]` (the df32 classic +
+    cheby solve through api.solve, each pass once an iteration:
+    check_cheby_counts), time_classic_loops, and each pass's time beside
+    its byte bound and its twin's (time_kernels). Prints no result
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mpi_bicgstab_tpu_torch.models.generators import transport_hard
+    from mpi_bicgstab_tpu_torch.models.problem import build_problem
+    from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
+    print(probe())
+    build()
+    csr = transport_hard(N_HARD)
+    inp = kernel_inputs(csr)
+    inp.update(cheby_inputs(build_problem(csr, dtype=torch.float64,
+                                          multiple=1)))
+    calls = {k: v for k, v in df_kernel_calls(inp).items()
+             if k in (*CLASSIC_BODIES, "fused_k3_df")}
+    check_kernels(calls, inp)
+    prec = ChebyPrecond(CHEBY_DEGREE, inp["h_lo"], inp["h_hi"])
+    with no_twin_on_card():
+        run_cheby_api("cheby_df32", {"df32": inp["h_probdf"]}, prec)
+    time_classic_loops(inp["h_probdf"], prec)
+    time_kernels(calls, inp, csr)
     return 0
 
 
@@ -2849,13 +3003,12 @@ def check_window_counts(what: str, method: str, dtype: str, it: int,
     """The launches of a converged solve on the window layout: one window
     kernel launch per SpMV (its DF form in df32), twice per iteration
     and, per solver segment, for r0 and the true residual (pipe_bicgstab
-    also w0 and t0); df32 pipe_bicgstab its two body kernels once per
-    iteration; nothing else. On the CPU nothing at all."""
+    also w0 and t0); df32_passes once per iteration; nothing else. On the
+    CPU nothing at all."""
     want = dict.fromkeys(counts, 0)
     if device != "cpu":
         spmv = "window_rows_df" if dtype == "df32" else "window_rows"
-        if method == "pipe_bicgstab" and dtype == "df32":
-            want.update(fused_body_a=it, fused_body_b=it)
+        want.update(dict.fromkeys(df32_passes(method, dtype), it))
         segs, rest = divmod(counts[spmv] - 2 * it,
                             4 if method == "pipe_bicgstab" else 2)
         if rest == 0 and 1 <= segs <= restarts + 1:
@@ -3389,14 +3542,12 @@ def check_butterfly_counts(what: str, method: str, dtype: str, it: int,
     when the run builds its layout, 0 when it was built before the
     counters were reset), and per SpMV one K3 (its DF form in df32), twice
     per iteration and, per solver segment, for r0 and the true residual
-    (pipe_bicgstab also w0 and t0); df32 pipe_bicgstab its two body
-    kernels once per iteration; nothing else. On the CPU nothing at
-    all."""
+    (pipe_bicgstab also w0 and t0); df32_passes once per iteration;
+    nothing else. On the CPU nothing at all."""
     want = dict.fromkeys(counts, 0)
     if device != "cpu":
         k3 = "butterfly_k3_df" if dtype == "df32" else "butterfly_k3"
-        if method == "pipe_bicgstab" and dtype == "df32":
-            want.update(fused_body_a=it, fused_body_b=it)
+        want.update(dict.fromkeys(df32_passes(method, dtype), it))
         want.update(butterfly_k1=layouts, butterfly_k2=layouts,
                     butterfly_decode=layouts)
         spmvs = counts[k3]
@@ -3920,6 +4071,8 @@ TWINS = (("mpi_bicgstab_tpu_torch.ops.cuda_spmv",
           ("fused_phase_a_plain", "fused_phase_b_plain")),
          ("mpi_bicgstab_tpu_torch.ops.cuda_fused_classic_df",
           ("fused_k1_df_plain", "fused_k2_df_plain", "fused_k3_df_plain")),
+         ("mpi_bicgstab_tpu_torch.ops.cuda_classic_df_bodies",
+          tuple(k + "_plain" for k in CLASSIC_BODIES)),
          ("mpi_bicgstab_tpu_torch.ops.window_spmv",
           ("window_rows_plain", "window_rows_df_plain")),
          ("mpi_bicgstab_tpu_torch.ops.butterfly_spmv",
@@ -5274,6 +5427,7 @@ def main() -> int:
         runs[phase] = run_cheby_api(phase, probs_h, prec)
     run_cheby_batched(inp["h_prob32"], prec)
     run_cheby_ab(probs_h, prec)
+    time_classic_loops(inp["h_probdf"], prec)
     # the residual curves of the four classic methods (df32, tol 1e-14)
     runs.update({f"curves_{m}": c for m, c in run_curves(csr_h).items()})
     del prob64h, probs_h
@@ -5431,7 +5585,7 @@ def main() -> int:
 if __name__ == "__main__":
     modes = {"--chain-times": chain_times, "--batched-times": batched_times,
              "--route-times": route_times, "--io-times": io_times,
-             "--band-times": band_times}
+             "--band-times": band_times, "--classic-bodies": classic_bodies}
     args = sys.argv[1:]
     sys.exit(modes[args[0]]() if len(args) == 1 and args[0] in modes
              else main())

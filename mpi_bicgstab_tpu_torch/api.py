@@ -27,7 +27,8 @@ solver iterates on A p(A) in y, restarts re-enter it in y, and x = p(A) y
 is applied once per solve and once per lane at exit. A ChebyOperator is
 not a DiaMatrix, so every fused route refuses it and the unfused solver
 runs over layout.spmv, whose p(A) is the chain kernel on a float32 or DF
-DIA operator (ops/cuda_cheby.py).
+DIA operator (ops/cuda_cheby.py); in df32 the classic and pipelined
+solvers' iteration bodies are fused kernels around it.
 """
 from __future__ import annotations
 
@@ -78,9 +79,9 @@ def _solve_once(A, b, x0, method: str, cfg: SolverConfig) -> SolveResult:
     periodic residual print lives, and so does cfg.serialize_comm (the
     no-overlap A/B times the unfused solvers, JAX api.py:25-59). A
     ChebyOperator takes the unfused
-    route; there df32 pipelined BiCGStab runs its fused DF iteration
-    bodies (solvers/bicgstab.pipe_bicgstab), as on any other layout and
-    with out_iter."""
+    route; there df32 classic and pipelined BiCGStab run their fused DF
+    iteration bodies (solvers/bicgstab.bicgstab, pipe_bicgstab), as on
+    any other layout and with out_iter."""
     unfused = cfg.out_iter or cfg.serialize_comm
     with span("mbt.segment"):
         if is_df(b) and method in FUSED_DF and not unfused \

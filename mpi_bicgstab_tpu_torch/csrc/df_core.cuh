@@ -224,6 +224,15 @@ struct NoFold {
   __device__ void operator()(const df_t*) const {}
 };
 
+struct FoldAlpha {  // alpha = rTr / (r^, s')
+  const float* rtr_h;
+  const float* rtr_l;
+  float* out;
+  __device__ void operator()(const df_t* d) const {
+    st_folded(out, 1, 0, df_div(ld_scalar(rtr_h, rtr_l), d[0]));
+  }
+};
+
 struct FoldOmega {  // omega = (q, y) / (y, y)
   float* out;
   __device__ void operator()(const df_t* d) const {

@@ -81,15 +81,6 @@ struct K2SrcDF {  // q(j) = r[j] - alpha s'[j]
   }
 };
 
-struct FoldAlpha {  // alpha = rTr / (r^, s')
-  const float* rtr_h;
-  const float* rtr_l;
-  float* out;
-  __device__ void operator()(const df_t* d) const {
-    st_folded(out, 1, 0, df_div(ld_scalar(rtr_h, rtr_l), d[0]));
-  }
-};
-
 struct FoldBeta {  // beta = (alpha / omega) ((r^, r') / rTr)
   const float* alpha_h;
   const float* alpha_l;

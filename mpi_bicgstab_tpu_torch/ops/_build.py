@@ -28,7 +28,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("dia_spmv", "fused_classic", "fused_ca", "fused_pipe",
            "fused_classic_df", "fused_ca_df", "fused_pipe_df",
            "shift_update_df", "batched_spmv", "fused_batched", "cheby",
-           "pipe_df_bodies", "window_spmv", "butterfly")
+           "pipe_df_bodies", "window_spmv", "butterfly",
+           "classic_df_bodies")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

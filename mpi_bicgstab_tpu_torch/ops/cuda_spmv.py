@@ -260,10 +260,11 @@ def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
     n_diags,] n, [lo, hi, vals hi, lo,] then (hi, lo) of every vector and
     scalar in the dicts' order (scalars from check_scalars), of n_out
     fresh output vectors, then partials, dots, the folded scalars and the
-    stream; no folded scalars when n_fold is 0). vals None: a pointwise
-    pass. Returns (outputs, dots, folded scalars), all DF: the dots a
-    DF [n_dots] (rows of one [2, n_dots] tensor, row 0 hi) that unpacks
-    into 0-d pairs, the scalars 0-d views of a [2, n_fold] tensor. A halo
+    stream; no partials and dots when n_dots is 0, no folded scalars when
+    n_fold is 0). vals None: a pointwise pass. Returns (outputs, dots,
+    folded scalars), all DF: the dots a DF [n_dots] (rows of one
+    [2, n_dots] tensor, row 0 hi) that unpacks into 0-d pairs (None when
+    n_dots is 0), the scalars 0-d views of a [2, n_fold] tensor. A halo
     as for band_pass."""
     with span("mbt.launch." + what):
         first = next(iter(vecs.values()))
@@ -296,19 +297,23 @@ def df_pass(lib, symbol: str, what: str, vals, offsets, vecs: dict,
             check_cuda(what, torch.float32, **vec_parts, **sc_parts)
         outs = [DF(torch.empty_like(first.hi), torch.empty_like(first.hi))
                 for _ in range(n_out)]
-        partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
-        dots = first.hi.new_empty((2, n_dots))
+        tail, dots = [], None
+        if n_dots:
+            partials = first.hi.new_empty((grid_blocks(n), n_dots, 2))
+            dots = first.hi.new_empty((2, n_dots))
+            tail += [partials.data_ptr(), dots.data_ptr()]
         folded = first.hi.new_empty((2, n_fold))
+        if n_fold:
+            tail.append(folded.data_ptr())
         # the vectors' (hi, lo) pointers, then the scalars', in the dicts'
         # order: the scalars follow every vector in each launcher
         err = getattr(lib, symbol)(
             *head, *(_ptr(t, at) for t in vec_parts.values()),
             *(t.data_ptr() for t in sc_parts.values()),
-            *(_ptr(t, at) for o in outs for t in (o.hi, o.lo)),
-            partials.data_ptr(), dots.data_ptr(),
-            *((folded.data_ptr(),) if n_fold else ()), stream_arg())
+            *(_ptr(t, at) for o in outs for t in (o.hi, o.lo)), *tail,
+            stream_arg())
         _build.check(lib, err, what)
-        return (outs, DF(dots[0], dots[1]),
+        return (outs, None if dots is None else DF(dots[0], dots[1]),
                 [DF(folded[0, k], folded[1, k]) for k in range(n_fold)])
 
 

@@ -22,7 +22,9 @@ code runs on double-float pairs (df32, ops/precision.DF): axpy and the
 Comm dots take the DF forms, and float(dot_r) reads a pair's exact value.
 pipe_bicgstab on DF pairs runs its iteration bodies as the two kernels
 of ops/cuda_pipe_df_bodies.py (_pipe's fused_bodies), as the JAX package
-does on its TPU.
+does on its TPU; bicgstab on DF pairs runs its as the passes of
+ops/cuda_classic_df_bodies.py and kernel 11 (_classic's fused_bodies),
+where the JAX package leaves the fusion to XLA.
 
 Each solver takes spmv: x -> A@x, a Comm for the global dots, b, x0 and a
 SolverConfig. The loop runs on the host; the scalars stay on the device
@@ -34,9 +36,12 @@ explicit zeros, which give the same first step because beta = 0.
 """
 from __future__ import annotations
 
+from mpi_bicgstab_tpu_torch.ops import cuda_classic_df_bodies as classic
+from mpi_bicgstab_tpu_torch.ops import cuda_fused_classic_df as fcldf
 from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as bodies
 from mpi_bicgstab_tpu_torch.ops.blas import axpy
-from mpi_bicgstab_tpu_torch.ops.precision import is_df, vvalue, vzeros_like
+from mpi_bicgstab_tpu_torch.ops.precision import (df_stack, is_df, vvalue,
+                                                  vzeros_like)
 from mpi_bicgstab_tpu_torch.solvers.base import (SolveResult, finish,
                                                  fold_beta_alpha, is_rr,
                                                  maybe_print_residual, start)
@@ -46,7 +51,15 @@ from mpi_bicgstab_tpu_torch.utils.timing import host_read, span
 
 
 def bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
-    """Classic BiCGStab (reference solver.c:35-146).
+    """Classic BiCGStab (reference solver.c:35-146). DF right-hand sides
+    take the fused iteration bodies (_df_bodies_step)."""
+    return _classic(spmv, comm, b, x0, cfg, fused_bodies=is_df(b))
+
+
+def _classic(spmv, comm, b, x0, cfg: SolverConfig,
+             fused_bodies: bool = False) -> SolveResult:
+    """Classic BiCGStab's loop; fused_bodies (DF pairs) runs each
+    iteration as _df_bodies_step, else as tensor (or DF) operations.
 
     Per iteration: 2 SpMV and the reference's reduction points — (r^,s)
     alone, then (q,y)+(y,y) together, then (r,r)+(r^,r) together
@@ -67,19 +80,23 @@ def bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
     k, go = 0, more(0, dot_r)
     while go:
         with span("mbt.iter"):      # the stop test after it included
-            s = spmv(p)                                 # solver.c:88
-            rTs = comm.dot(r_hat, s)                    # solver.c:89-91
-            alpha = rTr / rTs                           # solver.c:93
-            q = axpy(-alpha, s, r)                      # solver.c:94
-            y = spmv(q)                                 # solver.c:96
-            qTy, yTy = comm.dots((q, y), (y, y))        # solver.c:97-102
-            omega = qTy / yTy                           # solver.c:104
-            x = axpy(omega, q, axpy(alpha, p, x))       # solver.c:105-106
-            r_new = axpy(-omega, y, q)                  # solver.c:107
-            dot_r, rTr_new = comm.dots((r_new, r_new),
-                                       (r_hat, r_new))  # solver.c:108-114
-            beta = (alpha / omega) * (rTr_new / rTr)    # solver.c:116
-            p = axpy(beta, axpy(-omega, s, p), r_new)   # solver.c:117-119
+            if fused_bodies:
+                x, r_new, p, dot_r, rTr_new = _df_bodies_step(
+                    spmv, comm, r_hat, x, r, p, rTr)
+            else:
+                s = spmv(p)                             # solver.c:88
+                rTs = comm.dot(r_hat, s)                # solver.c:89-91
+                alpha = rTr / rTs                       # solver.c:93
+                q = axpy(-alpha, s, r)                  # solver.c:94
+                y = spmv(q)                             # solver.c:96
+                qTy, yTy = comm.dots((q, y), (y, y))    # solver.c:97-102
+                omega = qTy / yTy                       # solver.c:104
+                x = axpy(omega, q, axpy(alpha, p, x))   # solver.c:105-106
+                r_new = axpy(-omega, y, q)              # solver.c:107
+                dot_r, rTr_new = comm.dots((r_new, r_new),
+                                           (r_hat, r_new))  # :108-114
+                beta = (alpha / omega) * (rTr_new / rTr)    # solver.c:116
+                p = axpy(beta, axpy(-omega, s, p), r_new)   # :117-119
             hist.append(dot_r)
             maybe_print_residual(cfg, k, dot_r, dot_zero)
             r, rTr = r_new, rTr_new
@@ -87,6 +104,37 @@ def bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:
             go = more(k, dot_r)
     return finish(x, k, dot_r, dot_zero, tol2, hist, cfg.max_iter, spmv,
                   comm, b)
+
+
+def _df_bodies_step(spmv, comm, r_hat, x, r, p, rTr):
+    """One iteration of _classic on DF pairs, its updates, dots and
+    scalars as the passes of ops/cuda_classic_df_bodies.py (A, Q, O, P)
+    and kernel 11 (X, ops/cuda_fused_classic_df.fused_k3_df) around the
+    two applications of spmv: the same operations in the same order, so
+    on the CPU (the twins) the same bits. Over one device each pass's
+    finishing stage folds the next scalar on the card; over a Comm with
+    several ranks the passes' dots are the rank's own, and the scalars
+    are formed here from the reduced dots. Returns (x', r', p', (r', r'),
+    (r^, r'))."""
+    local = comm.group is not None
+    s = spmv(p)                                         # solver.c:88
+    dots, alpha = classic.classic_df_a(r_hat, s, (rTr,))    # :89-93
+    if local:
+        (rTs,) = comm.allreduce(dots)
+        alpha = rTr / rTs
+    q = classic.classic_df_q(r, s, (alpha,))            # solver.c:94
+    y = spmv(q)                                         # solver.c:96
+    dots, omega = classic.classic_df_o(q, y)            # solver.c:97-104
+    if local:
+        qTy, yTy = comm.allreduce(dots)
+        omega = qTy / yTy
+    x, r_new, dot_r, rTr_new, beta = fcldf.fused_k3_df(
+        x, p, q, y, r_hat, (alpha, omega, rTr))         # solver.c:105-116
+    if local:
+        dot_r, rTr_new = comm.allreduce(df_stack([dot_r, rTr_new]))
+        beta = (alpha / omega) * (rTr_new / rTr)
+    p = classic.classic_df_p(r_new, p, s, (beta, omega))    # :117-119
+    return x, r_new, p, dot_r, rTr_new
 
 
 def ca_bicgstab(spmv, comm, b, x0, cfg: SolverConfig) -> SolveResult:

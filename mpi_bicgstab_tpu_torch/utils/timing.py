@@ -24,7 +24,8 @@ The spans, one at each layer boundary of the single-device routes:
   mbt.dot             Comm.dot, Comm.dots
   mbt.launch.<what>   a kernel wrapper's host work (checks, allocations,
                       the launch; on the CPU its plain twin): band_pass
-                      and df_pass by their `what`, dia_spmv,
+                      and df_pass by their `what` (the classic DF
+                      bodies: classic_df_p, _a, _q, _o), dia_spmv,
                       dia_spmv_df, cheby_chain, cheby_chain_df,
                       fused_shift_update_df
   mbt.sync            host_read

@@ -611,8 +611,10 @@ def test_chip_smoke_butterfly_launch_rule():
           restarts=2)
     check("rule", "bicgstab", "float32", 10,
           {**zero, **built, "butterfly_k3": 22}, restarts=2, layouts=1)
-    check("rule", "bicgstab", "df32", 10, {**zero, "butterfly_k3_df": 22},
-          restarts=2)
+    # df32 classic: the classic bodies and kernel 11 once per iteration
+    passes = dict.fromkeys(smoke.df32_passes("bicgstab", "df32"), 10)
+    check("rule", "bicgstab", "df32", 10,
+          {**zero, "butterfly_k3_df": 22, **passes}, restarts=2)
     check("rule", "pipe_bicgstab", "df32", 10,
           {**zero, "butterfly_k3_df": 24, "fused_body_a": 10,
            "fused_body_b": 10}, restarts=2)
@@ -635,3 +637,6 @@ def test_chip_smoke_butterfly_launch_rule():
     with pytest.raises(smoke.SmokeFailure):     # bodies missing
         check("rule", "pipe_bicgstab", "df32", 10,
               {**zero, "butterfly_k3_df": 24}, restarts=2)
+    with pytest.raises(smoke.SmokeFailure):     # classic bodies missing
+        check("rule", "bicgstab", "df32", 10,
+              {**zero, "butterfly_k3_df": 22}, restarts=2)

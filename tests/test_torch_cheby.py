@@ -390,8 +390,15 @@ def test_chip_smoke_cheby_phases_on_cpu(phase, capsys):
 def _cheby_counts(**kw):
     base = dict.fromkeys(("dia_spmv", "dia_spmv_df", "fused_k1",
                           "fused_k1_df", "fused_body_a", "fused_body_b",
-                          "cheby_chain", "cheby_chain_df"), 0)
+                          "cheby_chain", "cheby_chain_df", *CLASSIC_PASSES),
+                         0)
     return {**base, **kw}
+
+
+# df32 classic's passes around the operator: the classic bodies and
+# kernel 11 (chip_smoke.CLASSIC_BODIES + fused_k3_df)
+CLASSIC_PASSES = ("classic_df_p", "classic_df_a", "classic_df_q",
+                  "classic_df_o", "fused_k3_df")
 
 
 @pytest.mark.parametrize("method,dtype,it,lanes,counts,ok", [
@@ -413,8 +420,16 @@ def _cheby_counts(**kw):
     ("pipe_bicgstab", "df32", 223, 1, _cheby_counts(
         dia_spmv_df=450, cheby_chain_df=451, fused_body_a=223,
         fused_body_b=222), False),
+    # df32 classic: its passes once per iteration
+    ("bicgstab", "df32", 229, 1, _cheby_counts(
+        dia_spmv_df=460, cheby_chain_df=461,
+        **dict.fromkeys(CLASSIC_PASSES, 229)), True),
     ("bicgstab", "df32", 229, 1, _cheby_counts(dia_spmv_df=460,
-                                               cheby_chain_df=461), True),
+                                               cheby_chain_df=461), False),
+    ("bicgstab", "df32", 229, 1, _cheby_counts(
+        dia_spmv_df=460, cheby_chain_df=461,
+        **{**dict.fromkeys(CLASSIC_PASSES, 229), "classic_df_p": 228}),
+     False),
     # float64: every p(A) is degree SpMVs
     ("bicgstab", "float64", 224, 1, _cheby_counts(dia_spmv=9 * 450 + 8),
      True),

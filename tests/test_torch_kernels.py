@@ -1153,6 +1153,9 @@ def test_batched_wrappers_raise_instead_of_falling_back():
 # +-4489 and +-8978, so a task's reach spans 9 tiles of 1,024 rows each
 # side
 HARD_CASE = (300763, "transport_hard")
+# df32 classic BiCGStab's passes around an operator (kernel 11 is its X)
+CLASSIC_BODIES = ("classic_df_p", "classic_df_a", "classic_df_q",
+                  "classic_df_o")
 
 
 def _chain_inputs(n, offsets, dev):
@@ -1249,6 +1252,35 @@ def test_pipe_df_body_kernels_match_plain_bit_for_bit(n):
         _df_check(flat(got), flat(want), n_vec, pairs(got))
 
 
+@pytest.mark.parametrize("n", [100, 5000, 16384])
+def test_classic_df_body_kernels_match_plain_bit_for_bit(n):
+    """The classic DF bodies (passes P, A, Q, O): vectors and folded
+    scalars bit-equal to the twins', dots within 1e-12 sum |u_i v_i|."""
+    from mpi_bicgstab_tpu_torch.ops import cuda_classic_df_bodies as ccb
+    from mpi_bicgstab_tpu_torch.ops.precision import df_div
+    dev = _card()
+    r, p, s, rh, q, y = _df_vecs(n, 6, dev, seed=13)
+    a, b, w, rtr = _df_scalars(dev, 0.7, 0.3, 0.2, 2.5)
+    for kern, plain, args, n_vec, pairs, fold in (
+            (ccb.classic_df_p, ccb.classic_df_p_plain, (r, p, s, (b, w)),
+             1, [], None),
+            (ccb.classic_df_a, ccb.classic_df_a_plain, (rh, s, (rtr,)), 0,
+             [(rh, s)], lambda d: df_div(rtr, d[0])),
+            (ccb.classic_df_q, ccb.classic_df_q_plain, (r, s, (a,)), 1, [],
+             None),
+            (ccb.classic_df_o, ccb.classic_df_o_plain, (q, y), 0,
+             [(q, y), (y, y)], lambda d: df_div(d[0], d[1]))):
+        before = kern.launches
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        if fold is None:
+            _df_check((got,), (want,), n_vec, pairs)
+        else:
+            _df_check((*got[0], got[1]), (*want[0], want[1]), n_vec, pairs,
+                      folded=[fold(got[0])])
+
+
 @pytest.mark.parametrize("dtype,method,chain,spmv,per_segment", [
     ("float32", "bicgstab", "cheby_chain", "dia_spmv", 2),
     ("df32", "bicgstab", "cheby_chain_df", "dia_spmv_df", 2),
@@ -1259,8 +1291,10 @@ def test_cheby_routes_launch_their_kernels(dtype, method, chain, spmv,
     """A preconditioned tol=0 solve of 10 iterations: p(A) through the
     chain kernel twice per iteration, per_segment times at set-up and
     exit, once for x = p(A) y; df32 pipe_bicgstab's body kernels once
-    each per iteration; no fused pass."""
+    each per iteration, df32 bicgstab's classic bodies and kernel 11
+    (pass X) once each per iteration; no other fused pass."""
     from mpi_bicgstab_tpu_torch.ops import cuda_cheby as cc
+    from mpi_bicgstab_tpu_torch.ops import cuda_classic_df_bodies as ccb
     from mpi_bicgstab_tpu_torch.ops import cuda_pipe_df_bodies as cpb
     from mpi_bicgstab_tpu_torch.ops.cheby import ChebyPrecond
     dev = _card()
@@ -1271,7 +1305,9 @@ def test_cheby_routes_launch_their_kernels(dtype, method, chain, spmv,
            "dia_spmv_df": cuda_spmv.dia_spmv_df,
            "fused_body_a": cpb.fused_body_a, "fused_body_b": cpb.fused_body_b,
            "fused_k1": fcl.fused_k1, "fused_k1_df": fcldf.fused_k1_df,
-           "fused_phase_a_df": fpipedf.fused_phase_a_df}
+           "fused_phase_a_df": fpipedf.fused_phase_a_df,
+           "fused_k3_df": fcldf.fused_k3_df,
+           **{k: getattr(ccb, k) for k in CLASSIC_BODIES}}
     for fn in fns.values():
         fn.launches = 0
     res = solve(prob.A, prob.b, method=method,
@@ -1283,6 +1319,8 @@ def test_cheby_routes_launch_their_kernels(dtype, method, chain, spmv,
     want[chain] = want[spmv] + 1
     if method == "pipe_bicgstab":
         want["fused_body_a"] = want["fused_body_b"] = 10
+    elif dtype == "df32":
+        want.update(dict.fromkeys((*CLASSIC_BODIES, "fused_k3_df"), 10))
     assert {k: fn.launches for k, fn in fns.items()} == want
 
 
