@@ -8,7 +8,9 @@ metrics and a breakdown of a traced stretch run after the window. Every run
 checks the answers of its window against the plain reference and prints
 each number compared beside its limit, last in the result line and as
 the last lines of standard error. Without a CUDA card (or with fewer
-than the cell asks for) it exits 2 and prints no result.
+than the cell asks for) it exits 2 and prints no result. A cell on more
+than one chip runs across its ranks of the program's distributed route
+(perfbench/ranks.py) and ends as a one-chip cell does (`report`).
 """
 from __future__ import annotations
 
@@ -112,6 +114,9 @@ def main(argv=None) -> int:
     from perfbench.harness import CellRun
 
     say(f"card: {power_limit()}")
+    if cell.chips > 1:
+        from perfbench import ranks
+        return ranks.measure(cell, args, T_START, report)
     run = CellRun(cell)
     run.card_trace = any(getattr(m.reader, "WINDOW_TRACE", False) for m in
                          (cell.per_layer if args.trace else cell.end_to_end))
@@ -122,7 +127,14 @@ def main(argv=None) -> int:
     peak = max(run.record.setup_peak_bytes, run.record.window_peak_bytes)
     run.free_program()
     worst, failed, judged = run.check()
+    return report(cell, args, run, peak, worst, failed, judged)
 
+
+def report(cell, args, run, peak, worst, failed, judged) -> int:
+    """The end of a measured run, on one chip or across ranks (`run` is
+    a CellRun or a ranks.Ranked): the guard against JAX, the summary on
+    standard error, the result line, and the numbers compared."""
+    import torch
     gone = forbidden_modules()
     if gone:
         say(f"the measuring process loaded {gone}: no result")
